@@ -1,0 +1,14 @@
+"""hpnn_tpu_torch: the PyTorch/CUDA port of hpnn_tpu, for NVIDIA Hopper.
+
+hpnn_tpu rebuilds libhpnn (ovhpa/hpnn): small bias-free MLPs (ANN with a
+sigmoid head, SNN with a softmax(x-1) head, a native LNN with a linear
+head), the reference's ``.conf`` and kernel text formats and its
+byte-exact stdout grammar.  This package runs the same system on PyTorch;
+every kernel hpnn_tpu wrote in Pallas for the TPU becomes a kernel written
+by hand for Hopper (``csrc/``).  It imports neither JAX nor hpnn_tpu.
+
+This slice covers inference: ``python -m hpnn_tpu_torch.cli run_nn`` and
+``serve_nn``, with every layer product in the CUDA kernel
+``fused_linear_act``.  Citations like ``src/ann.c:883`` point into the
+reference C library; ``hpnn_tpu/...`` into the JAX package this ports.
+"""

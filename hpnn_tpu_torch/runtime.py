@@ -1,0 +1,122 @@
+"""Library runtime: device choice, capability report, init/deinit, knobs.
+
+The port of the JAX package's ``runtime.py`` (itself the rebuild of the
+reference's runtime singleton, ``src/libhpnn.c:58-539``).  The capability
+bits keep the reference's values; the device is a ``torch.device`` chosen
+once per process by :func:`init_all`:
+
+* ``"cuda"`` (the default) needs a visible GPU -- when none is visible the
+  call fails with a message and the entry point exits non-zero.  Nothing
+  ever falls back to the CPU;
+* ``"cpu"`` only when the caller asks for it (``--device cpu`` on the
+  CLIs, ``device="cpu"`` in the API; the tests do).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from .utils import nn_log
+
+# capability bits: reference values (include/libhpnn.h:26-35)
+NN_CAP_NONE = 0
+NN_CAP_OMP = 1 << 0
+NN_CAP_MPI = 1 << 1
+NN_CAP_CUDA = 1 << 2
+NN_CAP_CUBLAS = 1 << 3
+NN_CAP_PBLAS = 1 << 5
+NN_CAP_SBLAS = 1 << 6
+# port additions, disjoint from the reference's
+NN_CAP_TORCH = 1 << 8
+NN_CAP_X64 = 1 << 10
+
+DEVICES = ("cuda", "cpu")
+
+
+class DeviceUnavailable(RuntimeError):
+    """The requested device is not visible to this process."""
+
+
+@dataclasses.dataclass
+class NNRuntime:
+    """The `nn_runtime` singleton state (libhpnn.c:58-90)."""
+
+    capability: int = 0
+    device: torch.device | None = None
+    initialized: bool = False
+
+
+lib_runtime = NNRuntime()
+
+
+def return_capabilities() -> int:
+    """Capability probe (libhpnn.c:113-134), resolved at run time: torch
+    always computes in float64; CUDA when a GPU is visible."""
+    cap = NN_CAP_TORCH | NN_CAP_X64
+    if torch.cuda.is_available():
+        cap |= NN_CAP_CUDA
+    return cap
+
+
+def resolve_device(name: str | None = "cuda") -> torch.device:
+    """``torch.device`` for ``name`` ("cuda", "cuda:N" or "cpu"); raises
+    :class:`DeviceUnavailable` for a GPU that is not visible."""
+    dev = torch.device(name or "cuda")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise DeviceUnavailable(
+                "CUDA device requested but no GPU is visible "
+                "(torch.cuda.is_available() is False); pass --device cpu "
+                "to run on the CPU")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise DeviceUnavailable(f"unsupported device {name!r} "
+                                f"(one of {', '.join(DEVICES)})")
+    return dev
+
+
+def pin_full_float32() -> None:
+    """Float32 matmuls and convolutions in full float32, never TF32: the
+    plain versions the kernels are checked against, and the fast tier,
+    must compute what they claim.  PyTorch's matmul default is already
+    False (cuDNN's is True); setting both states the contract and holds it
+    against a caller that flipped them."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def init_all(device: str | None = "cuda", rank: int = 0) -> int:
+    """_NN(init,all) (libhpnn.c:326-347): pick the device and set the
+    rank output is gated on.  Returns 0 on success, -1 (with an NN(ERR)
+    line) when the device is unavailable.  Verbosity is the caller's: the
+    CLIs parse their -v flags first, because --device comes from the same
+    argument list."""
+    global lib_runtime
+    lib_runtime = NNRuntime()
+    nn_log.set_rank(rank)
+    pin_full_float32()
+    try:
+        dev = resolve_device(device)
+    except DeviceUnavailable as exc:
+        nn_log.nn_error(f"{exc}\n")
+        return -1
+    lib_runtime.device = dev
+    lib_runtime.capability = return_capabilities()
+    name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+            else "cpu")
+    nn_log.nn_dbg(f"runtime: device {dev} ({name})\n")
+    lib_runtime.initialized = True
+    return 0
+
+
+def deinit_all() -> int:
+    """_NN(deinit,all) (libhpnn.c:395-407): reset the runtime state and
+    the verbosity."""
+    global lib_runtime
+    lib_runtime = NNRuntime()
+    nn_log.set_verbosity(0)
+    return 0
+

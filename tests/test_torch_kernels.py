@@ -1,0 +1,176 @@
+"""The port's ``fused_linear_act`` and forward paths against the JAX
+package, on the CPU.
+
+On a CPU tensor the wrapper takes the kernel's plain torch version; the
+JAX side is ``hpnn_tpu.ops.pallas_kernels.fused_linear_act`` in Pallas
+interpret mode (what it runs on any non-TPU backend).  The cases and
+tolerances are those of tests/test_pallas.py.  The CUDA kernel itself
+runs only on the card: ``chip_smoke.py`` holds it against this same plain
+version there.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from hpnn_tpu import ops as jax_ops
+from hpnn_tpu.ops.pallas_kernels import (batched_forward_pallas,
+                                         fused_linear_act as jax_fla)
+from hpnn_tpu_torch import ops
+from hpnn_tpu_torch.ops.kernels import (batched_forward_fused,
+                                        fused_linear_act)
+
+
+def _w(rng, n, m):
+    return rng.uniform(-1, 1, (n, m)) / np.sqrt(m)
+
+
+def _both(a, dtype):
+    """One numpy array as a JAX array and a torch CPU tensor."""
+    jd = {"f32": jnp.float32, "bf16": jnp.bfloat16, "f64": jnp.float64}
+    td = {"f32": torch.float32, "bf16": torch.bfloat16, "f64": torch.float64}
+    return (jnp.asarray(a, dtype=jd[dtype]),
+            torch.as_tensor(a, dtype=torch.float64).to(td[dtype]))
+
+
+@pytest.mark.parametrize("n,m,b,scale,act,atol", [
+    # pre-activations are O(100) at MNIST pixel scale: float32
+    # reduction-order differences reach ~1e-4 before the tanh
+    (300, 784, 32, 255.0, True, 1e-4),
+    (10, 300, 8, 1.0, False, 2e-5),     # the SNN head's raw product
+    (13, 37, 5, 1.0, True, 2e-6),       # ragged: no tile divides it
+    (64, 96, 700, 1.0, True, 1e-5),     # a batch of several tiles
+], ids=["mnist-784x300", "no-act-300x10", "ragged-37x13", "batch-700"])
+def test_fused_linear_act_matches_pallas(n, m, b, scale, act, atol):
+    rng = np.random.default_rng(77 + n)
+    w = _w(rng, n, m)
+    lo = 0.0 if scale > 1 else -1.0
+    xs = rng.uniform(lo, scale, (b, m))
+    wj, wt = _both(w, "f32")
+    xj, xt = _both(xs, "f32")
+    want = np.asarray(jax_fla(wj, xj, act=act), np.float64)
+    got = fused_linear_act(wt, xt, act=act)
+    assert got.dtype == torch.float32 and got.shape == (b, n)
+    np.testing.assert_allclose(got.double().numpy(), want, atol=atol,
+                               rtol=0)
+
+
+def test_fused_linear_act_bf16_f32_accumulation():
+    """bfloat16 operands accumulate in float32: the error stays at the
+    bfloat16 quantization level, not the reduction length's."""
+    rng = np.random.default_rng(78)
+    w = rng.uniform(-1, 1, (64, 2048)) / 45
+    xs = rng.uniform(-1, 1, (16, 2048))
+    wj, wt = _both(w, "bf16")
+    xj, xt = _both(xs, "bf16")
+    want = np.asarray(jax_fla(wj, xj, tile_m=512), np.float32)
+    got = fused_linear_act(wt, xt)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, atol=0.02, rtol=0)
+
+
+@pytest.mark.parametrize("kind", ["ANN", "SNN"])
+def test_batched_forward_fused_matches_pallas(kind):
+    rng = np.random.default_rng(79)
+    ws = [_w(rng, n, m) for m, n in [(19, 16), (16, 8), (8, 5)]]
+    xs = rng.uniform(-1, 1, (6, 19))
+    wj = tuple(_both(w, "f32")[0] for w in ws)
+    wt = tuple(_both(w, "f32")[1] for w in ws)
+    xj, xt = _both(xs, "f32")
+    want = np.asarray(batched_forward_pallas(wj, xj, kind), np.float64)
+    got = batched_forward_fused(wt, xt, kind).double().numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+def _f64_case(kind, b=11):
+    rng = np.random.default_rng(80)
+    ws = [_w(rng, n, m) for m, n in [(19, 16), (16, 8), (8, 5)]]
+    xs = rng.uniform(0, 255.0, (b, 19))
+    want = np.asarray(jax_ops.run_batch(
+        tuple(jnp.asarray(w) for w in ws), jnp.asarray(xs), kind))
+    wt = tuple(torch.as_tensor(w) for w in ws)
+    return wt, torch.as_tensor(xs), want
+
+
+@pytest.mark.parametrize("kind", ["ANN", "SNN", "LNN"])
+def test_f64_batched_forward_fused_matches_jax_run_batch(kind):
+    """float64 through the fused path (plain on the CPU) against the JAX
+    package's per-row run_batch: only summation order differs, 1e-13."""
+    wt, xt, want = _f64_case(kind)
+    got = batched_forward_fused(wt, xt, kind).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-13, rtol=0)
+
+
+@pytest.mark.parametrize("kind", ["ANN", "SNN", "LNN"])
+def test_f64_run_batch_matches_jax_run_batch(kind):
+    """The CPU strict tier (per-row mv chains) against the JAX package's
+    per-row run_batch, 1e-13 -- and its rows are independent of the batch
+    they ride in, bit for bit."""
+    wt, xt, want = _f64_case(kind)
+    got = ops.run_batch(wt, xt, kind).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-13, rtol=0)
+    alone = ops.run_batch(wt, xt[3:4].contiguous(), kind).numpy()
+    assert np.array_equal(alone[0], got[3])
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_activations_match_jax(dtype):
+    """ann_act (literal expression at f64, tanh(x/2) at f32) and the
+    TINY-seeded softmax(x-1) (serial fold at f64) against the JAX
+    package's, to a few ULP."""
+    from hpnn_tpu.ops import activations as jact
+    from hpnn_tpu_torch.ops import activations as tact
+
+    rng = np.random.default_rng(81)
+    x = rng.uniform(-8, 8, (7, 10))
+    xj, xt = _both(x, dtype)
+    tol = 1e-15 if dtype == "f64" else 1e-6
+    np.testing.assert_allclose(tact.ann_act(xt).double().numpy(),
+                               np.asarray(jact.ann_act(xj), np.float64),
+                               atol=tol, rtol=0)
+    np.testing.assert_allclose(tact.snn_softmax(xt).double().numpy(),
+                               np.asarray(jact.snn_softmax(xj), np.float64),
+                               atol=tol, rtol=0)
+
+
+def test_cpu_tensors_never_launch_the_kernel():
+    rng = np.random.default_rng(82)
+    w = torch.as_tensor(_w(rng, 8, 5), dtype=torch.float32)
+    xs = torch.as_tensor(rng.uniform(-1, 1, (3, 5)), dtype=torch.float32)
+    before = fused_linear_act.launches
+    fused_linear_act(w, xs)
+    batched_forward_fused((w, w.T.contiguous()), xs, "SNN")
+    assert fused_linear_act.launches == before == 0
+
+
+def test_wrapper_rejects_bad_inputs():
+    w = torch.zeros((4, 6), dtype=torch.float32)
+    with pytest.raises(TypeError):
+        fused_linear_act(w, torch.zeros((2, 6), dtype=torch.float64))
+    with pytest.raises(TypeError):
+        fused_linear_act(w.half(), torch.zeros((2, 6), dtype=torch.half))
+    with pytest.raises(ValueError):
+        fused_linear_act(w, torch.zeros((6, 2), dtype=torch.float32).T)
+    with pytest.raises(ValueError):
+        fused_linear_act(torch.zeros((6, 4)).T, torch.zeros((2, 6)))
+    with pytest.raises(ValueError):
+        fused_linear_act(w, torch.zeros((2, 5), dtype=torch.float32))
+
+
+def test_select_run_batch_routing():
+    """CPU: float64 strict = per-row run_batch, float64 fast = GEMM
+    chain, float32/bf16 = the fused path (plain on the CPU).  CUDA: the
+    fused kernel everywhere except fast-tier float64."""
+    sel = ops.select_run_batch
+    assert sel(torch.float64, "strict", device="cpu")[1] == "rows"
+    assert sel(torch.float64, "fast", device="cpu")[1] == "gemm"
+    for dt in (torch.float32, torch.bfloat16):
+        for tier in ("strict", "fast"):
+            assert sel(dt, tier, device="cpu")[1] == "fused"
+            assert sel(dt, tier, device="cuda")[1] == "fused"
+    assert sel(torch.float64, "strict", device="cuda")[1] == "fused"
+    assert sel(torch.float64, "fast", device="cuda")[1] == "gemm"
+    with pytest.raises(ValueError):
+        sel(torch.float64, "exact")
