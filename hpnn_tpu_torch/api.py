@@ -24,7 +24,15 @@ Quirks preserved on purpose (each cited):
 * the test order is the seeded glibc shuffle of the readdir listing
   (``libhpnn.c:1218-1229``), reproduced stream-exactly.
 
-Training comes with a later slice of the port.
+Training (``train_kernel``, ``libhpnn.c:1149-1305``) is one epoch of
+per-sample train-to-convergence over the seeded shuffle of the sample dir,
+in the hand-written epoch kernel on CUDA and the eager loop on the CPU,
+then the reference's per-sample grammar (``ann.c:2322-2366``,
+``snn.c:1496-1499``), at verbosity > 1:
+    "NN: TRAINING FILE: %16.16s\\t init=%15.10f OK|NO N_ITER=%8i
+    final=%15.10f SUCCESS!|FAIL!\\n" (snn_train_BP prints no verdict), and
+    at verbosity > 2 "NN(DBG): bad optimization!\\n" after a final dEp
+    above 0.1.
 """
 
 from __future__ import annotations
@@ -37,12 +45,13 @@ import numpy as np
 import torch
 
 from .io.conf import NN_TYPE_ANN, NN_TYPE_LNN, NN_TYPE_SNN, NN_TYPE_UKN
-from .io.conf import NNConf, load_conf
+from .io.conf import NN_TRAIN_BP, NN_TRAIN_BPM, NNConf, load_conf
 from .io.corpus import load_ordered
 from .io.kernel_io import load_kernel
 from .io.samples import list_sample_dir
 from .models.kernel import (Kernel, generate_kernel, is_regression,
-                            weights_to_torch)
+                            weights_to_numpy, weights_to_torch)
+from .utils import nn_log
 from .utils.glibc_random import GlibcRandom, shuffled_indices
 from .utils.nn_log import nn_cout, nn_dbg, nn_error, nn_out
 
@@ -55,6 +64,9 @@ class NNDef:
 
     conf: NNConf
     kernel: Kernel | None = None
+    # the last train_kernel epoch's summary (samples, mean final dEp,
+    # successes)
+    last_epoch_stats: dict | None = None
 
 
 def configure(path: str) -> NNDef | None:
@@ -180,6 +192,117 @@ def run_kernel(nn: NNDef, device="cuda", parity: str = "strict"):
     return outs
 
 
+def train_kernel(nn: NNDef, device="cuda") -> bool:
+    """_NN(train,kernel) (``libhpnn.c:1149-1305``): the seeded shuffle of
+    the sample dir, one epoch of per-sample train-to-convergence on
+    ``device``, the per-sample console lines.  The trained weights go back
+    to ``nn.kernel.weights`` as float64 numpy arrays."""
+    from . import ops
+
+    conf = nn.conf
+    if nn.kernel is None or conf.samples is None or conf.type == NN_TYPE_UKN:
+        return False
+    momentum = conf.train == NN_TRAIN_BPM
+    # LNN without the native opt-in warns here and in finish() but trains
+    # through the SNN fallthrough (libhpnn.c:1180-1182, 1260-1261, 1291)
+    supported = conf.type in (NN_TYPE_ANN, NN_TYPE_SNN) or native_lnn(conf)
+    if not supported:
+        nn_error("unimplemented NN type!\n")
+    elif momentum:
+        nn.kernel.momentum_init()  # ann_momentum_init (libhpnn.c:1175)
+
+    def finish() -> bool:
+        if not supported:
+            nn_error("unimplemented NN type!\n")
+        elif momentum:
+            nn.kernel.momentum_free()  # ann_momentum_free (libhpnn.c:1297)
+        return True
+
+    nn.last_epoch_stats = None
+    names = list_sample_dir(conf.samples)
+    if names is None:
+        nn_error(f"can't open sample directory: {conf.samples}\n")
+        return False
+    order = shuffle_order(conf, len(names))
+    events, xs, ts = load_ordered(conf.samples, names, order, "TRAINING",
+                                  nn.kernel.n_inputs, nn.kernel.n_outputs)
+    if xs is None or conf.train not in (NN_TRAIN_BP, NN_TRAIN_BPM):
+        # CG/SPLX are declared but unimplemented (libhpnn.c:1253-1257):
+        # each per-file header is printed, nothing trains, and the call
+        # returns TRUE -- every header is left unterminated
+        for line, _ in events:
+            nn_out(line)
+        return finish()
+    dtype = dtype_of(conf)
+    kind = kernel_kind(conf)
+    dev = torch.device(device)
+    # [dtype] bf16 trains float32 master weights (bfloat16 samples,
+    # activations and deltas): bfloat16 storage rounds BPM-sized updates
+    # away
+    master = torch.float32 if dtype == torch.bfloat16 else dtype
+    weights = weights_to_torch(nn.kernel.weights, master, dev)
+    xs_dev = torch.as_tensor(xs, dtype=torch.float64).to(dev).to(dtype)
+    ts_dev = torch.as_tensor(ts, dtype=torch.float64).to(dev).to(dtype)
+    train_epoch_fn, _ = ops.select_train_epoch(dtype, kind=kind, device=dev)
+    new_weights, stats = train_epoch_fn(weights, xs_dev, ts_dev, kind,
+                                        momentum, alpha=0.2)  # libhpnn.c:1248
+    nn.kernel.weights = weights_to_numpy(new_weights)
+    nn.last_epoch_stats = _emit_training_lines(events, stats, kind, momentum)
+    return finish()
+
+
+def _render_training_lines(events, stats, kind: str, momentum: bool,
+                           verbosity: int):
+    """The reference's per-sample training stream (ann.c:2322-2366,
+    snn.c:1496-1499) for one epoch, formatted column-wise with numpy and
+    joined once; the verbosity gates and prefixes are applied here.
+    Returns (stdout_text, epoch_summary)."""
+    final_dep = np.asarray(stats.final_dep, dtype=np.float64)
+    success = np.asarray(stats.success)
+    n = int(final_dep.shape[0])
+    summary = {"samples": n,
+               "mean_final": float(np.mean(final_dep)) if n else None,
+               "success": int(np.sum(success)) if n else 0}
+    if verbosity <= 1:
+        return "", summary
+    blocks: list[str] = []
+    if n:
+        init_err = np.asarray(stats.init_err, dtype=np.float64)
+        first_ok = np.asarray(stats.first_ok)
+        n_iter = np.asarray(stats.n_iter).astype(np.int64)
+        b = np.char.mod(" init=%15.10f", init_err)
+        b = np.char.add(b, np.where(first_ok, " OK", " NO"))
+        b = np.char.add(b, np.char.mod(" N_ITER=%8d", n_iter))
+        b = np.char.add(b, np.char.mod(" final=%15.10f", final_dep))
+        if kind == NN_TYPE_SNN and not momentum:
+            # snn_train_BP ends without a verdict (snn.c:1496-1499)
+            b = np.char.add(b, "\n")
+        else:
+            b = np.char.add(b, np.where(success, " SUCCESS!\n",
+                                        " FAIL!\n"))
+        if verbosity > 2:
+            b = np.char.add(b, np.where(final_dep > 0.1,
+                                        "NN(DBG): bad optimization!\n", ""))
+        blocks = b.tolist()
+    parts: list[str] = []
+    for line, i in events:
+        parts.append("NN: ")
+        parts.append(line)
+        # skipped file: header only, no newline (libhpnn.c:1242)
+        if i is not None:
+            parts.append(blocks[i])
+    return "".join(parts), summary
+
+
+def _emit_training_lines(events, stats, kind: str, momentum: bool) -> dict:
+    """Render + emit the per-sample training stream; returns the epoch
+    summary."""
+    text, summary = _render_training_lines(events, stats, kind, momentum,
+                                           nn_log.get_verbosity())
+    nn_log.nn_raw(text)
+    return summary
+
+
 def _print_verdicts(events, outs, ts, kind: str, n_out: int) -> None:
     for line, i in events:
         nn_out(line)
@@ -235,4 +358,4 @@ def _print_verdicts(events, outs, ts, kind: str, n_out: int) -> None:
 
 
 __all__ = ["NNDef", "configure", "dtype_of", "kernel_kind", "load_tests",
-           "native_lnn", "run_kernel", "shuffle_order"]
+           "native_lnn", "run_kernel", "shuffle_order", "train_kernel"]

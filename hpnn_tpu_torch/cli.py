@@ -1,5 +1,7 @@
-"""run_nn / serve_nn command-line entry points of the port.
+"""train_nn / run_nn / serve_nn command-line entry points of the port.
 
+    python -m hpnn_tpu_torch.cli train_nn [-h] [-v]... [-x] [-O n] [-B n]
+        [-S n] [--device {cuda,cpu}] [--lnn native] [conf]
     python -m hpnn_tpu_torch.cli run_nn [-h] [-v]... [-O n] [-B n] [-S n]
         [--device {cuda,cpu}] [--lnn native] [conf]
     python -m hpnn_tpu_torch.cli serve_nn [-v]... [-a ADDR] [-p PORT]
@@ -8,10 +10,14 @@
         [--warmup-mode {background,sync,off}] [--device {cuda,cpu}]
         [conf ...]
 
-``run_nn`` keeps the reference parser (``tests/run_nn.c:66-234``): flags
-combine (``-vv``), -O/-B/-S take attached or separated values (checked,
-then ignored: PyTorch owns host threads and CUDA streams), the conf
-defaults to ``./nn.conf``.  Both commands run on the GPU unless
+``train_nn`` and ``run_nn`` keep the reference parser
+(``tests/train_nn.c:59-255``, ``tests/run_nn.c:66-234``): flags combine
+(``-vv``), ``-x`` is accepted and does nothing (as in the reference),
+-O/-B/-S take attached or separated values (checked, then ignored: PyTorch
+owns host threads and CUDA streams), the conf defaults to ``./nn.conf``.
+``train_nn`` dumps the untrained kernel to ``kernel.tmp`` before training
+and the trained one to ``kernel.opt`` after (``train_nn.c:224-243``).
+Every command runs on the GPU unless
 ``--device cpu`` is given; asking for the GPU on a host without one exits
 non-zero before anything is computed.  The JAX package's other options
 (checkpoints, caches, profiling, mesh serving, jobs, tracing, QoS) are
@@ -23,13 +29,14 @@ from __future__ import annotations
 import sys
 
 from . import runtime
-from .api import configure, run_kernel
+from .api import configure, run_kernel, train_kernel
 from .utils import nn_log
 
 LATER = "is not ported yet: a later slice of hpnn_tpu_torch brings it"
 
 
 def _help_text(name: str) -> str:
+    train = name == "train_nn"
     lines = [
         "***********************************",
         f"usage:  {name} [-options] [input]",
@@ -37,9 +44,18 @@ def _help_text(name: str) -> str:
         "options:",
         "-h \tdisplay this help;",
         "-v \tincrease verbosity;",
+    ]
+    if train:
+        lines.append("-x \tdiscard results (accepted, does nothing).")
+    lines += [
         "-O \tnumber of host threads (accepted and ignored).",
         "-B \tnumber of BLAS threads (accepted and ignored).",
         "-S \tnumber of CUDA streams (accepted and ignored).",
+    ]
+    if train:
+        lines.append("\t(the row-sharded route -S selects in hpnn_tpu is "
+                     "ROADMAP item 7.)")
+    lines += [
         "--device {cuda,cpu} \twhere to compute (default cuda; no",
         "\tfallback: without a GPU, cuda exits non-zero).",
         "--lnn native \topt into the native LNN regression head",
@@ -109,6 +125,9 @@ def _parse_args(argv: list[str], name: str):
                     nn_log.inc_verbosity()
                     j += 1
                     continue
+                if c == "x" and name == "train_nn":
+                    j += 1  # _NN(toggle,dry): a no-op in the reference
+                    continue
                 if c in numeric:
                     if j + 1 < len(arg):
                         value = arg[j + 1:]
@@ -161,6 +180,48 @@ def run_nn(argv: list[str] | None = None):
 
 def run_nn_main(argv: list[str] | None = None) -> int:
     return run_nn(argv)[0]
+
+
+def train_nn_main(argv: list[str] | None = None) -> int:
+    """train_nn (tests/train_nn.c:59-255): configure, dump kernel.tmp, one
+    training epoch on the device, dump kernel.opt.  Returns the exit
+    code."""
+    from .io.kernel_io import dump_kernel_to_path
+
+    argv = sys.argv[1:] if argv is None else argv
+    nn_log.set_verbosity(0)
+    try:
+        parsed = _parse_args(argv, "train_nn")
+        if parsed is None:
+            return 0
+        filename, extras = parsed
+        if runtime.init_all(extras["device"]) != 0:
+            return -1
+        neural = configure(filename)
+        if neural is None:
+            sys.stderr.write(
+                "FAILED to read NN configuration file! (ABORTING)\n")
+            return -1
+        if extras["lnn"]:
+            neural.conf.lnn = extras["lnn"]
+        try:
+            dump_kernel_to_path(neural.kernel, "kernel.tmp")
+        except OSError:
+            sys.stderr.write("FAILED to open kernel.tmp for WRITE!\n")
+            return -1
+        if not train_kernel(neural, device=runtime.lib_runtime.device):
+            sys.stderr.write("FAILED to train kernel!\n")
+            return -1
+        try:
+            dump_kernel_to_path(neural.kernel, "kernel.opt")
+        except OSError:
+            # the reference prints the kernel.tmp message on both dump
+            # failures (tests/train_nn.c:243)
+            sys.stderr.write("FAILED to open kernel.tmp for WRITE!\n")
+            return -1
+        return 0
+    finally:
+        runtime.deinit_all()
 
 
 def _serve_parser():
@@ -289,11 +350,13 @@ def serve_nn_main(argv: list[str] | None = None) -> int:
     return 0
 
 
-COMMANDS = {"run_nn": run_nn_main, "serve_nn": serve_nn_main}
+COMMANDS = {"train_nn": train_nn_main, "run_nn": run_nn_main,
+            "serve_nn": serve_nn_main}
 
 
 def main(argv: list[str] | None = None) -> int:
-    """``python -m hpnn_tpu_torch.cli {run_nn,serve_nn} [args...]``."""
+    """``python -m hpnn_tpu_torch.cli {train_nn,run_nn,serve_nn}
+    [args...]``."""
     argv = sys.argv[1:] if argv is None else argv
     if not argv or argv[0] not in COMMANDS:
         sys.stderr.write("usage: python -m hpnn_tpu_torch.cli "

@@ -47,6 +47,22 @@ class Kernel:
 
     name: str
     weights: list[np.ndarray]
+    momentum: list[np.ndarray] | None = None
+
+    def momentum_init(self) -> None:
+        """Allocate + zero dw buffers (ann_momentum_init, ann.c:1876-1890)
+        and print the reference's accounting line (ann.c:1904): the dw
+        pointer array (8 bytes per layer) plus each dw matrix at 8 bytes
+        per weight."""
+        from ..utils.nn_log import nn_out
+
+        self.momentum = [np.zeros_like(w) for w in self.weights]
+        n_bytes = 8 * len(self.weights) + 8 * sum(
+            int(w.size) for w in self.weights)
+        nn_out(f"[CPU] MOMENTUM ALLOC: {n_bytes} (bytes)\n")
+
+    def momentum_free(self) -> None:
+        self.momentum = None
 
     @property
     def n_inputs(self) -> int:
@@ -135,9 +151,9 @@ def weights_to_numpy(weights: Sequence[torch.Tensor]) -> list[np.ndarray]:
 
 class MLP(torch.nn.Module):
     """A kernel's layer weights as module buffers in the compute dtype on
-    the compute device.  Buffers, not parameters: this slice only runs
-    inference, and the training slice updates weights in its own
-    kernel."""
+    the compute device, evaluated through the fused forward.  Buffers, not
+    parameters: training never goes through autograd -- the epoch updates
+    the weights in its own kernel (``ops.convergence_kernel``)."""
 
     def __init__(self, weights: Sequence[torch.Tensor], kind: str):
         super().__init__()

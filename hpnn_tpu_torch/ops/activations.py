@@ -34,7 +34,12 @@ def ann_act(x: torch.Tensor) -> torch.Tensor:
     """2/(1+e^-x)-1 == tanh(x/2) (ann.c:883-885); the literal expression
     at float64, ``tanh(x*0.5)`` otherwise."""
     if x.dtype == torch.float64:
-        return 2.0 / (1.0 + torch.exp(-1.0 * x)) - 1.0
+        # 2.0/(1.0+exp(-1.0*x))-1.0, with in-place steps (fewer
+        # allocations in the per-sample training loop): -x is -1.0*x
+        # exactly, and torch evaluates 2.0/y as (1/y)*2, which scaling by
+        # two leaves exactly rounded
+        y = torch.exp(-x)
+        return y.add_(1.0).reciprocal_().mul_(2.0).sub_(1.0)
     return torch.tanh(x * 0.5)
 
 

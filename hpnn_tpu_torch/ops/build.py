@@ -24,7 +24,8 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "hpnn_tpu_torch")
 
 # kernel name -> source file under csrc/
-SOURCES = {"fused_linear_act": "fused_linear_act.cu"}
+SOURCES = {"fused_linear_act": "fused_linear_act.cu",
+           "train_epoch": "train_epoch.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -149,12 +149,25 @@ def test_run_nn_unported_option_exits_nonzero(tmp_path, capsys):
 
 
 def test_run_nn_subprocess_imports_no_jax(tmp_path):
-    """A fresh interpreter runs the port's run_nn on the CPU and then
-    proves that neither jax nor any hpnn_tpu module was imported."""
+    """A fresh interpreter runs the port's train_nn and run_nn on the CPU
+    and then proves that neither jax nor any hpnn_tpu module was
+    imported."""
     conf = _write_case(tmp_path, kind="SNN")
+    train_conf = tmp_path / "train.conf"
+    train_conf.write_text(
+        open(conf).read().replace(f"[init] {tmp_path / 'kernel.opt'}",
+                                  "[init] generate")
+        + f"[sample_dir] {tmp_path / 'tests'}\n")
     code = (
         "import sys\n"
-        "from hpnn_tpu_torch.cli import run_nn\n"
+        "import os\n"
+        "from hpnn_tpu_torch.cli import run_nn, train_nn_main\n"
+        "os.mkdir('train')\n"
+        "os.chdir('train')\n"
+        f"rc = train_nn_main(['-v', '-v', '--device', 'cpu', "
+        f"{str(train_conf)!r}])\n"
+        "assert rc == 0, rc\n"
+        "os.chdir('..')\n"
         f"rc, outs = run_nn(['-v', '-v', '--device', 'cpu', {conf!r}])\n"
         "assert rc == 0 and outs.shape == (24, 5), rc\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
@@ -169,3 +182,5 @@ def test_run_nn_subprocess_imports_no_jax(tmp_path):
     assert res.returncode == 0, res.stderr
     assert "NOJAX-OK" in res.stdout
     assert "BEST CLASS" in res.stdout
+    assert res.stdout.count("N_ITER=") == 24
+    assert (tmp_path / "train" / "kernel.opt").exists()
