@@ -55,15 +55,39 @@ fault; no phase catches its own failure.
    at the default f64, 512 training files), then ``run_nn`` of the trained
    ``kernel.opt`` on 512 test files: at least 80% PASS.  The epoch is then
    run again through the kernel alone for its device time.
-10. One JSON line of every kernel (launches on its main path, the largest
+10. The batched-tile epoch kernel (``train_tile``) against its plain torch
+   version on the card: MNIST 784-300-10 ANN (two classes) and SNN (four)
+   x BP and BPM x f64, f32 and bf16 at tile 8 over two groups and a ragged
+   tail (19 samples), XRD 851-230-230 ANN BPM at f64 and f32 at tile 4,
+   native LNN at f64, and the weight storage modes "bf16" and "f32" under
+   f32, with phase 7's limits (f32/bf16 weights relative to the largest
+   weight, ``TRAIN_LIMIT``'s note).
+11. Its three bitwise contracts: tile=1 equals the ``train_epoch`` kernel
+   (weights and stats) for ANN and LNN at f64, f32 and bf16 and SNN at f32
+   and bf16, BP and BPM; a ragged tail's masked lanes are inert (tile 4
+   over 6 samples equals the first group, then the two tail rows alone at
+   tile 2); launches of one group equal one launch.
+12. ``train_nn --tile 32`` end to end on phase 9's files and conf, then
+   ``run_nn`` of its ``kernel.opt``: at least 80% PASS, ``train_tile``
+   launched and ``train_epoch`` not.  The epoch is then run again through
+   the kernel alone for its device time: lockstep iterations (a group runs
+   as long as its slowest lane), lane-iterations (the sum of n_iter), and
+   the rate beside phase 9's per-sample kernel on the same files.  Last,
+   ``--tile auto``'s autotuner at that width measures its candidates once,
+   and a second call is a cache hit.
+13. ``fused_bpm_update`` against its plain version at 784x300 and 300x10,
+   f64 and f32, and its device time beside its byte bound.
+14. One JSON line of every kernel (launches on its main path, the largest
    kernel-vs-plain error over every cell and dtype, times and bound), then
    the result line.
 
-Main paths: ``fused_linear_act``'s is phases 4-5 and ``train_epoch``'s
-phase 9 (train_nn, then run_nn of its kernel, which launches
-``fused_linear_act`` too); every count is set to 0 just before a path and
-read just after it.  ``--json PATH`` also writes every cell's numbers to
-PATH.
+Main paths: ``fused_linear_act``'s is phases 4-5, ``train_epoch``'s phase 9
+and ``train_tile``'s phase 12 (train_nn, then run_nn of its kernel, which
+launches ``fused_linear_act`` too); every count is set to 0 just before a
+path and read just after it.  ``fused_bpm_update`` has no caller on any
+path, as in the JAX package: its ``launches`` are the paths' (0), its
+``phase_launches`` phase 13's.  ``--json PATH`` also writes every cell's
+numbers to PATH.
 """
 
 from __future__ import annotations
@@ -116,6 +140,27 @@ TRAIN_RUNS = (
 # f32 limits (measured: identical n_iter and weights in all six runs).
 TRAIN_LIMIT = {"f64": (0, 0.0, 1e-10), "f32": (4, 0.02, 5e-3),
                "bf16": (4, 0.02, 5e-3)}
+# Phase 10 holds f32/bf16 weights to that limit times the largest plain
+# weight (at least 1): MNIST SNN BPM f32 at tile 8 grows its first-layer
+# weights to many times 1 in a few pixel-scale steps, and there two f32 sum
+# orders of the same math end farther apart than 5e-3: the plain version
+# run on the CPU and on the card does, by as much as the kernel and the
+# card's plain version (on the H100), and the gap closes when the card's
+# plain takes its three matrix products from the CPU.
+# phase 10 runs: (tag, topology, kind, momentum, dtype, classes, samples,
+# tile, storage)
+TILE_RUNS = (
+    [("mnist", MNIST, k, m, d, (0, 1) if k == "ANN" else (0, 1, 2, 3), 19,
+      8, None) for k in ("ANN", "SNN") for m in (False, True)
+     for d in ("f64", "f32", "bf16")]
+    + [("xrd", XRD, "ANN", True, d, (0, 1), 4, 4, None) for d in ("f64",
+                                                                  "f32")]
+    + [("mnist", MNIST, "LNN", False, "f64", (0, 1), 19, 8, None)]
+    + [("mnist", MNIST, "ANN", False, "f32", (0, 1), 19, 8, st)
+       for st in ("bf16", "f32")])
+TRAIN_TILE = 32            # phase 12: train_nn --tile
+BPM_SHAPES = ((300, 784), (10, 300))   # phase 13: the MNIST layers (N, M)
+BPM_LIMIT = {"f64": 1e-12, "f32": 1e-6}
 
 
 def log(msg: str) -> None:
@@ -529,11 +574,16 @@ def _train_bound(weights, momentum, iters, dtype, n_samples):
             "operations" if t_ops >= t_bytes else "bytes", flops_it)
 
 
-def _check_train(tag, dtype, sk, sp, wk, wp):
+def _check_train(tag, dtype, sk, sp, wk, wp, name="train_epoch",
+                 scaled=False):
     """Kernel stats/weights against the plain version's; raises above the
-    dtype's limits.  Returns (max weight diff, max |dn_iter|)."""
+    dtype's limits (``scaled``: f32/bf16 weights relative to the largest
+    plain weight, as phase 10 holds them).  Returns (max weight diff, max
+    |dn_iter|)."""
     k, p = sk.cpu().numpy(), sp.cpu().numpy()
     slack, rel, wlim = TRAIN_LIMIT[dtype]
+    if scaled and dtype != "f64":
+        wlim *= max(1.0, max(float(b.double().abs().max()) for b in wp))
     werr = max(float((a.double() - b.double()).abs().max())
                for a, b in zip(wk, wp))
     dn = np.abs(k[:, 2] - p[:, 2])
@@ -549,7 +599,7 @@ def _check_train(tag, dtype, sk, sp, wk, wp):
     if not werr <= wlim:
         bad.append(f"weights differ by {werr:.3e} > {wlim:g}")
     if bad:
-        raise AssertionError(f"train_epoch {tag}: " + "; ".join(bad))
+        raise AssertionError(f"{name} {tag}: " + "; ".join(bad))
     return werr, float(dn.max())
 
 
@@ -745,6 +795,355 @@ def phase_train_time(e2e):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+# --- phase 10-12: the batched-tile epoch kernel ----------------------------
+
+def _lockstep(n_iter, tile):
+    """Lockstep iterations of a tiled epoch: each group runs as long as its
+    slowest lane, so the sum over groups of the largest n_iter."""
+    n_iter = np.asarray(n_iter, dtype=np.int64)
+    return int(sum(n_iter[g:g + tile].max()
+                   for g in range(0, n_iter.shape[0], tile)))
+
+
+def _tile_bound(weights, momentum, lockstep, lane_iters, dtype, n_samples):
+    """The least time of a tiled epoch: per lockstep iteration with S live
+    lanes about 4SP + 2SP_hidden + 2P flops for BP (each lane's update
+    product and sum and its forward multiply-add, its hidden deltas, then
+    lr*g and the add once a weight; BPM adds 3P for the momentum), summed
+    over this run's iterations (the sum of S over them is the
+    lane-iterations), over the card's peak; against the bytes of the
+    epoch's inputs and outputs read and written once.  Returns (bound_ms,
+    bound_by, flops)."""
+    p = _params(weights)
+    p_hidden = p - weights[0].shape[0] * weights[0].shape[1]
+    flops = ((4 * p + 2 * p_hidden) * lane_iters
+             + (5 if momentum else 2) * p * lockstep)
+    item = {"f32": 4, "bf16": 2, "f64": 8}[dtype]
+    witem = 4 if dtype == "bf16" else item
+    n_in, n_out = weights[0].shape[1], weights[-1].shape[0]
+    nbytes = 2 * p * witem + n_samples * (n_in + n_out) * item \
+        + n_samples * 5 * 8
+    t_ops = flops / PEAK[dtype]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops)
+
+
+def phase_tile_vs_plain():
+    import torch
+
+    from hpnn_tpu_torch.ops.convergence_tile import train_epoch_tiled_plain
+    from hpnn_tpu_torch.ops.convergence_tile_kernel import train_tile
+
+    results = []
+    for name, topo, kind, momentum, dtype, classes, n, tile, storage \
+            in TILE_RUNS:
+        w, x, t = _train_inputs(topo, dtype, classes, n)
+        tag = (f"{name} {kind} {'BPM' if momentum else 'BP'} {dtype} tile "
+               f"{tile}" + (f" storage {storage}" if storage else "")
+               + f" ({n} samples)")
+        kw = dict(tile=tile, storage=storage)
+        # a launch of two lockstep iterations first, so that the timed one
+        # excludes the lazy load of this entry point's code
+        train_tile(w, x, t, kind, momentum, max_iter=1, **kw)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        wk, sk = train_tile(w, x, t, kind, momentum, **kw)
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end)
+        t0 = time.perf_counter()
+        wp, sp = train_epoch_tiled_plain(w, x, t, kind, momentum, **kw)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        werr, dn = _check_train(tag, dtype, sk, sp, wk, wp,
+                                name="train_tile", scaled=True)
+        k, p = sk.cpu().numpy(), sp.cpu().numpy()
+        lanes, lock = int(k[:, 2].sum()), _lockstep(k[:, 2], tile)
+        p_lock = _lockstep(p[:, 2], tile)
+        bound_ms, bound_by, _ = _tile_bound(w, momentum, lock, lanes, dtype,
+                                            n)
+        results.append({"run": tag, "dtype": dtype, "kind": kind,
+                        "momentum": momentum, "samples": n, "tile": tile,
+                        "storage": storage, "lane_iters": lanes,
+                        "lockstep": lock, "plain_lockstep": p_lock,
+                        "max_dn_iter": dn, "max_abs_err": werr, "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "grid": train_tile.grid,
+                        "n_iter": k[:, 2].astype(int).tolist(),
+                        "plain_n_iter": p[:, 2].astype(int).tolist()})
+        log(f"train_tile {tag}: lockstep iterations {lock} (plain "
+            f"{p_lock}), lane-iterations {lanes}, max |dn_iter| {dn:g}, "
+            f"max |kernel - plain| weights {werr:.3e}; kernel {ms:.2f} ms "
+            f"= {ms * 1e3 / lock:.2f} us/lockstep iteration on "
+            f"{train_tile.grid} blocks, plain "
+            f"{plain_ms * 1e3 / p_lock:.1f} us/lockstep iteration, bound "
+            f"{bound_ms * 1e3 / lock:.4f} us/lockstep iteration "
+            f"({bound_by})")
+    worst = {d: max((r["max_abs_err"] for r in results if r["dtype"] == d),
+                    default=0.0) for d in _dtypes()}
+    log("train_tile vs plain: all runs within limits; worst weight error "
+        + ", ".join(f"{d} {e:.3e}" for d, e in worst.items()))
+    return results
+
+
+def _bitwise(a, b):
+    """True when two tensors, or two sequences of tensors, hold the same
+    bits."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        a, b = (a,), (b,)
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and x.shape == y.shape
+        and torch.equal(x.contiguous().view(torch.uint8),
+                        y.contiguous().view(torch.uint8))
+        for x, y in zip(a, b))
+
+
+def phase_tile_contracts():
+    """The three bitwise contracts of the tile kernel on the card."""
+    import torch
+
+    from hpnn_tpu_torch.ops.convergence_kernel import train_epoch_kernel
+    from hpnn_tpu_torch.ops.convergence_tile import train_epoch_tiled
+    from hpnn_tpu_torch.ops.convergence_tile_kernel import train_tile
+
+    n_tile1 = 0
+    for kind, dtypes in (("ANN", ("f64", "f32", "bf16")),
+                         ("LNN", ("f64", "f32", "bf16")),
+                         ("SNN", ("f32", "bf16"))):
+        classes = (0, 1, 2, 3) if kind == "SNN" else (0, 1)
+        for dtype in dtypes:
+            for momentum in (False, True):
+                w, x, t = _train_inputs(MNIST, dtype, classes, 8)
+                w1, s1 = train_epoch_kernel(w, x, t, kind, momentum)
+                w2, s2 = train_tile(w, x, t, kind, momentum, tile=1)
+                torch.cuda.synchronize()
+                if not (_bitwise(w1, w2) and _bitwise(s1, s2)):
+                    raise AssertionError(
+                        f"tile=1 {kind} {'BPM' if momentum else 'BP'} "
+                        f"{dtype}: not bit-identical to train_epoch")
+                n_tile1 += 1
+    masked = []
+    for kind, momentum, dtype in (("ANN", False, "f64"),
+                                  ("SNN", True, "f32")):
+        classes = (0, 1, 2, 3) if kind == "SNN" else (0, 1)
+        w, x, t = _train_inputs(MNIST, dtype, classes, 6)
+        w_pad, s_pad = train_tile(w, x, t, kind, momentum, tile=4)
+        w_a, s_a = train_tile(w, x[:4].contiguous(), t[:4].contiguous(),
+                              kind, momentum, tile=4)
+        w_b, s_b = train_tile(w_a, x[4:].contiguous(), t[4:].contiguous(),
+                              kind, momentum, tile=2)
+        torch.cuda.synchronize()
+        if not (_bitwise(w_pad, w_b)
+                and _bitwise(s_pad, torch.cat([s_a, s_b]))):
+            raise AssertionError(f"masked lanes {kind} {dtype}: the ragged "
+                                 "tail differs from its rows alone")
+        masked.append(f"{kind} {'BPM' if momentum else 'BP'} {dtype}")
+    w, x, t = _train_inputs(MNIST, "f64", (0, 1), 19)
+    before = train_tile.launches
+    w1, s1 = train_epoch_tiled(w, x, t, "ANN", True, tile=8)
+    one = train_tile.launches - before
+    w2, s2 = train_epoch_tiled(w, x, t, "ANN", True, tile=8,
+                               launch_groups=1)
+    many = train_tile.launches - before - one
+    if one != 1 or many != 3:
+        raise AssertionError(f"group budget: {one} launch(es) unbudgeted, "
+                             f"{many} at one group each")
+    if not (_bitwise(w1, w2) and _bitwise(tuple(s1), tuple(s2))):
+        raise AssertionError("group budget: launches of one group differ "
+                             "from one launch")
+    log(f"train_tile contracts: tile=1 bit-identical to train_epoch in "
+        f"{n_tile1} runs; masked tail lanes inert ({', '.join(masked)}); "
+        f"3 launches of one group bit-identical to 1 launch "
+        f"({int(s1.n_iter.sum())} lane-iterations)")
+    return {"tile1_runs": n_tile1, "masked": masked, "budget_launches": many}
+
+
+def phase_train_nn_tile(e2e):
+    """train_nn --tile 32 on phase 9's files and conf, then run_nn of its
+    kernel.opt."""
+    from hpnn_tpu_torch import cli
+
+    cwd = os.getcwd()
+    os.chdir(e2e["root"])
+    try:
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.train_nn_main(["-v", "-v", "--device", "cuda",
+                                    "--tile", str(TRAIN_TILE), "nn.conf"])
+        wall = time.perf_counter() - t0
+        text = out.getvalue()
+        iters = [int(m) for m in re.findall(r"N_ITER=\s*(\d+)", text)]
+        if rc != 0 or len(iters) != TRAIN_FILES:
+            raise AssertionError(f"train_nn --tile: rc={rc}, {len(iters)} "
+                                 "lines with N_ITER")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc, outs = cli.run_nn(["-v", "-v", "--device", "cuda",
+                                   "run.conf"])
+        n_pass = out.getvalue().count("[PASS]")
+        if rc != 0 or outs is None or not np.all(np.isfinite(outs)):
+            raise AssertionError(f"run_nn of the tile-trained kernel: rc={rc}")
+        if n_pass < 0.8 * TRAIN_FILES:
+            raise AssertionError(f"run_nn of the tile-trained kernel: PASS "
+                                 f"{n_pass}/{TRAIN_FILES} < 80%")
+    finally:
+        os.chdir(cwd)
+    n_ok = text.count("SUCCESS!")
+    log(f"train_nn --tile {TRAIN_TILE}: {TRAIN_FILES} files, {sum(iters)} "
+        f"lane-iterations, SUCCESS {n_ok}, wall {wall:.2f} s; run_nn of "
+        f"kernel.opt: PASS {n_pass}/{TRAIN_FILES}")
+    return {"iters": sum(iters), "wall_s": wall, "success": n_ok,
+            "pass": n_pass}
+
+
+def _epoch_inputs(root):
+    """Phase 9's conf, shuffle and samples, as the train path loads them."""
+    from hpnn_tpu_torch.api import configure, shuffle_order
+    from hpnn_tpu_torch.io.corpus import load_ordered
+    from hpnn_tpu_torch.io.samples import list_sample_dir
+
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        nn = configure("nn.conf")
+        names = list_sample_dir(nn.conf.samples)
+        _, xs, ts = load_ordered(nn.conf.samples, names,
+                                 shuffle_order(nn.conf, len(names)),
+                                 "TRAINING", 784, 10)
+    finally:
+        os.chdir(cwd)
+    return nn, xs, ts
+
+
+def phase_tile_time(e2e, tile_e2e, epoch):
+    """Device time of phase 12's epoch: the same conf, shuffle and samples
+    through one launch of the kernel, behind a GPU spin."""
+    import torch
+
+    from hpnn_tpu_torch.models.kernel import weights_to_torch
+    from hpnn_tpu_torch.ops.convergence_tile_kernel import train_tile
+
+    nn, xs, ts = _epoch_inputs(e2e["root"])
+    w = weights_to_torch(nn.kernel.weights, torch.float64, "cuda")
+    x, t = _to_card(xs, torch.float64), _to_card(ts, torch.float64)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    _, st = train_tile(w, x, t, "ANN", False, tile=TRAIN_TILE)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end)
+    n_iter = st[:, 2].cpu().numpy()
+    lanes, lock = int(n_iter.sum()), _lockstep(n_iter, TRAIN_TILE)
+    if lanes != tile_e2e["iters"]:
+        raise AssertionError(f"train_nn --tile epoch replay: {lanes} "
+                             f"lane-iterations, train_nn printed "
+                             f"{tile_e2e['iters']}")
+    bound_ms, bound_by, flops = _tile_bound(w, False, lock, lanes, "f64",
+                                            xs.shape[0])
+    rate = lanes / ms * 1e3
+    b1_rate = epoch["iters"] / epoch["ms"] * 1e3
+    log(f"train_nn --tile {TRAIN_TILE} epoch on the card: {ms:.1f} ms "
+        f"device time, {lock} lockstep iterations "
+        f"({ms * 1e3 / lock:.2f} us each), {lanes} lane-iterations "
+        f"({rate:.0f} a second; the per-sample kernel on the same files: "
+        f"{b1_rate:.0f} iterations a second, {rate / b1_rate:.2f}x); bound "
+        f"{bound_ms * 1e3 / lock:.4f} us/lockstep iteration ({bound_by}, "
+        f"{flops / lock:.0f} flops a lockstep iteration)")
+    return {"ms": ms, "lockstep": lock, "lane_iters": lanes,
+            "us_per_lockstep": ms * 1e3 / lock, "lane_iters_per_s": rate,
+            "b1_iters_per_s": b1_rate, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bound_us_per_lockstep":
+            bound_ms * 1e3 / lock, "grid": train_tile.grid}
+
+
+def phase_autotune(tmp):
+    """``--tile auto`` on the card: the autotuner times its candidates at
+    phase 12's width and type (MNIST ANN BP f64), with its cache in a fresh
+    directory; a second call must be a cache hit that measures nothing."""
+    import torch
+
+    from hpnn_tpu_torch.ops import autotune
+
+    shapes = ((MNIST[1][0], MNIST[0]), (MNIST[2], MNIST[1][0]))
+    saved = {k: os.environ.pop(k, None)
+             for k in ("HPNN_AUTOTUNE_CACHE", "HPNN_NO_AUTOTUNE")}
+    os.environ["HPNN_AUTOTUNE_CACHE"] = os.path.join(tmp, "autotune")
+    try:
+        autotune.clear_memo()
+        t0 = time.perf_counter()
+        dec = autotune.decide_tile(shapes, torch.float64, "ANN", False,
+                                   device="cuda")
+        wall = time.perf_counter() - t0
+        autotune.clear_memo()   # a fresh process over the same cache file
+        again = autotune.decide_tile(shapes, torch.float64, "ANN", False,
+                                     device="cuda")
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+    if dec["source"] != "measured" or again["source"] != "cache" \
+            or (again["tile"], again["storage"]) != (dec["tile"],
+                                                     dec["storage"]):
+        raise AssertionError(f"autotune: {dec} then {again}")
+    log(f"autotune (--tile auto) at MNIST ANN BP f64: tile {dec['tile']}, "
+        f"storage {dec['storage']}, route {dec['route']}, measured in "
+        f"{wall:.2f} s (lane-iterations a second: "
+        + ", ".join(f"{k} {v:.0f}" for k, v in dec["cells"].items())
+        + "); the second call was a cache hit")
+    return {"tile": dec["tile"], "storage": dec["storage"],
+            "route": dec["route"], "cells": dec["cells"], "wall_s": wall}
+
+
+# --- phase 13: fused_bpm_update --------------------------------------------
+
+def phase_bpm():
+    import torch
+
+    from hpnn_tpu_torch.ops.kernels import (fused_bpm_update,
+                                            fused_bpm_update_plain)
+
+    rng = np.random.default_rng(13)
+    lr, alpha = 0.0005, 0.2
+    cells = []
+    for n, m in BPM_SHAPES:
+        arrays = (rng.uniform(-1, 1, (n, m)) / np.sqrt(m),
+                  rng.uniform(-1e-3, 1e-3, (n, m)), rng.uniform(-1, 1, n),
+                  rng.uniform(0, 1, m))
+        for dname in ("f64", "f32"):
+            dt = _dtypes()[dname]
+            w, dw, d, h = (_to_card(a, dt) for a in arrays)
+            got = fused_bpm_update(w, dw, d, h, lr, alpha)
+            want = fused_bpm_update_plain(w, dw, d, h, lr, alpha)
+            torch.cuda.synchronize()
+            err = max(float((a.double() - b.double()).abs().max())
+                      for a, b in zip(got, want))
+            if not err <= BPM_LIMIT[dname]:
+                raise AssertionError(f"fused_bpm_update {n}x{m} {dname}: "
+                                     f"max |kernel - plain| = {err:.3e}")
+            ms = _device_ms(lambda: fused_bpm_update(w, dw, d, h, lr, alpha))
+            plain_ms = _device_ms(
+                lambda: fused_bpm_update_plain(w, dw, d, h, lr, alpha))
+            item = 8 if dname == "f64" else 4
+            bound_ms = (4 * n * m + n + m) * item / HBM_BYTES_PER_S * 1e3
+            cells.append({"shape": f"{n}x{m}", "dtype": dname,
+                          "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                          "bound_ms": bound_ms, "bound_by": "bytes"})
+            log(f"fused_bpm_update {n}x{m} {dname}: max |kernel - plain| = "
+                f"{err:.3e}; ms={ms:.5f} plain_ms={plain_ms:.5f} "
+                f"bound_ms={bound_ms:.5f} (bytes)")
+    return cells
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -768,11 +1167,14 @@ def main(argv=None) -> int:
     sys.path.insert(0, ROOT)
     from hpnn_tpu_torch import runtime
     from hpnn_tpu_torch.ops.convergence_kernel import train_epoch_kernel
-    from hpnn_tpu_torch.ops.kernels import fused_linear_act
+    from hpnn_tpu_torch.ops.convergence_tile_kernel import train_tile
+    from hpnn_tpu_torch.ops.kernels import fused_bpm_update, fused_linear_act
 
     def reset_counts():
         fused_linear_act.launches = 0
         train_epoch_kernel.launches = 0
+        train_tile.launches = 0
+        fused_bpm_update.launches = 0
 
     t_start = time.perf_counter()
     runtime.pin_full_float32()
@@ -781,16 +1183,20 @@ def main(argv=None) -> int:
     errs = phase_kernel_vs_plain()
     train = phase_train_vs_plain()
     resume_launches = phase_resume()
+    tile_runs = phase_tile_vs_plain()
+    contracts = phase_tile_contracts()
     with tempfile.TemporaryDirectory(prefix="hpnn_chip_smoke_") as tmp:
         runs = _setup_runs(tmp)
         reset_counts()                         # fused_linear_act's path
         results = phase_run_nn(runs)
         phase_serve(runs, results)
         launches = fused_linear_act.launches
+        bpm_path = fused_bpm_update.launches   # no path calls it
         reset_counts()                         # train_epoch's path
         e2e = phase_train_nn(tmp)
         train_launches = train_epoch_kernel.launches
         train_path_fused = fused_linear_act.launches
+        bpm_path += fused_bpm_update.launches
         if train_launches <= 0 or train_path_fused <= 0:
             raise AssertionError(
                 f"train_nn + run_nn: train_epoch launched "
@@ -799,10 +1205,30 @@ def main(argv=None) -> int:
         log(f"train path launches: train_epoch {train_launches}, "
             f"fused_linear_act {train_path_fused}")
         epoch = phase_train_time(e2e)
+        reset_counts()                         # train_tile's path
+        tile_e2e = phase_train_nn_tile(e2e)
+        tile_launches = train_tile.launches
+        tile_path = {"train_tile": tile_launches,
+                     "train_epoch": train_epoch_kernel.launches,
+                     "fused_linear_act": fused_linear_act.launches}
+        bpm_path += fused_bpm_update.launches
+        if tile_launches <= 0 or tile_path["train_epoch"] != 0 \
+                or tile_path["fused_linear_act"] <= 0:
+            raise AssertionError(f"train_nn --tile + run_nn launches: "
+                                 f"{tile_path}")
+        log("tile path launches: " + ", ".join(
+            f"{k} {v}" for k, v in tile_path.items()))
+        tile_epoch = phase_tile_time(e2e, tile_e2e, epoch)
+        tuned = phase_autotune(tmp)
     cells = phase_times()
+    bpm = phase_bpm()
     rep = next(c for c in cells if c["layer"] == "784->300"
                and c["dtype"] == "f32" and c["B"] == 4096)
     cell = next(r for r in train if r["run"].startswith("mnist ANN BP f64"))
+    tcell = next(r for r in tile_runs
+                 if r["run"].startswith("mnist ANN BP f64 tile 8"))
+    bcell = next(c for c in bpm if c["shape"] == "300x784"
+                 and c["dtype"] == "f32")
     kernels = {"kernels": [{
         "name": "fused_linear_act", "route": "cuda",
         "source": "hpnn_tpu_torch/csrc/fused_linear_act.cu",
@@ -835,7 +1261,45 @@ def main(argv=None) -> int:
         "train_nn_epoch_ms": epoch["ms"],
         "train_nn_us_per_iter": epoch["us_per_iter"],
         "train_nn_iters": epoch["iters"],
-        "budgeted_launches": resume_launches}]}
+        "budgeted_launches": resume_launches}, {
+        "name": "train_tile", "route": "cuda",
+        "source": "hpnn_tpu_torch/csrc/train_tile.cu",
+        "replaces": "hpnn_tpu/ops/convergence_tile.py:423",
+        "launches": tile_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in tile_runs),
+        "max_abs_err_by_dtype": {d: max(r["max_abs_err"] for r in tile_runs
+                                        if r["dtype"] == d)
+                                 for d in _dtypes()},
+        "ms": tcell["ms"], "plain_ms": tcell["plain_ms"],
+        "bound_ms": tcell["bound_ms"], "bound_by": tcell["bound_by"],
+        "library_ms": None,
+        "us_per_lockstep": tcell["ms"] * 1e3 / tcell["lockstep"],
+        "plain_us_per_lockstep": (tcell["plain_ms"] * 1e3
+                                  / tcell["plain_lockstep"]),
+        "timed_cell": f"{tcell['run']}, one epoch of {tcell['lockstep']} "
+                      f"lockstep iterations",
+        "train_nn_epoch_ms": tile_epoch["ms"],
+        "train_nn_lockstep": tile_epoch["lockstep"],
+        "train_nn_lane_iters": tile_epoch["lane_iters"],
+        "train_nn_us_per_lockstep": tile_epoch["us_per_lockstep"],
+        "train_nn_lane_iters_per_s": tile_epoch["lane_iters_per_s"],
+        "train_epoch_iters_per_s": tile_epoch["b1_iters_per_s"],
+        "train_nn_bound_us_per_lockstep":
+            tile_epoch["bound_us_per_lockstep"],
+        "contracts": contracts}, {
+        "name": "fused_bpm_update", "route": "cuda",
+        "source": "hpnn_tpu_torch/csrc/fused_bpm_update.cu",
+        "replaces": "hpnn_tpu/ops/pallas_kernels.py:141",
+        "launches": bpm_path,
+        "phase_launches": fused_bpm_update.launches,
+        "max_abs_err": max(c["max_abs_err"] for c in bpm),
+        "max_abs_err_by_dtype": {d: max(c["max_abs_err"] for c in bpm
+                                        if c["dtype"] == d)
+                                 for d in ("f64", "f32")},
+        "ms": bcell["ms"], "plain_ms": bcell["plain_ms"],
+        "bound_ms": bcell["bound_ms"], "bound_by": bcell["bound_by"],
+        "library_ms": None,
+        "timed_cell": "300x784 f32 (the MNIST input layer)"}]}
     if json_path:
         os.makedirs(os.path.dirname(os.path.abspath(json_path)),
                     exist_ok=True)
@@ -843,6 +1307,11 @@ def main(argv=None) -> int:
             json.dump({"card": card, "kernels": kernels["kernels"],
                        "cells": cells, "train_runs": train,
                        "train_nn": {**e2e, "epoch": epoch},
+                       "tile_runs": tile_runs, "tile_contracts": contracts,
+                       "train_nn_tile": {**tile_e2e, "epoch": tile_epoch,
+                                         "launches": tile_path},
+                       "autotune": tuned,
+                       "bpm": bpm,
                        "errors": [{"layer": k[0], "scale": k[1],
                                    "dtype": k[2], "B": k[3],
                                    "max_abs_err": v}

@@ -53,9 +53,10 @@ from .models.kernel import (Kernel, generate_kernel, is_regression,
                             weights_to_numpy, weights_to_torch)
 from .utils import nn_log
 from .utils.glibc_random import GlibcRandom, shuffled_indices
-from .utils.nn_log import nn_cout, nn_dbg, nn_error, nn_out
+from .utils.nn_log import nn_cout, nn_dbg, nn_error, nn_out, nn_warn
 
 DTYPES = {"f64": torch.float64, "f32": torch.float32, "bf16": torch.bfloat16}
+LATER = "is not ported yet: a later slice of hpnn_tpu_torch brings it"
 
 
 @dataclasses.dataclass
@@ -137,6 +138,75 @@ def kernel_kind(conf: NNConf) -> str:
     return NN_TYPE_SNN
 
 
+def _tile_request(conf: NNConf) -> int:
+    """Batched-tile engine request: HPNN_TILE (an integer or "auto") wins
+    over the conf's ``[tile]`` and the CLI's ``--tile``.  0 = off (the
+    per-sample engine), >0 = the group size, -1 = autotuned."""
+    env = os.environ.get("HPNN_TILE")
+    if env:
+        if env.strip().lower() == "auto":
+            return -1
+        try:
+            return max(0, int(env))
+        except ValueError:
+            nn_warn(f"HPNN_TILE={env!r} is not an integer or 'auto'; "
+                    "tile engine off\n")
+            return 0
+    return conf.tile
+
+
+def _tile_storage_env() -> str | None:
+    """HPNN_TILE_STORAGE, validated: bf16/f32/f64 pass through, anything
+    else warns and is ignored (a bad env knob must not abort a training
+    run from deep inside the kernel)."""
+    env = os.environ.get("HPNN_TILE_STORAGE")
+    if not env:
+        return None
+    v = env.strip().lower()
+    if v in ("bf16", "f32", "f64"):
+        return v
+    nn_warn(f"HPNN_TILE_STORAGE={env!r} is not bf16/f32/f64; legacy "
+            "storage used\n")
+    return None
+
+
+def _resolve_tile(conf: NNConf, weights, dtype, kind: str, momentum: bool,
+                  device) -> tuple[int, str | None]:
+    """Concrete (tile, storage) for a non-zero tile request: an explicit
+    tile passes through; ``auto`` asks the measured autotuner
+    (``ops.autotune``; its heuristic when measurement is off).
+    ``HPNN_TILE_STORAGE`` beats the autotuner's storage choice."""
+    req = _tile_request(conf)
+    env_storage = _tile_storage_env()
+    if req > 0:
+        return req, env_storage
+    from .ops import autotune
+
+    dec = autotune.decide_tile([tuple(w.shape) for w in weights], dtype,
+                               kind, momentum, device=device)
+    storage = env_storage if env_storage is not None else dec["storage"]
+    nn_dbg(f"autotune: tile={dec['tile']} route={dec['route']} "
+           f"storage={storage}"
+           + (" (HPNN_TILE_STORAGE override)"
+              if env_storage is not None and env_storage != dec["storage"]
+              else "")
+           + f" ({dec['source']})\n")
+    return int(dec["tile"]), storage
+
+
+def _unported_route(conf: NNConf) -> str | None:
+    """The conf keyword that selects a training route the port does not
+    have yet ([batch] N: data parallel, [model] N: row sharding,
+    [trainer] cg: the CG trainer), or None."""
+    if conf.batch > 0:
+        return "[batch]"
+    if conf.model > 1:
+        return "[model]"
+    if conf.trainer == "cg":
+        return "[trainer] cg"
+    return None
+
+
 def shuffle_order(conf: NNConf, n: int) -> list[int]:
     """Seeded shuffle of n files (libhpnn.c:1218-1229); seed 0 -> time()
     written back into the conf, as the reference mutates _CONF.seed."""
@@ -202,6 +272,10 @@ def train_kernel(nn: NNDef, device="cuda") -> bool:
     conf = nn.conf
     if nn.kernel is None or conf.samples is None or conf.type == NN_TYPE_UKN:
         return False
+    unported = _unported_route(conf)
+    if unported:
+        nn_error(f"{unported} {LATER}\n")
+        return False
     momentum = conf.train == NN_TRAIN_BPM
     # LNN without the native opt-in warns here and in finish() but trains
     # through the SNN fallthrough (libhpnn.c:1180-1182, 1260-1261, 1291)
@@ -243,7 +317,14 @@ def train_kernel(nn: NNDef, device="cuda") -> bool:
     weights = weights_to_torch(nn.kernel.weights, master, dev)
     xs_dev = torch.as_tensor(xs, dtype=torch.float64).to(dev).to(dtype)
     ts_dev = torch.as_tensor(ts, dtype=torch.float64).to(dev).to(dtype)
-    train_epoch_fn, _ = ops.select_train_epoch(dtype, kind=kind, device=dev)
+    tile, storage = 0, None
+    if _tile_request(conf):
+        # groups of S trained to convergence in lockstep: a documented
+        # trajectory divergence for S > 1, the per-sample grammar unchanged
+        tile, storage = _resolve_tile(conf, weights, dtype, kind, momentum,
+                                      dev)
+    train_epoch_fn, _ = ops.select_train_epoch(dtype, kind=kind, device=dev,
+                                               tile=tile, storage=storage)
     new_weights, stats = train_epoch_fn(weights, xs_dev, ts_dev, kind,
                                         momentum, alpha=0.2)  # libhpnn.c:1248
     nn.kernel.weights = weights_to_numpy(new_weights)

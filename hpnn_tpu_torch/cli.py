@@ -1,7 +1,7 @@
 """train_nn / run_nn / serve_nn command-line entry points of the port.
 
     python -m hpnn_tpu_torch.cli train_nn [-h] [-v]... [-x] [-O n] [-B n]
-        [-S n] [--device {cuda,cpu}] [--lnn native] [conf]
+        [-S n] [--device {cuda,cpu}] [--lnn native] [--tile S|auto] [conf]
     python -m hpnn_tpu_torch.cli run_nn [-h] [-v]... [-O n] [-B n] [-S n]
         [--device {cuda,cpu}] [--lnn native] [conf]
     python -m hpnn_tpu_torch.cli serve_nn [-v]... [-a ADDR] [-p PORT]
@@ -16,7 +16,9 @@
 -O/-B/-S take attached or separated values (checked, then ignored: PyTorch
 owns host threads and CUDA streams), the conf defaults to ``./nn.conf``.
 ``train_nn`` dumps the untrained kernel to ``kernel.tmp`` before training
-and the trained one to ``kernel.opt`` after (``train_nn.c:224-243``).
+and the trained one to ``kernel.opt`` after (``train_nn.c:224-243``);
+``--tile S`` (or ``auto``) trains through the batched-tile engine and wins
+over the conf's ``[tile]``.
 Every command runs on the GPU unless
 ``--device cpu`` is given; asking for the GPU on a host without one exits
 non-zero before anything is computed.  The JAX package's other options
@@ -29,10 +31,8 @@ from __future__ import annotations
 import sys
 
 from . import runtime
-from .api import configure, run_kernel, train_kernel
+from .api import LATER, configure, run_kernel, train_kernel
 from .utils import nn_log
-
-LATER = "is not ported yet: a later slice of hpnn_tpu_torch brings it"
 
 
 def _help_text(name: str) -> str:
@@ -61,6 +61,17 @@ def _help_text(name: str) -> str:
         "--lnn native \topt into the native LNN regression head",
         "\t(linear output + MSE grammar); HPNN_LNN_NATIVE=1 is the",
         "\tenv equivalent.",
+    ]
+    if train:
+        lines += [
+            "--tile S \tbatched-tile convergence engine: train groups",
+            "\tof S samples per GEMM-shaped step (per-lane convergence",
+            "\tmasking; documented trajectory divergence vs per-sample",
+            "\ttraining for S>1).  'auto' asks the topology autotuner",
+            "\t(HPNN_NO_AUTOTUNE=1 disables; HPNN_AUTOTUNE_CACHE=DIR",
+            "\trelocates the decision cache); 0 keeps per-sample mode.",
+        ]
+    lines += [
         "***********************************",
         "input:     neural network .def file",
         "contains the network definition and",
@@ -85,7 +96,7 @@ def _parse_args(argv: list[str], name: str):
     """Reference-style parse; returns (filename, extras) or None on -h,
     raises SystemExit(-1) on syntax errors."""
     filename = None
-    extras = {"device": "cuda", "lnn": None}
+    extras = {"device": "cuda", "lnn": None, "tile": None}
     choices = {"--device": ("device", runtime.DEVICES),
                "--lnn": ("lnn", ("native",))}
     numeric = "OBS"   # thread/BLAS/stream counts: checked, then ignored
@@ -107,6 +118,20 @@ def _parse_args(argv: list[str], name: str):
                 sys.stdout.write(_help_text(name))
                 raise SystemExit(-1)
             extras[dest] = val.strip().lower()
+            i += 1
+            continue
+        if key == "--tile" and name == "train_nn":
+            if not eq:
+                i += 1
+                val = argv[i] if i < len(argv) else ""
+            # GET_UINT-style leading digits, or "auto": the measured
+            # autotuner decision
+            tile = -1 if val.strip().lower() == "auto" else _leading_uint(val)
+            if tile is None:
+                sys.stderr.write(f"syntax error: bad {key} parameter!\n")
+                sys.stdout.write(_help_text(name))
+                raise SystemExit(-1)
+            extras["tile"] = tile
             i += 1
             continue
         if arg.startswith("--"):
@@ -204,6 +229,8 @@ def train_nn_main(argv: list[str] | None = None) -> int:
             return -1
         if extras["lnn"]:
             neural.conf.lnn = extras["lnn"]
+        if extras["tile"] is not None:
+            neural.conf.tile = extras["tile"]   # the flag wins over [tile]
         try:
             dump_kernel_to_path(neural.kernel, "kernel.tmp")
         except OSError:

@@ -227,12 +227,13 @@ __device__ T head_and_error(const Args& a, const T* t, const T* z, T* o, T* dL,
             st(o + i, rb<BF>(expT(rb<BF>(sub(ld(z + i), T(1))))));
         __syncthreads();
         if (tid == 0) {
-            // softmax(x-1), denominator TINY-seeded and summed in order
-            // (snn.c:296-334); bfloat16 adds TINY after the float sum, as the
-            // TPU kernel's head did
-            T dv = BF ? T(0) : T(TINY);
+            // softmax(x-1), denominator summed in order: float64 seeds it
+            // with TINY (snn.c:296-334); float32 and bfloat16 add TINY after
+            // the sum, as the TPU kernel's head and the plain version do
+            constexpr bool seed = sizeof(T) == sizeof(double);
+            T dv = seed ? T(TINY) : T(0);
             for (int i = 0; i < n; ++i) dv = add(dv, ld(o + i));
-            if (BF) dv = add(dv, T(TINY));
+            if (!seed) dv = add(dv, T(TINY));
             sh[0] = dv;
         }
         __syncthreads();

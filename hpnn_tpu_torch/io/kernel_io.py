@@ -35,13 +35,13 @@ control-flow level:
 
 from __future__ import annotations
 
-import os
 from typing import IO
 
 import numpy as np
 
 from ..models.kernel import Kernel
 from ..utils.nn_log import nn_error
+from .atomic import atomic_write_bytes
 from .samples import _GetlineSim, _is_digit, _skip_blank, _strtod
 
 
@@ -102,19 +102,9 @@ def encode_kernel_text(text: str) -> bytes:
 
 
 def dump_kernel_to_path(kernel: Kernel, path: str) -> None:
-    """Crash-safe kernel write: the full text is staged to a temp file in
-    the same directory, fsync'd, then renamed over ``path`` -- a crash
-    mid-dump can never truncate an existing ``kernel.opt``."""
-    tmp = f"{path}.tmp-{os.getpid()}"
-    try:
-        with open(tmp, "wb") as fp:
-            fp.write(encode_kernel_text(dumps_kernel(kernel)))
-            fp.flush()
-            os.fsync(fp.fileno())
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    """Crash-safe kernel write (``io.atomic``): a crash mid-dump can never
+    truncate an existing ``kernel.opt``."""
+    atomic_write_bytes(path, encode_kernel_text(dumps_kernel(kernel)))
 
 
 def _i32(v: int) -> int:

@@ -1,3 +1,5 @@
+import functools
+
 import torch
 
 from .activations import TINY, ann_act, ann_dact, snn_softmax
@@ -5,7 +7,10 @@ from .convergence import (SampleStats, run_batch, run_batch_gemm,
                           train_epoch, train_sample)
 from .convergence_kernel import (train_epoch_cuda, train_epoch_kernel,
                                  train_epoch_plain)
+from .convergence_tile import train_epoch_tiled, train_epoch_tiled_plain
+from .convergence_tile_kernel import train_tile
 from .kernels import (batched_forward_fused, batched_forward_plain,
+                      fused_bpm_update, fused_bpm_update_plain,
                       fused_linear_act, fused_linear_act_plain)
 from .steps import (ANN, BP_LEARN_RATE, BPM_LEARN_RATE, DELTA_BP, DELTA_BPM,
                     LNN, MAX_BP_ITER, MAX_BPM_ITER, MIN_BP_ITER,
@@ -14,18 +19,32 @@ from .steps import (ANN, BP_LEARN_RATE, BPM_LEARN_RATE, DELTA_BP, DELTA_BPM,
                     train_step, train_step_momentum)
 
 
-def select_train_epoch(dtype=torch.float64, kind=ANN, device="cuda"):
-    """Pick the per-sample training epoch (train_kernel's route).  Returns
-    ``(fn, name)`` with fn call-compatible with ``train_epoch(weights, xs,
-    ts, kind, momentum, alpha=..., delta=...)``.
+def select_train_epoch(dtype=torch.float64, kind=ANN, device="cuda", tile=0,
+                       storage=None):
+    """Pick the training epoch (train_kernel's route).  Returns ``(fn,
+    name)`` with fn call-compatible with ``train_epoch(weights, xs, ts,
+    kind, momentum, alpha=..., delta=...)``.
 
-    * On CUDA, every dtype (float64, float32, bfloat16) and every kind
-      (ANN, SNN, native LNN) runs in the hand-written epoch kernel
-      (``train_epoch_cuda``: one launch per epoch, resumed by the host only
-      under an iteration budget).
-    * On the CPU, the eager per-sample loop ``train_epoch``.
+    * ``tile=0``, per sample: on CUDA every dtype (float64, float32,
+      bfloat16) and every kind (ANN, SNN, native LNN) runs in the
+      hand-written epoch kernel (``train_epoch_cuda``: one launch per
+      epoch, resumed by the host only under an iteration budget); on the
+      CPU the eager per-sample loop ``train_epoch``.
+    * ``tile=S > 0``, the batched-tile engine: ``train_epoch_tiled`` with
+      groups of S and the weight ``storage`` mode, in the hand-written
+      ``train_tile`` kernel on CUDA ("tile-kernel") and its plain version
+      on the CPU ("tile-loop").  An autotuned tile is resolved before this
+      call (``api._resolve_tile``).
     """
-    if torch.device(device).type == "cuda":
+    cuda = torch.device(device).type == "cuda"
+    if tile:
+        if tile < 0:
+            raise ValueError("select_train_epoch: resolve an autotuned tile "
+                             "first (ops.autotune.decide_tile)")
+        fn = functools.partial(train_epoch_tiled, tile=int(tile),
+                               storage=storage)
+        return fn, "tile-kernel" if cuda else "tile-loop"
+    if cuda:
         return train_epoch_cuda, "kernel"
     return train_epoch, "loop"
 
@@ -70,7 +89,9 @@ __all__ = [
     "train_step", "train_step_momentum",
     "SampleStats", "train_sample", "train_epoch", "select_train_epoch",
     "train_epoch_kernel", "train_epoch_plain", "train_epoch_cuda",
+    "train_epoch_tiled", "train_epoch_tiled_plain", "train_tile",
     "run_batch", "run_batch_gemm", "select_run_batch",
     "fused_linear_act", "fused_linear_act_plain",
     "batched_forward_fused", "batched_forward_plain",
+    "fused_bpm_update", "fused_bpm_update_plain",
 ]

@@ -25,7 +25,9 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "hpnn_tpu_torch")
 
 # kernel name -> source file under csrc/
 SOURCES = {"fused_linear_act": "fused_linear_act.cu",
-           "train_epoch": "train_epoch.cu"}
+           "train_epoch": "train_epoch.cu",
+           "train_tile": "train_tile.cu",
+           "fused_bpm_update": "fused_bpm_update.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

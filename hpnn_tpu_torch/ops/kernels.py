@@ -160,3 +160,92 @@ def batched_forward_plain(weights, xs: torch.Tensor,
     """The same net with every layer in :func:`fused_linear_act_plain`, on
     any device: what the kernel path is checked against."""
     return _forward_layers(weights, xs, kind, fused_linear_act_plain)
+
+
+# --- fused_bpm_update --------------------------------------------------------
+# Source note: replaces the Pallas TPU kernel
+# ``hpnn_tpu/ops/pallas_kernels.py`` ``fused_bpm_update`` (body
+# ``_fused_bpm_kernel``), the reference's one-layer momentum step.  It
+# computes step = dw + (lr*d[i])*h[j]; W' = W + step; dw' = alpha*step in
+# the Pallas body's association, at float64 and float32.  Bound on the H100
+# by device memory (4 flops against 4 values moved a weight); one thread a
+# weight, coalesced along rows (``csrc/fused_bpm_update.cu``).  Like the JAX
+# package, no training route calls it: the epoch kernels fuse this step.
+
+_BPM_ENTRY = {torch.float64: "hpnn_fused_bpm_update_f64",
+              torch.float32: "hpnn_fused_bpm_update_f32"}
+_bpm_fns: dict[torch.dtype, object] = {}
+
+
+def _bpm_fn(dtype: torch.dtype):
+    fn = _bpm_fns.get(dtype)
+    if fn is None:
+        from . import build
+
+        lib = build.load("fused_bpm_update")
+        lib.hpnn_bpm_error_string.argtypes = [ctypes.c_int]
+        lib.hpnn_bpm_error_string.restype = ctypes.c_char_p
+        fn = getattr(lib, _BPM_ENTRY[dtype])
+        p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+        fn.argtypes = [p, p, p, p, p, p, i, i, d, d, i, p]
+        fn.restype = ctypes.c_int
+        fn.error_string = lib.hpnn_bpm_error_string
+        _bpm_fns[dtype] = fn
+    return fn
+
+
+def _check_bpm(w, dw, d, h) -> None:
+    if not all(isinstance(v, torch.Tensor) for v in (w, dw, d, h)):
+        raise TypeError("fused_bpm_update takes torch tensors")
+    if w.dtype not in _BPM_ENTRY or any(v.dtype != w.dtype
+                                        for v in (dw, d, h)):
+        raise TypeError(f"fused_bpm_update: w, dw, d and h must share one "
+                        f"dtype of float64 or float32; got {w.dtype}, "
+                        f"{dw.dtype}, {d.dtype}, {h.dtype}")
+    if any(v.device != w.device for v in (dw, d, h)):
+        raise ValueError("fused_bpm_update: all tensors on one device")
+    if w.dim() != 2 or dw.shape != w.shape or d.shape != (w.shape[0],) \
+            or h.shape != (w.shape[1],):
+        raise ValueError(f"fused_bpm_update: need w, dw (N, M), d (N,), h "
+                         f"(M,); got {tuple(w.shape)}, {tuple(dw.shape)}, "
+                         f"{tuple(d.shape)}, {tuple(h.shape)}")
+    if not all(v.is_contiguous() for v in (w, dw, d, h)):
+        raise ValueError("fused_bpm_update: tensors must be contiguous")
+    if max(w.shape) > _INT32_MAX:
+        raise ValueError("fused_bpm_update: dimensions must fit in int32")
+
+
+def fused_bpm_update_plain(w, dw, d, h, lr, alpha):
+    """The plain torch version: step = dw + (lr*d)[:, None] * h; returns
+    (w + step, alpha * step)."""
+    step = dw + (lr * d)[:, None] * h[None, :]
+    return w + step, alpha * step
+
+
+def fused_bpm_update(w, dw, d, h, lr, alpha):
+    """One BPM update of a layer: w, dw (N, M); d (N,); h (M,).  Returns
+    (w', dw') and leaves the inputs untouched.
+
+    CPU tensors take :func:`fused_bpm_update_plain`; CUDA tensors launch
+    the hand-written kernel on the current stream (no synchronisation) or
+    raise."""
+    _check_bpm(w, dw, d, h)
+    if w.device.type == "cpu":
+        return fused_bpm_update_plain(w, dw, d, h, lr, alpha)
+    if w.device.type != "cuda":
+        raise ValueError(f"fused_bpm_update: no kernel for device "
+                         f"{w.device}")
+    w_out, dw_out = torch.empty_like(w), torch.empty_like(dw)
+    fn = _bpm_fn(w.dtype)
+    rc = fn(w.data_ptr(), dw.data_ptr(), d.data_ptr(), h.data_ptr(),
+            w_out.data_ptr(), dw_out.data_ptr(), w.shape[0], w.shape[1],
+            float(lr), float(alpha), w.device.index,
+            torch.cuda.current_stream(w.device).cuda_stream)
+    if rc != 0:
+        msg = fn.error_string(rc).decode()
+        raise RuntimeError(f"fused_bpm_update launch failed: {msg} ({rc})")
+    fused_bpm_update.launches += 1
+    return w_out, dw_out
+
+
+fused_bpm_update.launches = 0

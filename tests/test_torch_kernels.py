@@ -174,3 +174,58 @@ def test_select_run_batch_routing():
     assert sel(torch.float64, "fast", device="cuda")[1] == "gemm"
     with pytest.raises(ValueError):
         sel(torch.float64, "exact")
+
+
+# --- fused_bpm_update ---------------------------------------------------------
+
+@pytest.mark.parametrize("n,m", [(300, 784), (10, 300), (7, 13)])
+@pytest.mark.parametrize("dtype,atol", [("f64", 1e-12), ("f32", 1e-6)])
+def test_fused_bpm_update_matches_pallas(n, m, dtype, atol):
+    """The plain version against the Pallas kernel (interpret mode off the
+    TPU) at the MNIST layers and a ragged shape; the reference order
+    (tests/test_pallas.py:63): dw += lr*outer; W += dw; dw *= alpha."""
+    from hpnn_tpu.ops.pallas_kernels import fused_bpm_update as jax_bpm
+    from hpnn_tpu_torch.ops.kernels import fused_bpm_update
+
+    rng = np.random.default_rng(63 + n)
+    arrays = (_w(rng, n, m), rng.uniform(-0.01, 0.01, (n, m)),
+              rng.uniform(-1, 1, n), rng.uniform(-1, 1, m))
+    lr, alpha = 0.0005, 0.2
+    jw, jdw = jax_bpm(*(_both(a, dtype)[0] for a in arrays), lr, alpha)
+    ins = tuple(_both(a, dtype)[1] for a in arrays)
+    before = tuple(v.clone() for v in ins)
+    pw, pdw = fused_bpm_update(*ins, lr, alpha)
+    np.testing.assert_allclose(pw.double().numpy(),
+                               np.asarray(jw, np.float64), atol=atol, rtol=0)
+    np.testing.assert_allclose(pdw.double().numpy(),
+                               np.asarray(jdw, np.float64), atol=atol, rtol=0)
+    assert all(torch.equal(a, b) for a, b in zip(ins, before))  # untouched
+    assert pw.dtype == pdw.dtype == ins[0].dtype
+
+
+def test_fused_bpm_update_cpu_never_launches():
+    from hpnn_tpu_torch.ops.kernels import fused_bpm_update
+
+    z = torch.zeros((3, 4), dtype=torch.float64)
+    before = fused_bpm_update.launches
+    fused_bpm_update(z, z, torch.zeros(3, dtype=torch.float64),
+                     torch.zeros(4, dtype=torch.float64), 0.1, 0.2)
+    assert fused_bpm_update.launches == before == 0
+
+
+@pytest.mark.parametrize("case", ["dtype", "mixed", "d-shape", "h-shape",
+                                  "dw-shape", "contiguity"])
+def test_fused_bpm_update_rejects_bad_inputs(case):
+    from hpnn_tpu_torch.ops.kernels import fused_bpm_update
+
+    w = torch.zeros((4, 6), dtype=torch.float32)
+    d, h = torch.zeros(4), torch.zeros(6)
+    args = {"dtype": (w.half(), w.half(), d.half(), h.half()),
+            "mixed": (w, w.double(), d, h),
+            "d-shape": (w, w, torch.zeros(5), h),
+            "h-shape": (w, w, d, torch.zeros(4)),
+            "dw-shape": (w, torch.zeros((4, 5)), d, h),
+            "contiguity": (torch.zeros((6, 4)).T, w, d, h)}[case]
+    exc = TypeError if case in ("dtype", "mixed") else ValueError
+    with pytest.raises(exc):
+        fused_bpm_update(*args, 0.1, 0.2)

@@ -184,3 +184,37 @@ def test_run_nn_subprocess_imports_no_jax(tmp_path):
     assert "BEST CLASS" in res.stdout
     assert res.stdout.count("N_ITER=") == 24
     assert (tmp_path / "train" / "kernel.opt").exists()
+
+
+def test_train_nn_tile_subprocess_imports_no_jax(tmp_path):
+    """A fresh interpreter runs the port's train_nn with --tile 4 and with
+    --tile auto (the autotuner's heuristic) on the CPU, and proves that
+    neither jax nor any hpnn_tpu module was imported."""
+    conf = _write_case(tmp_path, kind="SNN")
+    train_conf = tmp_path / "train.conf"
+    train_conf.write_text(
+        open(conf).read().replace(f"[init] {tmp_path / 'kernel.opt'}",
+                                  "[init] generate")
+        + f"[sample_dir] {tmp_path / 'tests'}\n")
+    code = (
+        "import sys\n"
+        "from hpnn_tpu_torch.cli import train_nn_main\n"
+        "for tile in ('4', 'auto'):\n"
+        "    rc = train_nn_main(['-v', '-v', '--device', 'cpu', '--tile',\n"
+        f"                        tile, {str(train_conf)!r}])\n"
+        "    assert rc == 0, rc\n"
+        "assert 'hpnn_tpu_torch.ops.autotune' in sys.modules\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax'\n"
+        "             or m.startswith('jax.') or m == 'hpnn_tpu'\n"
+        "             or m.startswith('hpnn_tpu.'))\n"
+        "assert not bad, bad\n"
+        "print('NOJAX-OK')\n")
+    env = dict(os.environ, PYTHONPATH=REPO, HPNN_NO_AUTOTUNE="1")
+    env.pop("HPNN_TILE", None)
+    res = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "NOJAX-OK" in res.stdout
+    assert res.stdout.count("N_ITER=") == 48
+    assert (tmp_path / "kernel.opt").exists()

@@ -488,8 +488,9 @@ def test_train_nn_cuda_without_gpu_exits_nonzero(tmp_path, monkeypatch,
 
 
 @pytest.mark.parametrize("opt", ["--epochs", "--ckpt-dir", "--ckpt-every",
-                                 "--resume", "--tile", "--model-parallel",
-                                 "--trainer", "--compile-cache"])
+                                 "--resume", "--profile-dir",
+                                 "--model-parallel", "--trainer",
+                                 "--compile-cache"])
 def test_train_nn_unported_option_exits_nonzero(tmp_path, monkeypatch,
                                                 capsys, opt):
     from hpnn_tpu_torch.cli import train_nn_main
