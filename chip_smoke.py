@@ -77,9 +77,16 @@ fault; no phase catches its own failure.
    and a second call is a cache hit.
 13. ``fused_bpm_update`` against its plain version at 784x300 and 300x10,
    f64 and f32, and its device time beside its byte bound.
-14. One JSON line of every kernel (launches on its main path, the largest
-   kernel-vs-plain error over every cell and dtype, times and bound), then
-   the result line.
+14. Batch invariance of ``fused_linear_act`` (run right after phase 3):
+   at each of phase 3's four layers and each dtype, one seeded B=4096
+   call, and the same rows in calls of B = 1, 3, 64 and 512, from row 0
+   and from an odd row, bit for bit.  Those calls cross every launch plan
+   the wrapper picks (tile shapes, stages split or not), so they hold the
+   fixed summation order the strict serving tier rests on.
+15. One JSON line of every kernel (launches on its main path, the largest
+   kernel-vs-plain error over every cell and dtype, times and bound;
+   ``fused_linear_act`` adds its B=1 cell and its worst ratio to the
+   library call over phase 6's cells), then the result line.
 
 Main paths: ``fused_linear_act``'s is phases 4-5, ``train_epoch``'s phase 9
 and ``train_tile``'s phase 12 (train_nn, then run_nn of its kernel, which
@@ -113,6 +120,8 @@ HBM_BYTES_PER_S = 3.35e12
 LIMIT = {"f32": 1e-5, "f32-pixel": 1e-4, "bf16": 2e-2, "f64": 1e-12}
 BATCHES = (1, 3, 64, 512, 4096)
 TIMED_BATCHES = (1, 64, 512, 4096)
+INVARIANCE_BATCHES = (1, 3, 64, 512)   # phase 14: against one B=4096 call
+INVARIANCE_ROW = 1001                  # phase 14: the odd first row
 SPIN_CYCLES = 10_000_000    # ~5 ms of GPU clock: covers one run's enqueue
 # (label, N, M, act, input scale) -- the layers of the main path
 LAYERS = (("784->300", 300, 784, True, "pixel"),
@@ -256,6 +265,47 @@ def phase_kernel_vs_plain():
     log(f"kernel vs plain: {len(errs)} cells within limits; worst "
         + ", ".join(f"{d} {e:.3e}" for d, e in worst.items()))
     return errs
+
+
+# --- phase 14 ---------------------------------------------------------------
+
+def phase_invariance():
+    """Rows of one B=4096 call against the same rows in smaller calls,
+    bit for bit, at every layer and dtype; returns the plans crossed."""
+    import torch
+
+    from hpnn_tpu_torch.ops.kernels import _plan, fused_linear_act
+
+    def _plan_key(b, n, m, dt):
+        plan = _plan(b, n, m, dt)
+        return plan.tile, plan.per_group, plan.groups
+
+    rng = np.random.default_rng(20260105)
+    rows, plans = 0, set()
+    for label, n, m, act, scale in LAYERS:
+        w = rng.uniform(-1.0, 1.0, (n, m)) / np.sqrt(m)
+        x = _inputs(rng, 4096, m, scale)
+        for dname, dt in _dtypes().items():
+            wt, xt = _to_card(w, dt), _to_card(x, dt)
+            full = fused_linear_act(wt, xt, act=act)
+            plans.add(_plan_key(4096, n, m, dt))
+            for b in INVARIANCE_BATCHES:
+                plans.add(_plan_key(b, n, m, dt))
+                for lo in (0, INVARIANCE_ROW):
+                    part = fused_linear_act(wt, xt[lo:lo + b], act=act)
+                    torch.cuda.synchronize()
+                    if not _bitwise(part, full[lo:lo + b]):
+                        raise AssertionError(
+                            f"fused_linear_act {label} {dname}: rows "
+                            f"{lo}:{lo + b} of a B={b} call differ from "
+                            "the same rows of the B=4096 call")
+                    rows += b
+    plans = sorted(plans)
+    log(f"batch invariance: {rows} rows over {len(LAYERS)} layers x "
+        f"{len(_dtypes())} dtypes bit-identical to the B=4096 calls, "
+        f"across {len(plans)} plans (tile, stages a group, groups): "
+        + ", ".join(f"{t}/{g}/{z}" for t, g, z in plans))
+    return plans
 
 
 # --- phase 4 ----------------------------------------------------------------
@@ -1181,6 +1231,7 @@ def main(argv=None) -> int:
     card = phase_device()
     phase_build()
     errs = phase_kernel_vs_plain()
+    invariance_plans = phase_invariance()
     train = phase_train_vs_plain()
     resume_launches = phase_resume()
     tile_runs = phase_tile_vs_plain()
@@ -1224,6 +1275,9 @@ def main(argv=None) -> int:
     bpm = phase_bpm()
     rep = next(c for c in cells if c["layer"] == "784->300"
                and c["dtype"] == "f32" and c["B"] == 4096)
+    rep1 = next(c for c in cells if c["layer"] == "784->300"
+                and c["dtype"] == "f32" and c["B"] == 1)
+    worst = max(cells, key=lambda c: c["ms"] / c["library_ms"])
     cell = next(r for r in train if r["run"].startswith("mnist ANN BP f64"))
     tcell = next(r for r in tile_runs
                  if r["run"].startswith("mnist ANN BP f64 tile 8"))
@@ -1241,7 +1295,14 @@ def main(argv=None) -> int:
         "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
         "library_ms": rep["library_ms"],
         "timed_cell": "784->300 f32 B=4096 (the run_nn MNIST input "
-                      "layer)"}, {
+                      "layer)",
+        "b1_ms": rep1["ms"], "b1_plain_ms": rep1["plain_ms"],
+        "b1_library_ms": rep1["library_ms"], "b1_bound_ms": rep1["bound_ms"],
+        "b1_cell": "784->300 f32 B=1 (a strict serving bucket)",
+        "worst_library_ratio": worst["ms"] / worst["library_ms"],
+        "worst_library_ratio_cell": f"{worst['layer']} {worst['dtype']} "
+                                    f"B={worst['B']}",
+        "invariance_plans": len(invariance_plans)}, {
         "name": "train_epoch", "route": "cuda",
         "source": "hpnn_tpu_torch/csrc/train_epoch.cu",
         "replaces": "hpnn_tpu/ops/convergence_pallas.py:208",
@@ -1311,6 +1372,7 @@ def main(argv=None) -> int:
                        "train_nn_tile": {**tile_e2e, "epoch": tile_epoch,
                                          "launches": tile_path},
                        "autotune": tuned,
+                       "invariance_plans": invariance_plans,
                        "bpm": bpm,
                        "errors": [{"layer": k[0], "scale": k[1],
                                    "dtype": k[2], "B": k[3],

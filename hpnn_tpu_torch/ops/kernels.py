@@ -11,31 +11,48 @@ Source note (what the CUDA kernel is and why):
   in float64, the activation is applied once in the epilogue and the
   output is written once in the operand dtype.
 * **Bound on the H100**: at the slice's shapes (784->300, 300->10,
-  851->230, 230->230) the operands are at most a few MB.  By the roofline,
-  B >= 64 at float32 and float64 is bound by the FMA rate (784->300 at
-  B=4096: 1.93 GFLOP, 29 us at 67 TFLOP/s), smaller batches and bfloat16
-  (against the tensor-core peak) by the bytes.  Measured, the kernel is
-  bound by memory latency instead: few blocks at small B, each walking
-  its K stages in series (PERF.md has the times).
-* **Design**: 64x64 output tiles per block, a 4x4 register tile per
-  thread, the reduction as a loop over K tiles of 32 through shared memory
-  inside the block (next tile prefetched into registers; no split-K, no
-  atomics), masked ragged edges.  Each
-  output element is summed by one thread in a fixed order (ascending m
-  within a K tile, each tile's partial sum added to the running sum), so
-  its bits do not depend on the batch size, padding or row position: the
-  strict serving tier stays bit-identical to run_nn on the card.  The
+  851->230, 230->230) the operands are at most a few MB.  At B <= 64 (the
+  serving buckets) the bytes take well under a microsecond, so launch and
+  memory latency set the time, and the lever is the number of SMs at work.
+  At B = 4096 float32 and float64 are bound by the FMAs (784->300: 1.93
+  GFLOP, 29 us at 67 TFLOP/s; float64 on the CUDA cores peaks near half
+  of that) and by how evenly the tiles spread over the SMs, and bfloat16
+  by the bytes against the tensor cores' rate.
+* **The fixed order**: the reduction runs in stages of 32 along M (the
+  last ragged); each stage's partial is an FMA chain from zero in
+  ascending m (bfloat16: two tensor-core m16n8k16 MMAs from a zero
+  accumulator); the partials are added from zero in ascending stage
+  order; then the activation, one conversion, one store.  An output's
+  bits depend on its row of xs and of W only, so the strict serving tier
+  stays bit-identical to run_nn whatever the batch.
+* **The plans** (:func:`_plan`, a pure function of B, N, M and the
+  dtype, from crossovers measured on the H100): a small product takes
+  the *direct* plan, one launch in which a block owns a small tile and all
+  its stages, a warp a stage, reading its operands straight from L1/L2;
+  a larger one a *staged* tile whose block walks its stages through a
+  cp.async ring in shared memory, summing in registers.  Above 512 rows
+  float32 and float64 take the tile that fits the card's waves (128x80
+  for 300 outputs, 96x80 for 230: one block an SM, one wave).  When
+  float32 or float64 staged tiles alone would leave most of the card's
+  132 SMs idle, the stages are *split* over blocks: each writes its
+  stages' partials un-summed to a workspace ``[S, B, N]`` and a second
+  launch adds all S of them in the same order.  Every plan takes the same
+  chain of adds, so every plan gives the same bits; ``chip_smoke.py``
+  checks it across batch sizes.  float32 and float64 run on the CUDA
+  cores (float32 stays full float32, float64 on FP64 FMAs), bfloat16 on
+  the tensor cores at every batch size, rows padded to the MMA's 16.  The
   ``csrc/fused_linear_act.cu`` header has the details.
 
 The wrapper takes the plain torch version only for tensors on the CPU; for
 a CUDA tensor it launches the kernel or raises.  ``fused_linear_act.launches``
-counts kernel launches, so a run can show its main path went through the
-kernel.
+counts wrapper calls that launched the kernel (one a layer; a split plan
+is two device launches), so a run can show its main path went through it.
 """
 
 from __future__ import annotations
 
 import ctypes
+from collections import namedtuple
 
 import torch
 
@@ -45,25 +62,134 @@ from .steps import LNN, SNN
 _ENTRY = {torch.float32: "hpnn_fused_linear_act_f32",
           torch.bfloat16: "hpnn_fused_linear_act_bf16",
           torch.float64: "hpnn_fused_linear_act_f64"}
-_fns: dict[torch.dtype, object] = {}
+_fns: dict[str, object] = {}
 _INT32_MAX = 2**31 - 1
+_GRID_Y_MAX = 65535
+
+STAGE = 32            # the reduction's stage depth: fixed by the sum order
+SMS = 132             # the H100 SXM's streaming multiprocessors
+# output tile shapes (rows, columns) of the staged kernels, by the index
+# the kernel takes: float32/float64 on the CUDA cores and bfloat16 on the
+# tensor cores
+SIMT_TILES = ((32, 32), (64, 64), (128, 64), (128, 80), (96, 80), (32, 16))
+MMA_TILES = ((32, 32), (64, 64), (128, 64))
+# float32/float64 above 512 rows: the tiles a plan fits to whole waves of
+# the SMs (each runs one block an SM)
+WAVE_TILES = (1, 2, 3, 4)
+# blocks an SM that a split plan aims its stage groups at, by SIMT tile
+SPLIT_BLOCKS = (4, 4, 1, 1, 1, 4)
+DIRECT = 6            # the direct plan's index: a warp a stage, S <= 32
+DIRECT_MAX_STAGES = 32
+DIRECT_COLS = 8       # float32/float64 direct tile: 4 rows x 8 columns
+# The direct plan wins while the layer's multiply-adds B*N*M stay under
+# these (crossovers measured on the H100): its operands come from L1/L2
+# once per output, so it suits a small product; bfloat16's tensor-core
+# fragments reach much further.
+DIRECT_MAX_MACS = {torch.float32: 4_000_000, torch.float64: 4_000_000,
+                   torch.bfloat16: 110_000_000}
+
+Plan = namedtuple("Plan", "tile bm bn stages per_group groups row_tiles "
+                          "col_tiles workspace")
+Plan.__doc__ = """A launch plan of :func:`fused_linear_act`: tile index
+``tile`` (``bm`` x ``bn`` outputs a block; ``DIRECT``: every stage of the
+tile at once, a warp a stage), ``stages`` of STAGE along M, ``per_group``
+consecutive stages a block, ``groups`` blocks along the stages of one
+tile; a grid of row_tiles x col_tiles x groups blocks.  ``workspace``
+counts the accumulator-type elements of the stage partials (stages x B x
+N when the stages are split, else 0)."""
 
 
-def _kernel_fn(dtype: torch.dtype):
-    fn = _fns.get(dtype)
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _plan(b: int, n: int, m: int, dtype: torch.dtype) -> Plan:
+    """The launch plan for xs (b, m) @ W (n, m).T: a pure function of the
+    shapes and the dtype, chosen from the H100's measured crossovers.
+
+    * A small product takes the direct plan: one launch, every stage of a
+      small tile at once.
+    * bfloat16 takes a 32x32 tile up to 512 rows (and for a layer of at
+      most 32 outputs), then 128x64 where those tiles fit one wave of the
+      card and the reduction is long (M >= 512), else 64x64.
+    * float32 and float64 up to 512 rows: 32x32 up to 64 rows (and for at
+      most 32 outputs); above 256 rows 128x64 for a long reduction into a
+      wide layer (M >= 512, N >= 256); else 64x64 for a long reduction at
+      float64, else 32x32.
+    * float32 and float64 above 512 rows are fitted to the card's waves:
+      of the large tiles, the one whose tiles, at one block an SM, leave
+      the least work on the busiest SM (fewest waves times outputs a
+      tile); 32x16 for a layer of at most 16 outputs, 32x32 up to 32.
+    * float32 and float64 split the stages into groups where the tiles
+      alone would leave more than half the SMs idle, so that about
+      ``SPLIT_BLOCKS`` blocks an SM run at once; a second launch then adds
+      the stage partials.  bfloat16 never splits: its MMA tiles' partial
+      stores measured slower than the unsplit walk at every batch."""
+    stages = max(1, _cdiv(m, STAGE))   # M = 0: one empty stage, act(0)
+    if stages <= DIRECT_MAX_STAGES and b * n * m <= DIRECT_MAX_MACS[dtype]:
+        bm, bn = ((16, 8) if dtype == torch.bfloat16
+                  else (32 // DIRECT_COLS, DIRECT_COLS))
+        return Plan(DIRECT, bm, bn, stages, stages, 1, _cdiv(b, bm),
+                    _cdiv(n, bn), 0)
+    if dtype == torch.bfloat16:
+        if n <= 32 or b <= 512:
+            tile = 0
+        elif _cdiv(b, 128) * _cdiv(n, 64) <= SMS and m >= 512:
+            tile = 2
+        else:
+            tile = 1
+        bm, bn = MMA_TILES[tile]
+        return Plan(tile, bm, bn, stages, stages, 1, _cdiv(b, bm),
+                    _cdiv(n, bn), 0)
+    if b > 512 and n > 32:
+        def busiest(t):
+            tm, tn = SIMT_TILES[t]
+            return _cdiv(_cdiv(b, tm) * _cdiv(n, tn), SMS) * tm * tn
+        tile = min(WAVE_TILES, key=busiest)
+    elif b > 512 and n <= 16:
+        tile = 5
+    elif n <= 32 or b <= 64:
+        tile = 0
+    elif m >= 512 and n >= 256 and b > 256:
+        tile = 2
+    elif m >= 512 and dtype == torch.float64:
+        tile = 1
+    else:
+        tile = 0
+    bm, bn = SIMT_TILES[tile]
+    row_tiles, col_tiles = _cdiv(b, bm), _cdiv(n, bn)
+    tiles = row_tiles * col_tiles
+    per_group = stages
+    if 2 * tiles < SMS:
+        per_group = _cdiv(stages, min(stages,
+                                      _cdiv(SPLIT_BLOCKS[tile] * SMS, tiles)))
+    groups = _cdiv(stages, per_group)
+    return Plan(tile, bm, bn, stages, per_group, groups, row_tiles,
+                col_tiles, stages * b * n if groups > 1 else 0)
+
+
+def _workspace(plan: Plan, dtype: torch.dtype, device) -> torch.Tensor:
+    """The stage partials' buffer a launch of ``plan`` writes (float64 for
+    float64 operands, else float32); empty when the stages are not
+    split."""
+    acc = torch.float64 if dtype == torch.float64 else torch.float32
+    return torch.empty(plan.workspace, dtype=acc, device=device)
+
+
+def _kernel_fn(entry: str):
+    fn = _fns.get(entry)
     if fn is None:
         from . import build
 
         lib = build.load("fused_linear_act")
         lib.hpnn_cuda_error_string.argtypes = [ctypes.c_int]
         lib.hpnn_cuda_error_string.restype = ctypes.c_char_p
-        fn = getattr(lib, _ENTRY[dtype])
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p]
+        fn = getattr(lib, entry)
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
         fn.error_string = lib.hpnn_cuda_error_string
-        _fns[dtype] = fn
+        _fns[entry] = fn
     return fn
 
 
@@ -117,9 +243,16 @@ def fused_linear_act(w: torch.Tensor, xs: torch.Tensor,
     out = torch.empty((b, n), dtype=xs.dtype, device=xs.device)
     if b == 0:
         return out
-    fn = _kernel_fn(xs.dtype)
-    rc = fn(xs.data_ptr(), w.data_ptr(), out.data_ptr(), b, n, m, int(act),
-            xs.device.index, torch.cuda.current_stream(xs.device).cuda_stream)
+    plan = _plan(b, n, m, xs.dtype)
+    if plan.col_tiles > _GRID_Y_MAX:
+        raise ValueError(f"fused_linear_act: N={n} needs more than "
+                         f"{_GRID_Y_MAX} column tiles")
+    ws = _workspace(plan, xs.dtype, xs.device)
+    fn = _kernel_fn(_ENTRY[xs.dtype])
+    rc = fn(xs.data_ptr(), w.data_ptr(), out.data_ptr(),
+            ws.data_ptr() if plan.workspace else None, b, n, m, int(act),
+            plan.tile, plan.per_group, xs.device.index,
+            torch.cuda.current_stream(xs.device).cuda_stream)
     if rc != 0:
         msg = fn.error_string(rc).decode()
         raise RuntimeError(f"fused_linear_act launch failed: {msg} ({rc})")
