@@ -37,7 +37,10 @@ fault; no phase catches its own failure.
    version on the card at full width, on a seeded separable corpus (one
    bar per class): MNIST 784-300-10 ANN and SNN x BP and BPM x f64, f32 and
    bf16, XRD 851-230-230 ANN BPM at f64 and f32, native LNN 784-300-10 at
-   f64; 4-8 samples a run (ANN and LNN samples from two classes: the first
+   f64, MNIST ANN BP f64 whose last output's target is 2^-30 below 1
+   (in double not the target class; the exact 1 of class 0 or 1 is), and
+   784-2304-10 ANN BP f64, more rows than the card holds warps at once (a
+   plan must take several rows a warp); 2-8 samples a run (ANN and LNN samples from two classes: the first
    sample of each class is the one that takes thousands of iterations,
    and the plain loop pays a host round trip per iteration; SNN from four:
    past about five classes at pixel scale, float32's exp range runs out in
@@ -47,14 +50,22 @@ fault; no phase catches its own failure.
    weights within 1e-10; f32 identical first_ok/success, |dn_iter| <=
    max(4, 2%), weights within 5e-3; bf16 the f32 limits (both versions
    round every operation to bf16; only the order of the float32 sums
-   differs).
+   differs).  Each run also goes through the kernel's other launch plan
+   (W_0's rows resident in shared memory, or in device memory), which must
+   give the same bits, and its grid barriers, as the kernel counts them,
+   must be 2L - 2 an iteration.  Before the runs, the first launch of each
+   dtype and plan is timed against a second (the one-off cost of loading
+   the kernels); after them, a 30000-10-10 f64 net, whose staged vectors
+   do not fit in a block's shared memory, must be refused with ValueError.
 8. The resume contract: the f64 MNIST ANN BP epoch as launches under an
    iteration budget of 100 equals one launch bit for bit, in more than one
    launch.
 9. ``train_nn`` end to end (``cli.train_nn_main``, the MNIST tutorial conf
    at the default f64, 512 training files), then ``run_nn`` of the trained
    ``kernel.opt`` on 512 test files: at least 80% PASS.  The epoch is then
-   run again through the kernel alone for its device time.
+   run again through the kernel alone for its device time, and through
+   ``train_tile`` at tile 1, whose weights and stats must be bit-identical
+   to ``train_epoch``'s.
 10. The batched-tile epoch kernel (``train_tile``) against its plain torch
    version on the card: MNIST 784-300-10 ANN (two classes) and SNN (four)
    x BP and BPM x f64, f32 and bf16 at tile 8 over two groups and a ragged
@@ -86,7 +97,10 @@ fault; no phase catches its own failure.
 15. One JSON line of every kernel (launches on its main path, the largest
    kernel-vs-plain error over every cell and dtype, times and bound;
    ``fused_linear_act`` adds its B=1 cell and its worst ratio to the
-   library call over phase 6's cells), then the result line.
+   library call over phase 6's cells; ``train_epoch`` its grid barriers an
+   iteration as its kernel counted them, its launch plan and shared bytes
+   a block at phase 9's widths, and its first and second launch), then
+   the result line.
 
 Main paths: ``fused_linear_act``'s is phases 4-5, ``train_epoch``'s phase 9
 and ``train_tile``'s phase 12 (train_nn, then run_nn of its kernel, which
@@ -131,6 +145,13 @@ LAYERS = (("784->300", 300, 784, True, "pixel"),
 N_FILES = 4096
 MNIST = (784, [300], 10)
 XRD = (851, [230], 230)
+# phase 7: a hidden layer with more rows than an H100 holds warps at once
+# (132 SMs x 8 warps x the blocks an SM holds), so the epoch kernel's grid
+# is what the card holds and a warp takes several rows of a layer
+WIDE = (784, [2304], 10)
+# phase 7: an input layer too wide for the epoch kernel's staged vectors
+# in one block's shared memory at f64, which the wrapper refuses
+TOO_WIDE = (30000, [10], 10)
 TRAIN_FILES = 512          # phase 9: training files, and as many test files
 # phase 7 runs: (tag, topology, kind, momentum, dtype, classes, samples)
 TRAIN_RUNS = (
@@ -138,7 +159,12 @@ TRAIN_RUNS = (
      for k in ("ANN", "SNN") for m in (False, True)
      for d in ("f64", "f32", "bf16")]
     + [("xrd", XRD, "ANN", True, d, (0, 1), 4) for d in ("f64", "f32")]
-    + [("mnist", MNIST, "LNN", False, "f64", (0, 1), 8)])
+    + [("mnist", MNIST, "LNN", False, "f64", (0, 1), 8)]
+    + [("near1", MNIST, "ANN", False, "f64", (0, 1), 2)]
+    + [("wide", WIDE, "ANN", False, "f64", (0, 1), 2)])
+# the "near1" run's last output target: 2^-30 below 1, so in double it is
+# not the target class (the exact 1 of class 0 or 1 is), as in hpnn_tpu
+NEAR_ONE = 1.0 - 2.0**-30
 # kernel vs plain, per dtype: (n_iter slack: absolute, relative; weights).
 # f32: the envelope of tests/test_pallas_convergence.py:35-57, with 2%
 # where it has 1%: an XRD ANN BPM sample runs 20-37k iterations and its
@@ -659,9 +685,32 @@ def phase_train_vs_plain():
     from hpnn_tpu_torch.ops.convergence_kernel import (train_epoch_kernel,
                                                        train_epoch_plain)
 
+    # a launch of each dtype and plan first, so that no timed run below
+    # pays for loading the library and its kernels; each first launch is
+    # timed (host clock) against a second on the same inputs, whose
+    # difference is the one-off cost a fresh process pays
+    first = {}
+    for dtype in _dtypes():
+        w, x, t = _train_inputs(MNIST, dtype, (0,), 1)
+        for resident in (0, 1):
+            ms = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                train_epoch_kernel(w, x, t, "ANN", False, _plan=resident)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            first[f"{dtype} {'resident' if resident else 'staged'}"] = {
+                "first_ms": ms[0], "second_ms": ms[1]}
+    log("train_epoch first launch, then a second on the same inputs (1 "
+        "MNIST ANN BP sample), ms: " + ", ".join(
+            f"{k} {v['first_ms']:.2f} then {v['second_ms']:.2f}"
+            for k, v in first.items()))
     results = []
     for name, topo, kind, momentum, dtype, classes, n in TRAIN_RUNS:
         w, x, t = _train_inputs(topo, dtype, classes, n)
+        if name == "near1":
+            t[:, -1] = NEAR_ONE
         tag = (f"{name} {kind} {'BPM' if momentum else 'BP'} {dtype} "
                f"({n} samples)")
         torch.cuda.synchronize()
@@ -672,6 +721,21 @@ def phase_train_vs_plain():
         end.record()
         end.synchronize()
         ms = start.elapsed_time(end)
+        plan = dict(train_epoch_kernel.plan)
+        per_iter = _barriers_per_iter(w, sk)
+        # the other plan (W_0 in device memory, or resident) on the same
+        # inputs: the same bits
+        wo, so = train_epoch_kernel(w, x, t, kind, momentum,
+                                    _plan=0 if plan["resident"] else 1)
+        torch.cuda.synchronize()
+        if not (_bitwise(wk, wo) and _bitwise(sk, so)):
+            raise AssertionError(f"train_epoch {tag}: the {plan} plan and "
+                                 f"{train_epoch_kernel.plan} differ")
+        if name == "wide" and max(plan["rows0"],
+                                  train_epoch_kernel.plan["rows0"]) < 2:
+            raise AssertionError(f"train_epoch {tag}: no plan took several "
+                                 f"rows a warp ({plan}, "
+                                 f"{train_epoch_kernel.plan})")
         t0 = time.perf_counter()
         wp, sp = train_epoch_plain(w, x, t, kind, momentum)
         torch.cuda.synchronize()
@@ -689,20 +753,57 @@ def phase_train_vs_plain():
                         "verdicts_equal": same, "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by, "flops_per_iter": flops_it,
-                        "grid": train_epoch_kernel.grid,
+                        "plan": plan, "other_plan":
+                            dict(train_epoch_kernel.plan),
+                        "barriers_per_iter": per_iter,
                         "n_iter": k[:, 2].astype(int).tolist(),
                         "plain_n_iter": p[:, 2].astype(int).tolist()})
         log(f"train_epoch {tag}: iterations {iters} (plain {p_iters}), "
             f"max |dn_iter| {dn:g}, verdicts equal {same}/{n}, max |kernel - "
             f"plain| weights {werr:.3e}; kernel {ms:.2f} ms = "
-            f"{ms * 1e3 / iters:.2f} us/iter on {train_epoch_kernel.grid} "
-            f"blocks, plain {plain_ms * 1e3 / p_iters:.1f} us/iter, bound "
-            f"{bound_ms * 1e6 / iters:.4f} ns/iter ({bound_by})")
+            f"{ms * 1e3 / iters:.2f} us/iter on {plan['blocks']} blocks "
+            f"x {plan['warps']} warps, {plan['rows0']} row(s) of W_0 a warp, "
+            f"{'resident' if plan['resident'] else 'staged'} plan "
+            f"({plan['smem_bytes']} shared bytes a block; the other plan "
+            f"bit-identical), {per_iter:g} grid barriers an iteration, "
+            f"plain {plain_ms * 1e3 / p_iters:.1f} us/iter, "
+            f"bound {bound_ms * 1e6 / iters:.4f} ns/iter ({bound_by})")
     worst = {d: max((r["max_abs_err"] for r in results if r["dtype"] == d),
                     default=0.0) for d in _dtypes()}
     log("train_epoch vs plain: all runs within limits; worst weight error "
         + ", ".join(f"{d} {e:.3e}" for d, e in worst.items()))
-    return results
+    # widths whose staged vectors do not fit in a block's shared memory:
+    # refused with a clear error, nothing launched
+    w, x, t = _train_inputs(TOO_WIDE, "f64", (0, 1), 1)
+    before = train_epoch_kernel.launches
+    try:
+        train_epoch_kernel(w, x, t, "ANN", False)
+    except ValueError as exc:
+        refusal = str(exc)
+    else:
+        raise AssertionError(f"train_epoch at {TOO_WIDE} f64 launched")
+    if train_epoch_kernel.launches != before:
+        raise AssertionError("train_epoch counted a refused launch")
+    log(f"train_epoch at {TOO_WIDE} f64 refused: {refusal}")
+    return results, first
+
+
+def _barriers_per_iter(weights, stats):
+    """The grid barriers the last epoch launch took an iteration, as its
+    kernel counted them; raises unless that is 2L - 2 (L >= 2 layers; 1 for
+    L = 1) and its iterations are those of its stats rows."""
+    from hpnn_tpu_torch.ops.convergence_kernel import train_epoch_kernel
+
+    in_iters, _, iters = train_epoch_kernel.syncs.tolist()
+    n_iter = stats.n_iter if hasattr(stats, "n_iter") else stats[:, 2]
+    trained = int(n_iter[n_iter >= 0].sum())
+    layers = len(weights)
+    want = 2 * layers - 2 if layers > 1 else 1
+    if iters != trained or in_iters != want * iters:
+        raise AssertionError(f"train_epoch: {in_iters} grid barriers in "
+                             f"{iters} iterations ({trained} in the stats), "
+                             f"not {want} an iteration")
+    return in_iters / iters
 
 
 def phase_resume():
@@ -802,47 +903,52 @@ def phase_train_nn(tmp):
 
 def phase_train_time(e2e):
     """Device time of phase 9's epoch: the same conf, shuffle and samples
-    through the kernel alone, between two CUDA events."""
+    through the kernel alone, between two CUDA events; then the same epoch
+    through ``train_tile`` at tile 1, which must give the same bits."""
     import torch
 
-    from hpnn_tpu_torch.api import configure, shuffle_order
-    from hpnn_tpu_torch.io.corpus import load_ordered
-    from hpnn_tpu_torch.io.samples import list_sample_dir
     from hpnn_tpu_torch.models.kernel import weights_to_torch
-    from hpnn_tpu_torch.ops.convergence_kernel import train_epoch_cuda
+    from hpnn_tpu_torch.ops.convergence import stats_record
+    from hpnn_tpu_torch.ops.convergence_kernel import (train_epoch_cuda,
+                                                       train_epoch_kernel)
+    from hpnn_tpu_torch.ops.convergence_tile_kernel import train_tile
 
-    cwd = os.getcwd()
-    os.chdir(e2e["root"])
-    try:
-        nn = configure("nn.conf")
-        names = list_sample_dir(nn.conf.samples)
-        _, xs, ts = load_ordered(nn.conf.samples, names,
-                                 shuffle_order(nn.conf, len(names)),
-                                 "TRAINING", 784, 10)
-    finally:
-        os.chdir(cwd)
+    nn, xs, ts = _epoch_inputs(e2e["root"])
     w = weights_to_torch(nn.kernel.weights, torch.float64, "cuda")
     x, t = _to_card(xs, torch.float64), _to_card(ts, torch.float64)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    _, st = train_epoch_cuda(w, x, t, "ANN", False)
+    wk, st = train_epoch_cuda(w, x, t, "ANN", False)
     end.record()
     end.synchronize()
     ms = start.elapsed_time(end)
+    plan = dict(train_epoch_kernel.plan)
+    per_iter = _barriers_per_iter(w, st)
     iters = int(st.n_iter.sum())
     if iters != e2e["iters"]:
         raise AssertionError(f"train_nn epoch replay: {iters} iterations, "
                              f"train_nn printed {e2e['iters']}")
+    wt, stt = train_tile(w, x, t, "ANN", False, tile=1)
+    stt = stats_record(stt, torch.float64)
+    if not (_bitwise(tuple(wk), tuple(wt))
+            and _bitwise(tuple(st), tuple(stt))):
+        raise AssertionError("train_nn epoch: train_tile at tile 1 is not "
+                             "bit-identical to train_epoch")
     bound_ms, bound_by, flops_it = _train_bound(w, False, iters, "f64",
                                                 xs.shape[0])
     log(f"train_nn epoch on the card: {ms:.1f} ms device time, {iters} "
         f"iterations = {ms * 1e3 / iters:.2f} us/iter "
-        f"({iters / ms * 1e3:.0f} iterations/s); bound {bound_ms:.4f} ms "
-        f"({bound_by}, {flops_it} flops an iteration)")
+        f"({iters / ms * 1e3:.0f} iterations/s) on {plan['blocks']} blocks, "
+        f"{'resident' if plan['resident'] else 'staged'} plan, "
+        f"{plan['smem_bytes']} shared bytes a block, {per_iter:g} grid "
+        f"barriers an iteration; bound {bound_ms:.4f} ms "
+        f"({bound_by}, {flops_it} flops an iteration); train_tile at tile 1 "
+        "bit-identical")
     return {"ms": ms, "iters": iters, "us_per_iter": ms * 1e3 / iters,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "bound_ms": bound_ms, "bound_by": bound_by, "plan": plan,
+            "barriers_per_iter": per_iter}
 
 
 # --- phase 10-12: the batched-tile epoch kernel ----------------------------
@@ -1232,7 +1338,7 @@ def main(argv=None) -> int:
     phase_build()
     errs = phase_kernel_vs_plain()
     invariance_plans = phase_invariance()
-    train = phase_train_vs_plain()
+    train, first_launch = phase_train_vs_plain()
     resume_launches = phase_resume()
     tile_runs = phase_tile_vs_plain()
     contracts = phase_tile_contracts()
@@ -1279,6 +1385,7 @@ def main(argv=None) -> int:
                 and c["dtype"] == "f32" and c["B"] == 1)
     worst = max(cells, key=lambda c: c["ms"] / c["library_ms"])
     cell = next(r for r in train if r["run"].startswith("mnist ANN BP f64"))
+    first_cell = next(iter(first_launch))   # the library's first launch
     tcell = next(r for r in tile_runs
                  if r["run"].startswith("mnist ANN BP f64 tile 8"))
     bcell = next(c for c in bpm if c["shape"] == "300x784"
@@ -1322,6 +1429,13 @@ def main(argv=None) -> int:
         "train_nn_epoch_ms": epoch["ms"],
         "train_nn_us_per_iter": epoch["us_per_iter"],
         "train_nn_iters": epoch["iters"],
+        "barriers_per_iter": epoch["barriers_per_iter"],
+        "first_launch_cell": f"{first_cell}, 1 MNIST ANN BP sample",
+        "first_launch_ms": first_launch[first_cell]["first_ms"],
+        "second_launch_ms": first_launch[first_cell]["second_ms"],
+        "smem_bytes_per_block": epoch["plan"]["smem_bytes"],
+        "resident_plan": epoch["plan"]["resident"],
+        "blocks": epoch["plan"]["blocks"],
         "budgeted_launches": resume_launches}, {
         "name": "train_tile", "route": "cuda",
         "source": "hpnn_tpu_torch/csrc/train_tile.cu",
@@ -1367,6 +1481,7 @@ def main(argv=None) -> int:
         with open(json_path, "w") as fp:
             json.dump({"card": card, "kernels": kernels["kernels"],
                        "cells": cells, "train_runs": train,
+                       "train_first_launch": first_launch,
                        "train_nn": {**e2e, "epoch": epoch},
                        "tile_runs": tile_runs, "tile_contracts": contracts,
                        "train_nn_tile": {**tile_e2e, "epoch": tile_epoch,

@@ -65,8 +65,10 @@ def schedule(kind: str, momentum: bool, lr=None, delta=-1.0):
 
 
 def _p_trg(t: torch.Tensor) -> int:
-    """Index of the target class: LAST idx with t==1.0, default 0."""
-    hits = torch.nonzero(t.float() == 1.0)
+    """Index of the target class: LAST idx with t==1.0, default 0.  The
+    compare is in t's own dtype, as the reference's is in double: an f64
+    target a few ULPs below 1 is not the class."""
+    hits = torch.nonzero(t == 1.0)
     return int(hits[-1]) if hits.numel() else 0
 
 

@@ -16,13 +16,23 @@ Source note (what the CUDA kernel is and why):
 * **Bound on the H100**: the iteration is one sample wide and depends on
   the previous one, so the flops per iteration (about 9P for BP, 11P for
   BPM, P the weight count) take a few hundredths of a microsecond at peak;
-  the kernel is bound by the latency of its 2L grid-wide barriers per
-  iteration instead (PERF.md has the measurement).
+  the kernel is bound by latency instead: its grid barriers (about 1.1 us
+  each), the L2 round trips between them and the head's serial folds
+  (PERF.md has the phase split).
 * **Design**: one cooperative launch, rows split over warps, the update
-  fused into the forward, fixed summation orders and no atomics (so
-  budgeted launches equal one launch bit for bit); block 0 decides each
-  iteration's stop test and publishes it before the barrier.  The header
-  of ``csrc/train_epoch.cu`` has the details.
+  fused into the forward, fixed summation orders and no atomics (so every
+  bit repeats and budgeted launches equal one launch bit for bit).  2L - 2
+  grid barriers an iteration (L >= 2 layers): the delta of layer 0 is
+  formed by the warp that owns its row of W_0, and every block computes
+  the head and the stop test itself, so no block waits for another's
+  decision.  In the resident plan each warp's rows of W_0 (and of dw_0
+  under BPM) stay in its block's shared memory for the whole launch, W_0
+  written back at the end; the layers l >= 1 stay in device memory, since
+  other SMs read their columns.  Where W_0's rows do not fit, the staged
+  plan reads them through L2 too, and wider still is refused.  Where a
+  layer has more rows than the card holds warps at once, each warp takes
+  several.  The plan is chosen by shape; ``_plan`` forces it.  The header of
+  ``csrc/train_epoch.cu`` has the details.
 
 :func:`train_epoch_kernel` takes its plain version
 (:func:`train_epoch_plain`, the eager loop of ``ops.convergence`` with the
@@ -42,9 +52,9 @@ from .steps import ANN, LNN, SNN
 
 INT32_MAX = 2**31 - 1
 MAX_LAYERS = 8  # csrc/train_epoch.cu MAX_LAYERS
-_ENTRY = {torch.float64: "hpnn_train_epoch_f64",
-          torch.float32: "hpnn_train_epoch_f32",
-          torch.bfloat16: "hpnn_train_epoch_bf16"}
+_ENTRY = {torch.float64: "hpnn_train_epoch_plan_f64",
+          torch.float32: "hpnn_train_epoch_plan_f32",
+          torch.bfloat16: "hpnn_train_epoch_plan_bf16"}
 _KIND = {ANN: 0, SNN: 1, LNN: 2}
 _fns: dict[torch.dtype, object] = {}
 
@@ -59,8 +69,8 @@ def _kernel_fn(dtype: torch.dtype):
         lib.hpnn_train_error_string.restype = ctypes.c_char_p
         fn = getattr(lib, _ENTRY[dtype])
         p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        fn.argtypes = [p, p, p, p, i, p, p, p, p, p, i, i, i, i, i, d, d, d,
-                       i, i, i, i, i, p, p]
+        fn.argtypes = [p, p, p, p, i, p, p, p, p, i, i, i, i, i, d, d, d,
+                       i, i, i, i, i, p, i, p, p]
         fn.restype = ctypes.c_int
         fn.error_string = lib.hpnn_train_error_string
         _fns[dtype] = fn
@@ -146,13 +156,21 @@ def train_epoch_plain(weights, xs, ts, kind: str, momentum: bool,
 
 def train_epoch_kernel(weights, xs, ts, kind: str, momentum: bool,
                        alpha=0.2, delta=-1.0, lr=None, start_idx=0,
-                       iter_budget=INT32_MAX, stats_prev=None):
+                       iter_budget=INT32_MAX, stats_prev=None, _plan=None):
     """One launch of the epoch kernel from sample ``start_idx`` under an
     iteration budget; same contract as :func:`train_epoch_plain`.
 
     CPU tensors take the plain version; CUDA tensors launch the
     hand-written kernel on the current stream (no synchronisation) or
-    raise.  The input weights are not modified."""
+    raise.  The input weights are not modified.  ``_plan`` (0: W_0 in
+    device memory, 1: resident in shared memory) forces the launch plan the
+    kernel otherwise picks by shape, so the card checks can hold one plan
+    against the other; the plan launched is left in
+    ``train_epoch_kernel.plan``, and in ``train_epoch_kernel.syncs`` an
+    int64 tensor on the card that the launch fills with the grid barriers
+    its kernel took inside its iterations, all the grid barriers it took,
+    and its iterations.  Widths whose staged vectors do not fit in a
+    block's shared memory raise ValueError."""
     _check(weights, xs, ts, kind, stats_prev)
     if xs.device.type == "cpu":
         return train_epoch_plain(weights, xs, ts, kind, momentum,
@@ -173,33 +191,40 @@ def train_epoch_kernel(weights, xs, ts, kind: str, momentum: bool,
     xk, tk = ((xs.float(), ts.float()) if xs.dtype == torch.bfloat16
               else (xs, ts))
     n = [v.shape[0] for v in w]
-    scratch = torch.empty(3 * sum(n) + ts.shape[1], dtype=w[0].dtype,
-                          device=xs.device)
-    ctl = torch.zeros(2, dtype=torch.int32, device=xs.device)
+    scratch = torch.empty(3 * sum(n), dtype=w[0].dtype, device=xs.device)
     layers = len(w)
     ptrs = (ctypes.c_void_p * layers)(*(v.data_ptr() for v in w))
     dptrs = (ctypes.c_void_p * layers)(*(v.data_ptr() for v in dw))
     ns = (ctypes.c_int * layers)(*n)
     ms = (ctypes.c_int * layers)(*(v.shape[1] for v in w))
-    grid = ctypes.c_int(0)
+    plan = (ctypes.c_int * 5)()
+    syncs = torch.zeros(3, dtype=torch.int64, device=xs.device)
     fn = _kernel_fn(xs.dtype)
     rc = fn(ptrs, dptrs, ns, ms, layers, xk.data_ptr(), tk.data_ptr(),
-            stats.data_ptr(), scratch.data_ptr(), ctl.data_ptr(),
+            stats.data_ptr(), scratch.data_ptr(),
             xs.shape[0], xs.shape[1], ts.shape[1], _KIND[kind],
             int(momentum), float(lr), float(alpha), float(delta), min_iter,
             max_iter, int(start_idx), int(iter_budget), xs.device.index,
             torch.cuda.current_stream(xs.device).cuda_stream,
-            ctypes.byref(grid))
+            -1 if _plan is None else int(_plan), plan, syncs.data_ptr())
+    if rc != 0 and plan[1] == -1:
+        raise ValueError(f"train_epoch_kernel: layer widths {n} from "
+                         f"n_in={xs.shape[1]} need {plan[2]} bytes of shared "
+                         "memory a block, more than the card has")
     if rc != 0:
         msg = fn.error_string(rc).decode()
         raise RuntimeError(f"train_epoch_kernel launch failed: {msg} ({rc})")
     train_epoch_kernel.launches += 1
-    train_epoch_kernel.grid = grid.value
+    train_epoch_kernel.syncs = syncs
+    train_epoch_kernel.plan = {"blocks": plan[0], "warps": plan[4],
+                               "resident": bool(plan[1]),
+                               "smem_bytes": plan[2], "rows0": plan[3]}
     return w, stats
 
 
 train_epoch_kernel.launches = 0
-train_epoch_kernel.grid = 0
+train_epoch_kernel.plan = {}
+train_epoch_kernel.syncs = None
 
 
 def train_epoch_cuda(weights, xs, ts, kind: str, momentum: bool, alpha=0.2,

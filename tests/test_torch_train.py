@@ -22,6 +22,9 @@ The same numpy inputs go through both packages:
   float32 ULP (1-2e-6) then exceeds delta and the stopping iteration is set
   by rounding noise in any two implementations, so the float32/bfloat16
   SNN cases use a deep net whose samples stop before that regime.
+* float64 targets 2^-30 below 1: not the target class in double, through
+  ``train_sample`` and ``train_epoch_plain`` against ``hpnn_tpu``'s
+  ``train_sample`` and ``train_epoch``.
 * the budget contract (start_idx, iter_budget, copied-through rows, -1
   sentinels) against ``_train_epoch_core(..., budgeted=True)``, and
   budgeted host resumes equal to one launch bit for bit.
@@ -125,6 +128,51 @@ def test_train_epoch_f64_matches_jax(kind, momentum):
                for a, b in zip(jw, pw))
     assert werr < tol, (werr, tol, iters)
     assert all(b.dtype == torch.float64 for b in pw)
+
+
+# f64 targets whose largest entry is 2^-30 below 1: not the target class in
+# double, so the two-class sample never becomes OK and runs to MAX_ITER
+NEAR_ONE = {"two": (4, [3], 2, [0.0, 1.0 - 2.0**-30]),
+            "three": (4, [3], 3, [-1.0, 1.0, 1.0 - 2.0**-30])}
+
+
+@pytest.mark.parametrize("route", ["sample", "epoch"])
+@pytest.mark.parametrize("case", sorted(NEAR_ONE))
+def test_near_one_f64_target_is_not_the_class(case, route):
+    """The target class is the last index with t == 1 compared in double,
+    as hpnn_tpu (and the reference) compare it."""
+    from hpnn_tpu import ops as jax_ops
+    from hpnn_tpu.models.kernel import generate_kernel
+    from hpnn_tpu.ops.convergence import train_sample as jax_sample
+    from hpnn_tpu_torch.ops.convergence import train_sample
+    from hpnn_tpu_torch.ops.convergence_kernel import train_epoch_plain
+
+    n_in, hid, n_out, t = NEAR_ONE[case]
+    w, _ = generate_kernel(123, n_in, hid, n_out)
+    x = np.random.default_rng(0).uniform(0.0, 1.0, n_in)
+    t = np.asarray(t)
+    pw = tuple(_torch(a, torch.float64) for a in w.weights)
+    jw0 = tuple(jnp.asarray(a) for a in w.weights)
+    if route == "sample":
+        jw, jst = jax_sample(jw0, jnp.asarray(x), jnp.asarray(t), "ANN",
+                             False)
+        pw, row = train_sample(pw, _torch(x, torch.float64),
+                               _torch(t, torch.float64), "ANN", False)
+        want = [int(jst.n_iter), bool(jst.first_ok), bool(jst.success)]
+        got = [row[2], bool(row[1]), bool(row[4])]
+    else:
+        jw, jst = jax_ops.train_epoch(jw0, jnp.asarray(x[None]),
+                                      jnp.asarray(t[None]), "ANN", False)
+        pw, st = train_epoch_plain(pw, _torch(x[None], torch.float64),
+                                   _torch(t[None], torch.float64), "ANN",
+                                   False)
+        want = [int(jst.n_iter[0]), bool(jst.first_ok[0]),
+                bool(jst.success[0])]
+        got = [int(st[0, 2]), bool(st[0, 1] > 0.5), bool(st[0, 4] > 0.5)]
+    assert got == want
+    werr = max(float(np.abs(np.asarray(a) - b.numpy()).max())
+               for a, b in zip(jw, pw))
+    assert werr < 5e-12, werr
 
 
 def _pallas(w, xs, ts, kind, momentum, jdt):
@@ -245,6 +293,23 @@ def test_cpu_tensors_never_launch_the_kernels():
                        _torch(xs, torch.float32), _torch(ts, torch.float32),
                        "SNN", True)
     assert (train_epoch_kernel.launches, fused_linear_act.launches) == before
+
+
+@pytest.mark.parametrize("plan", [0, 1])
+def test_forced_plan_on_cpu_tensors_is_the_plain_version(plan):
+    """A forced launch plan only matters to the kernel: CPU tensors take the
+    plain version and give the same bits with or without it."""
+    from hpnn_tpu_torch.ops.convergence_kernel import train_epoch_kernel
+
+    w, xs, ts = _problem(*PROBLEMS["SNN"])
+    args = (tuple(_torch(a, torch.float64) for a in w),
+            _torch(xs, torch.float64), _torch(ts, torch.float64), "SNN", True)
+    before = train_epoch_kernel.launches
+    w1, st1 = train_epoch_kernel(*args)
+    w2, st2 = train_epoch_kernel(*args, _plan=plan)
+    assert train_epoch_kernel.launches == before
+    assert all(torch.equal(a, b) for a, b in zip(w1, w2))
+    assert torch.equal(st1, st2)
 
 
 def _bad_args():
