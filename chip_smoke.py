@@ -10,7 +10,9 @@ fault; no phase catches its own failure.
 1. Device: the ``nvidia-smi`` name and power limit, torch's CUDA version.
 2. Build: every hand-written kernel from ``hpnn_tpu_torch/csrc`` (one
    ``nvcc`` per source, all started together), with the build time and the
-   compiler's register/spill report.
+   compiler's register/spill report; fails when any entry of the tile
+   kernel has a stack frame or spills (its design keeps nothing in local
+   memory: a spill read after a grid barrier is an L2 round trip).
 3. Each kernel against its plain torch version on the card, at the
    slice's shapes (784->300 with the activation, 300->10 without, 851->230
    and 230->230 with; B in {1, 3, 64, 512, 4096}; a ragged 13x37 at B=5)
@@ -70,9 +72,19 @@ fault; no phase catches its own failure.
    version on the card: MNIST 784-300-10 ANN (two classes) and SNN (four)
    x BP and BPM x f64, f32 and bf16 at tile 8 over two groups and a ragged
    tail (19 samples), XRD 851-230-230 ANN BPM at f64 and f32 at tile 4,
-   native LNN at f64, and the weight storage modes "bf16" and "f32" under
-   f32, with phase 7's limits (f32/bf16 weights relative to the largest
-   weight, ``TRAIN_LIMIT``'s note).
+   native LNN at f64, the weight storage modes "bf16" and "f32" under
+   f32, and 784-2304-10 ANN BP f64 at tile 8 (more rows than the card
+   holds warps: a block owns 18 rows of W_0), with phase 7's limits
+   (f32/bf16 weights relative to the largest weight, ``TRAIN_LIMIT``'s
+   note).  Each run's grid barriers, as the kernel counts them, must be
+   2L - 2 a lockstep iteration; the 784-2304-10 run also goes through three
+   other launch plans (W_0's rows in place; the inputs in lane chunks
+   with the head's vectors off chip; the block's scratch in its workspace
+   slice), which must give the same bits.  Then 784-4096-10 ANN BP f64 at
+   tile 512 (512 samples, 3 iterations at most), where the plan itself
+   puts the block's scratch in the workspace, held to the plain version.
+   Last, a 30000-10-10 f64 net, whose one lane's input does not fit in a
+   block's shared memory, must be refused with ValueError.
 11. Its three bitwise contracts: tile=1 equals the ``train_epoch`` kernel
    (weights and stats) for ANN and LNN at f64, f32 and bf16 and SNN at f32
    and bf16, BP and BPM; a ragged tail's masked lanes are inert (tile 4
@@ -81,11 +93,14 @@ fault; no phase catches its own failure.
 12. ``train_nn --tile 32`` end to end on phase 9's files and conf, then
    ``run_nn`` of its ``kernel.opt``: at least 80% PASS, ``train_tile``
    launched and ``train_epoch`` not.  The epoch is then run again through
-   the kernel alone for its device time: lockstep iterations (a group runs
-   as long as its slowest lane), lane-iterations (the sum of n_iter), and
-   the rate beside phase 9's per-sample kernel on the same files.  Last,
-   ``--tile auto``'s autotuner at that width measures its candidates once,
-   and a second call is a cache hit.
+   the kernel alone, twice, for its device time (the first and the second
+   launch): lockstep iterations (a group runs as long as its slowest
+   lane), lane-iterations (the sum of n_iter), grid barriers a lockstep
+   iteration as the kernel counts them (2L - 2), and the rate beside
+   phase 9's per-sample kernel on the same files.  Last, ``--tile auto``'s
+   autotuner at that width measures its candidates once, a second call is
+   a cache hit, and the epoch on the same files at each of its candidate
+   tiles (one launch each) shows whether its choice is the fastest epoch.
 13. ``fused_bpm_update`` against its plain version at 784x300 and 300x10,
    f64 and f32, and its device time beside its byte bound.
 14. Batch invariance of ``fused_linear_act`` (run right after phase 3):
@@ -99,8 +114,10 @@ fault; no phase catches its own failure.
    ``fused_linear_act`` adds its B=1 cell and its worst ratio to the
    library call over phase 6's cells; ``train_epoch`` its grid barriers an
    iteration as its kernel counted them, its launch plan and shared bytes
-   a block at phase 9's widths, and its first and second launch), then
-   the result line.
+   a block at phase 9's widths, and its first and second launch;
+   ``train_tile`` the same for phase 12's epoch, the autotuner's tile and
+   the epoch's time at each candidate tile, its build's stack frame and
+   the wide run's workspace plan), then the result line.
 
 Main paths: ``fused_linear_act``'s is phases 4-5, ``train_epoch``'s phase 9
 and ``train_tile``'s phase 12 (train_nn, then run_nn of its kernel, which
@@ -192,7 +209,13 @@ TILE_RUNS = (
                                                                   "f32")]
     + [("mnist", MNIST, "LNN", False, "f64", (0, 1), 19, 8, None)]
     + [("mnist", MNIST, "ANN", False, "f32", (0, 1), 19, 8, st)
-       for st in ("bf16", "f32")])
+       for st in ("bf16", "f32")]
+    + [("wide", WIDE, "ANN", False, "f64", (0, 1), 19, 8, None)])
+# phase 10: a hidden layer so wide that at tile 512 the tile kernel's block
+# scratch (the lanes' deltas and a_0 of a block's 32 rows) does not fit in
+# shared memory and goes to the block's workspace slice; a few lockstep
+# iterations (max_iter) of one group of 512 samples
+WIDE_SCRATCH = ((784, [4096], 10), 512, 3)
 TRAIN_TILE = 32            # phase 12: train_nn --tile
 BPM_SHAPES = ((300, 784), (10, 300))   # phase 13: the MNIST layers (N, M)
 BPM_LIMIT = {"f64": 1e-12, "f32": 1e-6}
@@ -245,7 +268,12 @@ def phase_device():
 
 
 def phase_build():
+    """Build every kernel; fails when the compiler gives any kernel of the
+    tile kernel's library a stack frame or spills (its design keeps nothing
+    in local memory).  Returns how many it checked, and their frame and
+    spill bytes (0)."""
     from hpnn_tpu_torch.ops import build
+    from hpnn_tpu_torch.ops.convergence_tile_kernel import _ENTRY
 
     t0 = time.perf_counter()
     libs = build.build_all()
@@ -255,6 +283,18 @@ def phase_build():
         for line in build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"build: {name}: {line.strip()}")
+    frames = re.findall(
+        r"Function properties for (\S+)\s+(\d+) bytes stack frame, (\d+) "
+        r"bytes spill stores, (\d+) bytes spill loads",
+        build.build_log("train_tile"))
+    bad = [f for f in frames if any(map(int, f[1:]))]
+    # each entry point compiled with its block scratch on chip and off
+    if len(frames) < 2 * len(_ENTRY) or bad:
+        raise AssertionError(f"train_tile: {len(frames)} kernels compiled; "
+                             "with a stack frame or spills (bytes of frame, "
+                             f"spill stores, spill loads): {bad}")
+    return {"entries": len(frames), "stack_frame_bytes": 0,
+            "spill_bytes": 0}
 
 
 # --- phase 3 ----------------------------------------------------------------
@@ -1010,6 +1050,22 @@ def phase_tile_vs_plain():
         end.record()
         end.synchronize()
         ms = start.elapsed_time(end)
+        plan = dict(train_tile.plan)
+        per_lock = _tile_barriers(w, sk, tile)
+        if name == "wide":
+            # other launch plans on the same inputs: W_0's rows in place (or
+            # on chip), the inputs in lane chunks with the head's vectors
+            # off chip, and the block's scratch in its workspace slice; the
+            # same bits
+            for force in ({"resident": not plan["resident"]},
+                          {"x_lanes": 2, "head": False},
+                          {"scratch": False}):
+                wo, so = train_tile(w, x, t, kind, momentum, _plan=force,
+                                    **kw)
+                torch.cuda.synchronize()
+                if not (_bitwise(wk, wo) and _bitwise(sk, so)):
+                    raise AssertionError(f"train_tile {tag}: the {plan} plan "
+                                         f"and {train_tile.plan} differ")
         t0 = time.perf_counter()
         wp, sp = train_epoch_tiled_plain(w, x, t, kind, momentum, **kw)
         torch.cuda.synchronize()
@@ -1027,22 +1083,106 @@ def phase_tile_vs_plain():
                         "lockstep": lock, "plain_lockstep": p_lock,
                         "max_dn_iter": dn, "max_abs_err": werr, "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by, "grid": train_tile.grid,
+                        "bound_by": bound_by, "plan": plan,
+                        "barriers_per_lockstep": per_lock,
                         "n_iter": k[:, 2].astype(int).tolist(),
                         "plain_n_iter": p[:, 2].astype(int).tolist()})
         log(f"train_tile {tag}: lockstep iterations {lock} (plain "
             f"{p_lock}), lane-iterations {lanes}, max |dn_iter| {dn:g}, "
             f"max |kernel - plain| weights {werr:.3e}; kernel {ms:.2f} ms "
             f"= {ms * 1e3 / lock:.2f} us/lockstep iteration on "
-            f"{train_tile.grid} blocks, plain "
-            f"{plain_ms * 1e3 / p_lock:.1f} us/lockstep iteration, bound "
-            f"{bound_ms * 1e3 / lock:.4f} us/lockstep iteration "
-            f"({bound_by})")
+            f"{plan['blocks']} blocks x {plan['warps']} warps, "
+            f"{'resident' if plan['resident'] else 'staged'} W_0, "
+            f"{plan['smem_bytes']} shared bytes a block, {per_lock:g} grid "
+            f"barriers a lockstep iteration"
+            + (", three other plans bit-identical" if name == "wide"
+               else "")
+            + f"; plain {plain_ms * 1e3 / p_lock:.1f} us/lockstep "
+            f"iteration, bound {bound_ms * 1e3 / lock:.4f} us/lockstep "
+            f"iteration ({bound_by})")
     worst = {d: max((r["max_abs_err"] for r in results if r["dtype"] == d),
                     default=0.0) for d in _dtypes()}
     log("train_tile vs plain: all runs within limits; worst weight error "
         + ", ".join(f"{d} {e:.3e}" for d, e in worst.items()))
+    results.append(_tile_wide_scratch())
+    # an input layer whose one lane's input does not fit in a block's
+    # shared memory: refused with a clear error, nothing launched
+    w, x, t = _train_inputs(TOO_WIDE, "f64", (0, 1), 2)
+    before = train_tile.launches
+    try:
+        train_tile(w, x, t, "ANN", False, tile=8)
+    except ValueError as exc:
+        refusal = str(exc)
+    else:
+        raise AssertionError(f"train_tile at {TOO_WIDE} f64 launched")
+    if train_tile.launches != before:
+        raise AssertionError("train_tile counted a refused launch")
+    log(f"train_tile at {TOO_WIDE} f64 refused: {refusal}")
     return results
+
+
+def _tile_wide_scratch():
+    """A hidden layer whose block scratch does not fit in shared memory at
+    tile 512 (``WIDE_SCRATCH``): the plan puts it in the workspace, and a
+    few lockstep iterations of one group hold to the plain version."""
+    import torch
+
+    from hpnn_tpu_torch.ops.convergence_tile import train_epoch_tiled_plain
+    from hpnn_tpu_torch.ops.convergence_tile_kernel import train_tile
+
+    topo, tile, max_iter = WIDE_SCRATCH
+    w, x, t = _train_inputs(topo, "f64", (0, 1), tile)
+    kw = dict(tile=tile, max_iter=max_iter)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    wk, sk = train_tile(w, x, t, "ANN", False, **kw)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end)
+    plan = dict(train_tile.plan)
+    if plan["scratch_on_chip"] or not plan["ws_bytes"]:
+        raise AssertionError(f"train_tile {topo} tile {tile}: plan {plan} "
+                             "keeps the block scratch on chip")
+    per_lock = _tile_barriers(w, sk, tile)
+    wp, sp = train_epoch_tiled_plain(w, x, t, "ANN", False, **kw)
+    torch.cuda.synchronize()
+    tag = f"{topo[0]}-{topo[1][0]}-{topo[2]} ANN BP f64 tile {tile}"
+    werr, dn = _check_train(tag, "f64", sk, sp, wk, wp, name="train_tile")
+    k = sk.cpu().numpy()
+    lanes, lock = int(k[:, 2].sum()), _lockstep(k[:, 2], tile)
+    log(f"train_tile {tag} ({tile} samples, max_iter {max_iter}): block "
+        f"scratch in the workspace ({plan['ws_bytes']} bytes a block, "
+        f"{plan['smem_bytes']} shared), {lock} lockstep iterations, "
+        f"{lanes} lane-iterations, max |kernel - plain| weights "
+        f"{werr:.3e}, {per_lock:g} grid barriers a lockstep iteration; "
+        f"kernel {ms:.2f} ms (first launch of this entry)")
+    return {"run": tag, "dtype": "f64", "kind": "ANN", "momentum": False,
+            "samples": tile, "tile": tile, "storage": None,
+            "lane_iters": lanes, "lockstep": lock, "max_dn_iter": dn,
+            "max_abs_err": werr, "ms": ms, "plan": plan,
+            "barriers_per_lockstep": per_lock}
+
+
+def _tile_barriers(weights, stats, tile):
+    """The grid barriers the last tile launch took a lockstep iteration,
+    as its kernel counted them; raises unless that is 2L - 2 (L >= 2
+    layers; 1 for L = 1) and its lockstep iterations are those of its
+    stats rows."""
+    from hpnn_tpu_torch.ops.convergence_tile_kernel import train_tile
+
+    in_iters, _, lock = train_tile.syncs.tolist()
+    n_iter = stats[:, 2].cpu().numpy() if hasattr(stats, "cpu") else \
+        np.asarray(stats.n_iter)
+    trained = _lockstep(n_iter[n_iter >= 0], tile)
+    layers = len(weights)
+    want = 2 * layers - 2 if layers > 1 else 1
+    if lock != trained or in_iters != want * lock:
+        raise AssertionError(f"train_tile: {in_iters} grid barriers in "
+                             f"{lock} lockstep iterations ({trained} in the "
+                             f"stats), not {want} a lockstep iteration")
+    return in_iters / lock
 
 
 def _bitwise(a, b):
@@ -1177,9 +1317,28 @@ def _epoch_inputs(root):
     return nn, xs, ts
 
 
+def _tile_epoch(w, x, t, tile):
+    """One launch of the tile kernel over the whole epoch, behind a GPU
+    spin; returns (device ms between CUDA events, stats)."""
+    import torch
+
+    from hpnn_tpu_torch.ops.convergence_tile_kernel import train_tile
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    _, st = train_tile(w, x, t, "ANN", False, tile=tile)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), st
+
+
 def phase_tile_time(e2e, tile_e2e, epoch):
     """Device time of phase 12's epoch: the same conf, shuffle and samples
-    through one launch of the kernel, behind a GPU spin."""
+    through one launch of the kernel, twice (the first and the second
+    launch), with the grid barriers the kernel counted."""
     import torch
 
     from hpnn_tpu_torch.models.kernel import weights_to_torch
@@ -1188,15 +1347,12 @@ def phase_tile_time(e2e, tile_e2e, epoch):
     nn, xs, ts = _epoch_inputs(e2e["root"])
     w = weights_to_torch(nn.kernel.weights, torch.float64, "cuda")
     x, t = _to_card(xs, torch.float64), _to_card(ts, torch.float64)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(SPIN_CYCLES)
-    start.record()
-    _, st = train_tile(w, x, t, "ANN", False, tile=TRAIN_TILE)
-    end.record()
-    end.synchronize()
-    ms = start.elapsed_time(end)
+    first_ms, st = _tile_epoch(w, x, t, TRAIN_TILE)
+    ms, st2 = _tile_epoch(w, x, t, TRAIN_TILE)
+    if not _bitwise(st, st2):
+        raise AssertionError("train_nn --tile epoch: two launches differ")
+    plan = dict(train_tile.plan)
+    per_lock = _tile_barriers(w, st, TRAIN_TILE)
     n_iter = st[:, 2].cpu().numpy()
     lanes, lock = int(n_iter.sum()), _lockstep(n_iter, TRAIN_TILE)
     if lanes != tile_e2e["iters"]:
@@ -1208,17 +1364,67 @@ def phase_tile_time(e2e, tile_e2e, epoch):
     rate = lanes / ms * 1e3
     b1_rate = epoch["iters"] / epoch["ms"] * 1e3
     log(f"train_nn --tile {TRAIN_TILE} epoch on the card: {ms:.1f} ms "
-        f"device time, {lock} lockstep iterations "
-        f"({ms * 1e3 / lock:.2f} us each), {lanes} lane-iterations "
-        f"({rate:.0f} a second; the per-sample kernel on the same files: "
-        f"{b1_rate:.0f} iterations a second, {rate / b1_rate:.2f}x); bound "
+        f"device time (first launch {first_ms:.1f} ms), {lock} lockstep "
+        f"iterations ({ms * 1e3 / lock:.2f} us each), {lanes} "
+        f"lane-iterations ({rate:.0f} a second; the per-sample kernel on "
+        f"the same files: {b1_rate:.0f} iterations a second, "
+        f"{rate / b1_rate:.2f}x) on {plan['blocks']} blocks x "
+        f"{plan['warps']} warps, {'resident' if plan['resident'] else 'staged'}"
+        f" W_0, {plan['smem_bytes']} shared bytes a block, {per_lock:g} grid "
+        f"barriers a lockstep iteration; bound "
         f"{bound_ms * 1e3 / lock:.4f} us/lockstep iteration ({bound_by}, "
         f"{flops / lock:.0f} flops a lockstep iteration)")
-    return {"ms": ms, "lockstep": lock, "lane_iters": lanes,
-            "us_per_lockstep": ms * 1e3 / lock, "lane_iters_per_s": rate,
-            "b1_iters_per_s": b1_rate, "bound_ms": bound_ms,
-            "bound_by": bound_by, "bound_us_per_lockstep":
-            bound_ms * 1e3 / lock, "grid": train_tile.grid}
+    return {"ms": ms, "first_ms": first_ms, "lockstep": lock,
+            "lane_iters": lanes, "us_per_lockstep": ms * 1e3 / lock,
+            "lane_iters_per_s": rate, "b1_iters_per_s": b1_rate,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_us_per_lockstep": bound_ms * 1e3 / lock, "plan": plan,
+            "barriers_per_lockstep": per_lock}
+
+
+def phase_tile_auto(e2e, tuned, tile_epoch):
+    """Phase 12's epoch, on the same files, at each tile ``--tile auto``
+    tries (tile 32's from ``tile_epoch``, the others one launch each): the
+    epoch's device time and lane-iterations a second, so the probe's
+    choice is held to what wins on a real epoch."""
+    import torch
+
+    from hpnn_tpu_torch.models.kernel import weights_to_torch
+    from hpnn_tpu_torch.ops.autotune import _DEFAULT_TILES
+
+    nn, xs, ts = _epoch_inputs(e2e["root"])
+    w = weights_to_torch(nn.kernel.weights, torch.float64, "cuda")
+    x, t = _to_card(xs, torch.float64), _to_card(ts, torch.float64)
+    epochs = {}
+    for tile in _DEFAULT_TILES:
+        if tile == TRAIN_TILE:
+            epochs[tile] = {k: tile_epoch[k] for k in (
+                "ms", "lockstep", "lane_iters", "us_per_lockstep",
+                "lane_iters_per_s")}
+            continue
+        ms, st = _tile_epoch(w, x, t, tile)
+        n_iter = st[:, 2].cpu().numpy()
+        lanes, lock = int(n_iter.sum()), _lockstep(n_iter, tile)
+        epochs[tile] = {"ms": ms, "lockstep": lock, "lane_iters": lanes,
+                        "us_per_lockstep": ms * 1e3 / lock,
+                        "lane_iters_per_s": lanes / ms * 1e3}
+    chosen = int(tuned["tile"])
+    fastest = min(epochs, key=lambda k: epochs[k]["ms"])
+    ratio = epochs[chosen]["ms"] / epochs[fastest]["ms"]
+    log("train_nn epoch by tile, on phase 12's files: " + "; ".join(
+        f"tile {k}: {e['ms']:.1f} ms, {e['lockstep']} lockstep iterations "
+        f"({e['us_per_lockstep']:.2f} us each), {e['lane_iters']} "
+        f"lane-iterations ({e['lane_iters_per_s']:.0f} a second)"
+        for k, e in epochs.items())
+        + f". The autotuner chose tile {chosen}; the fastest epoch is tile "
+        f"{fastest}" + (" (the probe's choice wins)" if chosen == fastest
+                        else f" ({ratio:.2f}x faster than the probe's "
+                             "choice)"))
+    return {"tile": chosen, "fastest_tile": fastest,
+            "by_tile": {str(k): e for k, e in epochs.items()},
+            **{k: epochs[chosen][k] for k in ("ms", "lockstep", "lane_iters",
+                                              "us_per_lockstep",
+                                              "lane_iters_per_s")}}
 
 
 def phase_autotune(tmp):
@@ -1335,7 +1541,7 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     runtime.pin_full_float32()
     card = phase_device()
-    phase_build()
+    built = phase_build()
     errs = phase_kernel_vs_plain()
     invariance_plans = phase_invariance()
     train, first_launch = phase_train_vs_plain()
@@ -1377,6 +1583,7 @@ def main(argv=None) -> int:
             f"{k} {v}" for k, v in tile_path.items()))
         tile_epoch = phase_tile_time(e2e, tile_e2e, epoch)
         tuned = phase_autotune(tmp)
+        tile_auto = phase_tile_auto(e2e, tuned, tile_epoch)
     cells = phase_times()
     bpm = phase_bpm()
     rep = next(c for c in cells if c["layer"] == "784->300"
@@ -1461,6 +1668,23 @@ def main(argv=None) -> int:
         "train_epoch_iters_per_s": tile_epoch["b1_iters_per_s"],
         "train_nn_bound_us_per_lockstep":
             tile_epoch["bound_us_per_lockstep"],
+        "barriers_per_lockstep": tile_epoch["barriers_per_lockstep"],
+        "plan": {k: tile_epoch["plan"][k] for k in ("blocks", "warps",
+                                                     "scratch_on_chip",
+                                                     "resident",
+                                                     "smem_bytes")},
+        "first_launch_ms": tile_epoch["first_ms"],
+        "second_launch_ms": tile_epoch["ms"],
+        "auto_tile": tile_auto["tile"],
+        "auto_tile_us_per_lockstep": tile_auto["us_per_lockstep"],
+        "auto_tile_lane_iters_per_s": tile_auto["lane_iters_per_s"],
+        "fastest_epoch_tile": tile_auto["fastest_tile"],
+        "epoch_ms_by_tile": {k: e["ms"]
+                             for k, e in tile_auto["by_tile"].items()},
+        "stack_frame_bytes": built["stack_frame_bytes"],
+        "spill_bytes": built["spill_bytes"],
+        "scratch_plan": {k: tile_runs[-1]["plan"][k] for k in (
+            "scratch_on_chip", "smem_bytes", "ws_bytes")},
         "contracts": contracts}, {
         "name": "fused_bpm_update", "route": "cuda",
         "source": "hpnn_tpu_torch/csrc/fused_bpm_update.cu",
@@ -1486,7 +1710,7 @@ def main(argv=None) -> int:
                        "tile_runs": tile_runs, "tile_contracts": contracts,
                        "train_nn_tile": {**tile_e2e, "epoch": tile_epoch,
                                          "launches": tile_path},
-                       "autotune": tuned,
+                       "autotune": tuned, "tile_auto": tile_auto,
                        "invariance_plans": invariance_plans,
                        "bpm": bpm,
                        "errors": [{"layer": k[0], "scale": k[1],

@@ -10,9 +10,11 @@ so a cell measures the iteration rate, not convergence luck), and the
 winner is cached as JSON, so a second run is a cache hit with no
 measurement.  Keys lead with the device's name (``torch.cuda.
 get_device_name`` or "cpu"), so a cache shared between a CPU host and a
-card never mixes their decisions.  There is one route per device: the
-``train_tile`` kernel on CUDA ("kernel"), its plain version on the CPU
-("loop").
+card never mixes their decisions; a card's keys then name the tile
+kernel's library (a digest of its source and build flags), so a decision
+measured on another version of the kernel is measured again.  There is
+one route per device: the ``train_tile`` kernel on CUDA ("kernel"), its
+plain version on the CPU ("loop").
 
 Knobs:
 
@@ -75,12 +77,25 @@ def _device_name(device) -> str:
     return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
 
 
+def _kernel_id(device) -> str | None:
+    """The tile kernel a decision on ``device`` is measured on: its
+    library's name, ``train_tile-<digest of source and flags>``; None on
+    the CPU, whose route is the plain loop."""
+    if not _cuda(device):
+        return None
+    from . import build
+
+    return os.path.splitext(os.path.basename(
+        build.library_path("train_tile")))[0]
+
+
 def _key(knob: str, shapes, kind: str, momentum: bool, dtype,
          device) -> str:
     topo = "x".join(f"{int(n)}.{int(m)}" for n, m in shapes)
     dt = str(dtype).replace("torch.", "")
-    return (f"{_device_name(device)}|{knob}|{kind}|"
-            f"{'BPM' if momentum else 'BP'}|{dt}|{topo}")
+    kernel = _kernel_id(device)
+    return (f"{_device_name(device)}|{kernel + '|' if kernel else ''}"
+            f"{knob}|{kind}|{'BPM' if momentum else 'BP'}|{dt}|{topo}")
 
 
 def _load() -> dict:

@@ -35,6 +35,7 @@ The same numpy inputs go through both packages:
 """
 
 import json
+import os
 import re
 
 import numpy as np
@@ -519,6 +520,34 @@ def test_autotune_cache_key_is_device_scoped(tune_cache):
 
     key = autotune._key("tile", SHAPES, "SNN", True, torch.bfloat16, "cpu")
     assert key == "cpu|tile|SNN|BPM|bfloat16|8.10x3.8"
+
+
+def test_autotune_cuda_key_names_the_kernel(tune_cache, monkeypatch):
+    """A card's decision is keyed by the tile kernel's library (a digest of
+    its source and build flags): an entry measured on another version of
+    the kernel is measured again, not returned."""
+    from hpnn_tpu_torch.ops import autotune, build
+
+    monkeypatch.setattr(autotune, "_device_name", lambda device: "Card")
+    key = autotune._key("tile", SHAPES, "ANN", False, torch.float64, "cuda")
+    lib = os.path.splitext(os.path.basename(
+        build.library_path("train_tile")))[0]
+    assert key == f"Card|{lib}|tile|ANN|BP|float64|8.10x3.8"
+    stale = key.replace(lib, "train_tile-0123456789abcdef")
+    old = {"tile": 512, "route": "kernel", "storage": None, "cells": {}}
+    (tune_cache / "autotune.json").write_text(json.dumps({stale: old}))
+    monkeypatch.setattr(autotune, "_measure_tile", lambda *a, **k: {
+        "tile": 32, "route": "kernel", "storage": None, "cells": {}})
+    dec = autotune.decide_tile(SHAPES, torch.float64, "ANN", False,
+                               device="cuda")
+    assert dec["source"] == "measured" and dec["tile"] == 32
+    cache = json.loads((tune_cache / "autotune.json").read_text())
+    assert cache == {stale: old, key: {"tile": 32, "route": "kernel",
+                                       "storage": None, "cells": {}}}
+    autotune.clear_memo()
+    again = autotune.decide_tile(SHAPES, torch.float64, "ANN", False,
+                                 device="cuda")
+    assert again["source"] == "cache" and again["tile"] == 32
 
 
 def test_no_autotune_gives_the_heuristic(monkeypatch, tmp_path):
