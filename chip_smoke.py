@@ -101,14 +101,26 @@ fault; no phase catches its own failure.
    autotuner at that width measures its candidates once, a second call is
    a cache hit, and the epoch on the same files at each of its candidate
    tiles (one launch each) shows whether its choice is the fastest epoch.
-13. ``fused_bpm_update`` against its plain version at 784x300 and 300x10,
-   f64 and f32, and its device time beside its byte bound.
+13. ``fused_bpm_update`` against its plain version, bit for bit, at the
+   MNIST and XRD layers (300x784, 10x300, 230x851, 230x230) and at
+   4096x4096 (past the 50 MB L2), f64 and f32: its warm time (back-to-back
+   calls on the same buffers), its cold time (calls rotating over copies
+   of the inputs that together span twice the L2), an empty kernel's
+   launch-to-launch time in the same loop (the floor) and the byte bound.
 14. Batch invariance of ``fused_linear_act`` (run right after phase 3):
    at each of phase 3's four layers and each dtype, one seeded B=4096
    call, and the same rows in calls of B = 1, 3, 64 and 512, from row 0
    and from an odd row, bit for bit.  Those calls cross every launch plan
    the wrapper picks (tile shapes, stages split or not), so they hold the
    fixed summation order the strict serving tier rests on.
+16. ``train_nn --epochs 3`` (run right after phase 12) on phase 9's files
+   and conf, per sample and at ``--tile 32``, through the device-resident
+   epoch pipeline: ``train_epoch`` (or ``train_tile``) launched exactly 3
+   times, ``EPOCH_METRICS.h2d_bytes`` 3 * 512 * 4 (one int32 permutation an
+   epoch), the stream and kernel.opt byte-identical to the
+   ``HPNN_NO_EPOCH_PIPELINE=1`` route on the card, each epoch's device time
+   and the run's wall time, and ``run_nn`` of kernel.opt at 80% PASS or
+   more.
 15. One JSON line of every kernel (launches on its main path, the largest
    kernel-vs-plain error over every cell and dtype, times and bound;
    ``fused_linear_act`` adds its B=1 cell and its worst ratio to the
@@ -117,12 +129,15 @@ fault; no phase catches its own failure.
    a block at phase 9's widths, and its first and second launch;
    ``train_tile`` the same for phase 12's epoch, the autotuner's tile and
    the epoch's time at each candidate tile, its build's stack frame and
-   the wide run's workspace plan), then the result line.
+   the wide run's workspace plan; both their launches and epoch times in
+   phase 16; ``fused_bpm_update`` its warm, cold and floor times), then the
+   result line.
 
 Main paths: ``fused_linear_act``'s is phases 4-5, ``train_epoch``'s phase 9
 and ``train_tile``'s phase 12 (train_nn, then run_nn of its kernel, which
-launches ``fused_linear_act`` too); every count is set to 0 just before a
-path and read just after it.  ``fused_bpm_update`` has no caller on any
+launches ``fused_linear_act`` too), and phase 16's two ``--epochs`` runs
+are this slice's; every count is set to 0 just before a path and read just
+after it.  ``fused_bpm_update`` has no caller on any
 path, as in the JAX package: its ``launches`` are the paths' (0), its
 ``phase_launches`` phase 13's.  ``--json PATH`` also writes every cell's
 numbers to PATH.
@@ -217,8 +232,12 @@ TILE_RUNS = (
 # iterations (max_iter) of one group of 512 samples
 WIDE_SCRATCH = ((784, [4096], 10), 512, 3)
 TRAIN_TILE = 32            # phase 12: train_nn --tile
-BPM_SHAPES = ((300, 784), (10, 300))   # phase 13: the MNIST layers (N, M)
-BPM_LIMIT = {"f64": 1e-12, "f32": 1e-6}
+# phase 13: the MNIST and XRD layers (N, M) and one past the 50 MB L2
+BPM_SHAPES = ((300, 784), (10, 300), (230, 851), (230, 230), (4096, 4096))
+BPM_COLD_BYTES = 100 << 20   # phase 13: the inputs a cold run rotates over
+BPM_COLD_RUN = 256           # phase 13: the most launches a timed cold run
+SPIN_PER_LAUNCH = 100_000    # GPU cycles of spin per queued launch (~50 us)
+EPOCHS = 3                   # phase 16: train_nn --epochs
 
 
 def log(msg: str) -> None:
@@ -1468,42 +1487,237 @@ def phase_autotune(tmp):
 
 # --- phase 13: fused_bpm_update --------------------------------------------
 
-def phase_bpm():
+def _bpm_arrays(rng, n, m):
+    """w, dw, d, h of one seeded (n, m) update, float64 numpy."""
+    return (rng.uniform(-1, 1, (n, m)) / np.sqrt(m),
+            rng.uniform(-1e-3, 1e-3, (n, m)), rng.uniform(-1, 1, n),
+            rng.uniform(0, 1, m))
+
+
+def _bpm_sets(first, n, m, item):
+    """``first`` and copies of it on the card, as many as make the inputs
+    of consecutive calls span BPM_COLD_BYTES (twice the L2): a call finds
+    none of its inputs in L2."""
+    count = max(2, -(-BPM_COLD_BYTES // ((2 * n * m + n + m) * item)))
+    return [first] + [tuple(v.clone() for v in first)
+                      for _ in range(count - 1)]
+
+
+def _rotating_ms(calls, runs=5):
+    """Device time of one call when consecutive calls take consecutive
+    entries of ``calls`` (cold caches): the median over ``runs`` of a
+    back-to-back run of up to BPM_COLD_RUN launches between two CUDA
+    events, behind a GPU spin long enough for the host to queue them."""
     import torch
 
-    from hpnn_tpu_torch.ops.kernels import (fused_bpm_update,
+    launches = min(max(len(calls), 10), BPM_COLD_RUN)
+    for call in calls[:3]:
+        call()
+    torch.cuda.synchronize()
+    times, k = [], 0
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES + launches * SPIN_PER_LAUNCH)
+        start.record()
+        for _ in range(launches):
+            calls[k % len(calls)]()
+            k += 1
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return statistics.median(times)
+
+
+def _bpm_bound_ms(n, m, item):
+    """The byte bound: w, dw, d, h read and w', dw' written once."""
+    return (4 * n * m + n + m) * item / HBM_BYTES_PER_S * 1e3
+
+
+def phase_bpm():
+    """``fused_bpm_update`` against its plain version, bit for bit, at every
+    shape and dtype; its warm time (back-to-back calls on the same
+    buffers), cold time (calls rotating over inputs twice the L2), the
+    empty kernel's floor in the same loop, and the byte bound."""
+    import torch
+
+    from hpnn_tpu_torch.ops.kernels import (empty_launch, fused_bpm_update,
                                             fused_bpm_update_plain)
 
     rng = np.random.default_rng(13)
     lr, alpha = 0.0005, 0.2
+    floor_ms = _device_ms(lambda: empty_launch("cuda"))
     cells = []
     for n, m in BPM_SHAPES:
-        arrays = (rng.uniform(-1, 1, (n, m)) / np.sqrt(m),
-                  rng.uniform(-1e-3, 1e-3, (n, m)), rng.uniform(-1, 1, n),
-                  rng.uniform(0, 1, m))
+        arrays = _bpm_arrays(rng, n, m)
         for dname in ("f64", "f32"):
             dt = _dtypes()[dname]
-            w, dw, d, h = (_to_card(a, dt) for a in arrays)
-            got = fused_bpm_update(w, dw, d, h, lr, alpha)
-            want = fused_bpm_update_plain(w, dw, d, h, lr, alpha)
-            torch.cuda.synchronize()
-            err = max(float((a.double() - b.double()).abs().max())
-                      for a, b in zip(got, want))
-            if not err <= BPM_LIMIT[dname]:
-                raise AssertionError(f"fused_bpm_update {n}x{m} {dname}: "
-                                     f"max |kernel - plain| = {err:.3e}")
-            ms = _device_ms(lambda: fused_bpm_update(w, dw, d, h, lr, alpha))
-            plain_ms = _device_ms(
-                lambda: fused_bpm_update_plain(w, dw, d, h, lr, alpha))
             item = 8 if dname == "f64" else 4
-            bound_ms = (4 * n * m + n + m) * item / HBM_BYTES_PER_S * 1e3
+            first = tuple(_to_card(a, dt) for a in arrays)
+            before = tuple(v.clone() for v in first)
+            got = fused_bpm_update(*first, lr, alpha)
+            plan = fused_bpm_update.plan
+            want = fused_bpm_update_plain(*first, lr, alpha)
+            torch.cuda.synchronize()
+            if not (_bitwise(got, want) and _bitwise(first, before)):
+                err = max(float((a.double() - b.double()).abs().max())
+                          for a, b in zip(got, want))
+                raise AssertionError(f"fused_bpm_update {n}x{m} {dname}: "
+                                     f"not bit-identical to the plain "
+                                     f"version (max diff {err:.3e}), or "
+                                     "an input changed")
+            del got, want, before
+            ms = _device_ms(lambda: fused_bpm_update(*first, lr, alpha))
+            plain_ms = _device_ms(
+                lambda: fused_bpm_update_plain(*first, lr, alpha))
+            sets = _bpm_sets(first, n, m, item)
+            cold_ms = _rotating_ms(
+                [lambda v=v: fused_bpm_update(*v, lr, alpha) for v in sets])
+            del sets
+            bound_ms = _bpm_bound_ms(n, m, item)
             cells.append({"shape": f"{n}x{m}", "dtype": dname,
-                          "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                          "bound_ms": bound_ms, "bound_by": "bytes"})
-            log(f"fused_bpm_update {n}x{m} {dname}: max |kernel - plain| = "
-                f"{err:.3e}; ms={ms:.5f} plain_ms={plain_ms:.5f} "
-                f"bound_ms={bound_ms:.5f} (bytes)")
+                          "max_abs_err": 0.0, "ms": ms, "cold_ms": cold_ms,
+                          "floor_ms": floor_ms, "plain_ms": plain_ms,
+                          "bound_ms": bound_ms, "bound_by": "bytes",
+                          "plan": plan._asdict()})
+            log(f"fused_bpm_update {n}x{m} {dname}: bit-identical to plain; "
+                f"warm ms={ms:.5f} cold ms={cold_ms:.5f} "
+                f"floor ms={floor_ms:.5f} plain_ms={plain_ms:.5f} "
+                f"bound_ms={bound_ms:.5f} (bytes, {bound_ms / cold_ms:.0%} "
+                f"of it cold); plan {tuple(plan)}")
     return cells
+
+
+# --- phase 16: train_nn --epochs -------------------------------------------
+
+def _train_epochs(root, extra, env=None):
+    """``train_nn -v -v --epochs 3`` (plus ``extra``) on the card in
+    ``root``, with the launch counts set to 0 just before it; returns the
+    run's stream, kernel.opt, wall time, launches and EPOCH_METRICS."""
+    from hpnn_tpu_torch import api, cli
+    from hpnn_tpu_torch.ops.convergence_kernel import train_epoch_kernel
+    from hpnn_tpu_torch.ops.convergence_tile_kernel import train_tile
+    from hpnn_tpu_torch.ops.kernels import fused_bpm_update, fused_linear_act
+
+    old = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        api.reset_epoch_metrics()
+        for fn in (train_epoch_kernel, train_tile, fused_linear_act,
+                   fused_bpm_update):
+            fn.launches = 0
+        out, err = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli.train_nn_main(["-v", "-v", "--device", "cuda",
+                                    "--epochs", str(EPOCHS), *extra,
+                                    "nn.conf"])
+        wall = time.perf_counter() - t0
+        launches = {"train_epoch": train_epoch_kernel.launches,
+                    "train_tile": train_tile.launches,
+                    "fused_linear_act": fused_linear_act.launches,
+                    "fused_bpm_update": fused_bpm_update.launches}
+        with open("kernel.opt") as fp:
+            opt = fp.read()
+    finally:
+        os.chdir(cwd)
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if rc != 0:
+        raise AssertionError(f"train_nn --epochs {EPOCHS} {extra}: rc={rc}"
+                             f"\n{err.getvalue()[-2000:]}")
+    return {"out": out.getvalue(), "err": err.getvalue(), "opt": opt,
+            "wall_s": wall, "launches": launches,
+            "metrics": dict(api.EPOCH_METRICS)}
+
+
+def phase_train_epochs(e2e):
+    """``train_nn --epochs 3`` on phase 9's files and conf, per sample and
+    at ``--tile 32``: the epoch kernel launched once an epoch, one int32
+    permutation uploaded an epoch, the stream and kernel.opt byte-identical
+    to the ``HPNN_NO_EPOCH_PIPELINE=1`` route on the card, each epoch's
+    device time beside the run's wall time, and ``run_nn`` of kernel.opt
+    at 80% PASS or more."""
+    from hpnn_tpu_torch import cli
+    from hpnn_tpu_torch.ops.kernels import fused_linear_act
+
+    runs = {}
+    for tag, extra, kernel in (("per-sample", (), "train_epoch"),
+                               (f"tile {TRAIN_TILE}",
+                                ("--tile", str(TRAIN_TILE)), "train_tile")):
+        restage = _train_epochs(e2e["root"], extra,
+                                {"HPNN_NO_EPOCH_PIPELINE": "1"})
+        res = _train_epochs(e2e["root"], extra)   # the path: counts from 0
+        met = res["metrics"]
+        if met["mode"] != "resident" or met["epochs"] != EPOCHS \
+                or met["h2d_bytes"] != EPOCHS * TRAIN_FILES * 4:
+            raise AssertionError(f"train_nn --epochs {EPOCHS} ({tag}): "
+                                 f"EPOCH_METRICS {met}")
+        if len(met["device_ms"]) != EPOCHS:
+            raise AssertionError(f"train_nn --epochs {EPOCHS} ({tag}): "
+                                 f"{len(met['device_ms'])} epoch times")
+        n_iter = res["out"].count("N_ITER=")
+        if n_iter != EPOCHS * TRAIN_FILES:
+            raise AssertionError(f"train_nn --epochs {EPOCHS} ({tag}): "
+                                 f"{n_iter} lines with N_ITER")
+        if restage["metrics"]["mode"] != "restage":
+            raise AssertionError(f"HPNN_NO_EPOCH_PIPELINE=1 ({tag}): "
+                                 f"{restage['metrics']}")
+        for part in ("out", "err", "opt"):
+            if res[part] != restage[part]:
+                raise AssertionError(f"train_nn --epochs {EPOCHS} ({tag}): "
+                                     f"the resident route's {part} differs "
+                                     "from the restaging route's")
+        cwd = os.getcwd()
+        os.chdir(e2e["root"])
+        try:
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rc, outs = cli.run_nn(["-v", "-v", "--device", "cuda",
+                                       "run.conf"])
+        finally:
+            os.chdir(cwd)
+        n_pass = out.getvalue().count("[PASS]")
+        if rc != 0 or outs is None or not np.all(np.isfinite(outs)) \
+                or n_pass < 0.8 * TRAIN_FILES:
+            raise AssertionError(f"run_nn after --epochs ({tag}): rc={rc}, "
+                                 f"PASS {n_pass}/{TRAIN_FILES}")
+        # the path's counts, read after its run_nn
+        got = dict(res["launches"], fused_linear_act=fused_linear_act.launches)
+        other = "train_tile" if kernel == "train_epoch" else "train_epoch"
+        if got[kernel] != EPOCHS or got[other] != 0 \
+                or got["fused_linear_act"] <= 0:
+            raise AssertionError(f"train_nn --epochs {EPOCHS} ({tag}) + "
+                                 f"run_nn: launches {got}, want {kernel} "
+                                 f"{EPOCHS}, {other} 0, fused_linear_act > 0")
+        iters = [sum(int(v) for v in re.findall(r"N_ITER=\s*(\d+)", block))
+                 for block in res["out"].split("EPOCH ")[1:]]
+        runs[tag] = {"launches": got, "wall_s": res["wall_s"],
+                     "restage_wall_s": restage["wall_s"],
+                     "epoch_device_ms": met["device_ms"],
+                     "epoch_iters": iters,
+                     "h2d_bytes": met["h2d_bytes"],
+                     "setup_h2d_bytes": met["setup_h2d_bytes"],
+                     "restage_h2d_bytes": restage["metrics"]["h2d_bytes"],
+                     "stage_s": met["stage_s"], "shuffle_s": met["shuffle_s"],
+                     "pass": n_pass}
+        log(f"train_nn --epochs {EPOCHS} ({tag}) + run_nn: {kernel} "
+            f"launched {got[kernel]} times, fused_linear_act "
+            f"{got['fused_linear_act']}; epochs' device time "
+            + ", ".join(f"{ms:.1f}" for ms in met["device_ms"])
+            + f" ms ({', '.join(map(str, iters))} iterations); wall "
+            f"{res['wall_s']:.2f} s (restaging route {restage['wall_s']:.2f} "
+            f"s); H2D {met['h2d_bytes']} bytes over the epochs and "
+            f"{met['setup_h2d_bytes']} once (restaging "
+            f"{restage['metrics']['h2d_bytes']}); stream and kernel.opt "
+            f"byte-identical to the restaging route; run_nn PASS "
+            f"{n_pass}/{TRAIN_FILES}")
+    return runs
 
 
 def main(argv=None) -> int:
@@ -1581,6 +1795,9 @@ def main(argv=None) -> int:
                                  f"{tile_path}")
         log("tile path launches: " + ", ".join(
             f"{k} {v}" for k, v in tile_path.items()))
+        epochs_runs = phase_train_epochs(e2e)   # each run counts from 0
+        bpm_path += sum(r["launches"]["fused_bpm_update"]
+                        for r in epochs_runs.values())
         tile_epoch = phase_tile_time(e2e, tile_e2e, epoch)
         tuned = phase_autotune(tmp)
         tile_auto = phase_tile_auto(e2e, tuned, tile_epoch)
@@ -1597,6 +1814,8 @@ def main(argv=None) -> int:
                  if r["run"].startswith("mnist ANN BP f64 tile 8"))
     bcell = next(c for c in bpm if c["shape"] == "300x784"
                  and c["dtype"] == "f32")
+    ep_b1 = epochs_runs["per-sample"]
+    ep_b4 = epochs_runs[f"tile {TRAIN_TILE}"]
     kernels = {"kernels": [{
         "name": "fused_linear_act", "route": "cuda",
         "source": "hpnn_tpu_torch/csrc/fused_linear_act.cu",
@@ -1643,7 +1862,10 @@ def main(argv=None) -> int:
         "smem_bytes_per_block": epoch["plan"]["smem_bytes"],
         "resident_plan": epoch["plan"]["resident"],
         "blocks": epoch["plan"]["blocks"],
-        "budgeted_launches": resume_launches}, {
+        "budgeted_launches": resume_launches,
+        "epochs_launches": ep_b1["launches"]["train_epoch"],
+        "epochs_device_ms": ep_b1["epoch_device_ms"],
+        "epochs_wall_s": ep_b1["wall_s"]}, {
         "name": "train_tile", "route": "cuda",
         "source": "hpnn_tpu_torch/csrc/train_tile.cu",
         "replaces": "hpnn_tpu/ops/convergence_tile.py:423",
@@ -1685,7 +1907,10 @@ def main(argv=None) -> int:
         "spill_bytes": built["spill_bytes"],
         "scratch_plan": {k: tile_runs[-1]["plan"][k] for k in (
             "scratch_on_chip", "smem_bytes", "ws_bytes")},
-        "contracts": contracts}, {
+        "contracts": contracts,
+        "epochs_launches": ep_b4["launches"]["train_tile"],
+        "epochs_device_ms": ep_b4["epoch_device_ms"],
+        "epochs_wall_s": ep_b4["wall_s"]}, {
         "name": "fused_bpm_update", "route": "cuda",
         "source": "hpnn_tpu_torch/csrc/fused_bpm_update.cu",
         "replaces": "hpnn_tpu/ops/pallas_kernels.py:141",
@@ -1698,7 +1923,12 @@ def main(argv=None) -> int:
         "ms": bcell["ms"], "plain_ms": bcell["plain_ms"],
         "bound_ms": bcell["bound_ms"], "bound_by": bcell["bound_by"],
         "library_ms": None,
-        "timed_cell": "300x784 f32 (the MNIST input layer)"}]}
+        "timed_cell": "300x784 f32 (the MNIST input layer), warm",
+        "warm_ms": bcell["ms"], "cold_ms": bcell["cold_ms"],
+        "floor_ms": bcell["floor_ms"],
+        "by_shape": {f"{c['shape']} {c['dtype']}": {
+            k: c[k] for k in ("ms", "cold_ms", "bound_ms")}
+            for c in bpm}}]}
     if json_path:
         os.makedirs(os.path.dirname(os.path.abspath(json_path)),
                     exist_ok=True)
@@ -1711,6 +1941,7 @@ def main(argv=None) -> int:
                        "train_nn_tile": {**tile_e2e, "epoch": tile_epoch,
                                          "launches": tile_path},
                        "autotune": tuned, "tile_auto": tile_auto,
+                       "train_nn_epochs": epochs_runs,
                        "invariance_plans": invariance_plans,
                        "bpm": bpm,
                        "errors": [{"layer": k[0], "scale": k[1],

@@ -33,6 +33,11 @@ then the reference's per-sample grammar (``ann.c:2322-2366``,
     final=%15.10f SUCCESS!|FAIL!\\n" (snn_train_BP prints no verdict), and
     at verbosity > 2 "NN(DBG): bad optimization!\\n" after a final dEp
     above 0.1.
+
+Multi-epoch runs (``ckpt.trainer.train_loop``, ``train_nn --epochs N``)
+continue one glibc shuffle stream (``NNDef.shuffle_rng``) and train
+through :class:`_EpochPipeline`: the corpus read and uploaded once a run,
+the weights kept on the device, one int32 permutation uploaded an epoch.
 """
 
 from __future__ import annotations
@@ -46,11 +51,12 @@ import torch
 
 from .io.conf import NN_TYPE_ANN, NN_TYPE_LNN, NN_TYPE_SNN, NN_TYPE_UKN
 from .io.conf import NN_TRAIN_BP, NN_TRAIN_BPM, NNConf, load_conf
-from .io.corpus import load_ordered
+from .io.corpus import load_ordered, load_resident
 from .io.kernel_io import load_kernel
 from .io.samples import list_sample_dir
 from .models.kernel import (Kernel, generate_kernel, is_regression,
                             weights_to_numpy, weights_to_torch)
+from .ops.convergence import stats_record
 from .utils import nn_log
 from .utils.glibc_random import GlibcRandom, shuffled_indices
 from .utils.nn_log import nn_cout, nn_dbg, nn_error, nn_out, nn_warn
@@ -65,6 +71,10 @@ class NNDef:
 
     conf: NNConf
     kernel: Kernel | None = None
+    # persistent shuffle stream of a multi-epoch run (ckpt.trainer): when
+    # set, every train_kernel call continues this glibc stream instead of
+    # re-seeding; None keeps the reference's one srandom per process
+    shuffle_rng: GlibcRandom | None = None
     # the last train_kernel epoch's summary (samples, mean final dEp,
     # successes)
     last_epoch_stats: dict | None = None
@@ -207,12 +217,39 @@ def _unported_route(conf: NNConf) -> str | None:
     return None
 
 
-def shuffle_order(conf: NNConf, n: int) -> list[int]:
+def shuffle_order(conf: NNConf, n: int, rng=None) -> list[int]:
     """Seeded shuffle of n files (libhpnn.c:1218-1229); seed 0 -> time()
-    written back into the conf, as the reference mutates _CONF.seed."""
+    written back into the conf, as the reference mutates _CONF.seed.  A
+    persistent ``rng`` (multi-epoch training, NNDef.shuffle_rng) continues
+    its stream instead of re-seeding."""
+    if rng is not None:
+        return shuffled_indices(rng, n)
     if conf.seed == 0:
         conf.seed = int(time.time())
     return shuffled_indices(GlibcRandom(conf.seed), n)
+
+
+# per-process epoch accounting: epochs trained, host-to-device bytes
+# uploaded by the epochs (h2d_bytes) and once for the run
+# (setup_h2d_bytes: the resident corpus and the first weights), the host
+# seconds between the shuffle and the launch (stage_s) and of the glibc
+# shuffle itself (shuffle_s), the route ("resident" or "restage"), and on
+# a card each resident epoch's device time from its gather to the end of
+# its launch (device_ms, CUDA events, filled as the epochs are joined)
+EPOCH_METRICS = {"epochs": 0, "h2d_bytes": 0, "setup_h2d_bytes": 0,
+                 "stage_s": 0.0, "shuffle_s": 0.0, "mode": None,
+                 "device_ms": []}
+
+
+def reset_epoch_metrics() -> None:
+    EPOCH_METRICS.update(epochs=0, h2d_bytes=0, setup_h2d_bytes=0,
+                         stage_s=0.0, shuffle_s=0.0, mode=None, device_ms=[])
+
+
+def _upload(a, dtype: torch.dtype, dev) -> torch.Tensor:
+    """A float64 numpy array on ``dev`` in ``dtype``: cast on the host,
+    then one upload of the working type's bytes."""
+    return torch.as_tensor(a, dtype=torch.float64).to(dtype).to(dev)
 
 
 def load_tests(nn: NNDef):
@@ -266,7 +303,9 @@ def train_kernel(nn: NNDef, device="cuda") -> bool:
     """_NN(train,kernel) (``libhpnn.c:1149-1305``): the seeded shuffle of
     the sample dir, one epoch of per-sample train-to-convergence on
     ``device``, the per-sample console lines.  The trained weights go back
-    to ``nn.kernel.weights`` as float64 numpy arrays."""
+    to ``nn.kernel.weights`` as float64 numpy arrays.  In a multi-epoch run
+    (``nn.shuffle_rng`` set) the epoch goes through the run's
+    :class:`_EpochPipeline` when the corpus allows one."""
     from . import ops
 
     conf = nn.conf
@@ -280,10 +319,12 @@ def train_kernel(nn: NNDef, device="cuda") -> bool:
     # LNN without the native opt-in warns here and in finish() but trains
     # through the SNN fallthrough (libhpnn.c:1180-1182, 1260-1261, 1291)
     supported = conf.type in (NN_TYPE_ANN, NN_TYPE_SNN) or native_lnn(conf)
-    if not supported:
-        nn_error("unimplemented NN type!\n")
-    elif momentum:
-        nn.kernel.momentum_init()  # ann_momentum_init (libhpnn.c:1175)
+
+    def prologue() -> None:
+        if not supported:
+            nn_error("unimplemented NN type!\n")
+        elif momentum:
+            nn.kernel.momentum_init()  # ann_momentum_init (libhpnn.c:1175)
 
     def finish() -> bool:
         if not supported:
@@ -292,12 +333,31 @@ def train_kernel(nn: NNDef, device="cuda") -> bool:
             nn.kernel.momentum_free()  # ann_momentum_free (libhpnn.c:1297)
         return True
 
+    dev = torch.device(device)
+    if pipeline_active(nn) and getattr(nn, "_pipeline_defer", False):
+        # deferred epochs: the prologue's stdout (MOMENTUM ALLOC) queues
+        # behind the previous epoch's lines; its stderr emits now
+        with nn_log.capture() as pro:
+            prologue()
+        nn_log.replay([e for e in pro if e[0] == "error"])
+        rest = [e for e in pro if e[0] != "error"]
+        if rest:
+            nn._epoch_pipeline.pending.append(("entries", rest))
+    else:
+        prologue()
     nn.last_epoch_stats = None
+    pipe = _pipeline_for(nn, conf, dev)
+    if pipe is not None:
+        return _train_kernel_pipelined(nn, pipe, kernel_kind(conf),
+                                       momentum, finish)
     names = list_sample_dir(conf.samples)
     if names is None:
         nn_error(f"can't open sample directory: {conf.samples}\n")
         return False
-    order = shuffle_order(conf, len(names))
+    t_sh = time.perf_counter()
+    order = shuffle_order(conf, len(names), nn.shuffle_rng)
+    EPOCH_METRICS["shuffle_s"] += time.perf_counter() - t_sh
+    t_stage = time.perf_counter()
     events, xs, ts = load_ordered(conf.samples, names, order, "TRAINING",
                                   nn.kernel.n_inputs, nn.kernel.n_outputs)
     if xs is None or conf.train not in (NN_TRAIN_BP, NN_TRAIN_BPM):
@@ -309,14 +369,17 @@ def train_kernel(nn: NNDef, device="cuda") -> bool:
         return finish()
     dtype = dtype_of(conf)
     kind = kernel_kind(conf)
-    dev = torch.device(device)
     # [dtype] bf16 trains float32 master weights (bfloat16 samples,
     # activations and deltas): bfloat16 storage rounds BPM-sized updates
     # away
     master = torch.float32 if dtype == torch.bfloat16 else dtype
     weights = weights_to_torch(nn.kernel.weights, master, dev)
-    xs_dev = torch.as_tensor(xs, dtype=torch.float64).to(dev).to(dtype)
-    ts_dev = torch.as_tensor(ts, dtype=torch.float64).to(dev).to(dtype)
+    xs_dev, ts_dev = _upload(xs, dtype, dev), _upload(ts, dtype, dev)
+    EPOCH_METRICS["stage_s"] += time.perf_counter() - t_stage
+    EPOCH_METRICS["h2d_bytes"] += (xs_dev.nbytes + ts_dev.nbytes
+                                   + sum(w.nbytes for w in weights))
+    EPOCH_METRICS["epochs"] += 1
+    EPOCH_METRICS["mode"] = "restage"
     tile, storage = 0, None
     if _tile_request(conf):
         # groups of S trained to convergence in lockstep: a documented
@@ -330,6 +393,225 @@ def train_kernel(nn: NNDef, device="cuda") -> bool:
     nn.kernel.weights = weights_to_numpy(new_weights)
     nn.last_epoch_stats = _emit_training_lines(events, stats, kind, momentum)
     return finish()
+
+
+class _EpochPipeline:
+    """Device-resident multi-epoch training state (resident mode).
+
+    Built once a multi-epoch run (``ckpt.trainer.train_loop`` drives it
+    through :func:`train_kernel`): the corpus is read once in listing
+    order (``io.corpus.load_resident``) and uploaded once in the working
+    dtype, the weights stay on the device across epochs in the master
+    dtype (float32 under ``[dtype] bf16``), and the tile decision is made
+    once.  Each epoch's host work is the glibc shuffle (a byte-parity
+    obligation), the shuffle-order events and skip diagnostics rebuilt
+    from the corpus's status codes, and one upload of an int32
+    permutation; an ``index_select`` on the card gathers the epoch's rows
+    for one ``train_epoch`` or ``train_tile`` launch.  Its stats come back
+    through a non-blocking copy and an event, so epoch k+1 is queued
+    before epoch k's stats are read; the console lines wait in
+    ``pending`` (with literals such as the trainer's EPOCH banner) and
+    :meth:`join` renders them in order at the run's join points.
+
+    The trajectory is bit-identical to the restaging route (a cast then a
+    gather equals a gather then a cast; the master weights round-trip
+    through float64 losslessly), and the console stream byte-identical.
+    ``HPNN_NO_EPOCH_PIPELINE=1`` takes the restaging route."""
+
+    mode = "resident"
+
+    def __init__(self, rc, dtype: torch.dtype, device: torch.device):
+        self.rc = rc                      # ResidentCorpus (listing order)
+        self.dtype = dtype
+        self.wdtype = torch.float32 if dtype == torch.bfloat16 else dtype
+        self.device = device
+        self.weights = None               # device carry across epochs
+        self.x_dev = None
+        self.t_dev = None
+        self.train_fn = None
+        # console segments in order: ("out", text) literals, ("entries",
+        # captured output) and _EpochLines of epochs not rendered yet
+        self.pending: list = []
+
+    @classmethod
+    def build(cls, nn, conf, device):
+        """The pipeline for this run, or None when the corpus is missing,
+        empty, or has non-replayable diagnostics (the run then restages
+        every epoch)."""
+        names = list_sample_dir(conf.samples)
+        if not names:
+            return None
+        rc = load_resident(conf.samples, names, nn.kernel.n_inputs,
+                           nn.kernel.n_outputs)
+        if rc is None or rc.n_rows == 0:
+            return None
+        pipe = cls(rc, dtype_of(conf), device)
+        # the one corpus upload of the run
+        pipe.x_dev = _upload(rc.X, pipe.dtype, device)
+        pipe.t_dev = _upload(rc.T, pipe.dtype, device)
+        EPOCH_METRICS["setup_h2d_bytes"] += (pipe.x_dev.nbytes
+                                             + pipe.t_dev.nbytes)
+        rc.release_rows()
+        nn_dbg(f"epoch pipeline: {pipe.mode}, {rc.n_rows} row(s)\n")
+        return pipe
+
+    def run_epoch(self, nn, events, sel, kind: str, momentum: bool) -> int:
+        """Queue one epoch's device work on the resident corpus and its
+        stats readback; returns the bytes this epoch uploaded."""
+        from . import ops
+
+        if self.weights is None:
+            # the first epoch stages the float64 host weights; afterwards
+            # the carry stays on the device
+            self.weights = weights_to_torch(nn.kernel.weights, self.wdtype,
+                                            self.device)
+            EPOCH_METRICS["setup_h2d_bytes"] += sum(
+                w.nbytes for w in self.weights)
+        if self.train_fn is None:
+            tile, storage = 0, None
+            if _tile_request(nn.conf):
+                tile, storage = _resolve_tile(nn.conf, self.weights,
+                                              self.dtype, kind, momentum,
+                                              self.device)
+            self.train_fn, _ = ops.select_train_epoch(
+                self.dtype, kind=kind, device=self.device, tile=tile,
+                storage=storage, defer_stats=True)
+        perm, start = torch.from_numpy(sel), None
+        if self.device.type == "cuda":
+            # pinned, so the upload queues behind the previous epoch's
+            # launch instead of waiting for it
+            perm = perm.pin_memory()
+            start = torch.cuda.Event(enable_timing=True)
+            start.record(torch.cuda.current_stream(self.device))
+        sel_dev = perm.to(self.device, non_blocking=True)  # the upload
+        xs = self.x_dev.index_select(0, sel_dev)
+        ts = self.t_dev.index_select(0, sel_dev)
+        self.weights, stats = self.train_fn(self.weights, xs, ts, kind,
+                                            momentum, alpha=0.2)
+        self.pending.append(_EpochLines(events, stats, self.dtype, kind,
+                                        momentum, nn_log.get_verbosity(),
+                                        start))
+        return sel.nbytes
+
+    def join(self, nn) -> list[dict]:
+        """Emit the pending console segments in order and copy the weight
+        carry back to ``nn.kernel.weights`` (float64, what kernel.opt
+        dumps).  Returns the joined epochs' summaries, oldest first."""
+        sums = []
+        for item in self.pending:
+            if isinstance(item, _EpochLines):
+                text, summary = item.render()
+                nn_log.nn_raw(text)
+                sums.append(summary)
+                nn.last_epoch_stats = summary
+            elif item[0] == "out":
+                nn_out(item[1])
+            else:
+                nn_log.replay(item[1])
+        self.pending = []
+        if self.weights is not None:
+            nn.kernel.weights = weights_to_numpy(self.weights)
+        return sums
+
+
+class _EpochLines:
+    """One queued epoch's console lines: its stats record comes back from
+    the card through a non-blocking copy into pinned memory, and
+    :meth:`render` waits on the copy's event only when the lines are due
+    (and then reads the epoch's device time from ``start``)."""
+
+    def __init__(self, events, stats: torch.Tensor, dtype, kind: str,
+                 momentum: bool, verbosity: int, start=None):
+        self.events = events
+        self.dtype, self.kind, self.momentum = dtype, kind, momentum
+        self.verbosity = verbosity
+        self.start = start
+        self.end = self.done = None
+        if stats.device.type == "cuda":
+            stream = torch.cuda.current_stream(stats.device)
+            self.end = torch.cuda.Event(enable_timing=True)
+            self.end.record(stream)
+            host = torch.empty(stats.shape, dtype=stats.dtype,
+                               pin_memory=True)
+            host.copy_(stats, non_blocking=True)
+            self.done = torch.cuda.Event()
+            self.done.record(stream)
+            stats = host
+        self.stats = stats
+
+    def render(self):
+        if self.done is not None:
+            self.done.synchronize()
+            if self.start is not None:
+                EPOCH_METRICS["device_ms"].append(
+                    self.start.elapsed_time(self.end))
+        stats = stats_record(self.stats, self.dtype)
+        return _render_training_lines(self.events, stats, self.kind,
+                                      self.momentum, self.verbosity)
+
+
+def _pipeline_for(nn, conf, device):
+    """The run's epoch pipeline: the one built at its first epoch (the
+    decision is made once a run), a new one when this multi-epoch run
+    qualifies, else None (the restaging route)."""
+    cur = getattr(nn, "_epoch_pipeline", None)
+    if isinstance(cur, _EpochPipeline):
+        return cur
+    if cur is False:
+        return None
+    pipe = None
+    if (nn.shuffle_rng is not None
+            and conf.train in (NN_TRAIN_BP, NN_TRAIN_BPM)
+            and not os.environ.get("HPNN_NO_EPOCH_PIPELINE")):
+        pipe = _EpochPipeline.build(nn, conf, device)
+    nn._epoch_pipeline = pipe if pipe is not None else False
+    return pipe
+
+
+def pipeline_active(nn) -> bool:
+    """True when ``nn`` trains through the device-resident pipeline."""
+    return isinstance(getattr(nn, "_epoch_pipeline", None), _EpochPipeline)
+
+
+def pipeline_defer_out(nn, text: str) -> bool:
+    """Queue an NN_OUT line behind the pipeline's pending epochs (the
+    trainer's EPOCH banner follows the previous epoch's lines).  Returns
+    False when no pipeline is active: the caller prints it."""
+    if not pipeline_active(nn):
+        return False
+    nn._epoch_pipeline.pending.append(("out", text))
+    return True
+
+
+def pipeline_join(nn) -> list[dict]:
+    """Drain the pipeline at a join point; [] when none is active."""
+    if not pipeline_active(nn):
+        return []
+    return nn._epoch_pipeline.join(nn)
+
+
+def _train_kernel_pipelined(nn, pipe: _EpochPipeline, kind: str,
+                            momentum: bool, finish) -> bool:
+    """One epoch through the resident pipeline: shuffle, events and skip
+    diagnostics from the corpus's status codes, the int32 permutation's
+    upload, the on-card gather and one launch; the console lines wait in
+    the pipeline until the trainer joins it (at once for a caller that
+    does not defer)."""
+    conf = nn.conf
+    t0 = time.perf_counter()
+    order = shuffle_order(conf, len(pipe.rc.names), nn.shuffle_rng)
+    t1 = time.perf_counter()
+    events, sel = pipe.rc.epoch_events(order)
+    EPOCH_METRICS["h2d_bytes"] += pipe.run_epoch(nn, events, sel, kind,
+                                                 momentum)
+    EPOCH_METRICS["shuffle_s"] += t1 - t0
+    EPOCH_METRICS["stage_s"] += time.perf_counter() - t1
+    EPOCH_METRICS["epochs"] += 1
+    EPOCH_METRICS["mode"] = pipe.mode
+    finish()
+    if not getattr(nn, "_pipeline_defer", False):
+        pipe.join(nn)
+    return True
 
 
 def _render_training_lines(events, stats, kind: str, momentum: bool,
@@ -438,5 +720,7 @@ def _print_verdicts(events, outs, ts, kind: str, n_out: int) -> None:
                 nn_cout(f" [FAIL idx={target + 1}]\n")
 
 
-__all__ = ["NNDef", "configure", "dtype_of", "kernel_kind", "load_tests",
-           "native_lnn", "run_kernel", "shuffle_order", "train_kernel"]
+__all__ = ["EPOCH_METRICS", "NNDef", "configure", "dtype_of", "kernel_kind",
+           "load_tests", "native_lnn", "pipeline_active",
+           "pipeline_defer_out", "pipeline_join", "reset_epoch_metrics",
+           "run_kernel", "shuffle_order", "train_kernel"]

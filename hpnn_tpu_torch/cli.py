@@ -1,7 +1,8 @@
 """train_nn / run_nn / serve_nn command-line entry points of the port.
 
     python -m hpnn_tpu_torch.cli train_nn [-h] [-v]... [-x] [-O n] [-B n]
-        [-S n] [--device {cuda,cpu}] [--lnn native] [--tile S|auto] [conf]
+        [-S n] [--device {cuda,cpu}] [--lnn native] [--tile S|auto]
+        [--epochs N] [conf]
     python -m hpnn_tpu_torch.cli run_nn [-h] [-v]... [-O n] [-B n] [-S n]
         [--device {cuda,cpu}] [--lnn native] [conf]
     python -m hpnn_tpu_torch.cli serve_nn [-v]... [-a ADDR] [-p PORT]
@@ -18,7 +19,9 @@ owns host threads and CUDA streams), the conf defaults to ``./nn.conf``.
 ``train_nn`` dumps the untrained kernel to ``kernel.tmp`` before training
 and the trained one to ``kernel.opt`` after (``train_nn.c:224-243``);
 ``--tile S`` (or ``auto``) trains through the batched-tile engine and wins
-over the conf's ``[tile]``.
+over the conf's ``[tile]``.  ``--epochs N`` trains N epochs in one process
+(``ckpt.trainer.train_loop``: one continuing shuffle stream, the corpus and
+the weights resident on the device), with checkpointing off.
 Every command runs on the GPU unless
 ``--device cpu`` is given; asking for the GPU on a host without one exits
 non-zero before anything is computed.  The JAX package's other options
@@ -70,6 +73,10 @@ def _help_text(name: str) -> str:
             "\ttraining for S>1).  'auto' asks the topology autotuner",
             "\t(HPNN_NO_AUTOTUNE=1 disables; HPNN_AUTOTUNE_CACHE=DIR",
             "\trelocates the decision cache); 0 keeps per-sample mode.",
+            "--epochs N \ttrain N epochs in this process (default 1):",
+            "\tthe shuffle stream continues across epochs and the",
+            "\tcorpus and weights stay on the device; checkpointing",
+            "\tis off (an interrupt keeps what kernel.opt gets).",
         ]
     lines += [
         "***********************************",
@@ -96,7 +103,7 @@ def _parse_args(argv: list[str], name: str):
     """Reference-style parse; returns (filename, extras) or None on -h,
     raises SystemExit(-1) on syntax errors."""
     filename = None
-    extras = {"device": "cuda", "lnn": None, "tile": None}
+    extras = {"device": "cuda", "lnn": None, "tile": None, "epochs": None}
     choices = {"--device": ("device", runtime.DEVICES),
                "--lnn": ("lnn", ("native",))}
     numeric = "OBS"   # thread/BLAS/stream counts: checked, then ignored
@@ -132,6 +139,18 @@ def _parse_args(argv: list[str], name: str):
                 sys.stdout.write(_help_text(name))
                 raise SystemExit(-1)
             extras["tile"] = tile
+            i += 1
+            continue
+        if key == "--epochs" and name == "train_nn":
+            if not eq:
+                i += 1
+                val = argv[i] if i < len(argv) else ""
+            epochs = _leading_uint(val)   # GET_UINT-style, at least 1
+            if not epochs:
+                sys.stderr.write(f"syntax error: bad {key} parameter!\n")
+                sys.stdout.write(_help_text(name))
+                raise SystemExit(-1)
+            extras["epochs"] = epochs
             i += 1
             continue
         if arg.startswith("--"):
@@ -209,8 +228,10 @@ def run_nn_main(argv: list[str] | None = None) -> int:
 
 def train_nn_main(argv: list[str] | None = None) -> int:
     """train_nn (tests/train_nn.c:59-255): configure, dump kernel.tmp, one
-    training epoch on the device, dump kernel.opt.  Returns the exit
+    training epoch on the device (``--epochs N``: N of them through
+    ``ckpt.trainer.train_loop``), dump kernel.opt.  Returns the exit
     code."""
+    from .ckpt import train_loop
     from .io.kernel_io import dump_kernel_to_path
 
     argv = sys.argv[1:] if argv is None else argv
@@ -236,7 +257,13 @@ def train_nn_main(argv: list[str] | None = None) -> int:
         except OSError:
             sys.stderr.write("FAILED to open kernel.tmp for WRITE!\n")
             return -1
-        if not train_kernel(neural, device=runtime.lib_runtime.device):
+        device = runtime.lib_runtime.device
+        epochs = extras["epochs"] or 1
+        if epochs > 1:
+            trained, _interrupted = train_loop(neural, epochs, device=device)
+        else:
+            trained = train_kernel(neural, device=device)
+        if not trained:
             sys.stderr.write("FAILED to train kernel!\n")
             return -1
         try:

@@ -11,12 +11,31 @@
 // left as they were, which is what the JAX caller sees.
 //
 // What bounds it on the H100: 4 flops a weight against 4 values moved a
-// weight (W and dw read, W' and dw' written), so it is bound by device
-// memory: 784x300 at float32 moves 3.76 MB, 1.1 us at 3.35 TB/s.
+// weight (W and dw read, W' and dw' written) plus d and h once, so it is
+// bound by device memory: (4*N*M + N + M) * size / 3.35 TB/s, 1.12 us at
+// 300x784 float32 and 80.1 us at 4096x4096 float32 (160.3 us at float64).
 //
-// Design: one thread per weight in a grid-stride loop, consecutive threads
-// on consecutive columns of a row (coalesced W/dw/h, d[i] a broadcast);
-// float64 and float32.  Built without --use_fast_math.
+// Design:
+// * 2-D indexing, no integer division: a thread owns one vector of V
+//   consecutive columns (blockIdx.x, threadIdx.x) and one row (blockIdx.y,
+//   threadIdx.y), striding by the grid's rows only past 65535 row blocks.
+//   Its h values come in once, and lr*d[i] is formed once a row, the same
+//   rounded product the per-weight form took, so the bits do not change.
+// * 16-byte loads and stores (float4 / double2, V = 4 / 2) where the row
+//   pitch M*sizeof(T) is a multiple of 16 and every pointer is 16-byte
+//   aligned; otherwise scalar columns (V = 1), coalesced all the same.
+// * Streaming stores (__stcs) for W' and dw', which the kernel never reads.
+// * The grid comes from the caller's plan (fused_bpm_plan in
+//   hpnn_tpu_torch/ops/kernels.py, a pure function of the shape and the
+//   type): blocks of up to 256 threads, a thread a row.  On the H100 that
+//   beat one wave of blocks walking many rows each at 4096x4096, and one
+//   block walking all the rows at the tutorials' layers (PERF.md, PR 8;
+//   scripts/torch_compare_bpm.py --plans).  The launch reads no device
+//   attribute.
+// Built without --use_fast_math.
+//
+// hpnn_bpm_empty launches an empty kernel: chip_smoke.py times it in the
+// same loop as the update, the floor a launch cannot go below.
 //
 // C interface (loaded with ctypes): each entry returns cudaGetLastError()
 // after the launch; the launch is asynchronous on the caller's stream.
@@ -26,46 +45,113 @@
 
 namespace {
 
-constexpr int THREADS = 256;
-
 __device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
 __device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 
+template <typename T, int V>
+struct Vec {
+    T v[V];
+};
+
+// Read-only loads and streaming stores of V consecutive elements.
+template <typename T, int V>
+struct Io;
+
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+struct Io<T, 1> {
+    static __device__ __forceinline__ Vec<T, 1> load(const T* p) { return {{__ldg(p)}}; }
+    static __device__ __forceinline__ void store(T* p, const Vec<T, 1>& x) { __stcs(p, x.v[0]); }
+};
+
+template <>
+struct Io<float, 4> {
+    static __device__ __forceinline__ Vec<float, 4> load(const float* p) {
+        const float4 x = __ldg(reinterpret_cast<const float4*>(p));
+        return {{x.x, x.y, x.z, x.w}};
+    }
+    static __device__ __forceinline__ void store(float* p, const Vec<float, 4>& x) {
+        __stcs(reinterpret_cast<float4*>(p), make_float4(x.v[0], x.v[1], x.v[2], x.v[3]));
+    }
+};
+
+template <>
+struct Io<double, 2> {
+    static __device__ __forceinline__ Vec<double, 2> load(const double* p) {
+        const double2 x = __ldg(reinterpret_cast<const double2*>(p));
+        return {{x.x, x.y}};
+    }
+    static __device__ __forceinline__ void store(double* p, const Vec<double, 2>& x) {
+        __stcs(reinterpret_cast<double2*>(p), make_double2(x.v[0], x.v[1]));
+    }
+};
+
+// One row of a thread's vector: step = dw + g*h; W' = W + step; dw' = alpha*step.
+template <typename T, int V>
+__device__ __forceinline__ void update(const Vec<T, V>& w, const Vec<T, V>& dw,
+                                       const Vec<T, V>& h, T g, T alpha, T* w_out, T* dw_out) {
+    Vec<T, V> wo, dwo;
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+        const T step = add(dw.v[k], mul(g, h.v[k]));
+        wo.v[k] = add(w.v[k], step);
+        dwo.v[k] = mul(alpha, step);
+    }
+    Io<T, V>::store(w_out, wo);
+    Io<T, V>::store(dw_out, dwo);
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(256)
 fused_bpm_kernel(const T* __restrict__ w, const T* __restrict__ dw, const T* __restrict__ d,
                  const T* __restrict__ h, T* __restrict__ w_out, T* __restrict__ dw_out, int n,
                  int m, T lr, T alpha) {
-    const long long total = static_cast<long long>(n) * m;
-    const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-    for (long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; e < total;
-         e += stride) {
-        const int i = static_cast<int>(e / m), j = static_cast<int>(e % m);
-        const T step = add(dw[e], mul(mul(lr, d[i]), h[j]));
-        w_out[e] = add(w[e], step);
-        dw_out[e] = mul(alpha, step);
+    const int col = (blockIdx.x * blockDim.x + threadIdx.x) * V;
+    if (col >= m) return;
+    const Vec<T, V> hv = Io<T, V>::load(h + col);
+    const long long step_rows = static_cast<long long>(gridDim.y) * blockDim.y;
+    for (long long r = static_cast<long long>(blockIdx.y) * blockDim.y + threadIdx.y; r < n;
+         r += step_rows) {
+        const size_t e = static_cast<size_t>(r) * m + col;
+        update<T, V>(Io<T, V>::load(w + e), Io<T, V>::load(dw + e), hv, mul(lr, __ldg(d + r)),
+                     alpha, w_out + e, dw_out + e);
     }
+}
+
+__global__ void empty_kernel() {}
+
+cudaError_t use_device(int device) {
+    int cur = -1;
+    cudaError_t err = cudaGetDevice(&cur);
+    if (err != cudaSuccess || cur == device) return err;
+    return cudaSetDevice(device);
 }
 
 template <typename T>
 int launch(const void* w, const void* dw, const void* d, const void* h, void* w_out,
-           void* dw_out, int n, int m, double lr, double alpha, int device, void* stream) {
-    cudaError_t err = cudaSetDevice(device);
+           void* dw_out, int n, int m, double lr, double alpha, int vec, int tx, int ty,
+           int gx, int gy, int device, void* stream) {
+    cudaError_t err = use_device(device);
     if (err != cudaSuccess) return static_cast<int>(err);
-    int sms = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const long long total = static_cast<long long>(n) * m;
-    long long blocks = (total + THREADS - 1) / THREADS;
-    if (blocks > 32LL * sms) blocks = 32LL * sms;
-    if (blocks < 1) return static_cast<int>(cudaSuccess);
-    fused_bpm_kernel<T><<<static_cast<int>(blocks), THREADS, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(w), static_cast<const T*>(dw), static_cast<const T*>(d),
-        static_cast<const T*>(h), static_cast<T*>(w_out), static_cast<T*>(dw_out), n, m, T(lr),
-        T(alpha));
+    if (n <= 0 || m <= 0) return static_cast<int>(cudaSuccess);
+    const dim3 grid(gx, gy), block(tx, ty);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const T* wi = static_cast<const T*>(w);
+    const T* dwi = static_cast<const T*>(dw);
+    const T* di = static_cast<const T*>(d);
+    const T* hi = static_cast<const T*>(h);
+    T* wo = static_cast<T*>(w_out);
+    T* dwo = static_cast<T*>(dw_out);
+    constexpr int VW = 16 / sizeof(T);
+    if (vec == VW)
+        fused_bpm_kernel<T, VW><<<grid, block, 0, s>>>(wi, dwi, di, hi, wo, dwo, n, m, T(lr),
+                                                       T(alpha));
+    else if (vec == 1)
+        fused_bpm_kernel<T, 1><<<grid, block, 0, s>>>(wi, dwi, di, hi, wo, dwo, n, m, T(lr),
+                                                      T(alpha));
+    else
+        return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -75,14 +161,25 @@ extern "C" {
 
 int hpnn_fused_bpm_update_f64(const void* w, const void* dw, const void* d, const void* h,
                               void* w_out, void* dw_out, int n, int m, double lr,
-                              double alpha, int device, void* stream) {
-    return launch<double>(w, dw, d, h, w_out, dw_out, n, m, lr, alpha, device, stream);
+                              double alpha, int vec, int tx, int ty, int gx, int gy, int device,
+                              void* stream) {
+    return launch<double>(w, dw, d, h, w_out, dw_out, n, m, lr, alpha, vec, tx, ty, gx, gy,
+                          device, stream);
 }
 
 int hpnn_fused_bpm_update_f32(const void* w, const void* dw, const void* d, const void* h,
                               void* w_out, void* dw_out, int n, int m, double lr,
-                              double alpha, int device, void* stream) {
-    return launch<float>(w, dw, d, h, w_out, dw_out, n, m, lr, alpha, device, stream);
+                              double alpha, int vec, int tx, int ty, int gx, int gy, int device,
+                              void* stream) {
+    return launch<float>(w, dw, d, h, w_out, dw_out, n, m, lr, alpha, vec, tx, ty, gx, gy,
+                         device, stream);
+}
+
+int hpnn_bpm_empty(int device, void* stream) {
+    cudaError_t err = use_device(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+    return static_cast<int>(cudaGetLastError());
 }
 
 const char* hpnn_bpm_error_string(int code) {

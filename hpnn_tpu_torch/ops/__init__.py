@@ -20,7 +20,7 @@ from .steps import (ANN, BP_LEARN_RATE, BPM_LEARN_RATE, DELTA_BP, DELTA_BPM,
 
 
 def select_train_epoch(dtype=torch.float64, kind=ANN, device="cuda", tile=0,
-                       storage=None):
+                       storage=None, defer_stats=False):
     """Pick the training epoch (train_kernel's route).  Returns ``(fn,
     name)`` with fn call-compatible with ``train_epoch(weights, xs, ts,
     kind, momentum, alpha=..., delta=...)``.
@@ -35,18 +35,26 @@ def select_train_epoch(dtype=torch.float64, kind=ANN, device="cuda", tile=0,
       ``train_tile`` kernel on CUDA ("tile-kernel") and its plain version
       on the CPU ("tile-loop").  An autotuned tile is resolved before this
       call (``api._resolve_tile``).
+
+    ``defer_stats=True`` (the multi-epoch pipeline) makes fn return the
+    epoch's (S, 5) float64 stats record on the device in place of
+    SampleStats, without a host synchronisation where one launch trains
+    the whole epoch.
     """
     cuda = torch.device(device).type == "cuda"
+    deferred = {"defer_stats": True} if defer_stats else {}
     if tile:
         if tile < 0:
             raise ValueError("select_train_epoch: resolve an autotuned tile "
                              "first (ops.autotune.decide_tile)")
         fn = functools.partial(train_epoch_tiled, tile=int(tile),
-                               storage=storage)
+                               storage=storage, **deferred)
         return fn, "tile-kernel" if cuda else "tile-loop"
     if cuda:
-        return train_epoch_cuda, "kernel"
-    return train_epoch, "loop"
+        fn, name = train_epoch_cuda, "kernel"
+    else:
+        fn, name = train_epoch, "loop"
+    return (functools.partial(fn, **deferred) if deferred else fn), name
 
 
 def select_run_batch(dtype=torch.float64, parity="strict", kind=None,

@@ -127,10 +127,12 @@ def master_weights(weights, dtype: torch.dtype):
 
 @torch.inference_mode()
 def train_epoch(weights, xs, ts, kind: str, momentum: bool, alpha=0.2,
-                delta=-1.0, lr=None):
+                delta=-1.0, lr=None, defer_stats=False):
     """One epoch over pre-shuffled sample rows xs (S, n_in), ts (S, n_out):
-    :func:`train_sample` per row in order.  Returns (weights, SampleStats);
-    the weights are float32 masters under bfloat16."""
+    :func:`train_sample` per row in order.  Returns (weights, SampleStats),
+    or with ``defer_stats`` (weights, the (S, 5) float64 record
+    :func:`stats_record` reads); the weights are float32 masters under
+    bfloat16."""
     w = master_weights(weights, xs.dtype)
     rows = []
     for x, t in zip(xs, ts):
@@ -138,7 +140,7 @@ def train_epoch(weights, xs, ts, kind: str, momentum: bool, alpha=0.2,
                               delta=delta)
         rows.append([float(v) for v in row])
     stats = torch.tensor(rows, dtype=torch.float64).reshape(-1, 5)
-    return w, stats_record(stats, xs.dtype)
+    return w, stats if defer_stats else stats_record(stats, xs.dtype)
 
 
 def run_batch(weights, xs: torch.Tensor, kind: str) -> torch.Tensor:

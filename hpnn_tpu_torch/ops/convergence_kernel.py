@@ -228,12 +228,25 @@ train_epoch_kernel.syncs = None
 
 
 def train_epoch_cuda(weights, xs, ts, kind: str, momentum: bool, alpha=0.2,
-                     delta=-1.0, lr=None, iter_budget=INT32_MAX):
+                     delta=-1.0, lr=None, iter_budget=INT32_MAX,
+                     defer_stats=False):
     """The epoch on the card: launches of :func:`train_epoch_kernel`
     resumed from the first untrained sample until every row has
     n_iter >= 0 (one launch at the default budget).  Call-compatible with
-    ``ops.convergence.train_epoch``; returns (weights, SampleStats)."""
+    ``ops.convergence.train_epoch``; returns (weights, SampleStats).
+
+    ``defer_stats`` returns the (S, 5) float64 record on the card instead
+    of SampleStats.  When one launch is sure to train every sample (the
+    budget exceeds what S - 1 samples can spend), it is that one launch,
+    with no host synchronisation, so the caller can queue the next epoch
+    before reading this one's stats."""
     s = xs.shape[0]
+    if defer_stats:
+        max_iter = schedule(kind, momentum, lr, delta)[2]
+        if (s - 1) * (max_iter + 1) < iter_budget:
+            return train_epoch_kernel(weights, xs, ts, kind, momentum,
+                                      alpha=alpha, delta=delta, lr=lr,
+                                      iter_budget=iter_budget)
     w, st, start = weights, None, 0
     while start < s or st is None:
         w, st = train_epoch_kernel(w, xs, ts, kind, momentum, alpha=alpha,
@@ -243,4 +256,4 @@ def train_epoch_cuda(weights, xs, ts, kind: str, momentum: bool, alpha=0.2,
         if trained <= start and start < s:
             raise RuntimeError("train_epoch_cuda: a launch trained nothing")
         start = trained
-    return w, stats_record(st, xs.dtype)
+    return w, st if defer_stats else stats_record(st, xs.dtype)

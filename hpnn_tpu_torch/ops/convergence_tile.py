@@ -266,10 +266,12 @@ def train_epoch_tiled_plain(weights, xs, ts, kind: str, momentum: bool,
 def train_epoch_tiled(weights, xs, ts, kind: str, momentum: bool,
                       alpha=0.2, delta=-1.0, lr=None, tile: int = 8,
                       storage: str | None = None, launch_groups: int = 0,
-                      max_iter=None):
+                      max_iter=None, defer_stats=False):
     """Call-compatible with ``ops.convergence.train_epoch``: groups of
     ``tile`` samples trained to convergence with per-lane masking (module
-    docstring).  Returns (weights in the resident dtype, SampleStats).
+    docstring).  Returns (weights in the resident dtype, SampleStats), or
+    with ``defer_stats`` the (S, 5) float64 record on the tensors' device
+    in place of SampleStats (no host synchronisation).
 
     CUDA tensors run in the hand-written ``train_tile`` kernel, CPU
     tensors in its plain version.  ``launch_groups`` splits the epoch into
@@ -289,4 +291,4 @@ def train_epoch_tiled(weights, xs, ts, kind: str, momentum: bool,
                               max_iter=max_iter, start_group=lo,
                               group_budget=chunk, stats_prev=stats)
         lo += chunk
-    return w, stats_record(stats, xs.dtype)
+    return w, stats if defer_stats else stats_record(stats, xs.dtype)

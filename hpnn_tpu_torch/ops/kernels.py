@@ -301,30 +301,62 @@ def batched_forward_plain(weights, xs: torch.Tensor,
 # ``_fused_bpm_kernel``), the reference's one-layer momentum step.  It
 # computes step = dw + (lr*d[i])*h[j]; W' = W + step; dw' = alpha*step in
 # the Pallas body's association, at float64 and float32.  Bound on the H100
-# by device memory (4 flops against 4 values moved a weight); one thread a
-# weight, coalesced along rows (``csrc/fused_bpm_update.cu``).  Like the JAX
-# package, no training route calls it: the epoch kernels fuse this step.
+# by device memory (4 flops against 4 values moved a weight).  A thread owns
+# a vector of consecutive columns of one row, 16-byte loads and streaming
+# stores where the row pitch allows, on the grid :func:`fused_bpm_plan`
+# picks (``csrc/fused_bpm_update.cu``).  Like the JAX package, no training
+# route calls it: the epoch kernels fuse this step.
 
 _BPM_ENTRY = {torch.float64: "hpnn_fused_bpm_update_f64",
               torch.float32: "hpnn_fused_bpm_update_f32"}
 _bpm_fns: dict[torch.dtype, object] = {}
+BPM_THREADS = 256       # threads a block
+
+BpmPlan = namedtuple("BpmPlan", "vec tx ty gx gy")
+BpmPlan.__doc__ = """A launch plan of :func:`fused_bpm_update`: ``vec``
+columns a thread (16 bytes, or 1), blocks of ``tx`` column vectors by
+``ty`` rows, a grid of ``gx`` x ``gy`` blocks; a thread walks its rows with
+a stride of ``gy * ty`` (one row unless the rows outgrow the grid)."""
 
 
-def _bpm_fn(dtype: torch.dtype):
-    fn = _bpm_fns.get(dtype)
-    if fn is None:
-        from . import build
+def fused_bpm_plan(n: int, m: int, itemsize: int,
+                   aligned: bool = True) -> BpmPlan:
+    """The launch plan for an (n, m) update at ``itemsize`` bytes a value:
+    a pure function of its arguments.
 
-        lib = build.load("fused_bpm_update")
-        lib.hpnn_bpm_error_string.argtypes = [ctypes.c_int]
-        lib.hpnn_bpm_error_string.restype = ctypes.c_char_p
-        fn = getattr(lib, _BPM_ENTRY[dtype])
+    * 16-byte vectors (4 float32, 2 float64) when every pointer is 16-byte
+      aligned (``aligned``) and the row pitch ``m * itemsize`` is a multiple
+      of 16, else one column a thread.
+    * A block spans up to 256 threads of column vectors (a multiple of 32,
+      the columns shared evenly over the fewest such blocks) and as many
+      rows as fill its 256 threads.
+    * A thread a row, up to the grid's 65535 row blocks (measured on the
+      H100: a thread a row beat one wave of blocks walking many rows)."""
+    vec = 16 // itemsize if aligned and (m * itemsize) % 16 == 0 else 1
+    cols = _cdiv(m, vec)
+    # as few column blocks as 256 threads allow, shared out evenly
+    tx = _cdiv(_cdiv(cols, _cdiv(cols, BPM_THREADS)), 32) * 32
+    ty = BPM_THREADS // tx
+    return BpmPlan(vec, tx, ty, _cdiv(cols, tx),
+                   max(1, min(_cdiv(n, ty), _GRID_Y_MAX)))
+
+
+def _bpm_lib():
+    from . import build
+
+    lib = build.load("fused_bpm_update")
+    if not _bpm_fns:
         p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        fn.argtypes = [p, p, p, p, p, p, i, i, d, d, i, p]
-        fn.restype = ctypes.c_int
-        fn.error_string = lib.hpnn_bpm_error_string
-        _bpm_fns[dtype] = fn
-    return fn
+        lib.hpnn_bpm_error_string.argtypes = [i]
+        lib.hpnn_bpm_error_string.restype = ctypes.c_char_p
+        lib.hpnn_bpm_empty.argtypes = [i, p]
+        lib.hpnn_bpm_empty.restype = i
+        for dtype, name in _BPM_ENTRY.items():
+            fn = getattr(lib, name)
+            fn.argtypes = [p, p, p, p, p, p, i, i, d, d, i, i, i, i, i, i, p]
+            fn.restype = i
+            _bpm_fns[dtype] = fn
+    return lib
 
 
 def _check_bpm(w, dw, d, h) -> None:
@@ -361,7 +393,7 @@ def fused_bpm_update(w, dw, d, h, lr, alpha):
 
     CPU tensors take :func:`fused_bpm_update_plain`; CUDA tensors launch
     the hand-written kernel on the current stream (no synchronisation) or
-    raise."""
+    raise.  The plan launched is left in ``fused_bpm_update.plan``."""
     _check_bpm(w, dw, d, h)
     if w.device.type == "cpu":
         return fused_bpm_update_plain(w, dw, d, h, lr, alpha)
@@ -369,16 +401,35 @@ def fused_bpm_update(w, dw, d, h, lr, alpha):
         raise ValueError(f"fused_bpm_update: no kernel for device "
                          f"{w.device}")
     w_out, dw_out = torch.empty_like(w), torch.empty_like(dw)
-    fn = _bpm_fn(w.dtype)
+    _bpm_lib()
+    fn = _bpm_fns[w.dtype]
+    ptrs = (w.data_ptr(), dw.data_ptr(), h.data_ptr(), w_out.data_ptr(),
+            dw_out.data_ptr())
+    n, m = w.shape
+    plan = fused_bpm_plan(n, m, w.element_size(),
+                          aligned=all(p % 16 == 0 for p in ptrs))
     rc = fn(w.data_ptr(), dw.data_ptr(), d.data_ptr(), h.data_ptr(),
-            w_out.data_ptr(), dw_out.data_ptr(), w.shape[0], w.shape[1],
-            float(lr), float(alpha), w.device.index,
+            w_out.data_ptr(), dw_out.data_ptr(), n, m, float(lr),
+            float(alpha), *plan, w.device.index,
             torch.cuda.current_stream(w.device).cuda_stream)
     if rc != 0:
-        msg = fn.error_string(rc).decode()
+        msg = _bpm_lib().hpnn_bpm_error_string(rc).decode()
         raise RuntimeError(f"fused_bpm_update launch failed: {msg} ({rc})")
     fused_bpm_update.launches += 1
+    fused_bpm_update.plan = plan
     return w_out, dw_out
 
 
 fused_bpm_update.launches = 0
+fused_bpm_update.plan = None
+
+
+def empty_launch(device) -> None:
+    """Launch an empty kernel on ``device``'s current stream: the floor a
+    launch of :func:`fused_bpm_update` cannot go below (timed beside it)."""
+    dev = torch.device(device)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    rc = _bpm_lib().hpnn_bpm_empty(
+        index, torch.cuda.current_stream(index).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"empty kernel launch failed ({rc})")

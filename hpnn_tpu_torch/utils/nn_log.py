@@ -19,17 +19,25 @@ strings are a de-facto API of the framework.
 ``HPNN_LOG_JSON=1`` switches EMISSION to one JSON object per line
 (``{"ts","level","msg"}``) for log pipelines; gating is unchanged and the
 default stays byte-identical to the reference.
+
+:func:`capture` diverts this thread's output into a list of (level, text)
+entries and :func:`replay` emits them later through the gated functions:
+the multi-epoch pipeline reads a corpus once with each file's diagnostics
+captured, and queues output behind epochs whose lines are not rendered yet.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import sys
+import threading
 import time
 
 _verbosity = 0
 _rank = 0
+_tls = threading.local()
 
 
 def set_rank(rank: int) -> None:
@@ -81,28 +89,66 @@ def _write(stream, level: str, prefix: str, text: str) -> None:
         _emit(stream, prefix + text)
 
 
+@contextlib.contextmanager
+def capture(into: list | None = None):
+    """Divert this thread's nn_* output into a list of (level, text)."""
+    entries = into if into is not None else []
+    prev = getattr(_tls, "sink", None)
+    _tls.sink = entries
+    try:
+        yield entries
+    finally:
+        _tls.sink = prev
+
+
+def replay(entries) -> None:
+    """Emit captured entries through the normal gated functions."""
+    fns = {"dbg": nn_dbg, "out": nn_out, "cout": nn_cout, "warn": nn_warn,
+           "error": nn_error, "raw": nn_raw}
+    for level, text in entries:
+        fns[level](text)
+
+
+def _captured(level: str, text: str) -> bool:
+    sink = getattr(_tls, "sink", None)
+    if sink is None:
+        return False
+    sink.append((level, text))
+    return True
+
+
 def nn_dbg(text: str) -> None:
+    if _captured("dbg", text):
+        return
     if _verbosity > 2:
         _write(sys.stdout, "dbg", "NN(DBG): ", text)
 
 
 def nn_out(text: str) -> None:
+    if _captured("out", text):
+        return
     if _verbosity > 1:
         _write(sys.stdout, "out", "NN: ", text)
 
 
 def nn_cout(text: str) -> None:
     """Continuation output -- no prefix (libhpnn.h:107-111)."""
+    if _captured("cout", text):
+        return
     if _verbosity > 1:
         _write(sys.stdout, "cout", "", text)
 
 
 def nn_warn(text: str) -> None:
+    if _captured("warn", text):
+        return
     if _verbosity > 0:
         _write(sys.stdout, "warn", "NN(WARN): ", text)
 
 
 def nn_error(text: str) -> None:
+    if _captured("error", text):
+        return
     _write(sys.stderr, "error", "NN(ERR): ", text)
 
 
@@ -110,7 +156,7 @@ def nn_raw(text: str) -> None:
     """Pre-rendered stdout block: prefixes AND the verbosity gate were
     already applied when the text was formatted, so emission is a single
     ungated write."""
-    if text:
+    if text and not _captured("raw", text):
         if log_json_enabled():
             _write(sys.stdout, "raw", "", text)
         else:

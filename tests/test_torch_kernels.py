@@ -178,12 +178,14 @@ def test_select_run_batch_routing():
 
 # --- fused_bpm_update ---------------------------------------------------------
 
-@pytest.mark.parametrize("n,m", [(300, 784), (10, 300), (7, 13)])
+@pytest.mark.parametrize("n,m", [(300, 784), (10, 300), (230, 851),
+                                 (230, 230), (7, 13)])
 @pytest.mark.parametrize("dtype,atol", [("f64", 1e-12), ("f32", 1e-6)])
 def test_fused_bpm_update_matches_pallas(n, m, dtype, atol):
     """The plain version against the Pallas kernel (interpret mode off the
-    TPU) at the MNIST layers and a ragged shape; the reference order
-    (tests/test_pallas.py:63): dw += lr*outer; W += dw; dw *= alpha."""
+    TPU) at the MNIST and XRD layers (851 columns are not 16-byte rows at
+    either dtype, 230 not at float32) and a ragged shape; the reference
+    order (tests/test_pallas.py:63): dw += lr*outer; W += dw; dw *= alpha."""
     from hpnn_tpu.ops.pallas_kernels import fused_bpm_update as jax_bpm
     from hpnn_tpu_torch.ops.kernels import fused_bpm_update
 
@@ -229,3 +231,74 @@ def test_fused_bpm_update_rejects_bad_inputs(case):
     exc = TypeError if case in ("dtype", "mixed") else ValueError
     with pytest.raises(exc):
         fused_bpm_update(*args, 0.1, 0.2)
+
+
+# --- fused_bpm_update's launch plan ------------------------------------------
+# chip_smoke.py phase 13's shapes (N, M), a ragged one and a single row
+
+BPM_SHAPES = [(300, 784), (10, 300), (230, 851), (230, 230), (4096, 4096),
+              (7, 13), (1, 5)]
+
+
+def _bpm_cover(plan, n, m):
+    """How many times the plan's threads touch each weight: thread (x, y)
+    of block (bx, by) owns columns [(bx*tx + x)*vec, +vec) and rows
+    by*ty + y, stepping gy*ty, as the kernel walks them (a thread's rows
+    and columns are independent, so the count is an outer product)."""
+    cols = np.zeros(m, dtype=np.int64)
+    for c in range(0, plan.gx * plan.tx * plan.vec, plan.vec):
+        if c < m:
+            cols[c:c + plan.vec] += 1
+    rows = np.zeros(n, dtype=np.int64)
+    step = plan.gy * plan.ty
+    for first in range(min(step, n)):
+        rows[first::step] += 1
+    return np.outer(rows, cols)
+
+
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned",
+                                                         "unaligned"])
+@pytest.mark.parametrize("itemsize", [8, 4], ids=["f64", "f32"])
+@pytest.mark.parametrize("n,m", BPM_SHAPES)
+def test_fused_bpm_plan_covers_every_weight_once(n, m, itemsize, aligned):
+    from hpnn_tpu_torch.ops.kernels import BPM_THREADS, fused_bpm_plan
+
+    plan = fused_bpm_plan(n, m, itemsize, aligned=aligned)
+    assert plan.tx % 32 == 0 and plan.tx * plan.ty <= BPM_THREADS
+    assert plan.ty >= 1 and plan.gx >= 1 and 1 <= plan.gy <= 65535
+    if plan.vec > 1:   # whole 16-byte vectors, never across a row's end
+        assert plan.vec * itemsize == 16 and m % plan.vec == 0
+    # the fewest 256-thread column blocks, and no block of idle columns
+    assert plan.gx == -(-(-(-m // plan.vec)) // BPM_THREADS)
+    assert (plan.gx - 1) * plan.tx * plan.vec < m
+    assert (_bpm_cover(plan, n, m) == 1).all()
+
+
+@pytest.mark.parametrize("n,m,itemsize,vec", [
+    (300, 784, 4, 4), (300, 784, 8, 2), (10, 300, 4, 4), (10, 300, 8, 2),
+    (230, 851, 4, 1), (230, 851, 8, 1), (230, 230, 4, 1), (230, 230, 8, 2),
+    (4096, 4096, 4, 4), (4096, 4096, 8, 2)])
+def test_fused_bpm_plan_vectors_where_the_pitch_allows(n, m, itemsize, vec):
+    """16-byte rows take 16-byte vectors; 851 columns at both dtypes and
+    230 at float32 are not 16-byte rows and take one column a thread, as
+    does any shape whose pointers are not 16-byte aligned."""
+    from hpnn_tpu_torch.ops.kernels import fused_bpm_plan
+
+    assert fused_bpm_plan(n, m, itemsize).vec == vec
+    assert fused_bpm_plan(n, m, itemsize, aligned=False).vec == 1
+
+
+@pytest.mark.parametrize("n,m", BPM_SHAPES + [(70000, 4), (200000, 300)])
+def test_fused_bpm_plan_takes_a_thread_a_row(n, m):
+    """Every row has a thread of its own up to the grid's 65535 row blocks;
+    past them the rows are shared out evenly by the stride."""
+    from hpnn_tpu_torch.ops.kernels import fused_bpm_plan
+
+    for item in (8, 4):
+        p = fused_bpm_plan(n, m, item)
+        if -(-n // p.ty) <= 65535:
+            assert p.gy * p.ty >= n > (p.gy - 1) * p.ty, (n, m, item, p)
+        else:
+            assert p.gy == 65535
+    assert fused_bpm_plan(4096, 4096, 4) == (4, 256, 1, 4, 4096)
+    assert fused_bpm_plan(10, 300, 4) == (4, 96, 2, 1, 5)

@@ -149,9 +149,10 @@ def test_run_nn_unported_option_exits_nonzero(tmp_path, capsys):
 
 
 def test_run_nn_subprocess_imports_no_jax(tmp_path):
-    """A fresh interpreter runs the port's train_nn and run_nn on the CPU
-    and then proves that neither jax nor any hpnn_tpu module was
-    imported."""
+    """A fresh interpreter runs the port's train_nn (one epoch, then
+    ``--epochs 2`` through the trainer and the resident pipeline) and
+    run_nn on the CPU and then proves that neither jax nor any hpnn_tpu
+    module was imported."""
     conf = _write_case(tmp_path, kind="SNN")
     train_conf = tmp_path / "train.conf"
     train_conf.write_text(
@@ -167,6 +168,12 @@ def test_run_nn_subprocess_imports_no_jax(tmp_path):
         f"rc = train_nn_main(['-v', '-v', '--device', 'cpu', "
         f"{str(train_conf)!r}])\n"
         "assert rc == 0, rc\n"
+        f"rc = train_nn_main(['-v', '-v', '--device', 'cpu', '--epochs', "
+        f"'2', {str(train_conf)!r}])\n"
+        "assert rc == 0, rc\n"
+        "from hpnn_tpu_torch import api\n"
+        "assert api.EPOCH_METRICS['mode'] == 'resident', api.EPOCH_METRICS\n"
+        "assert 'hpnn_tpu_torch.ckpt.trainer' in sys.modules\n"
         "os.chdir('..')\n"
         f"rc, outs = run_nn(['-v', '-v', '--device', 'cpu', {conf!r}])\n"
         "assert rc == 0 and outs.shape == (24, 5), rc\n"
@@ -182,7 +189,8 @@ def test_run_nn_subprocess_imports_no_jax(tmp_path):
     assert res.returncode == 0, res.stderr
     assert "NOJAX-OK" in res.stdout
     assert "BEST CLASS" in res.stdout
-    assert res.stdout.count("N_ITER=") == 24
+    assert res.stdout.count("N_ITER=") == 3 * 24
+    assert res.stdout.count("EPOCH        2/       2") == 1
     assert (tmp_path / "train" / "kernel.opt").exists()
 
 

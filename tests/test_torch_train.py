@@ -552,7 +552,7 @@ def test_train_nn_cuda_without_gpu_exits_nonzero(tmp_path, monkeypatch,
     assert not (tmp_path / "kernel.opt").exists()
 
 
-@pytest.mark.parametrize("opt", ["--epochs", "--ckpt-dir", "--ckpt-every",
+@pytest.mark.parametrize("opt", ["--ckpt-keep", "--ckpt-dir", "--ckpt-every",
                                  "--resume", "--profile-dir",
                                  "--model-parallel", "--trainer",
                                  "--compile-cache"])
