@@ -121,6 +121,21 @@ fault; no phase catches its own failure.
    ``HPNN_NO_EPOCH_PIPELINE=1`` route on the card, each epoch's device time
    and the run's wall time, and ``run_nn`` of kernel.opt at 80% PASS or
    more.
+17. ``train_nn --resume`` (run right after phase 16) on phase 9's files
+   and conf, per sample and at ``--tile 32``: ``--epochs 3 --ckpt-every 1
+   --ckpt-dir ck --replicate-to rep``; the same killed at epoch 1
+   (``HPNN_CKPT_KILL_AT_EPOCH=1``) and resumed with ``--resume``; that
+   ``ck`` deleted and resumed again with ``--replicate-to rep`` (epoch 1
+   restored from the replica).  kernel.opt of every run byte-identical to
+   phase 16's checkpointing-off run; each resumed stream from EPOCH 2 on
+   byte-identical to the first run's, the killed stream its prefix; the
+   epoch kernel launched 3 times in the first run and 1 + 2 across the
+   kill and the resume (2 in the replica resume), the resident route in
+   every run; every bundle passes ``verify_bundle``, the manifests'
+   generations and the replica blobs counted; ``run_nn --ckpt-dir ck`` of
+   the resumed kernel.opt (>= 80% PASS) warns of no fingerprint mismatch,
+   and of one after a digit of kernel.opt is changed, naming both paths.
+   The runs' wall times beside phase 16's and the bundles' bytes.
 15. One JSON line of every kernel (launches on its main path, the largest
    kernel-vs-plain error over every cell and dtype, times and bound;
    ``fused_linear_act`` adds its B=1 cell and its worst ratio to the
@@ -130,14 +145,15 @@ fault; no phase catches its own failure.
    ``train_tile`` the same for phase 12's epoch, the autotuner's tile and
    the epoch's time at each candidate tile, its build's stack frame and
    the wide run's workspace plan; both their launches and epoch times in
-   phase 16; ``fused_bpm_update`` its warm, cold and floor times), then the
-   result line.
+   phase 16 and their launches and wall times in phase 17
+   (``ckpt_launches``, ``ckpt_wall_s``); ``fused_bpm_update`` its warm,
+   cold and floor times), then the result line.
 
 Main paths: ``fused_linear_act``'s is phases 4-5, ``train_epoch``'s phase 9
 and ``train_tile``'s phase 12 (train_nn, then run_nn of its kernel, which
-launches ``fused_linear_act`` too), and phase 16's two ``--epochs`` runs
-are this slice's; every count is set to 0 just before a path and read just
-after it.  ``fused_bpm_update`` has no caller on any
+launches ``fused_linear_act`` too), phase 16's two ``--epochs`` runs and
+phase 17's checkpointed, killed and resumed runs; every count is set to 0
+just before a path and read just after it.  ``fused_bpm_update`` has no caller on any
 path, as in the JAX package: its ``launches`` are the paths' (0), its
 ``phase_launches`` phase 13's.  ``--json PATH`` also writes every cell's
 numbers to PATH.
@@ -146,10 +162,12 @@ numbers to PATH.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import io
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -238,6 +256,7 @@ BPM_COLD_BYTES = 100 << 20   # phase 13: the inputs a cold run rotates over
 BPM_COLD_RUN = 256           # phase 13: the most launches a timed cold run
 SPIN_PER_LAUNCH = 100_000    # GPU cycles of spin per queued launch (~50 us)
 EPOCHS = 3                   # phase 16: train_nn --epochs
+KILL_AT = 1                  # phase 17: HPNN_CKPT_KILL_AT_EPOCH
 
 
 def log(msg: str) -> None:
@@ -1698,6 +1717,8 @@ def phase_train_epochs(e2e):
         iters = [sum(int(v) for v in re.findall(r"N_ITER=\s*(\d+)", block))
                  for block in res["out"].split("EPOCH ")[1:]]
         runs[tag] = {"launches": got, "wall_s": res["wall_s"],
+                     "opt_sha256": hashlib.sha256(
+                         res["opt"].encode()).hexdigest(),
                      "restage_wall_s": restage["wall_s"],
                      "epoch_device_ms": met["device_ms"],
                      "epoch_iters": iters,
@@ -1718,6 +1739,262 @@ def phase_train_epochs(e2e):
             f"byte-identical to the restaging route; run_nn PASS "
             f"{n_pass}/{TRAIN_FILES}")
     return runs
+
+
+# --- phase 17: train_nn --resume -------------------------------------------
+
+def _ckpt_train(cwd, argv, env=None):
+    """``train_nn -v -v --device cuda`` (plus ``argv``) in ``cwd`` with
+    every launch count set to 0 just before it; returns the run's stream,
+    kernel.opt's sha256, wall time, launches and EPOCH_METRICS."""
+    from hpnn_tpu_torch import api, cli
+    from hpnn_tpu_torch.ops.convergence_kernel import train_epoch_kernel
+    from hpnn_tpu_torch.ops.convergence_tile_kernel import train_tile
+    from hpnn_tpu_torch.ops.kernels import fused_bpm_update, fused_linear_act
+
+    old = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    here = os.getcwd()
+    os.makedirs(cwd, exist_ok=True)
+    os.chdir(cwd)
+    try:
+        api.reset_epoch_metrics()
+        for fn in (train_epoch_kernel, train_tile, fused_linear_act,
+                   fused_bpm_update):
+            fn.launches = 0
+        out, err = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli.train_nn_main(["-v", "-v", "--device", "cuda", *argv])
+        wall = time.perf_counter() - t0
+        launches = {"train_epoch": train_epoch_kernel.launches,
+                    "train_tile": train_tile.launches,
+                    "fused_linear_act": fused_linear_act.launches,
+                    "fused_bpm_update": fused_bpm_update.launches}
+        with open("kernel.opt", "rb") as fp:
+            sha = hashlib.sha256(fp.read()).hexdigest()
+    finally:
+        os.chdir(here)
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if rc != 0:
+        raise AssertionError(f"train_nn {argv} in {cwd}: rc={rc}\n"
+                             f"{err.getvalue()[-2000:]}")
+    return {"out": out.getvalue(), "err": err.getvalue(), "sha": sha,
+            "wall_s": wall, "launches": launches,
+            "metrics": dict(api.EPOCH_METRICS)}
+
+
+def _ckpt_run_nn(cwd, argv):
+    """``run_nn -v -v --device cuda`` (plus ``argv``) in ``cwd``: (rc,
+    outputs, stdout)."""
+    from hpnn_tpu_torch import cli
+
+    here = os.getcwd()
+    os.chdir(cwd)
+    try:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc, outs = cli.run_nn(["-v", "-v", "--device", "cuda", *argv])
+    finally:
+        os.chdir(here)
+    return rc, outs, out.getvalue()
+
+
+def _ckpt_dir_check(ck, rep, tag, generation, blobs):
+    """Three bundles, each passing ``verify_bundle``; the manifest at
+    ``generation`` with ``ep00000003`` latest; ``blobs`` replicas in
+    ``rep``.  Returns each bundle's bytes."""
+    from hpnn_tpu_torch import ckpt
+    from hpnn_tpu_torch.ckpt.replicate import read_scope_index, scope_for
+
+    tags = sorted(t for t in os.listdir(ck) if t.startswith("ep"))
+    want = [ckpt.snapshot_tag(e) for e in range(1, EPOCHS + 1)]
+    if tags != want:
+        raise AssertionError(f"{tag}: bundles {tags}, want {want}")
+    sizes = {}
+    for t in tags:
+        ok, reason = ckpt.verify_bundle(os.path.join(ck, t))
+        if not ok:
+            raise AssertionError(f"{tag}: {t} fails verify_bundle: {reason}")
+        sizes[t] = {f: os.path.getsize(os.path.join(ck, t, f))
+                    for f in (ckpt.SNAPSHOT_KERNEL, ckpt.SNAPSHOT_STATE,
+                              ckpt.SNAPSHOT_META)}
+    man = ckpt.read_manifest(ck)
+    if man["generation"] != generation or man["latest"] != want[-1]:
+        raise AssertionError(f"{tag}: manifest generation "
+                             f"{man['generation']} latest {man['latest']}, "
+                             f"want {generation} and {want[-1]}")
+    index = read_scope_index(os.path.join(rep, scope_for(ck)))
+    n_blobs = len([f for f in os.listdir(os.path.join(rep, scope_for(ck)))
+                   if f.endswith(".bundle")])
+    if len(index) != blobs or n_blobs != blobs:
+        raise AssertionError(f"{tag}: {n_blobs} replica blobs, "
+                             f"{len(index)} indexed, want {blobs}")
+    return sizes
+
+
+def _flip_digit(path):
+    """Change the last weight digit of a kernel file (it still loads)."""
+    with open(path, "rb") as fp:
+        data = bytearray(fp.read())
+    i = max(i for i, c in enumerate(data) if chr(c).isdigit())
+    data[i] = ord("1") if data[i] != ord("1") else ord("2")
+    with open(path, "wb") as fp:
+        fp.write(bytes(data))
+
+
+def phase_ckpt_resume(e2e, epochs_runs):
+    """``train_nn --resume`` on phase 9's files and conf, per sample and at
+    ``--tile 32``: (1) ``--epochs 3 --ckpt-every 1 --ckpt-dir ck
+    --replicate-to rep``; (2) the same killed at epoch 1
+    (``HPNN_CKPT_KILL_AT_EPOCH``), resumed with ``--resume`` in the same
+    directory; (3) its ``ck`` deleted and resumed again with
+    ``--replicate-to rep``, which restores epoch 1 from the replica.
+    kernel.opt of every run equals phase 16's checkpointing-off run's;
+    each resumed stream from EPOCH 2 on equals run 1's, the killed one is
+    its prefix; the epoch kernel launched 3 times in run 1, 1 + 2 across
+    the kill and the resume, 2 in the replica resume, always resident;
+    every bundle verified, the manifests and replicas counted; then
+    ``run_nn --ckpt-dir ck`` of the resumed kernel.opt (>= 80% PASS, no
+    fingerprint warning) and of the same file with one digit changed (the
+    warning, naming both paths).  Records the wall times beside phase 16's
+    and the bundles' bytes."""
+    from hpnn_tpu_torch import ckpt
+
+    src = e2e["root"]
+    out = {}
+    for tag, extra, kernel in (("per-sample", (), "train_epoch"),
+                               (f"tile {TRAIN_TILE}",
+                                ("--tile", str(TRAIN_TILE)), "train_tile")):
+        other = "train_tile" if kernel == "train_epoch" else "train_epoch"
+        root = os.path.join(src, "ckpt-" + tag.replace(" ", ""))
+        os.makedirs(root)
+        conf = os.path.join(root, "nn.conf")
+        with open(os.path.join(src, "nn.conf")) as fp:
+            text = fp.read().replace("./samples", os.path.join(src, "samples"))
+        text = text.replace("./tests", os.path.join(src, "tests"))
+        with open(conf, "w") as fp:
+            fp.write(text)
+        run_conf = os.path.join(root, "run.conf")
+        with open(run_conf, "w") as fp:
+            fp.write(text.replace("[init] generate", "[init] kernel.opt"))
+        full_dir, part_dir = os.path.join(root, "full"), \
+            os.path.join(root, "part")
+        argv = ["--epochs", str(EPOCHS), "--ckpt-every", "1", "--ckpt-dir",
+                "ck", "--replicate-to", "rep", *extra, conf]
+        resume = ["--epochs", str(EPOCHS), "--resume", "--ckpt-dir", "ck",
+                  *extra, conf]
+        full = _ckpt_train(full_dir, argv)
+        kill = _ckpt_train(part_dir, argv,
+                           {"HPNN_CKPT_KILL_AT_EPOCH": str(KILL_AT)})
+        res = _ckpt_train(part_dir, resume)
+        shutil.rmtree(os.path.join(part_dir, "ck"))
+        rep_res = _ckpt_train(part_dir, [*resume[:-1], "--replicate-to",
+                                         "rep", conf])
+        # (a) one trajectory, with or without snapshots and a kill
+        want = epochs_runs[tag]["opt_sha256"]
+        for name, run in (("run 1", full), ("the resume", res),
+                          ("the replica resume", rep_res)):
+            if run["sha"] != want:
+                raise AssertionError(f"phase 17 ({tag}): {name}'s kernel.opt "
+                                     "differs from phase 16's run's")
+        # (b), (c) the streams
+        mark = f"NN: EPOCH {2:8d}/{EPOCHS:8d}\n"
+        tail = full["out"][full["out"].index(mark):]
+        for name, run in (("the resume", res),
+                          ("the replica resume", rep_res)):
+            if mark not in run["out"] or \
+                    run["out"][run["out"].index(mark):] != tail:
+                raise AssertionError(f"phase 17 ({tag}): {name}'s stream "
+                                     "from EPOCH 2 differs from run 1's")
+        stop = "NN: CKPT: interrupted at epoch"
+        if stop not in kill["out"] or not full["out"].startswith(
+                kill["out"][:kill["out"].index(stop)]):
+            raise AssertionError(f"phase 17 ({tag}): the killed run's stream "
+                                 "is not a prefix of run 1's")
+        # (d) launches and the route
+        counts = [(name, run["launches"][kernel], n)
+                  for name, run, n in (("run 1", full, EPOCHS),
+                                       ("the killed run", kill, KILL_AT),
+                                       ("the resume", res, EPOCHS - KILL_AT),
+                                       ("the replica resume", rep_res,
+                                        EPOCHS - KILL_AT))]
+        for name, got, n in counts:
+            if got != n:
+                raise AssertionError(f"phase 17 ({tag}): {kernel} launched "
+                                     f"{got} times in {name}, want {n}")
+        for name, run in (("run 1", full), ("the killed run", kill),
+                          ("the resume", res), ("the replica resume",
+                                                rep_res)):
+            if run["launches"][other] != 0 \
+                    or run["metrics"]["mode"] != "resident":
+                raise AssertionError(f"phase 17 ({tag}): {name}: launches "
+                                     f"{run['launches']}, EPOCH_METRICS "
+                                     f"{run['metrics']}")
+        # (e) the checkpoint dirs: run 1's three snapshots and its final
+        # stamp; the replica resume's restored epoch 1, 2 and 3 and stamp
+        sizes = _ckpt_dir_check(os.path.join(full_dir, "ck"),
+                                os.path.join(full_dir, "rep"),
+                                f"{tag} run 1", EPOCHS + 1, EPOCHS)
+        _ckpt_dir_check(os.path.join(part_dir, "ck"),
+                        os.path.join(part_dir, "rep"),
+                        f"{tag} replica resume", EPOCHS, EPOCHS)
+        man = ckpt.read_manifest(os.path.join(part_dir, "ck"))
+        if man["final_fingerprint"] != "sha256:" + rep_res["sha"]:
+            raise AssertionError(f"phase 17 ({tag}): the manifest's final "
+                                 "fingerprint is not kernel.opt's")
+        # (f) run_nn's staleness guard, on the resumed kernel.opt
+        rc, outs, text = _ckpt_run_nn(part_dir, ["--ckpt-dir", "ck",
+                                                 run_conf])
+        n_pass = text.count("[PASS]")
+        if rc != 0 or outs is None or not np.all(np.isfinite(outs)) \
+                or n_pass < 0.8 * TRAIN_FILES or "fingerprint" in text:
+            raise AssertionError(f"phase 17 ({tag}): run_nn --ckpt-dir ck: "
+                                 f"rc={rc}, PASS {n_pass}/{TRAIN_FILES}, "
+                                 f"warned: {'fingerprint' in text}")
+        kpath = os.path.join(part_dir, "kernel.opt")
+        shutil.copyfile(kpath, kpath + ".orig")
+        _flip_digit(kpath)
+        rc, _, text = _ckpt_run_nn(part_dir, ["--ckpt-dir", "ck", run_conf])
+        os.replace(kpath + ".orig", kpath)
+        warn = (f"NN(WARN): kernel fingerprint mismatch: {kpath} does not "
+                f"match the manifest {os.path.join(part_dir, 'ck')}"
+                "/manifest.json (stale or modified weights?)\n")
+        if rc != 0 or warn not in text:
+            raise AssertionError(f"phase 17 ({tag}): run_nn of a changed "
+                                 f"kernel.opt: rc={rc}, no warning")
+        off = epochs_runs[tag]["wall_s"]
+        bundle = sum(sizes["ep00000001"].values())
+        out[tag] = {
+            "launches": {"run": full["launches"][kernel],
+                         "killed": kill["launches"][kernel],
+                         "resumed": res["launches"][kernel],
+                         "replica_resumed": rep_res["launches"][kernel]},
+            "wall_s": {"run": full["wall_s"], "no_ckpt": off,
+                       "killed": kill["wall_s"], "resumed": res["wall_s"],
+                       "replica_resumed": rep_res["wall_s"]},
+            "snapshot_cost_s": (full["wall_s"] - off) / EPOCHS,
+            "epoch_device_ms": full["metrics"]["device_ms"],
+            "bundle_bytes": sizes, "pass": n_pass,
+            "fused_bpm_update": sum(r["launches"]["fused_bpm_update"]
+                                    for r in (full, kill, res, rep_res))}
+        log(f"train_nn --resume ({tag}): kernel.opt of run 1, the resume and "
+            f"the replica resume identical to phase 16's; {kernel} launched "
+            f"{full['launches'][kernel]}, {kill['launches'][kernel]} + "
+            f"{res['launches'][kernel]}, {rep_res['launches'][kernel]}; wall "
+            f"{full['wall_s']:.3f} s with a snapshot an epoch against "
+            f"{off:.3f} s without (phase 16), "
+            f"{(full['wall_s'] - off) / EPOCHS * 1e3:.1f} ms a snapshot; "
+            f"killed run {kill['wall_s']:.3f} s, resume {res['wall_s']:.3f} "
+            f"s, replica resume {rep_res['wall_s']:.3f} s; a bundle "
+            f"{bundle} bytes ({', '.join(f'{k} {v}' for k, v in sizes['ep00000001'].items())}); "
+            f"run_nn PASS {n_pass}/{TRAIN_FILES}, the fingerprint warning "
+            "only on the changed kernel")
+    return out
 
 
 def main(argv=None) -> int:
@@ -1798,6 +2075,8 @@ def main(argv=None) -> int:
         epochs_runs = phase_train_epochs(e2e)   # each run counts from 0
         bpm_path += sum(r["launches"]["fused_bpm_update"]
                         for r in epochs_runs.values())
+        ckpt_runs = phase_ckpt_resume(e2e, epochs_runs)   # each run too
+        bpm_path += sum(r["fused_bpm_update"] for r in ckpt_runs.values())
         tile_epoch = phase_tile_time(e2e, tile_e2e, epoch)
         tuned = phase_autotune(tmp)
         tile_auto = phase_tile_auto(e2e, tuned, tile_epoch)
@@ -1816,6 +2095,8 @@ def main(argv=None) -> int:
                  and c["dtype"] == "f32")
     ep_b1 = epochs_runs["per-sample"]
     ep_b4 = epochs_runs[f"tile {TRAIN_TILE}"]
+    ck_b1 = ckpt_runs["per-sample"]
+    ck_b4 = ckpt_runs[f"tile {TRAIN_TILE}"]
     kernels = {"kernels": [{
         "name": "fused_linear_act", "route": "cuda",
         "source": "hpnn_tpu_torch/csrc/fused_linear_act.cu",
@@ -1865,7 +2146,9 @@ def main(argv=None) -> int:
         "budgeted_launches": resume_launches,
         "epochs_launches": ep_b1["launches"]["train_epoch"],
         "epochs_device_ms": ep_b1["epoch_device_ms"],
-        "epochs_wall_s": ep_b1["wall_s"]}, {
+        "epochs_wall_s": ep_b1["wall_s"],
+        "ckpt_launches": ck_b1["launches"],
+        "ckpt_wall_s": ck_b1["wall_s"]}, {
         "name": "train_tile", "route": "cuda",
         "source": "hpnn_tpu_torch/csrc/train_tile.cu",
         "replaces": "hpnn_tpu/ops/convergence_tile.py:423",
@@ -1910,7 +2193,9 @@ def main(argv=None) -> int:
         "contracts": contracts,
         "epochs_launches": ep_b4["launches"]["train_tile"],
         "epochs_device_ms": ep_b4["epoch_device_ms"],
-        "epochs_wall_s": ep_b4["wall_s"]}, {
+        "epochs_wall_s": ep_b4["wall_s"],
+        "ckpt_launches": ck_b4["launches"],
+        "ckpt_wall_s": ck_b4["wall_s"]}, {
         "name": "fused_bpm_update", "route": "cuda",
         "source": "hpnn_tpu_torch/csrc/fused_bpm_update.cu",
         "replaces": "hpnn_tpu/ops/pallas_kernels.py:141",
@@ -1942,6 +2227,7 @@ def main(argv=None) -> int:
                                          "launches": tile_path},
                        "autotune": tuned, "tile_auto": tile_auto,
                        "train_nn_epochs": epochs_runs,
+                       "train_nn_resume": ckpt_runs,
                        "invariance_plans": invariance_plans,
                        "bpm": bpm,
                        "errors": [{"layer": k[0], "scale": k[1],

@@ -7,8 +7,10 @@ byte-exact stdout grammar.  This package runs the same system on PyTorch;
 every kernel hpnn_tpu wrote in Pallas for the TPU becomes a kernel written
 by hand for Hopper (``csrc/``).  It imports neither JAX nor hpnn_tpu.
 
-This slice covers inference: ``python -m hpnn_tpu_torch.cli run_nn`` and
-``serve_nn``, with every layer product in the CUDA kernel
-``fused_linear_act``.  Citations like ``src/ann.c:883`` point into the
+Ported so far: ``python -m hpnn_tpu_torch.cli run_nn`` and ``serve_nn``
+(every layer product in the CUDA kernel ``fused_linear_act``), and
+``train_nn`` per sample (``train_epoch``), in tiles (``train_tile``), over
+``--epochs N`` on a device-resident pipeline, with checkpoint bundles and
+a bit-exact ``--resume`` (``ckpt/``).  Citations like ``src/ann.c:883`` point into the
 reference C library; ``hpnn_tpu/...`` into the JAX package this ports.
 """

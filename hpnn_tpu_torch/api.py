@@ -78,6 +78,9 @@ class NNDef:
     # the last train_kernel epoch's summary (samples, mean final dEp,
     # successes)
     last_epoch_stats: dict | None = None
+    # the CG trainer's carry (cg_* arrays) restored from a snapshot bundle;
+    # carried into the next bundle unchanged (the CG trainer is not ported)
+    trainer_state: dict | None = None
 
 
 def configure(path: str) -> NNDef | None:

@@ -1,4 +1,4 @@
-"""Multi-epoch training driver, with checkpointing off.
+"""Multi-epoch training driver with resumable, crash-safe state.
 
 The reference trains in 1+N *rounds*: each round is a fresh process that
 reloads ``kernel.opt`` and re-seeds the shuffle
@@ -9,10 +9,17 @@ epoch's shuffle consuming the next draws), so the whole N-epoch trajectory
 is a pure function of (conf, corpus, seed), and the epochs go through the
 device-resident pipeline (``api._EpochPipeline``) when the corpus allows.
 
+That determinism is what makes checkpoint/resume bit-exact: a bundle
+written at the epoch-k boundary (float64 weights, BPM momentum, the RNG
+words, the epoch counter; ``ckpt.snapshot``) fully determines epochs
+k+1..N, so a run resumed with ``--resume`` replays the identical console
+stream and lands on a byte-identical ``kernel.opt``.
+
 SIGTERM and SIGINT do not kill the run mid-epoch: the handler latches a
-stop flag, the in-flight epoch finishes, and the run ends with what it has
-trained (``kernel.opt``).  ``HPNN_CKPT_KILL_AT_EPOCH=k`` drives that path
-at a deterministic epoch boundary (the tests use it).
+stop flag, the in-flight epoch finishes, a final synchronous snapshot is
+written (with checkpointing on) and the run ends cleanly.
+``HPNN_CKPT_KILL_AT_EPOCH=k`` drives that path at a deterministic epoch
+boundary (the tests use it).
 """
 
 from __future__ import annotations
@@ -54,56 +61,122 @@ def _restore_handlers(prev) -> None:
             pass
 
 
-def train_loop(nn, epochs: int, device="cuda") -> tuple[bool, bool]:
-    """Run epochs 1..``epochs`` of :func:`api.train_kernel` on ``device``;
-    returns ``(trained_ok, interrupted)``.
+def train_loop(nn, epochs: int, manager=None, start_epoch: int = 0,
+               rng_state: list[int] | None = None,
+               stop: threading.Event | None = None, on_epoch=None,
+               device="cuda") -> tuple[bool, bool]:
+    """Run epochs ``start_epoch+1 .. epochs`` of :func:`api.train_kernel`
+    on ``device``; returns ``(trained_ok, interrupted)``.
 
-    The shuffle stream starts from ``conf.seed`` (seed 0 -> time(), written
-    back: the reference's ``srandom`` semantics, libhpnn.c:1218) and
-    continues across epochs.  The ``EPOCH %8d/%8d`` banner prints only when
-    ``epochs > 1``, so a single epoch keeps the reference's stream.
+    ``manager`` (a :class:`ckpt.manager.CheckpointManager`, or None for
+    checkpointing off) takes every epoch's mean final error in epoch
+    order and writes the due bundles.  ``rng_state`` (from a snapshot)
+    restores the shuffle stream; otherwise it starts from ``conf.seed``
+    (seed 0 -> time(), written back: the reference's ``srandom``
+    semantics, libhpnn.c:1218).  ``stop`` is an external stop event a
+    caller shares (a cancel latches it as a SIGTERM would); without one
+    the loop owns an event wired to the signal handlers.
+    ``on_epoch(epoch, manager)`` is called on the training thread at every
+    epoch boundary, after the epoch's checkpoint bookkeeping and before
+    the interruption checks.  The ``EPOCH %8d/%8d`` banner prints only
+    when ``epochs > 1`` or the run resumed, so a single epoch keeps the
+    reference's stream.
 
     When the epochs go through the device-resident pipeline, this loop
     drives its join points: epoch k's lines are rendered while epoch k+1
-    runs, and the queue drains in byte order (lines, banners, the
-    interruption message) at the final epoch, at an interrupt and at the
-    kill hook -- where the float64 host weights are needed anyway."""
-    from ..api import pipeline_defer_out, pipeline_join, train_kernel
+    runs, and the queue drains in byte order (lines, banners, CKPT
+    messages) at a due snapshot, at the final epoch, at a latched signal
+    and at the kill hook -- where the float64 host weights are needed
+    anyway.  The drained epochs' summaries reach the manager in epoch
+    order, so the manifest equals the unpipelined run's."""
+    from ..api import (pipeline_active, pipeline_defer_out, pipeline_join,
+                       train_kernel)
 
     conf = nn.conf
-    if nn.shuffle_rng is None:
+    if rng_state is not None:
+        nn.shuffle_rng = GlibcRandom.from_state(rng_state)
+    elif nn.shuffle_rng is None:
         if conf.seed == 0:
             conf.seed = int(time.time())
         nn.shuffle_rng = GlibcRandom(conf.seed)
     kill_at = env_int("HPNN_CKPT_KILL_AT_EPOCH", 0)
-    banner = epochs > 1
-    stop = threading.Event()
+    banner = epochs > 1 or start_epoch > 0
+    if stop is None:
+        stop = threading.Event()
     prev_handlers = _install_handlers(stop)
     interrupted = False
+    last_epoch = start_epoch
+    pending: list[int] = []   # epochs whose summaries the manager lacks
+
+    def drain() -> None:
+        """Join the pipeline's deferred epochs in order: console bytes,
+        host weights, then the manager's trajectory and due saves."""
+        sums = pipeline_join(nn)
+        for ep, summary in zip(pending, sums):
+            if manager is not None:
+                manager.epoch_done(nn, ep, summary.get("mean_final")
+                                   if summary else None)
+        del pending[:]
+
     nn._pipeline_defer = True  # train_kernel leaves the joins to this loop
     try:
-        for epoch in range(1, epochs + 1):
+        for epoch in range(start_epoch + 1, epochs + 1):
+            last_epoch = epoch
             if banner:
                 text = f"EPOCH {epoch:8d}/{epochs:8d}\n"
                 if not pipeline_defer_out(nn, text):
                     nn_out(text)
             if not train_kernel(nn, device=device):
-                pipeline_join(nn)
+                drain()
                 return False, False
-            if epoch == epochs or stop.is_set() or epoch == kill_at:
-                pipeline_join(nn)
+            if pipeline_active(nn):
+                pending.append(epoch)
+                # join only where the unpipelined loop needs the host
+                # state: a due snapshot, the final epoch, a latched
+                # signal, or the kill hook about to fire
+                due = (manager is not None and manager.every
+                       and epoch % manager.every == 0)
+                if (due or epoch == epochs or stop.is_set()
+                        or (kill_at and epoch == kill_at)):
+                    drain()
+            elif manager is not None:
+                stats = nn.last_epoch_stats
+                manager.epoch_done(nn, epoch, stats.get("mean_final")
+                                   if stats else None)
+            if on_epoch is not None:
+                on_epoch(epoch, manager)
             if kill_at and epoch == kill_at and epoch < epochs:
                 # the real signal path at a deterministic boundary
                 os.kill(os.getpid(), signal.SIGTERM)
             if stop.is_set() and epoch < epochs:
                 interrupted = True
-                pipeline_join(nn)  # a signal may land after the check above
-                nn_out(f"CKPT: interrupted at epoch {epoch}/{epochs} "
-                       "(checkpointing off; partial state only in "
-                       "kernel.opt)\n")
+                drain()  # a signal may land after the join check above:
+                # the final snapshot below must see synced weights
+                if manager is not None:
+                    # final snapshot, synchronous: the process is about to
+                    # exit, nothing may stay queued
+                    if manager.last_saved_epoch != epoch:
+                        manager.save(nn, epoch, sync=True)
+                    manager.flush()
+                    nn_out(f"CKPT: interrupted at epoch {epoch}/{epochs};"
+                           " state saved -- continue with train_nn "
+                           "--resume\n")
+                else:
+                    nn_out(f"CKPT: interrupted at epoch {epoch}/{epochs} "
+                           "(checkpointing off; partial state only in "
+                           "kernel.opt)\n")
                 break
+        if (not interrupted and manager is not None
+                and last_epoch > start_epoch
+                and manager.last_saved_epoch != last_epoch):
+            # clean completion off the --ckpt-every grid (every=0
+            # included): the final epoch always gets a bundle, so the
+            # manifest's latest kernel is the finished model
+            manager.save(nn, last_epoch)
     finally:
-        pipeline_join(nn)  # no pending line or weight outlives the run
+        drain()  # no pending line or weight outlives the run
         nn._pipeline_defer = False
         _restore_handlers(prev_handlers)
+        if manager is not None:
+            manager.flush()
     return True, interrupted

@@ -2,9 +2,10 @@
 
     python -m hpnn_tpu_torch.cli train_nn [-h] [-v]... [-x] [-O n] [-B n]
         [-S n] [--device {cuda,cpu}] [--lnn native] [--tile S|auto]
-        [--epochs N] [conf]
+        [--epochs N] [--ckpt-every N] [--ckpt-dir DIR] [--ckpt-keep N]
+        [--resume [PATH]] [--replicate-to DIR] [conf]
     python -m hpnn_tpu_torch.cli run_nn [-h] [-v]... [-O n] [-B n] [-S n]
-        [--device {cuda,cpu}] [--lnn native] [conf]
+        [--device {cuda,cpu}] [--lnn native] [--ckpt-dir DIR] [conf]
     python -m hpnn_tpu_torch.cli serve_nn [-v]... [-a ADDR] [-p PORT]
         [-b MAX_BATCH] [-q QUEUE_ROWS] [--linger-ms MS] [--timeout-s S]
         [--parity {strict,fast}] [--fast-threshold N]
@@ -21,16 +22,25 @@ and the trained one to ``kernel.opt`` after (``train_nn.c:224-243``);
 ``--tile S`` (or ``auto``) trains through the batched-tile engine and wins
 over the conf's ``[tile]``.  ``--epochs N`` trains N epochs in one process
 (``ckpt.trainer.train_loop``: one continuing shuffle stream, the corpus and
-the weights resident on the device), with checkpointing off.
+the weights resident on the device).  ``--ckpt-every/--ckpt-dir/
+--ckpt-keep`` write crash-safe snapshot bundles at epoch boundaries
+(``ckpt/``, the JAX package's format), ``--resume [PATH]`` continues a
+killed run bit-exactly from the newest intact bundle, and
+``--replicate-to DIR`` ships each bundle to a second directory that a
+resume restores from when no local bundle survives.  ``run_nn`` warns when
+a checkpoint manifest (``--ckpt-dir``, default ``./ckpt``) recorded a
+different fingerprint for the kernel it evaluates.
 Every command runs on the GPU unless
 ``--device cpu`` is given; asking for the GPU on a host without one exits
 non-zero before anything is computed.  The JAX package's other options
-(checkpoints, caches, profiling, mesh serving, jobs, tracing, QoS) are
-refused with a message naming them: later slices of the port bring them.
+(caches, profiling, replication to a mesh router, mesh serving, jobs,
+tracing, QoS) are refused with a message naming them: later slices of the
+port bring them.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 
 from . import runtime
@@ -64,6 +74,7 @@ def _help_text(name: str) -> str:
         "--lnn native \topt into the native LNN regression head",
         "\t(linear output + MSE grammar); HPNN_LNN_NATIVE=1 is the",
         "\tenv equivalent.",
+        "--ckpt-dir DIR \tcheckpoint directory (default ./ckpt).",
     ]
     if train:
         lines += [
@@ -75,8 +86,24 @@ def _help_text(name: str) -> str:
             "\trelocates the decision cache); 0 keeps per-sample mode.",
             "--epochs N \ttrain N epochs in this process (default 1):",
             "\tthe shuffle stream continues across epochs and the",
-            "\tcorpus and weights stay on the device; checkpointing",
-            "\tis off (an interrupt keeps what kernel.opt gets).",
+            "\tcorpus and weights stay on the device",
+            "\t(HPNN_NO_EPOCH_PIPELINE=1 restages every epoch).",
+            "--ckpt-every N \tsnapshot every N epoch boundaries (atomic,",
+            "\twritten off the critical path; 0: only at the end or on",
+            "\ta signal).",
+            "--ckpt-keep N \tretention: keep the last N snapshots and the",
+            "\tbest-by-error one (0: keep all).",
+            "--resume [PATH] \tcontinue bit-exactly from the latest",
+            "\tsnapshot in PATH (a ckpt dir or bundle; default",
+            "\t--ckpt-dir): weights, BPM momentum, shuffle-RNG state",
+            "\tand epoch counter are restored.  Bundles are VERIFIED",
+            "\tagainst their recorded sha256 fingerprints; a corrupt",
+            "\tbundle falls back to the newest intact one.",
+            "--replicate-to DIR \tship each verified snapshot bundle,",
+            "\tcontent-addressed, to DIR; --resume restores from DIR",
+            "\twhen no local bundle survives.  Default:",
+            "\t$HPNN_REPLICATE_TO.  (A mesh router, http://HOST:PORT,",
+            "\tis not ported yet.)",
         ]
     lines += [
         "***********************************",
@@ -99,14 +126,32 @@ def _leading_uint(value: str) -> int | None:
     return int(digits) if digits else None
 
 
+def _syntax_error(name: str, key: str):
+    sys.stderr.write(f"syntax error: bad {key} parameter!\n")
+    sys.stdout.write(_help_text(name))
+    raise SystemExit(-1)
+
+
+# long options taking a value: option -> (extras key, commands); the
+# checkpoint directory parses for run_nn too (its staleness guard)
+_STR_OPTS = {"--ckpt-dir": ("ckpt_dir", ("train_nn", "run_nn")),
+             "--replicate-to": ("replicate_to", ("train_nn",))}
+# unsigned long options of train_nn: option -> (extras key, least value)
+_UINT_OPTS = {"--epochs": ("epochs", 1), "--ckpt-every": ("ckpt_every", 0),
+              "--ckpt-keep": ("ckpt_keep", 0)}
+
+
 def _parse_args(argv: list[str], name: str):
     """Reference-style parse; returns (filename, extras) or None on -h,
     raises SystemExit(-1) on syntax errors."""
     filename = None
-    extras = {"device": "cuda", "lnn": None, "tile": None, "epochs": None}
+    extras = {"device": "cuda", "lnn": None, "tile": None, "resume": None}
+    extras.update({dest: None for dest, _ in _STR_OPTS.values()})
+    extras.update({dest: None for dest, _ in _UINT_OPTS.values()})
     choices = {"--device": ("device", runtime.DEVICES),
                "--lnn": ("lnn", ("native",))}
     numeric = "OBS"   # thread/BLAS/stream counts: checked, then ignored
+    train = name == "train_nn"
     i = 0
     while i < len(argv):
         arg = argv[i]
@@ -121,13 +166,32 @@ def _parse_args(argv: list[str], name: str):
                 i += 1
                 val = argv[i] if i < len(argv) else ""
             if val.strip().lower() not in allowed:
-                sys.stderr.write(f"syntax error: bad {key} parameter!\n")
-                sys.stdout.write(_help_text(name))
-                raise SystemExit(-1)
+                _syntax_error(name, key)
             extras[dest] = val.strip().lower()
             i += 1
             continue
-        if key == "--tile" and name == "train_nn":
+        if key == "--resume" and train:
+            # --resume [PATH]: the value is optional (default: the ckpt
+            # dir).  A separated token is the path only when it looks like
+            # a checkpoint -- otherwise it is the trailing conf filename
+            # ("train_nn --resume nn.conf").  --resume=PATH is explicit.
+            if eq:
+                if not val:
+                    _syntax_error(name, key)
+                extras["resume"] = val
+            else:
+                from .ckpt import looks_like_checkpoint
+
+                nxt = argv[i + 1] if i + 1 < len(argv) else None
+                if nxt and not nxt.startswith("-") \
+                        and looks_like_checkpoint(nxt):
+                    extras["resume"] = nxt
+                    i += 1
+                else:
+                    extras["resume"] = True
+            i += 1
+            continue
+        if key == "--tile" and train:
             if not eq:
                 i += 1
                 val = argv[i] if i < len(argv) else ""
@@ -135,22 +199,34 @@ def _parse_args(argv: list[str], name: str):
             # autotuner decision
             tile = -1 if val.strip().lower() == "auto" else _leading_uint(val)
             if tile is None:
-                sys.stderr.write(f"syntax error: bad {key} parameter!\n")
-                sys.stdout.write(_help_text(name))
-                raise SystemExit(-1)
+                _syntax_error(name, key)
             extras["tile"] = tile
             i += 1
             continue
-        if key == "--epochs" and name == "train_nn":
+        if key in _UINT_OPTS and train:
+            dest, least = _UINT_OPTS[key]
             if not eq:
                 i += 1
                 val = argv[i] if i < len(argv) else ""
-            epochs = _leading_uint(val)   # GET_UINT-style, at least 1
-            if not epochs:
-                sys.stderr.write(f"syntax error: bad {key} parameter!\n")
-                sys.stdout.write(_help_text(name))
+            value = _leading_uint(val)   # GET_UINT-style
+            if value is None or value < least:
+                _syntax_error(name, key)
+            extras[dest] = value
+            i += 1
+            continue
+        if key in _STR_OPTS and name in _STR_OPTS[key][1]:
+            if not eq:
+                i += 1
+                val = argv[i] if i < len(argv) else ""
+            if not val:
+                _syntax_error(name, key)
+            if key == "--replicate-to" and val.startswith(("http://",
+                                                           "https://")):
+                from .ckpt.replicate import http_refusal
+
+                sys.stderr.write(f"{name}: {http_refusal(val)}\n")
                 raise SystemExit(-1)
-            extras["epochs"] = epochs
+            extras[_STR_OPTS[key][0]] = val
             i += 1
             continue
         if arg.startswith("--"):
@@ -216,6 +292,15 @@ def run_nn(argv: list[str] | None = None):
             return -1, None
         if extras["lnn"]:
             neural.conf.lnn = extras["lnn"]
+        if neural.conf.f_kernel:
+            # staleness guard: when a checkpoint manifest recorded a
+            # fingerprint for this exact kernel file and the bytes no
+            # longer match, warn with both paths (and evaluate anyway)
+            ckpt_dir = extras["ckpt_dir"] or "./ckpt"
+            if os.path.isdir(ckpt_dir):
+                from .ckpt import check_kernel_fingerprint
+
+                check_kernel_fingerprint(neural.conf.f_kernel, ckpt_dir)
         outs = run_kernel(neural, device=runtime.lib_runtime.device)
         return 0, outs
     finally:
@@ -228,12 +313,9 @@ def run_nn_main(argv: list[str] | None = None) -> int:
 
 def train_nn_main(argv: list[str] | None = None) -> int:
     """train_nn (tests/train_nn.c:59-255): configure, dump kernel.tmp, one
-    training epoch on the device (``--epochs N``: N of them through
-    ``ckpt.trainer.train_loop``), dump kernel.opt.  Returns the exit
-    code."""
-    from .ckpt import train_loop
-    from .io.kernel_io import dump_kernel_to_path
-
+    training epoch on the device, dump kernel.opt; with ``--epochs N``,
+    checkpointing or ``--resume``, the epochs run through
+    ``ckpt.trainer.train_loop``.  Returns the exit code."""
     argv = sys.argv[1:] if argv is None else argv
     nn_log.set_verbosity(0)
     try:
@@ -241,41 +323,155 @@ def train_nn_main(argv: list[str] | None = None) -> int:
         if parsed is None:
             return 0
         filename, extras = parsed
+        replicate_to = extras["replicate_to"] \
+            or os.environ.get("HPNN_REPLICATE_TO") or None
+        if replicate_to and replicate_to.startswith(("http://",
+                                                     "https://")):
+            from .ckpt.replicate import http_refusal
+
+            sys.stderr.write(f"train_nn: {http_refusal(replicate_to)}\n")
+            return -1
         if runtime.init_all(extras["device"]) != 0:
             return -1
-        neural = configure(filename)
-        if neural is None:
-            sys.stderr.write(
-                "FAILED to read NN configuration file! (ABORTING)\n")
-            return -1
-        if extras["lnn"]:
-            neural.conf.lnn = extras["lnn"]
-        if extras["tile"] is not None:
-            neural.conf.tile = extras["tile"]   # the flag wins over [tile]
-        try:
-            dump_kernel_to_path(neural.kernel, "kernel.tmp")
-        except OSError:
-            sys.stderr.write("FAILED to open kernel.tmp for WRITE!\n")
-            return -1
-        device = runtime.lib_runtime.device
-        epochs = extras["epochs"] or 1
-        if epochs > 1:
-            trained, _interrupted = train_loop(neural, epochs, device=device)
-        else:
-            trained = train_kernel(neural, device=device)
-        if not trained:
-            sys.stderr.write("FAILED to train kernel!\n")
-            return -1
-        try:
-            dump_kernel_to_path(neural.kernel, "kernel.opt")
-        except OSError:
-            # the reference prints the kernel.tmp message on both dump
-            # failures (tests/train_nn.c:243)
-            sys.stderr.write("FAILED to open kernel.tmp for WRITE!\n")
-            return -1
-        return 0
+        return _train_nn_body(filename, extras, replicate_to)
     finally:
         runtime.deinit_all()
+
+
+def _resume_snapshot(resume, ckpt_dir: str, replicate_to: str | None):
+    """The snapshot a ``--resume`` continues from (None after the
+    "FAILED to resume" line): the newest intact local bundle, else the
+    newest intact replica restored from ``replicate_to`` into the
+    checkpoint directory."""
+    from .ckpt import SNAPSHOT_STATE, load_snapshot
+
+    resume_path = resume if isinstance(resume, str) else ckpt_dir
+    snap = load_snapshot(resume_path)
+    if snap is None and replicate_to:
+        # replicas ship under scope_for(<ckpt dir>): a --resume naming a
+        # bundle dir (or a file inside one) resolves to its enclosing
+        # checkpoint dir, for the scope and as the restore target
+        from .ckpt.replicate import resolve_scope, restore_bundle
+
+        rdir = resume_path
+        if os.path.isfile(rdir):
+            rdir = os.path.dirname(rdir) or "."
+        if os.path.isfile(os.path.join(rdir, SNAPSHOT_STATE)):
+            rdir = os.path.dirname(os.path.abspath(rdir))
+        if restore_bundle(replicate_to, resolve_scope(rdir),
+                          rdir) is not None:
+            snap = load_snapshot(rdir)
+    if snap is None:
+        sys.stderr.write("FAILED to resume: no loadable snapshot! "
+                         "(ABORTING)\n")
+    return snap
+
+
+def _train_nn_body(filename: str, extras: dict,
+                   replicate_to: str | None) -> int:
+    from .ckpt import CheckpointManager, refresh_final_kernel, train_loop
+    from .io.kernel_io import dump_kernel_to_path
+
+    epochs = extras["epochs"] or 1
+    resume = extras["resume"]
+    ckpt_on = bool(resume or extras["ckpt_dir"]
+                   or extras["ckpt_every"] is not None
+                   or extras["ckpt_keep"] is not None)
+    ckpt_dir = extras["ckpt_dir"] or "./ckpt"
+    every = extras["ckpt_every"] if extras["ckpt_every"] is not None else 1
+    keep = extras["ckpt_keep"] or 0
+    neural = configure(filename)
+    if neural is None:
+        sys.stderr.write("FAILED to read NN configuration file! (ABORTING)\n")
+        return -1
+    if extras["lnn"]:
+        neural.conf.lnn = extras["lnn"]
+    if extras["tile"] is not None:
+        neural.conf.tile = extras["tile"]   # the flag wins over [tile]
+    snap = None
+    start_epoch = 0
+    if resume:
+        snap = _resume_snapshot(resume, ckpt_dir, replicate_to)
+        if snap is None:
+            return -1
+        if snap.topology != list(neural.kernel.params):
+            sys.stderr.write(
+                f"FAILED to resume: snapshot topology {snap.topology} "
+                f"does not match the configured kernel "
+                f"{list(neural.kernel.params)}! (ABORTING)\n")
+            return -1
+        if snap.world_size != 1:
+            sys.stderr.write(
+                f"FAILED to resume: snapshot {snap.tag} was written by "
+                f"a {snap.world_size}-process run, but this run has 1 "
+                "process(es)! Multi-process training is not ported yet: "
+                "resume it with hpnn_tpu (or retrain). (ABORTING)\n")
+            return -1
+        # bit-exact restore: float64 weights from state.npz (not the
+        # quantized text), the effective seed and the epoch counter; the
+        # shuffle words go to train_loop.  BPM momentum rides the bundle
+        # too, but the update re-zeroes it at every sample entry
+        # (ann_raz_momentum, ann.c:2391), so restoring it changes nothing
+        neural.kernel.weights = list(snap.weights)
+        neural.conf.seed = snap.seed
+        neural.trainer_state = snap.trainer_state
+        start_epoch = snap.epoch
+        if isinstance(resume, str) and not extras["ckpt_dir"]:
+            # an explicit --resume PATH names the run's checkpoint home:
+            # continued snapshots go back there, not to ./ckpt
+            ckpt_dir = os.path.dirname(snap.path)
+        if extras["epochs"] is None and snap.target_epochs:
+            # a bare --resume continues to the interrupted run's own
+            # --epochs goal (recorded in the bundle)
+            epochs = snap.target_epochs
+        if start_epoch >= epochs:
+            sys.stderr.write(
+                f"CKPT: snapshot is already at epoch {start_epoch} of "
+                f"{epochs}; nothing left to train (pass --epochs N to "
+                "extend the run)\n")
+    try:
+        dump_kernel_to_path(neural.kernel, "kernel.tmp")
+    except OSError:
+        sys.stderr.write("FAILED to open kernel.tmp for WRITE!\n")
+        return -1
+    device = runtime.lib_runtime.device
+    mgr = None
+    if epochs > 1 or ckpt_on or start_epoch:
+        if ckpt_on:
+            mgr = CheckpointManager(ckpt_dir, every=every, keep_last=keep,
+                                    target_epochs=epochs,
+                                    replicate_to=replicate_to)
+            if snap is not None:
+                mgr.seed_errors(snap.errors)
+        trained, _interrupted = train_loop(
+            neural, epochs, manager=mgr, start_epoch=start_epoch,
+            rng_state=snap.rng_state if snap is not None else None,
+            device=device)
+    else:
+        trained = train_kernel(neural, device=device)
+    if not trained:
+        sys.stderr.write("FAILED to train kernel!\n")
+        return -1
+    try:
+        dump_kernel_to_path(neural.kernel, "kernel.opt")
+    except OSError:
+        # the reference prints the kernel.tmp message on both dump
+        # failures (tests/train_nn.c:243)
+        sys.stderr.write("FAILED to open kernel.tmp for WRITE!\n")
+        return -1
+    if mgr is not None:
+        try:
+            mgr.record_final("kernel.opt")
+        except Exception as exc:
+            sys.stderr.write(f"FAILED to publish checkpoint manifest: "
+                             f"{exc}\n")
+            return -1
+    else:
+        # a plain retrain: if a manifest from an earlier checkpointed run
+        # tracks this exact kernel.opt, refresh its fingerprint so
+        # run_nn's staleness guard stays truthful
+        refresh_final_kernel(ckpt_dir, "kernel.opt")
+    return 0
 
 
 def _serve_parser():

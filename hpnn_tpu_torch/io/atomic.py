@@ -16,8 +16,9 @@ POSIX durable-replace sequence instead:
    survives a power cut (skipped silently where the FS refuses directory
    fsync).
 
-Used by ``io.kernel_io.dump_kernel_to_path`` and the autotuner's decision
-cache (``ops/autotune.py``).
+Used by ``io.kernel_io.dump_kernel_to_path``, the autotuner's decision
+cache (``ops/autotune.py``) and the checkpoint replica index
+(``ckpt/replicate.py``).
 """
 
 from __future__ import annotations
@@ -55,3 +56,7 @@ def atomic_write_bytes(path: str, data: bytes) -> None:
         raise
     fsync_dir(dirpath)
 
+
+def atomic_write_text(path: str, text: str,
+                      encoding: str = "utf-8") -> None:
+    atomic_write_bytes(path, text.encode(encoding))

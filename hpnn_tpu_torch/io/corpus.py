@@ -12,18 +12,24 @@ exactly where the reference emits them.
 multi-epoch pipeline (``api._EpochPipeline``): every file's diagnostics are
 classified into status codes that :class:`ResidentCorpus` replays in each
 epoch's shuffle order, byte for byte what :func:`load_ordered` emits.  The
-JAX package's packed corpus cache, pack-build lock and reader thread pool
+JAX package's packed corpus cache, pack-build lock and parallel reader
 are not part of this port yet: each file is read serially once a run.
+
+:func:`io_pool` is the process's one bounded background executor
+(``HPNN_IO_THREADS`` wide): the checkpoint manager writes its bundles on
+it.
 """
 
 from __future__ import annotations
 
 import os
+import threading
 import time
 
 import numpy as np
 
 from ..utils import nn_log
+from ..utils.env import env_int
 from ..utils.nn_log import nn_dbg, nn_error
 from .samples import read_sample
 
@@ -33,6 +39,33 @@ ST_IN_FAIL = -2   # "sample <path> input read failed!" on stderr
 ST_OUT_FAIL = -3  # "sample <path> output read failed!" on stderr
 ST_DIM = -4       # "sample <name> dimension mismatch, skipped!"
 LOADED = "loaded"
+
+_pool = None
+_pool_lock = threading.Lock()
+
+
+def io_threads() -> int:
+    """The pool's width: ``HPNN_IO_THREADS`` when set (at least 1; a
+    malformed value reads 1), 1 under ``HPNN_NO_PARALLEL_IO``, else the
+    CPU count capped at 32."""
+    if os.environ.get("HPNN_IO_THREADS"):
+        return env_int("HPNN_IO_THREADS", 1, lo=1)
+    if os.environ.get("HPNN_NO_PARALLEL_IO"):
+        return 1
+    return max(1, min(32, os.cpu_count() or 1))
+
+
+def io_pool():
+    """The shared background executor, created at first use with
+    :func:`io_threads` workers (the width is fixed then)."""
+    global _pool
+    with _pool_lock:
+        if _pool is None:
+            from concurrent.futures import ThreadPoolExecutor
+
+            _pool = ThreadPoolExecutor(max_workers=io_threads(),
+                                       thread_name_prefix="hpnn-io")
+        return _pool
 
 
 def load_ordered(dirpath: str, names: list[str], order: list[int],

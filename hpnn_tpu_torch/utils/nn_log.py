@@ -24,6 +24,12 @@ default stays byte-identical to the reference.
 entries and :func:`replay` emits them later through the gated functions:
 the multi-epoch pipeline reads a corpus once with each file's diagnostics
 captured, and queues output behind epochs whose lines are not rendered yet.
+
+:func:`nn_event` is a structured operational event (a checkpoint bundle
+that failed verification, ``ckpt_fallback``): ``event: k=v ...`` through
+:func:`nn_warn` in text mode, one ungated JSON object under
+``HPNN_LOG_JSON=1``.  The JAX package also mirrors each event into its
+flight recorder; the port has no tracing yet.
 """
 
 from __future__ import annotations
@@ -106,7 +112,29 @@ def replay(entries) -> None:
     fns = {"dbg": nn_dbg, "out": nn_out, "cout": nn_cout, "warn": nn_warn,
            "error": nn_error, "raw": nn_raw}
     for level, text in entries:
+        if level == "event":   # a structured event captured in JSON mode
+            _emit(sys.stdout, text if text.endswith("\n") else text + "\n")
+            continue
         fns[level](text)
+
+
+def nn_event(event: str, **fields) -> None:
+    """A structured operational event.  ``HPNN_LOG_JSON=1`` emits one
+    ungated JSON line (an event is data, not chatter); text mode renders
+    ``event: k=v ...`` through :func:`nn_warn`, so the verbosity gate
+    applies."""
+    if log_json_enabled():
+        # the full record is rendered before the capture check, so a
+        # captured event replays byte for byte (ts = emission time)
+        rec = {"ts": round(time.time(), 3), "level": "event",
+               "event": event}
+        rec.update(fields)
+        line = json.dumps(rec)
+        if not _captured("event", line):
+            _emit(sys.stdout, line + "\n")
+        return
+    body = " ".join(f"{k}={v}" for k, v in fields.items())
+    nn_warn(f"{event}: {body}\n")
 
 
 def _captured(level: str, text: str) -> bool:

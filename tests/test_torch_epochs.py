@@ -17,8 +17,8 @@ class, as tests/test_epoch_pipeline.py writes it) goes through
 * ``HPNN_CKPT_KILL_AT_EPOCH=2`` with ``--epochs 3`` against the JAX
   package;
 * a corpus whose diagnostics cannot be replayed restages with the same
-  bytes; ``--epochs 1`` is the plain run; ``--ckpt-every`` still exits
-  with the port's not-ported message.
+  bytes; ``--epochs 1`` is the plain run; ``--replicate-to`` a mesh
+  router still exits with the port's not-ported message.
 """
 
 import contextlib
@@ -279,16 +279,17 @@ def test_bad_epochs_value_is_a_syntax_error(tmp_path, monkeypatch, capsys,
     assert "bad --epochs parameter" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("opt", ["--ckpt-every", "--ckpt-dir", "--ckpt-keep",
-                                 "--resume", "--replicate-to"])
+@pytest.mark.parametrize("opt", ["--replicate-to"])
 def test_checkpoint_options_still_exit_later(tmp_path, monkeypatch, capsys,
                                              opt):
+    """Replication to a mesh router (``--replicate-to http://HOST:PORT``)
+    is the one checkpoint option still refused: nothing is written."""
     from hpnn_tpu_torch.cli import train_nn_main
 
     _setup(tmp_path, monkeypatch)
     with pytest.raises(SystemExit) as exc:
-        train_nn_main(["--epochs", "2", opt, "1", "--device", "cpu",
-                       "nn.conf"])
+        train_nn_main(["--epochs", "2", opt, "http://127.0.0.1:1",
+                       "--device", "cpu", "nn.conf"])
     assert exc.value.code != 0
     assert "later slice" in capsys.readouterr().err
     assert not (tmp_path / "kernel.tmp").exists()

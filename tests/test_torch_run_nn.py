@@ -150,9 +150,9 @@ def test_run_nn_unported_option_exits_nonzero(tmp_path, capsys):
 
 def test_run_nn_subprocess_imports_no_jax(tmp_path):
     """A fresh interpreter runs the port's train_nn (one epoch, then
-    ``--epochs 2`` through the trainer and the resident pipeline) and
-    run_nn on the CPU and then proves that neither jax nor any hpnn_tpu
-    module was imported."""
+    ``--epochs 2`` through the trainer and the resident pipeline with
+    checkpoints and a replica) and run_nn on the CPU and then proves that
+    neither jax nor any hpnn_tpu module was imported."""
     conf = _write_case(tmp_path, kind="SNN")
     train_conf = tmp_path / "train.conf"
     train_conf.write_text(
@@ -169,11 +169,13 @@ def test_run_nn_subprocess_imports_no_jax(tmp_path):
         f"{str(train_conf)!r}])\n"
         "assert rc == 0, rc\n"
         f"rc = train_nn_main(['-v', '-v', '--device', 'cpu', '--epochs', "
-        f"'2', {str(train_conf)!r}])\n"
+        f"'2', '--ckpt-every', '1', '--ckpt-dir', 'ck', '--replicate-to', "
+        f"'rep', {str(train_conf)!r}])\n"
         "assert rc == 0, rc\n"
         "from hpnn_tpu_torch import api\n"
         "assert api.EPOCH_METRICS['mode'] == 'resident', api.EPOCH_METRICS\n"
         "assert 'hpnn_tpu_torch.ckpt.trainer' in sys.modules\n"
+        "assert os.path.isdir(os.path.join('ck', 'ep00000002'))\n"
         "os.chdir('..')\n"
         f"rc, outs = run_nn(['-v', '-v', '--device', 'cpu', {conf!r}])\n"
         "assert rc == 0 and outs.shape == (24, 5), rc\n"

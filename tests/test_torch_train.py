@@ -552,17 +552,24 @@ def test_train_nn_cuda_without_gpu_exits_nonzero(tmp_path, monkeypatch,
     assert not (tmp_path / "kernel.opt").exists()
 
 
-@pytest.mark.parametrize("opt", ["--ckpt-keep", "--ckpt-dir", "--ckpt-every",
-                                 "--resume", "--profile-dir",
-                                 "--model-parallel", "--trainer",
-                                 "--compile-cache"])
+# the JAX package's train_nn options the port does not have yet (the
+# checkpoint options are ported: tests/test_torch_ckpt.py); a mesh router
+# is the one --replicate-to destination still refused
+UNPORTED_TRAIN_OPTIONS = {"--profile-dir": "2", "--model-parallel": "2",
+                          "--trainer": "2", "--compile-cache": "2",
+                          "--corpus-cache": "2", "--corpus-cache-max-mb": "2",
+                          "--replicate-to": "http://127.0.0.1:1"}
+
+
+@pytest.mark.parametrize("opt", list(UNPORTED_TRAIN_OPTIONS))
 def test_train_nn_unported_option_exits_nonzero(tmp_path, monkeypatch,
                                                 capsys, opt):
     from hpnn_tpu_torch.cli import train_nn_main
 
     monkeypatch.chdir(tmp_path)
     with pytest.raises(SystemExit) as exc:
-        train_nn_main([opt, "2", "--device", "cpu", "nn.conf"])
+        train_nn_main([opt, UNPORTED_TRAIN_OPTIONS[opt], "--device", "cpu",
+                       "nn.conf"])
     assert exc.value.code != 0
     assert "later slice" in capsys.readouterr().err
     assert not (tmp_path / "kernel.tmp").exists()
