@@ -136,6 +136,20 @@ fault; no phase catches its own failure.
    the resumed kernel.opt (>= 80% PASS) warns of no fingerprint mismatch,
    and of one after a digit of kernel.opt is changed, naming both paths.
    The runs' wall times beside phase 16's and the bundles' bytes.
+18. The corpus pipeline (run right after phase 17): the native sample
+   loader must be on.  ``run_nn`` of a generated MNIST 784-300-10 ANN f64
+   and XRD 851-230-230 ANN f32 kernel on a fresh 4096-file dir each, in
+   three load modes: cache off, serial, Python parser
+   (``HPNN_NO_CORPUS_CACHE=1 HPNN_NO_PARALLEL_IO=1 HPNN_NO_NATIVE_IO=1``);
+   cold (parallel native reads, the pack built); warm (from the pack).
+   The streams must be byte-identical, the outputs bit-identical, each
+   run must launch ``fused_linear_act`` and report its load mode; each
+   load's time, each run's wall time and the pack's bytes are printed.
+   Then ``train_nn --epochs 3`` on phase 9's files and conf with the
+   cache off and warm (the test dir's pack removed first, so the warm
+   run's prefetch builds it during the epochs): streams and kernel.opt
+   byte-identical, each epoch's device time both ways; then ``run_nn`` of
+   kernel.opt must load the test dir from the prefetched pack.
 15. One JSON line of every kernel (launches on its main path, the largest
    kernel-vs-plain error over every cell and dtype, times and bound;
    ``fused_linear_act`` adds its B=1 cell and its worst ratio to the
@@ -146,13 +160,16 @@ fault; no phase catches its own failure.
    the epoch's time at each candidate tile, its build's stack frame and
    the wide run's workspace plan; both their launches and epoch times in
    phase 16 and their launches and wall times in phase 17
-   (``ckpt_launches``, ``ckpt_wall_s``); ``fused_bpm_update`` its warm,
-   cold and floor times), then the result line.
+   (``ckpt_launches``, ``ckpt_wall_s``), and phase 18's epoch times
+   (``corpus_epochs_device_ms``); ``fused_linear_act`` phase 18's
+   launches (``corpus_launches``); ``fused_bpm_update`` its warm, cold and
+   floor times), then the result line.
 
 Main paths: ``fused_linear_act``'s is phases 4-5, ``train_epoch``'s phase 9
 and ``train_tile``'s phase 12 (train_nn, then run_nn of its kernel, which
-launches ``fused_linear_act`` too), phase 16's two ``--epochs`` runs and
-phase 17's checkpointed, killed and resumed runs; every count is set to 0
+launches ``fused_linear_act`` too), phase 16's two ``--epochs`` runs,
+phase 17's checkpointed, killed and resumed runs and phase 18's runs;
+every count is set to 0
 just before a path and read just after it.  ``fused_bpm_update`` has no caller on any
 path, as in the JAX package: its ``launches`` are the paths' (0), its
 ``phase_launches`` phase 13's.  ``--json PATH`` also writes every cell's
@@ -487,10 +504,13 @@ def phase_run_nn(runs):
         nn = configure(conf)
         key = nn.conf.tests
         if key not in rows_cache:
+            from hpnn_tpu_torch.io.corpus import LAST_LOAD
+
             t0 = time.perf_counter()
             rows_cache[key] = load_tests(nn)[1]
-            log(f"corpus {os.path.basename(key)}: {N_FILES} files parsed "
-                f"on the host in {time.perf_counter() - t0:.2f} s")
+            log(f"corpus {os.path.basename(key)}: {N_FILES} files loaded "
+                f"on the host in {time.perf_counter() - t0:.2f} s "
+                f"({LAST_LOAD['mode']}; native_io: {LAST_LOAD['native_io']})")
         xs = rows_cache[key]
         dt = dtype_of(nn.conf)
         weights = weights_to_torch(nn.kernel.weights, dt, "cuda")
@@ -1997,6 +2017,199 @@ def phase_ckpt_resume(e2e, epochs_runs):
     return out
 
 
+# --- phase 18: the corpus pipeline ------------------------------------------
+
+# load mode -> (env, the mode load_ordered reports, native_io)
+CORPUS_MODES = (("off", {"HPNN_NO_CORPUS_CACHE": "1", "HPNN_NO_PARALLEL_IO": "1",
+                         "HPNN_NO_NATIVE_IO": "1"}, "serial", "off"),
+                ("cold", {}, "parallel", "on"),
+                ("warm", {}, "pack", "on"))
+
+
+@contextlib.contextmanager
+def _corpus_env(env):
+    """``env`` set for the block (the native loader probed anew on entry
+    and exit, as HPNN_NO_NATIVE_IO may change)."""
+    from hpnn_tpu_torch.io import samples
+
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    samples._native_lib = None
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        samples._native_lib = None
+
+
+def _corpus_run_nn(tag, topology, scale, seed, dtype, tmp):
+    """``run_nn -v -v`` of a generated ANN kernel on a fresh 4096-file dir
+    in each load mode: byte-identical streams, bit-identical outputs, and
+    ``fused_linear_act`` launched each time (its count set to 0 just before
+    each run, read just after)."""
+    from hpnn_tpu_torch import cli
+    from hpnn_tpu_torch.io import corpus
+    from hpnn_tpu_torch.io.kernel_io import dump_kernel_to_path
+    from hpnn_tpu_torch.models.kernel import generate_kernel
+    from hpnn_tpu_torch.ops.kernels import fused_linear_act
+
+    n_in, hid, n_out = topology
+    tests = os.path.join(tmp, f"corpus_{tag}")
+    t0 = time.perf_counter()
+    _write_corpus(tests, n_in, n_out, scale, seed)
+    write_s = time.perf_counter() - t0
+    kern, _ = generate_kernel(seed, n_in, hid, n_out)
+    kpath = os.path.join(tmp, f"corpus_{tag}_kernel.opt")
+    dump_kernel_to_path(kern, kpath)
+    conf = os.path.join(tmp, f"corpus_{tag}.conf")
+    with open(conf, "w") as fp:
+        fp.write(f"[name] corpus_{tag}\n[type] ANN\n[init] {kpath}\n"
+                 f"[seed] 10958\n[input] {n_in}\n"
+                 f"[hidden] {' '.join(map(str, hid))}\n[output] {n_out}\n"
+                 f"[train] BP\n[test_dir] {tests}\n[dtype] {dtype}\n")
+    if os.path.exists(corpus.pack_path(tests)):
+        raise AssertionError(f"{tests}: a pack exists before the cold run")
+    runs = {}
+    for mode, env, want, native in CORPUS_MODES:
+        with _corpus_env(env):
+            fused_linear_act.launches = 0
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc, outs = cli.run_nn(["-v", "-v", "--device", "cuda", conf])
+            wall = time.perf_counter() - t0
+            launched = fused_linear_act.launches
+        load = dict(corpus.LAST_LOAD)
+        if rc != 0 or outs is None or outs.shape != (N_FILES, n_out) \
+                or not np.all(np.isfinite(outs)):
+            raise AssertionError(f"corpus run_nn {tag} ({mode}): rc={rc}")
+        if load["mode"] != want or load["native_io"] != native \
+                or load["rows"] != N_FILES:
+            raise AssertionError(f"corpus run_nn {tag} ({mode}): load {load}"
+                                 f", want {want}, native_io {native}")
+        if launched <= 0:
+            raise AssertionError(f"corpus run_nn {tag} ({mode}): "
+                                 "fused_linear_act was not launched")
+        runs[mode] = {"out": out.getvalue(), "outs": outs, "wall_s": wall,
+                      "load_s": load["seconds"], "launches": launched}
+    for mode in ("cold", "warm"):
+        if runs[mode]["out"] != runs["off"]["out"]:
+            raise AssertionError(f"corpus run_nn {tag}: the {mode} stream "
+                                 "differs from the cache-off stream")
+        if runs[mode]["outs"].tobytes() != runs["off"]["outs"].tobytes():
+            raise AssertionError(f"corpus run_nn {tag}: the {mode} outputs "
+                                 "differ from the cache-off outputs")
+    pack = os.path.getsize(corpus.pack_path(tests))
+    data = N_FILES * (n_in + n_out) * 8
+    if pack < data:
+        raise AssertionError(f"corpus {tag}: pack of {pack} bytes < data "
+                             f"region {data}")
+    log(f"corpus run_nn {tag} ({n_in}-{'-'.join(map(str, hid))}-{n_out} ANN "
+        f"{dtype}, {N_FILES} files written in {write_s:.2f} s): "
+        + "; ".join(f"{m} load {r['load_s']:.3f} s, wall {r['wall_s']:.2f} s"
+                    f", launches {r['launches']}" for m, r in runs.items())
+        + f"; streams byte-identical, outputs bit-identical; pack {pack} "
+        f"bytes (data region {data})")
+    return {"pack_bytes": pack, "data_bytes": data, "write_s": write_s,
+            **{m: {k: r[k] for k in ("load_s", "wall_s", "launches")}
+               for m, r in runs.items()}}
+
+
+def phase_corpus(e2e, tmp):
+    """The corpus pipeline on the card (run after phase 17): the native
+    loader on; MNIST 784-300-10 ANN f64 and XRD 851-230-230 ANN f32
+    ``run_nn`` in three load modes; ``train_nn --epochs 3`` on phase 9's
+    files warm against ``HPNN_NO_CORPUS_CACHE=1`` (kernel.opt and streams
+    byte-identical, each epoch's device time both ways) with the test
+    dir's pack removed first, so that the warm run's prefetch builds it
+    during the epochs; then ``run_nn`` of kernel.opt loads from that
+    pack."""
+    from hpnn_tpu_torch import api, cli
+    from hpnn_tpu_torch.io import corpus, samples
+    from hpnn_tpu_torch.ops.kernels import fused_linear_act
+
+    with _corpus_env({}):
+        if os.environ.get("HPNN_NO_NATIVE_IO") \
+                or samples.native_io_status() != "on":
+            raise AssertionError("the native sample loader is not on")
+    res = {"run_nn": {
+        "mnist": _corpus_run_nn("mnist", MNIST, "pixel", 1801, "f64", tmp),
+        "xrd": _corpus_run_nn("xrd", XRD, "unit", 1802, "f32", tmp)}}
+    root = e2e["root"]
+    samples_dir = os.path.join(root, "samples")
+    tests_dir = os.path.join(root, "tests")
+    off = _train_epochs(root, (), {"HPNN_NO_CORPUS_CACHE": "1"})
+    off_load = dict(corpus.LAST_LOAD)
+    corpus.prefetch_pack_async(samples_dir, MNIST[0], MNIST[2]).join()
+    if os.path.exists(corpus.pack_path(tests_dir)):
+        os.unlink(corpus.pack_path(tests_dir))
+    warm = _train_epochs(root, ())
+    warm_load = dict(corpus.LAST_LOAD)
+    if api._prefetch_thread is not None:
+        api._prefetch_thread.join()
+    for part in ("out", "err", "opt"):
+        if warm[part] != off[part]:
+            raise AssertionError(f"train_nn --epochs {EPOCHS}: the warm "
+                                 f"run's {part} differs from the cache-off "
+                                 "run's")
+    if off_load["mode"] != "parallel" or warm_load["mode"] != "pack":
+        raise AssertionError(f"train_nn --epochs {EPOCHS} loads: off "
+                             f"{off_load}, warm {warm_load}")
+    for r in (off, warm):
+        if r["launches"]["train_epoch"] != EPOCHS \
+                or len(r["metrics"]["device_ms"]) != EPOCHS:
+            raise AssertionError(f"train_nn --epochs {EPOCHS}: launches "
+                                 f"{r['launches']}, epochs' device times "
+                                 f"{r['metrics']['device_ms']}")
+    if not os.path.isfile(corpus.pack_path(tests_dir)):
+        raise AssertionError("the warm run's prefetch left no pack of the "
+                             "test dir")
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        fused_linear_act.launches = 0
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc, outs = cli.run_nn(["-v", "-v", "--device", "cuda",
+                                   "run.conf"])
+        wall = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    run_load = dict(corpus.LAST_LOAD)
+    n_pass = out.getvalue().count("[PASS]")
+    if rc != 0 or outs is None or run_load["mode"] != "pack" \
+            or fused_linear_act.launches <= 0 or n_pass < 0.8 * TRAIN_FILES:
+        raise AssertionError(f"run_nn after the prefetch: rc={rc}, load "
+                             f"{run_load}, launches "
+                             f"{fused_linear_act.launches}, PASS {n_pass}")
+    res["train_nn_epochs"] = {
+        m: {"wall_s": r["wall_s"], "epoch_device_ms": r["metrics"]
+            ["device_ms"], "load_s": ld["seconds"], "load_mode": ld["mode"],
+            "stage_s": r["metrics"]["stage_s"]}
+        for m, r, ld in (("off", off, off_load), ("warm", warm, warm_load))}
+    res["run_nn_after_prefetch"] = {"load_s": run_load["seconds"],
+                                    "wall_s": wall, "pass": n_pass,
+                                    "pack_bytes": os.path.getsize(
+                                        corpus.pack_path(tests_dir))}
+    log(f"train_nn --epochs {EPOCHS} on {TRAIN_FILES} files: cache off "
+        f"(load {off_load['seconds']:.3f} s, {off_load['mode']}) epochs' "
+        "device time " + ", ".join(f"{ms:.1f}" for ms in
+                                   off["metrics"]["device_ms"])
+        + f" ms, wall {off['wall_s']:.2f} s; warm (load "
+        f"{warm_load['seconds']:.3f} s, pack; the test dir prefetched during "
+        "the epochs) " + ", ".join(f"{ms:.1f}" for ms in
+                                   warm["metrics"]["device_ms"])
+        + f" ms, wall {warm['wall_s']:.2f} s; kernel.opt and streams "
+        f"byte-identical; run_nn after it: load {run_load['seconds']:.3f} s "
+        f"(pack), wall {wall:.2f} s, PASS {n_pass}/{TRAIN_FILES}")
+    return res
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2077,6 +2290,7 @@ def main(argv=None) -> int:
                         for r in epochs_runs.values())
         ckpt_runs = phase_ckpt_resume(e2e, epochs_runs)   # each run too
         bpm_path += sum(r["fused_bpm_update"] for r in ckpt_runs.values())
+        corpus_res = phase_corpus(e2e, tmp)      # each run counts from 0
         tile_epoch = phase_tile_time(e2e, tile_e2e, epoch)
         tuned = phase_autotune(tmp)
         tile_auto = phase_tile_auto(e2e, tuned, tile_epoch)
@@ -2116,7 +2330,10 @@ def main(argv=None) -> int:
         "worst_library_ratio": worst["ms"] / worst["library_ms"],
         "worst_library_ratio_cell": f"{worst['layer']} {worst['dtype']} "
                                     f"B={worst['B']}",
-        "invariance_plans": len(invariance_plans)}, {
+        "invariance_plans": len(invariance_plans),
+        "corpus_launches": {f"{tag} {m}": r[m]["launches"]
+                            for tag, r in corpus_res["run_nn"].items()
+                            for m in ("off", "cold", "warm")}}, {
         "name": "train_epoch", "route": "cuda",
         "source": "hpnn_tpu_torch/csrc/train_epoch.cu",
         "replaces": "hpnn_tpu/ops/convergence_pallas.py:208",
@@ -2148,7 +2365,10 @@ def main(argv=None) -> int:
         "epochs_device_ms": ep_b1["epoch_device_ms"],
         "epochs_wall_s": ep_b1["wall_s"],
         "ckpt_launches": ck_b1["launches"],
-        "ckpt_wall_s": ck_b1["wall_s"]}, {
+        "ckpt_wall_s": ck_b1["wall_s"],
+        "corpus_epochs_device_ms": {
+            m: r["epoch_device_ms"]
+            for m, r in corpus_res["train_nn_epochs"].items()}}, {
         "name": "train_tile", "route": "cuda",
         "source": "hpnn_tpu_torch/csrc/train_tile.cu",
         "replaces": "hpnn_tpu/ops/convergence_tile.py:423",
@@ -2228,6 +2448,7 @@ def main(argv=None) -> int:
                        "autotune": tuned, "tile_auto": tile_auto,
                        "train_nn_epochs": epochs_runs,
                        "train_nn_resume": ckpt_runs,
+                       "corpus": corpus_res,
                        "invariance_plans": invariance_plans,
                        "bpm": bpm,
                        "errors": [{"layer": k[0], "scale": k[1],

@@ -51,7 +51,8 @@ import torch
 
 from .io.conf import NN_TYPE_ANN, NN_TYPE_LNN, NN_TYPE_SNN, NN_TYPE_UKN
 from .io.conf import NN_TRAIN_BP, NN_TRAIN_BPM, NNConf, load_conf
-from .io.corpus import load_ordered, load_resident
+from .io import corpus as corpus_io
+from .io.corpus import load_resident
 from .io.kernel_io import load_kernel
 from .io.samples import list_sample_dir
 from .models.kernel import (Kernel, generate_kernel, is_regression,
@@ -249,24 +250,62 @@ def reset_epoch_metrics() -> None:
                          stage_s=0.0, shuffle_s=0.0, mode=None, device_ms=[])
 
 
+# test-dir prefetch started by the last train_kernel call: tests join it
+# to see its pack land; a run never waits for it
+_prefetch_thread = None
+
+
 def _upload(a, dtype: torch.dtype, dev) -> torch.Tensor:
     """A float64 numpy array on ``dev`` in ``dtype``: cast on the host,
-    then one upload of the working type's bytes."""
+    then one upload of the working type's bytes.  A read-only array (a
+    warm pack's memmap) is copied first: torch wraps only writable
+    memory."""
+    if not a.flags.writeable:
+        a = np.array(a, dtype=np.float64)
     return torch.as_tensor(a, dtype=torch.float64).to(dtype).to(dev)
 
 
-def load_tests(nn: NNDef):
-    """The test dir in shuffle order: ``(events, X, T)`` as
-    :func:`io.corpus.load_ordered` returns them, or None when the dir
-    cannot be listed (after the reference's error line)."""
+def _load_library(dev: torch.device, name: str) -> None:
+    """Load (or build) a kernel's library ahead of its first launch on a
+    card, while a corpus load runs on its own thread; nothing on the
+    CPU."""
+    if dev.type == "cuda":
+        from .ops import build
+
+        build.load(name)
+
+
+def _prefetch_tests(conf: NNConf, kernel: Kernel) -> None:
+    """Build the test dir's pack in the background while an epoch runs,
+    so the run_nn after it loads warm."""
+    global _prefetch_thread
+    _prefetch_thread = None
+    if conf.tests:
+        _prefetch_thread = corpus_io.prefetch_pack_async(
+            conf.tests, kernel.n_inputs, kernel.n_outputs)
+
+
+def _load_tests_async(nn: NNDef):
+    """Start loading the test dir in shuffle order on a background thread
+    (:func:`io.corpus.load_ordered_async`), or None when the dir cannot be
+    listed (after the reference's error line)."""
     conf = nn.conf
     names = list_sample_dir(conf.tests)
     if names is None:
         nn_error(f"can't open test directory: {conf.tests}\n")
         return None
     order = shuffle_order(conf, len(names))
-    return load_ordered(conf.tests, names, order, "TESTING",
-                        nn.kernel.n_inputs, nn.kernel.n_outputs)
+    return corpus_io.load_ordered_async(conf.tests, names, order, "TESTING",
+                                        nn.kernel.n_inputs,
+                                        nn.kernel.n_outputs)
+
+
+def load_tests(nn: NNDef):
+    """The test dir in shuffle order: ``(events, X, T)`` as
+    :func:`io.corpus.load_ordered` returns them, or None when the dir
+    cannot be listed (after the reference's error line)."""
+    handle = _load_tests_async(nn)
+    return None if handle is None else handle.result()
 
 
 def run_kernel(nn: NNDef, device="cuda", parity: str = "strict"):
@@ -279,13 +318,11 @@ def run_kernel(nn: NNDef, device="cuda", parity: str = "strict"):
     conf = nn.conf
     if nn.kernel is None or conf.tests is None or conf.type == NN_TYPE_UKN:
         return None
-    loaded = load_tests(nn)
-    if loaded is None:
-        return None
-    events, xs, ts = loaded
-    if xs is None:
-        for line, _ in events:
-            nn_out(line)
+    # the test dir loads on its own thread (a warm load maps the pack the
+    # training run prefetched) while this one uploads the weights and
+    # loads the kernel's library
+    handle = _load_tests_async(nn)
+    if handle is None:
         return None
     dtype = dtype_of(conf)
     # LNN evaluates through the SNN branch (libhpnn.c:1455-1456) unless
@@ -293,9 +330,16 @@ def run_kernel(nn: NNDef, device="cuda", parity: str = "strict"):
     kind = kernel_kind(conf)
     dev = torch.device(device)
     weights = weights_to_torch(nn.kernel.weights, dtype, dev)
+    run_batch_fn, route = ops.select_run_batch(dtype, parity=parity,
+                                               kind=kind, device=dev)
+    if route == "fused":
+        _load_library(dev, "fused_linear_act")
+    events, xs, ts = handle.result()
+    if xs is None:
+        for line, _ in events:
+            nn_out(line)
+        return None
     xs_dev = torch.as_tensor(xs, dtype=torch.float64).to(dev).to(dtype)
-    run_batch_fn, _ = ops.select_run_batch(dtype, parity=parity, kind=kind,
-                                           device=dev)
     outs = run_batch_fn(weights, xs_dev, kind).to(
         device="cpu", dtype=torch.float64).numpy()
     _print_verdicts(events, outs, ts, kind, nn.kernel.n_outputs)
@@ -361,15 +405,11 @@ def train_kernel(nn: NNDef, device="cuda") -> bool:
     order = shuffle_order(conf, len(names), nn.shuffle_rng)
     EPOCH_METRICS["shuffle_s"] += time.perf_counter() - t_sh
     t_stage = time.perf_counter()
-    events, xs, ts = load_ordered(conf.samples, names, order, "TRAINING",
-                                  nn.kernel.n_inputs, nn.kernel.n_outputs)
-    if xs is None or conf.train not in (NN_TRAIN_BP, NN_TRAIN_BPM):
-        # CG/SPLX are declared but unimplemented (libhpnn.c:1253-1257):
-        # each per-file header is printed, nothing trains, and the call
-        # returns TRUE -- every header is left unterminated
-        for line, _ in events:
-            nn_out(line)
-        return finish()
+    # the corpus loads on its own thread while this one uploads the
+    # master weights and loads the epoch kernel's library
+    handle = corpus_io.load_ordered_async(conf.samples, names, order,
+                                          "TRAINING", nn.kernel.n_inputs,
+                                          nn.kernel.n_outputs)
     dtype = dtype_of(conf)
     kind = kernel_kind(conf)
     # [dtype] bf16 trains float32 master weights (bfloat16 samples,
@@ -377,6 +417,18 @@ def train_kernel(nn: NNDef, device="cuda") -> bool:
     # away
     master = torch.float32 if dtype == torch.bfloat16 else dtype
     weights = weights_to_torch(nn.kernel.weights, master, dev)
+    if conf.train in (NN_TRAIN_BP, NN_TRAIN_BPM):
+        with nn_log.capture():   # its warning prints with the decision below
+            tiled = bool(_tile_request(conf))
+        _load_library(dev, "train_tile" if tiled else "train_epoch")
+    events, xs, ts = handle.result()
+    if xs is None or conf.train not in (NN_TRAIN_BP, NN_TRAIN_BPM):
+        # CG/SPLX are declared but unimplemented (libhpnn.c:1253-1257):
+        # each per-file header is printed, nothing trains, and the call
+        # returns TRUE -- every header is left unterminated
+        for line, _ in events:
+            nn_out(line)
+        return finish()
     xs_dev, ts_dev = _upload(xs, dtype, dev), _upload(ts, dtype, dev)
     EPOCH_METRICS["stage_s"] += time.perf_counter() - t_stage
     EPOCH_METRICS["h2d_bytes"] += (xs_dev.nbytes + ts_dev.nbytes
@@ -391,6 +443,7 @@ def train_kernel(nn: NNDef, device="cuda") -> bool:
                                       dev)
     train_epoch_fn, _ = ops.select_train_epoch(dtype, kind=kind, device=dev,
                                                tile=tile, storage=storage)
+    _prefetch_tests(conf, nn.kernel)
     new_weights, stats = train_epoch_fn(weights, xs_dev, ts_dev, kind,
                                         momentum, alpha=0.2)  # libhpnn.c:1248
     nn.kernel.weights = weights_to_numpy(new_weights)
@@ -440,7 +493,8 @@ class _EpochPipeline:
     def build(cls, nn, conf, device):
         """The pipeline for this run, or None when the corpus is missing,
         empty, or has non-replayable diagnostics (the run then restages
-        every epoch)."""
+        every epoch).  A warm pack loads the corpus without reading its
+        files."""
         names = list_sample_dir(conf.samples)
         if not names:
             return None
@@ -605,6 +659,7 @@ def _train_kernel_pipelined(nn, pipe: _EpochPipeline, kind: str,
     order = shuffle_order(conf, len(pipe.rc.names), nn.shuffle_rng)
     t1 = time.perf_counter()
     events, sel = pipe.rc.epoch_events(order)
+    _prefetch_tests(conf, nn.kernel)
     EPOCH_METRICS["h2d_bytes"] += pipe.run_epoch(nn, events, sel, kind,
                                                  momentum)
     EPOCH_METRICS["shuffle_s"] += t1 - t0

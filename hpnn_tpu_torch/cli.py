@@ -3,9 +3,11 @@
     python -m hpnn_tpu_torch.cli train_nn [-h] [-v]... [-x] [-O n] [-B n]
         [-S n] [--device {cuda,cpu}] [--lnn native] [--tile S|auto]
         [--epochs N] [--ckpt-every N] [--ckpt-dir DIR] [--ckpt-keep N]
-        [--resume [PATH]] [--replicate-to DIR] [conf]
+        [--resume [PATH]] [--replicate-to DIR] [--corpus-cache DIR]
+        [--corpus-cache-max-mb N] [conf]
     python -m hpnn_tpu_torch.cli run_nn [-h] [-v]... [-O n] [-B n] [-S n]
-        [--device {cuda,cpu}] [--lnn native] [--ckpt-dir DIR] [conf]
+        [--device {cuda,cpu}] [--lnn native] [--ckpt-dir DIR]
+        [--corpus-cache DIR] [--corpus-cache-max-mb N] [conf]
     python -m hpnn_tpu_torch.cli serve_nn [-v]... [-a ADDR] [-p PORT]
         [-b MAX_BATCH] [-q QUEUE_ROWS] [--linger-ms MS] [--timeout-s S]
         [--parity {strict,fast}] [--fast-threshold N]
@@ -29,13 +31,15 @@ killed run bit-exactly from the newest intact bundle, and
 ``--replicate-to DIR`` ships each bundle to a second directory that a
 resume restores from when no local bundle survives.  ``run_nn`` warns when
 a checkpoint manifest (``--ckpt-dir``, default ``./ckpt``) recorded a
-different fingerprint for the kernel it evaluates.
+different fingerprint for the kernel it evaluates.  ``--corpus-cache DIR``
+puts the packed corpus cache (``io.corpus``) in DIR for this command and
+``--corpus-cache-max-mb N`` caps that dir's size.
 Every command runs on the GPU unless
 ``--device cpu`` is given; asking for the GPU on a host without one exits
 non-zero before anything is computed.  The JAX package's other options
-(caches, profiling, replication to a mesh router, mesh serving, jobs,
-tracing, QoS) are refused with a message naming them: later slices of the
-port bring them.
+(its compilation cache, profiling, replication to a mesh router, mesh
+serving, jobs, tracing, QoS) are refused with a message naming them:
+later slices of the port bring them.
 """
 
 from __future__ import annotations
@@ -74,6 +78,11 @@ def _help_text(name: str) -> str:
         "--lnn native \topt into the native LNN regression head",
         "\t(linear output + MSE grammar); HPNN_LNN_NATIVE=1 is the",
         "\tenv equivalent.",
+        "--corpus-cache DIR \tpacked corpus cache location (default:",
+        "\ta dotfile next to each sample dir; HPNN_NO_CORPUS_CACHE=1 off).",
+        "--corpus-cache-max-mb N \tLRU size cap on the --corpus-cache",
+        "\tdir: least-recently-used packs past the cap are evicted (the",
+        "\tin-flight run's pack never is; 0: no cap).",
         "--ckpt-dir DIR \tcheckpoint directory (default ./ckpt).",
     ]
     if train:
@@ -135,10 +144,14 @@ def _syntax_error(name: str, key: str):
 # long options taking a value: option -> (extras key, commands); the
 # checkpoint directory parses for run_nn too (its staleness guard)
 _STR_OPTS = {"--ckpt-dir": ("ckpt_dir", ("train_nn", "run_nn")),
-             "--replicate-to": ("replicate_to", ("train_nn",))}
-# unsigned long options of train_nn: option -> (extras key, least value)
-_UINT_OPTS = {"--epochs": ("epochs", 1), "--ckpt-every": ("ckpt_every", 0),
-              "--ckpt-keep": ("ckpt_keep", 0)}
+             "--replicate-to": ("replicate_to", ("train_nn",)),
+             "--corpus-cache": ("corpus_cache", ("train_nn", "run_nn"))}
+# unsigned long options: option -> (extras key, least value, commands)
+_UINT_OPTS = {"--epochs": ("epochs", 1, ("train_nn",)),
+              "--ckpt-every": ("ckpt_every", 0, ("train_nn",)),
+              "--ckpt-keep": ("ckpt_keep", 0, ("train_nn",)),
+              "--corpus-cache-max-mb": ("corpus_cache_max_mb", 0,
+                                        ("train_nn", "run_nn"))}
 
 
 def _parse_args(argv: list[str], name: str):
@@ -147,7 +160,7 @@ def _parse_args(argv: list[str], name: str):
     filename = None
     extras = {"device": "cuda", "lnn": None, "tile": None, "resume": None}
     extras.update({dest: None for dest, _ in _STR_OPTS.values()})
-    extras.update({dest: None for dest, _ in _UINT_OPTS.values()})
+    extras.update({dest: None for dest, _, _ in _UINT_OPTS.values()})
     choices = {"--device": ("device", runtime.DEVICES),
                "--lnn": ("lnn", ("native",))}
     numeric = "OBS"   # thread/BLAS/stream counts: checked, then ignored
@@ -203,8 +216,8 @@ def _parse_args(argv: list[str], name: str):
             extras["tile"] = tile
             i += 1
             continue
-        if key in _UINT_OPTS and train:
-            dest, least = _UINT_OPTS[key]
+        if key in _UINT_OPTS and name in _UINT_OPTS[key][2]:
+            dest, least, _ = _UINT_OPTS[key]
             if not eq:
                 i += 1
                 val = argv[i] if i < len(argv) else ""
@@ -285,26 +298,38 @@ def run_nn(argv: list[str] | None = None):
         filename, extras = parsed
         if runtime.init_all(extras["device"]) != 0:
             return -1, None
-        neural = configure(filename)
-        if neural is None:
-            sys.stderr.write(
-                "FAILED to read NN configuration file! (ABORTING)\n")
-            return -1, None
-        if extras["lnn"]:
-            neural.conf.lnn = extras["lnn"]
-        if neural.conf.f_kernel:
-            # staleness guard: when a checkpoint manifest recorded a
-            # fingerprint for this exact kernel file and the bytes no
-            # longer match, warn with both paths (and evaluate anyway)
-            ckpt_dir = extras["ckpt_dir"] or "./ckpt"
-            if os.path.isdir(ckpt_dir):
-                from .ckpt import check_kernel_fingerprint
-
-                check_kernel_fingerprint(neural.conf.f_kernel, ckpt_dir)
-        outs = run_kernel(neural, device=runtime.lib_runtime.device)
-        return 0, outs
+        with _corpus_options(extras):
+            return _run_nn_body(filename, extras)
     finally:
         runtime.deinit_all()
+
+
+def _corpus_options(extras: dict):
+    """The command's ``--corpus-cache``/``--corpus-cache-max-mb``: they win
+    over the ``HPNN_CORPUS_CACHE*`` env knobs for this command only."""
+    from .io.corpus import cache_settings
+
+    return cache_settings(extras["corpus_cache"],
+                          extras["corpus_cache_max_mb"])
+
+
+def _run_nn_body(filename: str, extras: dict):
+    neural = configure(filename)
+    if neural is None:
+        sys.stderr.write("FAILED to read NN configuration file! (ABORTING)\n")
+        return -1, None
+    if extras["lnn"]:
+        neural.conf.lnn = extras["lnn"]
+    if neural.conf.f_kernel:
+        # staleness guard: when a checkpoint manifest recorded a
+        # fingerprint for this exact kernel file and the bytes no longer
+        # match, warn with both paths (and evaluate anyway)
+        ckpt_dir = extras["ckpt_dir"] or "./ckpt"
+        if os.path.isdir(ckpt_dir):
+            from .ckpt import check_kernel_fingerprint
+
+            check_kernel_fingerprint(neural.conf.f_kernel, ckpt_dir)
+    return 0, run_kernel(neural, device=runtime.lib_runtime.device)
 
 
 def run_nn_main(argv: list[str] | None = None) -> int:
@@ -333,7 +358,8 @@ def train_nn_main(argv: list[str] | None = None) -> int:
             return -1
         if runtime.init_all(extras["device"]) != 0:
             return -1
-        return _train_nn_body(filename, extras, replicate_to)
+        with _corpus_options(extras):
+            return _train_nn_body(filename, extras, replicate_to)
     finally:
         runtime.deinit_all()
 

@@ -8,6 +8,10 @@ of the source and the flags, so an edited source rebuilds and an unchanged
 one is reused.  Nothing here runs at import time: the first CUDA call of a
 kernel builds it, and :func:`build_all` builds every kernel at once (one
 ``nvcc`` per source, all started together).
+
+The native sample loader (``csrc/sample_loader.c``, plain C for the host)
+is built the same way by the host C compiler (:func:`host_cc`) at its
+first use; :func:`build_all` builds the CUDA kernels only.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import shlex
 import shutil
 import subprocess
 import threading
@@ -32,6 +37,10 @@ SOURCES = {"fused_linear_act": "fused_linear_act.cu",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# host library name -> source file under csrc/, built by the C compiler
+HOST_SOURCES = {"sample_loader": "sample_loader.c"}
+CC_FLAGS = ("-O2", "-Wall", "-fPIC", "-shared")
+
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -48,29 +57,54 @@ def nvcc() -> str:
                        "first use")
 
 
+def host_cc() -> list[str]:
+    """The host C compiler: $CC (split like a shell word list), else
+    ``cc``, else ``gcc`` on PATH.  Raises when there is none."""
+    if os.environ.get("CC"):
+        return shlex.split(os.environ["CC"])
+    for cand in ("cc", "gcc"):
+        path = shutil.which(cand)
+        if path:
+            return [path]
+    raise RuntimeError("no host C compiler found (set CC, or put cc or gcc "
+                       "on PATH); the port's native sample loader is built "
+                       "from csrc/sample_loader.c at first use")
+
+
+def _source_flags(name: str) -> tuple[str, tuple[str, ...]]:
+    if name in HOST_SOURCES:
+        return HOST_SOURCES[name], CC_FLAGS
+    return SOURCES[name], NVCC_FLAGS
+
+
 def library_path(name: str) -> str:
-    """Where kernel ``name``'s library lives for the current source."""
-    with open(os.path.join(CSRC, SOURCES[name]), "rb") as fp:
-        digest = hashlib.sha256(fp.read() + " ".join(NVCC_FLAGS).encode())
+    """Where library ``name`` lives for the current source."""
+    source, flags = _source_flags(name)
+    with open(os.path.join(CSRC, source), "rb") as fp:
+        digest = hashlib.sha256(fp.read() + " ".join(flags).encode())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 
 def _start(name: str):
-    """Start nvcc for one kernel; None when its library is already built."""
+    """Start the compiler for one library; None when it is already
+    built."""
     out = library_path(name)
     if os.path.isfile(out):
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.tmp-{os.getpid()}"
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, SOURCES[name])]
+    source, flags = _source_flags(name)
+    compiler = host_cc() if name in HOST_SOURCES else [nvcc()]
+    cmd = [*compiler, *flags, "-o", tmp, os.path.join(CSRC, source)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
 
 
 def _finish(name: str, started) -> str:
-    """Wait for one nvcc; keep its log (``-Xptxas -v``: registers, shared
-    memory, spills) beside the library and move the library in place."""
+    """Wait for one compiler; keep its log (for nvcc's ``-Xptxas -v``:
+    registers, shared memory, spills) beside the library and move the
+    library in place."""
     if started is None:
         return library_path(name)
     proc, tmp, out = started
@@ -80,15 +114,16 @@ def _finish(name: str, started) -> str:
     if proc.returncode != 0:
         if os.path.exists(tmp):
             os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed for {SOURCES[name]} "
+        raise RuntimeError(f"{os.path.basename(proc.args[0])} failed for "
+                           f"{_source_flags(name)[0]} "
                            f"(exit {proc.returncode}):\n{log}")
     os.replace(tmp, out)
     return out
 
 
 def build_all(names=None) -> dict[str, str]:
-    """Build every kernel (or ``names``) in parallel; returns name -> path
-    of its shared library."""
+    """Build every CUDA kernel (or ``names``) in parallel; returns name ->
+    path of its shared library."""
     names = list(SOURCES if names is None else names)
     with _lock:
         started = {n: _start(n) for n in names}
@@ -96,7 +131,7 @@ def build_all(names=None) -> dict[str, str]:
 
 
 def build_log(name: str) -> str:
-    """The compiler's output for kernel ``name`` (empty if it was built by
+    """The compiler's output for library ``name`` (empty if it was built by
     an earlier process that left no log)."""
     path = library_path(name)[:-3] + ".log"
     if not os.path.isfile(path):
@@ -106,7 +141,8 @@ def build_log(name: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
+    """The loaded library ``name`` (a kernel, or the host sample loader),
+    built first if needed."""
     lib = _libs.get(name)
     if lib is None:
         path = build_all([name])[name]

@@ -1,6 +1,7 @@
 """Serving counters: requests by outcome, batches and their fill, the
-bucket cache's hits and misses, request latency percentiles, and the
-launch count of every hand-written kernel.  Rendered as JSON
+bucket cache's hits and misses, request latency percentiles, the launch
+count of every hand-written kernel, and whether the native sample loader
+serves corpus reads (``native_io``).  Rendered as JSON
 (``GET /metrics?format=json``) or Prometheus text (``GET /metrics``)."""
 
 from __future__ import annotations
@@ -53,6 +54,7 @@ class ServeMetrics:
             self._queues[name] = depth_fn
 
     def snapshot(self) -> dict:
+        from ..io.samples import native_io_status
         from ..ops.kernels import fused_linear_act
 
         with self._lock:
@@ -77,6 +79,9 @@ class ServeMetrics:
             }
         snap["kernel_launches"] = {
             "fused_linear_act": fused_linear_act.launches}
+        # "off" only under HPNN_NO_NATIVE_IO: a loader that fails to
+        # build raises instead
+        snap["native_io"] = native_io_status()
         return snap
 
     def render_json(self) -> str:
@@ -107,4 +112,9 @@ class ServeMetrics:
         lines += ["# TYPE hpnn_kernel_launches_total counter"]
         lines += [f'hpnn_kernel_launches_total{{kernel="{k}"}} {v}'
                   for k, v in s["kernel_launches"].items()]
+        lines += ["# HELP hpnn_serve_native_io Native sample-loader in use "
+                  "(1=on, 0=Python parser).",
+                  "# TYPE hpnn_serve_native_io gauge",
+                  f"hpnn_serve_native_io "
+                  f"{1 if s['native_io'] == 'on' else 0}"]
         return "\n".join(lines) + "\n"

@@ -241,15 +241,15 @@ def test_non_replayable_corpus_restages(tmp_path, monkeypatch):
     from hpnn_tpu_torch.utils.nn_log import nn_warn
 
     _setup(tmp_path, monkeypatch, "SNN-BP")
-    real = corpus.read_sample
+    real = corpus.read_sample_fast
 
-    def noisy(path):
-        got = real(path)
+    def noisy(path, n_in, n_out):
+        got = real(path, n_in, n_out)
         if path.endswith("s004"):
             nn_warn(f"sample {path} read twice\n")
         return got
 
-    monkeypatch.setattr(corpus, "read_sample", noisy)
+    monkeypatch.setattr(corpus, "read_sample_fast", noisy)
     argv = ["-v", "-v", "--epochs", str(EPOCHS), "nn.conf"]
     base = _port(argv, {"HPNN_NO_EPOCH_PIPELINE": "1"})
     api.reset_epoch_metrics()

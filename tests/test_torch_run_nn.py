@@ -9,6 +9,7 @@ verdicts must match and the outputs agree within 1e-5.
 """
 
 import os
+import re
 import subprocess
 import sys
 
@@ -151,8 +152,10 @@ def test_run_nn_unported_option_exits_nonzero(tmp_path, capsys):
 def test_run_nn_subprocess_imports_no_jax(tmp_path):
     """A fresh interpreter runs the port's train_nn (one epoch, then
     ``--epochs 2`` through the trainer and the resident pipeline with
-    checkpoints and a replica) and run_nn on the CPU and then proves that
-    neither jax nor any hpnn_tpu module was imported."""
+    checkpoints and a replica) and run_nn on the CPU, then run_nn with
+    ``--corpus-cache`` cold and warm (the warm load from the pack, through
+    the native loader), and then proves that neither jax nor any hpnn_tpu
+    module was imported."""
     conf = _write_case(tmp_path, kind="SNN")
     train_conf = tmp_path / "train.conf"
     train_conf.write_text(
@@ -179,6 +182,11 @@ def test_run_nn_subprocess_imports_no_jax(tmp_path):
         "os.chdir('..')\n"
         f"rc, outs = run_nn(['-v', '-v', '--device', 'cpu', {conf!r}])\n"
         "assert rc == 0 and outs.shape == (24, 5), rc\n"
+        "for v in (['-v', '-v'], ['-v', '-v', '-v']):\n"
+        f"    rc, again = run_nn([*v, '--device', 'cpu', '--corpus-cache', "
+        f"'cc', {conf!r}])\n"
+        "    assert rc == 0 and (again == outs).all(), rc\n"
+        "assert len(os.listdir('cc')) == 2, os.listdir('cc')\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith('jax.') or m == 'hpnn_tpu'\n"
         "             or m.startswith('hpnn_tpu.'))\n"
@@ -191,6 +199,8 @@ def test_run_nn_subprocess_imports_no_jax(tmp_path):
     assert res.returncode == 0, res.stderr
     assert "NOJAX-OK" in res.stdout
     assert "BEST CLASS" in res.stdout
+    assert re.search(r"\nNN\(DBG\): load: \d+ file\(s\), 24 row\(s\) in "
+                     r"[0-9.]+s \(pack; native_io: on\)\n", res.stdout)
     assert res.stdout.count("N_ITER=") == 3 * 24
     assert res.stdout.count("EPOCH        2/       2") == 1
     assert (tmp_path / "train" / "kernel.opt").exists()

@@ -38,7 +38,9 @@ The same numpy inputs go through both packages:
 """
 
 import contextlib
+import glob
 import io
+import os
 import re
 
 import numpy as np
@@ -553,11 +555,11 @@ def test_train_nn_cuda_without_gpu_exits_nonzero(tmp_path, monkeypatch,
 
 
 # the JAX package's train_nn options the port does not have yet (the
-# checkpoint options are ported: tests/test_torch_ckpt.py); a mesh router
-# is the one --replicate-to destination still refused
+# checkpoint options are ported: tests/test_torch_ckpt.py; the corpus-cache
+# options too: test_train_nn_corpus_cache_option below); a mesh router is
+# the one --replicate-to destination still refused
 UNPORTED_TRAIN_OPTIONS = {"--profile-dir": "2", "--model-parallel": "2",
                           "--trainer": "2", "--compile-cache": "2",
-                          "--corpus-cache": "2", "--corpus-cache-max-mb": "2",
                           "--replicate-to": "http://127.0.0.1:1"}
 
 
@@ -573,6 +575,43 @@ def test_train_nn_unported_option_exits_nonzero(tmp_path, monkeypatch,
     assert exc.value.code != 0
     assert "later slice" in capsys.readouterr().err
     assert not (tmp_path / "kernel.tmp").exists()
+
+
+@pytest.mark.parametrize("opt", ["--corpus-cache", "--corpus-cache-max-mb"])
+def test_train_nn_corpus_cache_option(tmp_path, monkeypatch, capsys, opt):
+    """The corpus-cache options the port once refused: ``--corpus-cache
+    DIR`` puts the training and test dirs' packs in DIR (the test dir's
+    from the prefetch) and no sibling pack is written;
+    ``--corpus-cache-max-mb 1`` caps DIR, evicting an older 2 MB pack but
+    never the run's own.  The option holds for the one command."""
+    import hpnn_tpu_torch.api as api
+    from hpnn_tpu_torch.cli import train_nn_main
+    from hpnn_tpu_torch.io import corpus
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.delenv("HPNN_NO_CORPUS_CACHE", raising=False)
+    monkeypatch.delenv("HPNN_CORPUS_CACHE_MAX_MB", raising=False)
+    _write_fuzz_case(tmp_path, *SMALL_CASE)
+    cache = tmp_path / "cache"
+    argv = ["--corpus-cache", str(cache)]
+    if opt == "--corpus-cache-max-mb":
+        cache.mkdir()
+        old = cache / "corpus-0000old.pack"
+        old.write_bytes(b"\0" * (2 << 20))
+        os.utime(old, ns=(10**9, 10**9))
+        argv += [opt, "1"]
+    assert train_nn_main(["-v", "-v", *argv, "--device", "cpu",
+                          "nn.conf"]) == 0
+    if api._prefetch_thread is not None:
+        api._prefetch_thread.join()
+    assert capsys.readouterr().out.count("N_ITER=") == 2
+    with corpus.cache_settings(str(cache)):
+        packs = [corpus.pack_path("samples"), corpus.pack_path("tests")]
+    assert all(os.path.isfile(p) for p in packs)
+    assert sorted(glob.glob(str(cache / "corpus-*.pack"))) == sorted(packs)
+    assert not os.path.exists(tmp_path / ".samples.hpnn.pack")
+    assert corpus.pack_path("samples") == str(tmp_path
+                                              / ".samples.hpnn.pack")
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
