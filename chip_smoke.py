@@ -150,6 +150,23 @@ fault; no phase catches its own failure.
    run's prefetch builds it during the epochs): streams and kernel.opt
    byte-identical, each epoch's device time both ways; then ``run_nn`` of
    kernel.opt must load the test dir from the prefetched pack.
+19. ``serve_nn``, the rest (run right after phase 18): MNIST 784-300-10
+   ANN f64 (phase 9's trained kernel) and XRD 851-230-230 ANN f32 served
+   with ``-b 64 --ab-fraction 0.25 --watch-ckpt mnist=D --watch-interval
+   0.2 --auth-token T --no-warmup``; 8 client threads send 1-, 3- and
+   64-row requests while a ``train_nn --epochs 3 --ckpt-every 1
+   --ckpt-keep 3 --ckpt-dir D`` subprocess trains on phase 9's files, so
+   its snapshots hot-reload into serving.  Then: a retained generation
+   pinned with ``X-HPNN-Generation`` answers with its own weights, an
+   unknown pin is 404, a reload without the token 401, a reload of a bad
+   path 409 while the old weights keep answering, low/normal/high
+   requests queued behind a paused batcher dispatch high first, an
+   expired ``X-HPNN-Deadline-Ms`` is 504 with no launch, and a reload to
+   784-100-10 serves the new shape.  Every answer must be bit-identical to
+   the strict forward of the weights its ``generation`` label names (the
+   kernel file that generation loaded), and ``fused_linear_act`` must have
+   launched 2 times a batch ``/metrics`` counts.  Prints ``/metrics``
+   p50/p99 by phase, each swap's wall time and the requests a second.
 15. One JSON line of every kernel (launches on its main path, the largest
    kernel-vs-plain error over every cell and dtype, times and bound;
    ``fused_linear_act`` adds its B=1 cell and its worst ratio to the
@@ -168,8 +185,8 @@ fault; no phase catches its own failure.
 Main paths: ``fused_linear_act``'s is phases 4-5, ``train_epoch``'s phase 9
 and ``train_tile``'s phase 12 (train_nn, then run_nn of its kernel, which
 launches ``fused_linear_act`` too), phase 16's two ``--epochs`` runs,
-phase 17's checkpointed, killed and resumed runs and phase 18's runs;
-every count is set to 0
+phase 17's checkpointed, killed and resumed runs, phase 18's runs and
+phase 19's server (``serve_rest_launches``); every count is set to 0
 just before a path and read just after it.  ``fused_bpm_update`` has no caller on any
 path, as in the JAX package: its ``launches`` are the paths' (0), its
 ``phase_launches`` phase 13's.  ``--json PATH`` also writes every cell's
@@ -191,6 +208,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -607,7 +625,7 @@ def phase_serve(runs, results):
         raise AssertionError("serve: no kernel launch")
     log(f"serve_nn: {n_req} requests over {len(served)} kernels, all 200 "
         f"and bit-identical to run_nn; launches={launched}; batches="
-        f"{snap['batches']}; cache={snap['compile_cache']}")
+        f"{snap['batches_total']}; cache={snap['compile_cache']}")
 
 
 # --- phase 6 ----------------------------------------------------------------
@@ -2210,6 +2228,324 @@ def phase_corpus(e2e, tmp):
     return res
 
 
+# --- phase 19 ---------------------------------------------------------------
+
+SERVE_CLIENTS = 8            # phase 19: client threads
+SERVE_ROWS = (1, 3, 64)      # phase 19: request sizes, cycled
+SERVE_POOL = 4096            # phase 19: distinct input rows a model
+SERVE_TOKEN = "T"            # phase 19: serve_nn --auth-token
+SERVE_WATCH_S = 0.2          # phase 19: --watch-interval
+SHRUNK = (784, [100], 10)    # phase 19: the topology-changing reload
+
+
+def _http(base, path, payload, headers=None, method="POST"):
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(base + path, data=data, method=method,
+                                 headers=dict(headers or {}))
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as exc:
+        return exc.code, json.loads(exc.read())
+
+
+def _dump_generated(path, topology, seed):
+    from hpnn_tpu_torch.io.kernel_io import dump_kernel_to_path
+    from hpnn_tpu_torch.models.kernel import generate_kernel
+
+    n_in, hid, n_out = topology
+    dump_kernel_to_path(generate_kernel(seed, n_in, hid, n_out)[0], path)
+
+
+def _serve_conf(path, name, kernel, topology, dtype):
+    n_in, hid, n_out = topology
+    with open(path, "w") as fp:
+        fp.write(f"[name] {name}\n[type] ANN\n[init] {kernel}\n"
+                 f"[seed] 10958\n[input] {n_in}\n"
+                 f"[hidden] {' '.join(map(str, hid))}\n[output] {n_out}\n"
+                 f"[train] BP\n[dtype] {dtype}\n")
+
+
+def _strict_pool(kernel_file, dtype, pool):
+    """The strict forward of a kernel file's weights over the whole input
+    pool on the card (one B=4096 call a layer; phase 14 holds rows of such
+    a call bit for bit against every batch size the server uses)."""
+    import torch
+
+    from hpnn_tpu_torch.io.kernel_io import load_kernel
+    from hpnn_tpu_torch.models.kernel import weights_to_torch
+    from hpnn_tpu_torch.ops.kernels import batched_forward_fused
+
+    w = weights_to_torch(load_kernel(kernel_file).weights, dtype, "cuda")
+    x = torch.as_tensor(pool, dtype=torch.float64).cuda().to(dtype)
+    return batched_forward_fused(w, x, "ANN").double().cpu().numpy()
+
+
+def phase_serve_rest(e2e, tmp, card):
+    """``serve_nn`` with generations, hot reload, A/B pinning, QoS lanes
+    and the full metrics on the card, while ``train_nn --epochs 3
+    --ckpt-every 1`` streams its snapshots into it (run after phase 18).
+    Every answer must be bit-identical to the strict forward of the
+    weights its generation label names; ``fused_linear_act`` must launch
+    2 times a batch ``/metrics`` counts."""
+    import torch
+
+    from hpnn_tpu_torch import cli
+    from hpnn_tpu_torch.ckpt import read_manifest
+    from hpnn_tpu_torch.ops.kernels import fused_linear_act
+    from hpnn_tpu_torch.serve.server import serve_in_thread
+
+    root = os.path.join(tmp, "serve_rest")
+    os.makedirs(root)
+    for sub in ("samples", "tests"):
+        os.symlink(os.path.join(e2e["root"], sub), os.path.join(root, sub))
+    shutil.copy(os.path.join(e2e["root"], "nn.conf"), root)
+    ck = os.path.join(root, "ck")
+    mnist0 = os.path.join(root, "mnist0.opt")
+    shutil.copy(os.path.join(e2e["root"], "kernel.opt"), mnist0)
+    xrd_k = os.path.join(root, "xrd.opt")
+    _dump_generated(xrd_k, XRD, 851)
+    shrunk = os.path.join(root, "shrunk.opt")
+    _dump_generated(shrunk, SHRUNK, 7)
+    _serve_conf(os.path.join(root, "mnist.conf"), "mnist", mnist0, MNIST,
+                "f64")
+    _serve_conf(os.path.join(root, "xrd.conf"), "xrd", xrd_k, XRD, "f32")
+    rng = np.random.default_rng(19)
+    pools = {"mnist": _inputs(rng, SERVE_POOL, MNIST[0], "pixel"),
+             "xrd": _inputs(rng, SERVE_POOL, XRD[0], "unit")}
+    dtypes = {"mnist": torch.float64, "xrd": torch.float32}
+    # generation -> the kernel file it served, copied when it loaded
+    gen_files = {"mnist": {1: mnist0}, "xrd": {1: xrd_k}}
+    swaps, reloads = [], {"busy": 0, "t_end": 0.0}
+
+    fused_linear_act.launches = 0          # phase 19's path from here
+    app, _ = cli.serve_app([
+        "-p", "0", "--device", "cuda", "--no-warmup", "-b", "64", "-q",
+        str(64 * SERVE_CLIENTS),
+        "--ab-fraction", "0.25", "--watch-ckpt", f"mnist={ck}",
+        "--watch-interval", str(SERVE_WATCH_S), "--auth-token", SERVE_TOKEN,
+        os.path.join(root, "mnist.conf"), os.path.join(root, "xrd.conf")])
+    if app is None:
+        raise AssertionError("serve_nn (phase 19): no app")
+    model = app.registry.get("mnist")
+    real_reload, real_swap = app.reload_model, model.swap_kernel
+
+    def reload_model(name, kernel_path=None, **kw):
+        reloads["busy"] += 1
+        try:
+            res = real_reload(name, kernel_path, **kw)
+            # copy what loaded at once, so the check reads those bytes
+            keep = os.path.join(root, f"{name}-gen{res['generation']}.opt")
+            shutil.copy(res["source"], keep)
+            gen_files[name][res["generation"]] = keep
+            return res
+        finally:
+            reloads["busy"] -= 1
+            reloads["t_end"] = time.monotonic()
+
+    def swap_kernel(*a, **kw):
+        t0 = time.perf_counter()
+        res = real_swap(*a, **kw)
+        swaps.append(time.perf_counter() - t0)
+        return res
+
+    app.reload_model, model.swap_kernel = reload_model, swap_kernel
+    httpd, th = serve_in_thread(app, "127.0.0.1", 0)
+    base = "http://%s:%d" % httpd.server_address[:2]
+    answers, failures = [], []
+    stop = threading.Event()
+
+    def client(i):
+        name = "xrd" if i >= SERVE_CLIENTS - 2 else "mnist"
+        k = i
+        while not stop.is_set():
+            rows = SERVE_ROWS[k % len(SERVE_ROWS)]
+            lo = (97 * k + 31 * i) % (SERVE_POOL - rows)
+            k += 1
+            st, body = _http(base, f"/v1/kernels/{name}/infer",
+                             {"inputs": pools[name][lo:lo + rows].tolist()})
+            if st != 200:
+                failures.append((name, st, body))
+                return
+            answers.append((name, lo, rows, body["generation"],
+                            np.asarray(body["outputs"], np.float64)))
+
+    trainer = None
+    log_path = os.path.join(root, "train_nn.log")
+    try:
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(SERVE_CLIENTS)]
+        t_traffic = time.perf_counter()
+        for t in threads:
+            t.start()
+        with open(log_path, "w") as logf:
+            trainer = subprocess.Popen(
+                [sys.executable, "-m", "hpnn_tpu_torch.cli", "train_nn",
+                 "-v", "-v", "--device", "cuda", "--epochs", str(EPOCHS),
+                 "--ckpt-every", "1", "--ckpt-keep", "3", "--ckpt-dir", ck,
+                 "nn.conf"], cwd=root, stdout=logf, stderr=subprocess.STDOUT,
+                env=dict(os.environ, PYTHONPATH=ROOT))
+            rc = trainer.wait(timeout=300)
+        t_trained = time.monotonic()
+        if rc != 0:
+            raise AssertionError(f"train_nn (phase 19): rc={rc}\n"
+                                 + open(log_path).read()[-2000:])
+        # the watcher has caught up once no reload is running and a few
+        # poll periods passed since the run's last manifest write
+        end = time.monotonic() + 60
+        while time.monotonic() < end and (
+                reloads["busy"] or time.monotonic() - max(
+                    t_trained, reloads["t_end"]) < 4 * SERVE_WATCH_S):
+            time.sleep(0.05)
+        stop.set()
+        for t in threads:
+            t.join(timeout=120)
+            if t.is_alive():
+                raise AssertionError("serve (phase 19): a client hung")
+        traffic_s = time.perf_counter() - t_traffic
+        if failures:
+            raise AssertionError(f"serve (phase 19): non-200 answers "
+                                 f"{failures[:3]}")
+        manifest = read_manifest(ck)
+        table = model.generation_table()
+        snap0 = app.metrics.snapshot()
+        if snap0["reloads"]["error"] or not table["retained"]:
+            raise AssertionError(f"serve (phase 19): reloads "
+                                 f"{snap0['reloads']}, table {table}")
+        checks = []
+
+        def infer(name, lo, rows, headers=None, want=200):
+            st, body = _http(base, f"/v1/kernels/{name}/infer",
+                             {"inputs": pools[name][lo:lo + rows].tolist()},
+                             headers)
+            if st != want:
+                raise AssertionError(f"serve (phase 19) {headers}: status "
+                                     f"{st}, wanted {want}: {body}")
+            if st == 200:
+                answers.append((name, lo, rows, body["generation"],
+                                np.asarray(body["outputs"], np.float64)))
+            return body
+
+        # a pinned retained generation answers with its own weights
+        old = table["retained"][0]
+        body = infer("mnist", 5, 3, {"X-HPNN-Generation": str(old)})
+        if body["generation"] != old:
+            raise AssertionError(f"pin {old} answered generation "
+                                 f"{body['generation']}")
+        checks.append(f"pin {old} -> {old}")
+        body = infer("mnist", 5, 3, {"X-HPNN-Generation": "999"}, want=404)
+        checks.append(f"pin 999 -> 404 {body['reason']}")
+        reload_url = "/v1/kernels/mnist/reload"
+        auth = {"Authorization": f"Bearer {SERVE_TOKEN}"}
+        st, body = _http(base, reload_url, {})
+        if st != 401:
+            raise AssertionError(f"reload without the token: {st}")
+        checks.append("reload without token -> 401")
+        gen_before = model.generation
+        st, body = _http(base, reload_url,
+                         {"kernel": os.path.join(root, "missing.opt")}, auth)
+        if st != 409 or model.generation != gen_before:
+            raise AssertionError(f"reload of a bad path: {st} {body}")
+        body = infer("mnist", 7, 64)
+        checks.append(f"bad path -> 409; generation {gen_before} still "
+                      "answers")
+        # QoS lanes: a paused batcher dispatches high, normal, low
+        b = app.batchers["mnist"]
+        lanes, real_dispatch = [], b.backend.dispatch
+
+        def dispatch(xs, gen=None, deadline=None, lane=None):
+            lanes.append(lane)
+            return real_dispatch(xs, gen=gen, deadline=deadline, lane=lane)
+
+        b.backend.dispatch = dispatch
+        b.pause()
+        qos_threads = []
+        for n, prio in enumerate(("low", "normal", "high")):
+            t = threading.Thread(target=infer, args=(
+                "mnist", 64 * n, 64, {"X-HPNN-Priority": prio}))
+            t.start()
+            qos_threads.append(t)
+            end = time.monotonic() + 30
+            while b.depth() < 64 * (n + 1) and time.monotonic() < end:
+                time.sleep(0.005)
+        b.resume()
+        for t in qos_threads:
+            t.join(timeout=60)
+        b.backend.dispatch = real_dispatch
+        if lanes != [0, 1, 2]:
+            raise AssertionError(f"paused batcher dispatched lanes {lanes}"
+                                 ", wanted high, normal, low")
+        checks.append("low/normal/high queued -> dispatched high first")
+        before = fused_linear_act.launches
+        body = infer("mnist", 0, 1, {"X-HPNN-Deadline-Ms": "0"}, want=504)
+        if fused_linear_act.launches != before:
+            raise AssertionError("an expired deadline launched the kernel")
+        checks.append(f"expired deadline -> 504 {body['reason']}, no launch")
+        # a topology-changing reload serves the new shape
+        st, body = _http(base, reload_url, {"kernel": shrunk}, auth)
+        if st != 200 or not body["topology_changed"] \
+                or body["topology"] != [SHRUNK[0], *SHRUNK[1], SHRUNK[2]]:
+            raise AssertionError(f"topology-changing reload: {st} {body}")
+        body = infer("mnist", 11, 3)
+        if body["generation"] != model.generation:
+            raise AssertionError("the new topology is not what answers")
+        checks.append(f"reload to {'-'.join(map(str, model.topology))} "
+                      f"-> generation {model.generation} serves it")
+        snap = app.metrics.snapshot()
+        launches = fused_linear_act.launches   # the path ends here
+    finally:
+        stop.set()
+        if trainer is not None and trainer.poll() is None:
+            trainer.kill()
+            trainer.wait()
+        httpd.shutdown()
+        httpd.server_close()
+        app.close(drain=True)
+        th.join(timeout=60)
+    if launches != 2 * snap["batches_total"]:
+        raise AssertionError(f"fused_linear_act launched {launches} times "
+                             f"for {snap['batches_total']} batches")
+    # every answer against the strict forward of its generation's file
+    refs, n_gens = {}, {}
+    for name, lo, rows, gen, outs in answers:
+        key = (name, gen)
+        if key not in refs:
+            refs[key] = _strict_pool(gen_files[name][gen], dtypes[name],
+                                     pools[name])
+        n_gens[key] = n_gens.get(key, 0) + 1
+        if not np.array_equal(outs, refs[key][lo:lo + rows]):
+            raise AssertionError(f"serve (phase 19): {name} generation "
+                                 f"{gen} rows {lo}:{lo + rows} not "
+                                 "bit-identical to its strict forward")
+    phases = {p: {"p50_ms": h["p50_ms"], "p99_ms": h["p99_ms"],
+                  "count": h["count"]} for p, h in snap["phases"].items()}
+    res = {"requests": len(answers), "traffic_s": traffic_s,
+           "requests_per_s": len(answers) / traffic_s,
+           "answers_by_generation": {f"{n} {g}": c
+                                     for (n, g), c in sorted(n_gens.items())},
+           "manifest_generation": manifest["generation"],
+           "reloads": snap["reloads"], "swap_s": swaps,
+           "batches": snap["batches_total"], "launches": launches,
+           "batch_fill_ratio": snap["batch_fill_ratio"],
+           "latency": {k: snap["latency"][k] for k in ("p50_ms", "p99_ms")},
+           "phases": phases, "checks": checks}
+    log(f"serve_nn rest (phase 19): {len(answers)} answers over "
+        f"{len(n_gens)} (kernel, generation) pairs, all 200 and "
+        "bit-identical to the strict forward of their generation "
+        f"({res['answers_by_generation']}); manifest generation "
+        f"{manifest['generation']}, reloads {snap['reloads']}; swap "
+        + ", ".join(f"{s * 1e3:.2f}" for s in swaps) + " ms; "
+        f"{res['requests_per_s']:.1f} requests/s over {traffic_s:.2f} s; "
+        f"batches {snap['batches_total']}, fused_linear_act launches "
+        f"{launches} (2 a batch); fill {snap['batch_fill_ratio']}; "
+        + "; ".join(checks))
+    log(f"serve_nn rest (phase 19) p50/p99 ms ({card}): request "
+        f"{snap['latency']['p50_ms']}/{snap['latency']['p99_ms']}, "
+        + ", ".join(f"{p} {v['p50_ms']}/{v['p99_ms']}"
+                    for p, v in sorted(phases.items())))
+    return res
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2291,6 +2627,7 @@ def main(argv=None) -> int:
         ckpt_runs = phase_ckpt_resume(e2e, epochs_runs)   # each run too
         bpm_path += sum(r["fused_bpm_update"] for r in ckpt_runs.values())
         corpus_res = phase_corpus(e2e, tmp)      # each run counts from 0
+        serve_rest = phase_serve_rest(e2e, tmp, card)  # from 0 too
         tile_epoch = phase_tile_time(e2e, tile_e2e, epoch)
         tuned = phase_autotune(tmp)
         tile_auto = phase_tile_auto(e2e, tuned, tile_epoch)
@@ -2331,6 +2668,8 @@ def main(argv=None) -> int:
         "worst_library_ratio_cell": f"{worst['layer']} {worst['dtype']} "
                                     f"B={worst['B']}",
         "invariance_plans": len(invariance_plans),
+        "serve_rest_launches": serve_rest["launches"],
+        "serve_rest_batches": serve_rest["batches"],
         "corpus_launches": {f"{tag} {m}": r[m]["launches"]
                             for tag, r in corpus_res["run_nn"].items()
                             for m in ("off", "cold", "warm")}}, {
@@ -2449,6 +2788,7 @@ def main(argv=None) -> int:
                        "train_nn_epochs": epochs_runs,
                        "train_nn_resume": ckpt_runs,
                        "corpus": corpus_res,
+                       "serve_rest": serve_rest,
                        "invariance_plans": invariance_plans,
                        "bpm": bpm,
                        "errors": [{"layer": k[0], "scale": k[1],

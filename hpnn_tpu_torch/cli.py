@@ -541,19 +541,53 @@ def _serve_parser():
                     "'background' (default) binds at once and reports "
                     "'warming' on /healthz until done; 'sync' warms "
                     "before binding; 'off' skips warmup")
+    ap.add_argument("--no-warmup", action="store_true",
+                    help="alias for --warmup-mode off")
+    ap.add_argument("--watch-ckpt", action="append", default=[],
+                    metavar="[NAME=]DIR",
+                    help="watch a checkpoint directory's manifest and "
+                    "hot-reload the named kernel on every generation "
+                    "bump; NAME defaults to the only registered kernel "
+                    "(repeatable)")
+    ap.add_argument("--watch-interval", type=float, default=2.0,
+                    metavar="S", help="manifest poll period in seconds "
+                    "(default 2.0)")
+    ap.add_argument("--ab-fraction", type=float, default=0.0,
+                    metavar="F",
+                    help="A/B generation pinning: during a hot swap this "
+                    "fraction of unpinned traffic keeps going to the "
+                    "previous weights generation until a promote or "
+                    "rollback (0: every swap is immediate; "
+                    "X-HPNN-Generation pins per request either way)")
+    ap.add_argument("--auth-token", default=None, metavar="TOKEN",
+                    help="require this bearer token (or X-HPNN-Token) on "
+                    "the mutating endpoint (reload).  Default: "
+                    "$HPNN_SERVE_TOKEN; unset = open")
     ap.add_argument("--device", choices=runtime.DEVICES, default="cuda",
                     help="where to compute (default cuda; no fallback)")
     return ap
 
 
+def _serve_refusal(rest: list[str]) -> str:
+    """The stderr line for the first serve_nn option the port does not
+    take: ``--compile-cache`` names the JAX package's XLA compilation
+    cache and has no counterpart here; every other is a later slice's."""
+    key = rest[0].split("=")[0]
+    if key == "--compile-cache":
+        return (f"serve_nn: {key} names the JAX package's XLA compilation "
+                "cache; the port compiles no XLA programs (refused)\n")
+    return f"serve_nn: {key} {LATER}\n"
+
+
 def serve_app(argv: list[str]):
     """Parse serve_nn's arguments and build the app: ``(app, args)``, or
     ``(None, rc)`` when the command must exit with ``rc``.  The app's
-    kernels are registered; nothing is bound yet."""
+    kernels are registered and the manifest watchers started; nothing is
+    bound yet."""
     ap = _serve_parser()
     args, rest = ap.parse_known_intermixed_args(argv)
     if rest:
-        sys.stderr.write(f"serve_nn: {rest[0].split('=')[0]} {LATER}\n")
+        sys.stderr.write(_serve_refusal(rest))
         return None, 2
     from .serve.server import ServeApp
 
@@ -563,15 +597,24 @@ def serve_app(argv: list[str]):
     if runtime.init_all(args.device) != 0:
         runtime.deinit_all()
         return None, -1
+    warmup_mode = "off" if args.no_warmup else args.warmup_mode
+    if not 0.0 <= args.ab_fraction <= 1.0:
+        sys.stderr.write(f"--ab-fraction must be in [0, 1]: "
+                         f"{args.ab_fraction} (ABORTING)\n")
+        runtime.deinit_all()
+        return None, -1
+    auth_token = (args.auth_token or os.environ.get("HPNN_SERVE_TOKEN")
+                  or None)
     app = ServeApp(max_batch=args.max_batch, max_queue_rows=args.queue_rows,
                    linger_s=args.linger_ms / 1e3,
                    default_timeout_s=args.timeout_s, parity=args.parity,
                    fast_threshold=args.fast_threshold,
-                   device=runtime.lib_runtime.device)
+                   device=runtime.lib_runtime.device,
+                   auth_token=auth_token, ab_fraction=args.ab_fraction)
     n_ok = 0
     for conf in args.confs:
-        model = app.add_model(conf, warmup=args.warmup_mode != "off",
-                              background=args.warmup_mode == "background")
+        model = app.add_model(conf, warmup=warmup_mode != "off",
+                              background=warmup_mode == "background")
         if model is None:
             sys.stderr.write(f"FAILED to load NN configuration file "
                              f"{conf}! (skipping)\n")
@@ -582,6 +625,27 @@ def serve_app(argv: list[str]):
         app.close(drain=False)
         runtime.deinit_all()
         return None, -1
+    for spec in args.watch_ckpt:
+        wname, eq, wdir = spec.partition("=")
+        if not eq:
+            wname, wdir = "", wname
+        if not wname:
+            names = app.registry.names()
+            if len(names) != 1:
+                sys.stderr.write(
+                    f"--watch-ckpt {spec}: NAME= is required when "
+                    f"{len(names)} kernels are registered (ABORTING)\n")
+                app.close(drain=False)
+                runtime.deinit_all()
+                return None, -1
+            wname = names[0]
+        if app.registry.get(wname) is None:
+            sys.stderr.write(f"--watch-ckpt: unknown kernel '{wname}' "
+                             "(ABORTING)\n")
+            app.close(drain=False)
+            runtime.deinit_all()
+            return None, -1
+        app.watch_manifest(wname, wdir, interval_s=args.watch_interval)
     return app, args
 
 

@@ -1,4 +1,5 @@
-"""Stdlib HTTP front-end of the port's serving path.
+"""Stdlib HTTP front-end of the port's serving path (the port of
+``hpnn_tpu/serve/server.py`` for one host).
 
 Endpoints:
 
@@ -6,121 +7,315 @@ Endpoints:
   (or ``"input": [...]`` for one row), optional ``"timeout_ms"``.  Replies
   ``{"kernel", "generation", "outputs": [[...], ...], "argmax": [...]}``;
   outputs are float64 rendered by json's shortest round-trip repr, so the
-  bytes decode to EXACTLY the floats the run_kernel batch path computes.
+  bytes decode to EXACTLY the floats the run_kernel batch path computes
+  with the weights of the generation the reply names.
+* ``POST /v1/kernels/<name>/reload`` -- hot-swap the model's weights from
+  disk (optional body ``{"kernel": "<path>", "set_generation": G}``)
+  without dropping in-flight traffic; a same-topology swap reuses every
+  cached bucket.  ``serve_nn --watch-ckpt`` polls a checkpoint manifest
+  and reloads on every generation bump through the same path.
 * ``GET /healthz`` -- ``200 ok`` once every background warmup finished
   (``503 warming`` before, ``503 draining`` during shutdown), with the
-  registered kernels and the queued rows per kernel.
+  registered kernels, their head types and trainers, the parity, the
+  uptime and the queued rows per kernel.
 * ``GET /metrics`` -- Prometheus text; ``?format=json`` for the JSON
-  snapshot, which includes each hand-written kernel's launch count.
+  snapshot (``serve/metrics.py``).
 
-Status mapping: 200 result; 400 malformed body, wrong input width or too
-many rows; 404 unknown kernel or path; 429 queue full (with
-Retry-After); 503 draining; 504 deadline exceeded; 500 anything else.
+Request headers:
 
-``ThreadingHTTPServer`` gives one thread per connection; they all block in
-``MicroBatcher.submit``, and each kernel's worker thread is the only one
+* ``X-HPNN-Generation: G`` -- pin the request to generation G (the
+  current one or a retained one; 404 ``unknown_generation`` otherwise).
+  Unpinned traffic goes to the live weights, or with ``--ab-fraction``
+  during a swap window partly to the previous generation.
+* ``X-HPNN-Priority: high|normal|low`` -- the queue lane; dequeue is
+  lane-ordered, earliest-deadline-first within a lane.
+* ``X-HPNN-Deadline-Ms: N`` -- the request's own deadline (wins over the
+  body's ``timeout_ms``): an expired one is a 504 at admission.
+
+The mutating endpoint (reload) honors ``--auth-token`` /
+``HPNN_SERVE_TOKEN``: when configured, a request without the matching
+``Authorization: Bearer`` (or ``X-HPNN-Token``) header gets 401.
+
+Status mapping: 200 result; 400 malformed body, wrong input width, too
+many rows or a bad header; 401 missing or invalid token on reload; 404
+unknown kernel, path or pinned generation; 409 reload failed (the old
+weights keep serving); 429 queue full (Retry-After from the queue's
+measured drain rate); 503 draining; 504 deadline exceeded; 500 anything
+else.  An error body is ``{"error": <message>, "reason": <outcome>}``.
+
+``ThreadingHTTPServer`` gives one thread per connection; they all block
+in ``MicroBatcher.submit`` and each kernel's worker thread is the only one
 launching its forward.
 """
 
 from __future__ import annotations
 
+import hmac
 import json
+import math
+import os
+import re
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from urllib.parse import parse_qs, urlsplit
 
 import numpy as np
 
-from ..utils.nn_log import nn_out, nn_warn
+from ..utils.nn_log import nn_dbg, nn_out, nn_warn
+from . import qos
 from .batcher import DeadlineExceeded, MicroBatcher, QueueFull, ServeClosed
 from .metrics import ServeMetrics
 from .registry import ModelRegistry
 
+_INFER_RE = re.compile(r"^/v1/kernels/([^/]+)/infer$")
+_RELOAD_RE = re.compile(r"^/v1/kernels/([^/]+)/reload$")
+
 
 class _HTTPError(Exception):
-    def __init__(self, status: int, reason: str, message: str,
+    def __init__(self, status: int, outcome: str, message: str,
                  retry_after: float | None = None):
         super().__init__(message)
         self.status = status
-        self.reason = reason
-        self.retry_after = retry_after
+        self.outcome = outcome
+        self.retry_after = retry_after  # seconds; 429s render the header
 
 
 class ServeApp:
-    """Registry + one micro-batcher per kernel + the request handlers."""
+    """Registry + one micro-batcher per kernel + metrics: everything the
+    HTTP handler needs, independent of the socket layer (tests drive it
+    directly and through real HTTP)."""
 
     def __init__(self, max_batch: int = 64, max_queue_rows: int = 256,
                  linger_s: float = 0.0, default_timeout_s: float = 30.0,
                  parity: str = "strict", fast_threshold: int = 256,
-                 device="cuda"):
-        self.metrics = ServeMetrics()
+                 device="cuda", metrics: ServeMetrics | None = None,
+                 auth_token: str | None = None, ab_fraction: float = 0.0):
+        self.metrics = metrics or ServeMetrics()
+        self.auth_token = auth_token or None
         self.registry = ModelRegistry(max_batch=max_batch, parity=parity,
                                       fast_threshold=fast_threshold,
-                                      device=device, metrics=self.metrics)
+                                      device=device, metrics=self.metrics,
+                                      ab_fraction=ab_fraction)
+        self.batchers: dict[str, MicroBatcher] = {}
         self.max_queue_rows = int(max_queue_rows)
         self.linger_s = float(linger_s)
         self.default_timeout_s = float(default_timeout_s)
-        self.batchers: dict[str, MicroBatcher] = {}
-        self._warmups: list[threading.Thread] = []
-        self._closing = False
-        self.t_start = time.monotonic()
+        self._warming: set[str] = set()
+        self._warming_lock = threading.Lock()
+        self._watchers: list[threading.Thread] = []
+        self._closed = False
+        self.started_mono = time.monotonic()  # /healthz uptime_s
 
-    def add_model(self, conf_path: str, warmup: bool = True,
-                  background: bool = False):
-        model = self.registry.register_conf(conf_path)
+    def _warm(self, model) -> None:
+        try:
+            n = model.warmup()
+            nn_out(f"serve: warmed {n} batch bucket(s) for "
+                   f"'{model.name}'\n")
+        except Exception as exc:  # a failed warmup must not kill serving
+            nn_warn(f"serve: warmup failed for '{model.name}': {exc}\n")
+        finally:
+            with self._warming_lock:
+                self._warming.discard(model.name)
+
+    def warming(self) -> list[str]:
+        """Kernels whose background warmup is still running."""
+        with self._warming_lock:
+            return sorted(self._warming)
+
+    def add_model(self, conf_path: str, name: str | None = None,
+                  warmup: bool = True, background: bool = False):
+        """Register one ``.conf`` (the files run_nn takes).  With
+        ``warmup`` every batch bucket runs once now, or on a daemon
+        thread with ``background`` (``/healthz`` reports ``warming``
+        until it finishes).  A name collision is a registration failure
+        (None, diagnosed by the registry)."""
+        model = self.registry.register_conf(conf_path, name=name)
         if model is None:
             return None
-        b = MicroBatcher(model, self.metrics,
+        if warmup:
+            if background:
+                with self._warming_lock:
+                    self._warming.add(model.name)
+                threading.Thread(
+                    target=self._warm, args=(model,),
+                    name=f"hpnn-warmup-{model.name}", daemon=True).start()
+            else:
+                self._warm(model)
+        b = MicroBatcher(model, metrics=self.metrics,
                          max_queue_rows=self.max_queue_rows,
                          linger_s=self.linger_s)
         self.batchers[model.name] = b
         self.metrics.register_queue(model.name, b.depth)
-        if warmup and background:
-            th = threading.Thread(target=self._warm, args=(model,),
-                                  name=f"hpnn-warmup-{model.name}",
-                                  daemon=True)
-            self._warmups.append(th)
-            th.start()
-        elif warmup:
-            self._warm(model)
-        nn_out(f"serve: registered kernel '{model.name}' "
-               f"({'-'.join(map(str, model.topology))}, "
-               f"{model.dtype_name}, {model.kind})\n")
+        self.metrics.register_lanes(model.name, b.lane_depths)
         return model
 
-    def _warm(self, model) -> None:
-        try:
-            self.registry.warmup(model)
-        except Exception as exc:  # a failed warmup must not kill serving
-            nn_warn(f"serve: warmup of '{model.name}' failed: {exc}\n")
+    def infer(self, name: str, xs: np.ndarray,
+              timeout_s: float | None = None) -> np.ndarray:
+        b = self.batchers.get(name)
+        if b is None:
+            raise KeyError(name)
+        return b.submit(xs, timeout_s if timeout_s is not None
+                        else self.default_timeout_s)
 
-    def warming(self) -> bool:
-        return any(th.is_alive() for th in self._warmups)
+    def close(self, drain: bool = True) -> None:
+        self._closed = True  # also stops the manifest watchers
+        for b in self.batchers.values():
+            b.close(drain=drain)
+
+    def uptime_s(self) -> float:
+        return time.monotonic() - self.started_mono
+
+    # --- auth (mutating endpoints) --------------------------------------
+    def authorized(self, headers) -> bool:
+        """True when no token is configured, or the request carries it
+        (``Authorization: Bearer <token>`` or ``X-HPNN-Token``), compared
+        in constant time."""
+        tok = self.auth_token
+        if not tok:
+            return True
+        if not headers:
+            return False
+        # compare bytes: compare_digest raises TypeError on non-ASCII str,
+        # and header values arrive latin-1-decoded -- an unauthenticated
+        # client must get a 401, never a traceback
+        want = tok.encode("utf-8")
+
+        def _eq(supplied: str) -> bool:
+            return hmac.compare_digest(
+                supplied.encode("utf-8", "surrogateescape"), want)
+
+        auth = headers.get("Authorization", "")
+        if auth.startswith("Bearer ") and _eq(auth[7:].strip()):
+            return True
+        return _eq(headers.get("X-HPNN-Token") or "")
+
+    # --- model lifecycle (hot reload) -----------------------------------
+    def reload_model(self, name: str, kernel_path: str | None = None,
+                     set_generation: int | None = None) -> dict:
+        """Swap a model's weights from disk under traffic (the registry's
+        ``reload``); raises KeyError for an unknown kernel, ValueError
+        when the weights cannot be loaded or uploaded (the served weights
+        stay untouched).  Counted into the reload metrics either way."""
+        result, reason = self.registry.reload(
+            name, kernel_path, set_generation=set_generation)
+        if result is None:
+            self.metrics.count_reload(False)
+            if "unknown kernel" in reason:
+                raise KeyError(name)
+            raise ValueError(reason)
+        self.metrics.count_reload(True)
+        return result
+
+    def poll_ckpt_reload(self, name: str, ckpt_dir: str,
+                         state: dict) -> dict | None:
+        """One manifest poll: hot-reload ``name`` when the checkpoint
+        manifest's ``generation`` moved past ``state['gen']``.  Returns the
+        reload result, or None when nothing new was loadable."""
+        from ..ckpt import read_manifest
+
+        m = read_manifest(ckpt_dir)
+        if not m:
+            return None
+        gen = m.get("generation", 0)
+        if gen == state.get("gen", 0):
+            return None
+        rel = m.get("kernel")
+        if not rel:
+            state["gen"] = gen
+            return None
+        try:
+            result = self.reload_model(name, os.path.join(ckpt_dir, rel))
+        except Exception as exc:
+            # the generation is not consumed: a transient failure on a
+            # run's last bump would otherwise leave the server stale
+            # forever; the next poll retries
+            nn_warn(f"serve: watched reload of '{name}' from "
+                    f"{ckpt_dir} failed (will retry): {exc}\n")
+            return None
+        state["gen"] = gen
+        return result
+
+    def watch_manifest(self, name: str, ckpt_dir: str,
+                       interval_s: float = 2.0) -> threading.Thread:
+        """Poll a checkpoint directory's manifest and hot-reload ``name``
+        whenever its ``generation`` moves: a training run checkpointing
+        into that directory streams its progress into serving.  The
+        manifest and every bundle are published by atomic rename, so a
+        poll never sees a half-written kernel."""
+        # baseline 0, not the manifest's current generation: a manifest
+        # that already exists when the watch starts is loaded on the
+        # first poll
+        state = {"gen": 0}
+
+        def loop():
+            while not self._closed:
+                time.sleep(interval_s)
+                if not self._closed:
+                    self.poll_ckpt_reload(name, ckpt_dir, state)
+
+        t = threading.Thread(target=loop, daemon=True,
+                             name=f"hpnn-ckpt-watch-{name}")
+        t.start()
+        self._watchers.append(t)
+        nn_out(f"serve: watching {ckpt_dir} for '{name}' reloads "
+               f"(every {interval_s:g}s)\n")
+        return t
 
     # --- handlers -------------------------------------------------------
     def healthz(self) -> tuple[int, dict]:
-        status = ("draining" if self._closing
-                  else "warming" if self.warming() else "ok")
-        body = {"status": status, "kernels": self.registry.names(),
-                "device": str(self.registry.device),
-                "uptime_s": time.monotonic() - self.t_start,
-                "queue_depth": {k: b.depth()
-                                for k, b in sorted(self.batchers.items())}}
+        warming = self.warming()
+        status = ("draining" if self._closed
+                  else "warming" if warming else "ok")
+        reg = self.registry
+        body = {"status": status,
+                "kernels": reg.names(),
+                "kernel_types": {
+                    n: {"type": m.kind, "trainer": m.trainer}
+                    for n in reg.names()
+                    if (m := reg.get(n)) is not None},
+                "parity": reg.parity,
+                "device": str(reg.device),
+                "uptime_s": round(self.uptime_s(), 3),
+                "queue_depth": {name: b.depth() for name, b in
+                                self.batchers.items()}}
+        if warming:
+            body["warming"] = warming
         return (200 if status == "ok" else 503), body
 
-    def handle_infer(self, name: str, body: bytes) -> dict:
-        if self._closing:
-            raise _HTTPError(503, "draining", "server draining")
+    def handle_infer(self, name: str, body: bytes, headers=None) -> dict:
         b = self.batchers.get(name)
         if b is None:
             raise _HTTPError(404, "not_found", f"unknown kernel '{name}'")
+        t_parse0 = time.monotonic()
         try:
             req = json.loads(body.decode("utf-8"))
         except (UnicodeDecodeError, json.JSONDecodeError) as exc:
             raise _HTTPError(400, "bad_request", f"bad JSON: {exc}")
         if not isinstance(req, dict):
             raise _HTTPError(400, "bad_request", "body must be an object")
+        # an explicit X-HPNN-Generation pin wins; otherwise an open A/B
+        # window sends a fraction to the previous generation; None is the
+        # live weights
+        requested = headers.get("X-HPNN-Generation") if headers else None
+        if requested is not None:
+            try:
+                requested = int(requested)
+            except (TypeError, ValueError):
+                raise _HTTPError(400, "bad_request",
+                                 "X-HPNN-Generation must be an integer")
+        try:
+            gen = b.model.resolve_generation(requested)
+        except KeyError:
+            raise _HTTPError(
+                404, "unknown_generation",
+                f"kernel '{name}' has no pinned generation "
+                f"{requested} (retained: "
+                f"{b.model.generation_table()['retained']})")
+        try:
+            lane = qos.parse_priority(
+                headers.get("X-HPNN-Priority") if headers else None)
+        except ValueError as exc:
+            raise _HTTPError(400, "bad_request", str(exc))
         raw = req.get("inputs")
         if raw is None:
             one = req.get("input")
@@ -144,89 +339,199 @@ class ServeApp:
                 timeout_s = float(req["timeout_ms"]) / 1e3
             except (TypeError, ValueError):
                 raise _HTTPError(400, "bad_request", "bad timeout_ms")
+        deadline_hdr = (headers.get("X-HPNN-Deadline-Ms") if headers
+                        else None)
+        if deadline_hdr is not None:
+            # the header is the request's deadline: it wins over the body
+            # timeout and the server default
+            try:
+                timeout_s = qos.parse_deadline_ms(deadline_hdr)
+            except (TypeError, ValueError):
+                raise _HTTPError(400, "bad_request",
+                                 "X-HPNN-Deadline-Ms must be a number")
+        self.metrics.observe_phase("parse", time.monotonic() - t_parse0)
         try:
-            outs = b.submit(xs, timeout_s)
+            outs, served_gen = b.submit(xs, timeout_s, gen=gen,
+                                        return_gen=True, lane=lane)
         except QueueFull as exc:
-            raise _HTTPError(429, "queue_full", str(exc), retry_after=1.0)
+            raise _HTTPError(429, "queue_full", str(exc),
+                             retry_after=getattr(exc, "retry_after_s",
+                                                 None)
+                             or b.retry_after_s())
         except DeadlineExceeded as exc:
             raise _HTTPError(504, "deadline", str(exc))
         except ServeClosed as exc:
-            raise _HTTPError(503, "draining", str(exc))
+            raise _HTTPError(503, "error", str(exc))
         except Exception as exc:
             raise _HTTPError(500, "error", f"{type(exc).__name__}: {exc}")
+        if served_gen is None:  # registry stand-ins without generations
+            served_gen = gen if gen is not None else model.generation
+        self.metrics.count_generation(name, served_gen)
         return {"kernel": name,
-                "generation": int(model.generation),
+                "generation": int(served_gen),
                 "outputs": outs.tolist(),
                 "argmax": [int(i) for i in np.argmax(outs, axis=1)]}
 
-    def close(self, drain: bool = True) -> None:
-        self._closing = True
-        for b in self.batchers.values():
-            b.close(drain=drain)
-        for th in self._warmups:
-            th.join(timeout=30.0)
+    def handle_reload(self, name: str, body: bytes) -> dict:
+        """POST /v1/kernels/<name>/reload: optional JSON body
+        ``{"kernel": "<path>"}`` picks the weights file (default: the
+        model's last source); ``{"set_generation": G}`` pins the
+        post-swap generation.  A ``blob`` (a content-addressed weights
+        blob) needs a serve-mesh worker, which the port does not have:
+        409, as the JAX package answers without one.  409 when the
+        weights cannot be landed (the old weights keep serving)."""
+        kernel_path = None
+        set_generation = None
+        blob = None
+        if body.strip():
+            try:
+                req = json.loads(body.decode("utf-8"))
+            except (UnicodeDecodeError, json.JSONDecodeError) as exc:
+                raise _HTTPError(400, "bad_request", f"bad JSON: {exc}")
+            if not isinstance(req, dict):
+                raise _HTTPError(400, "bad_request",
+                                 "body must be an object")
+            kernel_path = req.get("kernel")
+            if kernel_path is not None and not isinstance(kernel_path,
+                                                          str):
+                raise _HTTPError(400, "bad_request",
+                                 "'kernel' must be a path string")
+            set_generation = req.get("set_generation")
+            if set_generation is not None:
+                try:
+                    set_generation = int(set_generation)
+                except (TypeError, ValueError):
+                    raise _HTTPError(400, "bad_request",
+                                     "'set_generation' must be an "
+                                     "integer")
+            blob = req.get("blob")
+            if blob is not None and not (isinstance(blob, dict)
+                                         and blob.get("sha256")):
+                raise _HTTPError(400, "bad_request",
+                                 "'blob' must be an object with "
+                                 "'sha256'")
+        if blob is not None and kernel_path is None:
+            raise _HTTPError(
+                409, "reload_failed",
+                "blob reload needs a mesh worker agent (no router to "
+                "fetch the bytes from)")
+        try:
+            return self.reload_model(name, kernel_path,
+                                     set_generation=set_generation)
+        except KeyError:
+            raise _HTTPError(404, "not_found", f"unknown kernel '{name}'")
+        except ValueError as exc:
+            raise _HTTPError(409, "reload_failed", str(exc))
+        except Exception as exc:
+            raise _HTTPError(500, "error", f"{type(exc).__name__}: {exc}")
 
 
 class _Handler(BaseHTTPRequestHandler):
     protocol_version = "HTTP/1.1"
     server_version = "hpnn_tpu_torch-serve"
+    # TCP_NODELAY: a reply is two writes (headers, then body), and with
+    # Nagle's algorithm the body waits for the client's delayed ACK of the
+    # headers -- about 40 ms on every keep-alive request
+    disable_nagle_algorithm = True
+
+    @property
+    def app(self) -> ServeApp:
+        return self.server.app  # type: ignore[attr-defined]
 
     def log_message(self, fmt, *args):  # the console grammar stays clean
-        return
+        nn_dbg("serve: " + (fmt % args) + "\n")
 
-    def _send(self, status: int, payload, headers=None,
-              content_type: str = "application/json") -> None:
-        data = (payload if isinstance(payload, str)
-                else json.dumps(payload)).encode("utf-8")
+    def _reply(self, status: int, payload,
+               content_type: str = "application/json",
+               extra_headers: dict | None = None) -> None:
+        body = ((json.dumps(payload) + "\n").encode("utf-8")
+                if content_type == "application/json" else payload)
         self.send_response(status)
         self.send_header("Content-Type", content_type)
-        self.send_header("Content-Length", str(len(data)))
-        for k, v in (headers or {}).items():
+        self.send_header("Content-Length", str(len(body)))
+        for k, v in (extra_headers or {}).items():
             self.send_header(k, v)
         self.end_headers()
-        self.wfile.write(data)
+        self.wfile.write(body)
 
-    def do_GET(self):
-        app: ServeApp = self.server.app
-        url = urlsplit(self.path)
-        if url.path == "/healthz":
-            status, body = app.healthz()
-            self._send(status, body)
-        elif url.path == "/metrics":
-            fmt = parse_qs(url.query).get("format", [""])[0]
-            if fmt == "json":
-                self._send(200, app.metrics.render_json())
+    def do_GET(self) -> None:
+        path, _, query = self.path.partition("?")
+        if path == "/healthz":
+            status, body = self.app.healthz()
+            self._reply(status, body)
+        elif path == "/metrics":
+            if "format=json" in query:
+                self._reply(200, self.app.metrics.snapshot())
             else:
-                self._send(200, app.metrics.render_prometheus(),
-                           content_type="text/plain; version=0.0.4")
+                self._reply(200, self.app.metrics.render_prometheus()
+                            .encode("utf-8"),
+                            content_type="text/plain; version=0.0.4")
         else:
-            self._send(404, {"error": "not_found", "message": url.path})
+            self._reply(404, {"error": f"no route {path}"})
 
-    def do_POST(self):
-        app: ServeApp = self.server.app
-        n = int(self.headers.get("Content-Length") or 0)
-        body = self.rfile.read(n) if n > 0 else b""
-        parts = urlsplit(self.path).path.strip("/").split("/")
-        if len(parts) != 4 or parts[:2] != ["v1", "kernels"] \
-                or parts[3] != "infer":
-            self._send(404, {"error": "not_found", "message": self.path})
+    def do_POST(self) -> None:
+        path = self.path.partition("?")[0]
+        try:
+            length = int(self.headers.get("Content-Length") or 0)
+        except ValueError:
+            self.close_connection = True  # unknown body length: resync
+            self.app.metrics.count_request("bad_request")
+            self._reply(400, {"error": "bad Content-Length",
+                              "reason": "bad_request"})
+            return
+        # drain the body first, whatever the route: unread bytes would be
+        # parsed as the next request line on a keep-alive connection
+        body = self.rfile.read(length) if length > 0 else b""
+        r = _RELOAD_RE.match(path)
+        if r is not None:
+            if not self.app.authorized(self.headers):
+                self._reply(401, {"error": "missing or invalid auth token",
+                                  "reason": "unauthorized"},
+                            extra_headers={"WWW-Authenticate": "Bearer"})
+                return
+            try:
+                out = self.app.handle_reload(r.group(1), body)
+            except _HTTPError as exc:
+                self._reply(exc.status,
+                            {"error": str(exc), "reason": exc.outcome})
+                return
+            self._reply(200, out)
+            return
+        m = _INFER_RE.match(path)
+        if m is None:
+            self.app.metrics.count_request("not_found")
+            self._reply(404, {"error": f"no route {self.path}"})
             return
         try:
-            out = app.handle_infer(parts[2], body)
+            out = self.app.handle_infer(m.group(1), body,
+                                        headers=self.headers)
         except _HTTPError as exc:
-            app.metrics.count_request(exc.reason)
-            headers = ({"Retry-After": str(max(1, round(exc.retry_after)))}
-                       if exc.retry_after is not None else None)
-            self._send(exc.status, {"error": exc.reason,
-                                    "message": str(exc)}, headers)
+            self.app.metrics.count_request(exc.outcome)
+            headers = None
+            if exc.status == 429:
+                # Retry-After from the queue's measured drain rate
+                headers = {"Retry-After": str(
+                    max(1, math.ceil(exc.retry_after or 1.0)))}
+            self._reply(exc.status,
+                        {"error": str(exc), "reason": exc.outcome},
+                        extra_headers=headers)
             return
-        app.metrics.count_request("ok")
-        self._send(200, out)
+        self.app.metrics.count_request("ok")
+        t_resp0 = time.monotonic()
+        self._reply(200, out)
+        self.app.metrics.observe_phase("respond", time.monotonic() - t_resp0)
+
+
+class _Server(ThreadingHTTPServer):
+    daemon_threads = True
+    # socketserver's default listen backlog is 5: a burst of concurrent
+    # clients would be reset by the kernel before admission control runs;
+    # backpressure must come from the 429 path, not the accept queue
+    request_queue_size = 128
 
 
 def make_server(addr: str, port: int, app: ServeApp) -> ThreadingHTTPServer:
-    httpd = ThreadingHTTPServer((addr, port), _Handler)
-    httpd.daemon_threads = True
+    httpd = _Server((addr, port), _Handler)
     httpd.app = app
     return httpd
 
