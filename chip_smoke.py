@@ -202,6 +202,7 @@ import json
 import os
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -2546,6 +2547,419 @@ def phase_serve_rest(e2e, tmp, card):
     return res
 
 
+# --- phase 20: the batched trainers ----------------------------------------
+
+BATCH_FILES = 4096          # phase 20: the [batch] runs' corpora
+CG_LIMIT = {"f64": 1e-9, "f32": 1e-2}   # batched search vs transcription
+DIST_LIMIT_S = 120          # phase 20: each gloo rank's time limit
+
+
+def _b_conf(root, kind, train, topology, samples, extra=""):
+    """A generated-kernel conf over ``samples`` (an absolute dir) in
+    ``root``, with no test dir (so no run prefetches one beside its
+    epochs)."""
+    n_in, hid, n_out = topology
+    os.makedirs(root, exist_ok=True)
+    with open(os.path.join(root, "nn.conf"), "w") as fp:
+        fp.write(f"[name] batched\n[type] {kind}\n[init] generate\n"
+                 f"[seed] 10958\n[input] {n_in}\n"
+                 f"[hidden] {' '.join(map(str, hid))}\n[output] {n_out}\n"
+                 f"[train] {train}\n[sample_dir] {samples}\n{extra}")
+    return root
+
+
+def _dp_replay(samples, bsz):
+    """The [batch] BPM epoch of MNIST f64 alone on the card (no CLI, no
+    other thread), median of 3 between CUDA events: (device ms, host ms
+    of the launches)."""
+    import torch
+
+    from hpnn_tpu_torch.io.corpus import load_resident
+    from hpnn_tpu_torch.io.samples import list_sample_dir
+    from hpnn_tpu_torch.models.kernel import generate_kernel
+    from hpnn_tpu_torch.parallel import dp
+
+    rc = load_resident(samples, list_sample_dir(samples), 784, 10)
+    kern, _ = generate_kernel(10958, 784, [300], 10)
+    shapes = tuple(tuple(w.shape) for w in kern.weights)
+    nb = rc.n_rows // bsz
+    x = _to_card(np.asarray(rc.X[:nb * bsz]), torch.float64)
+    t = _to_card(np.asarray(rc.T[:nb * bsz]), torch.float64)
+    xb, tb = x.view(nb, bsz, -1), t.view(nb, bsz, -1)
+    mb = torch.ones(nb, bsz, dtype=torch.float64, device="cuda")
+    w = dp.dp_resident_carry([_to_card(v, torch.float64)
+                              for v in kern.weights])
+    got = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        dp.dp_epoch(w, xb, tb, mb, "ANN", True, 0.0005, 0.2, shapes)
+        end.record()
+        host = (time.perf_counter() - t0) * 1e3
+        end.synchronize()
+        got.append((start.elapsed_time(end), host))
+    return sorted(got[1:])[1]
+
+
+def _cg_module(tag, kind, dtype, xs, ts):
+    """One CG epoch (8 iterations) of the generated MNIST kernel on the
+    card, with the batched line search under
+    ``set_sync_debug_mode("error")`` and with the transcribed one: device
+    time of each, and the weights held to CG_LIMIT."""
+    import torch
+
+    from hpnn_tpu_torch.models.kernel import generate_kernel
+    from hpnn_tpu_torch.train import cg
+
+    kern, _ = generate_kernel(10958, 784, [300], 10)
+    dt = _dtypes()[dtype]
+    shapes = tuple(tuple(w.shape) for w in kern.weights)
+    flat = torch.cat([_to_card(w, dt).reshape(-1) for w in kern.weights])
+    x, t = _to_card(xs, dt), _to_card(ts, dt)
+    z = torch.zeros_like(flat)
+
+    def run(plain):
+        args = (flat, z, z.clone(), torch.tensor(False, device="cuda"),
+                torch.tensor(0, dtype=torch.int32, device="cuda"), x, t,
+                kind, shapes, 8)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        if not plain:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = cg.cg_epoch(*args, plain=plain)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end), out
+
+    run(False)                                  # warm the libraries
+    ms, dev = run(False)
+    plain_ms, pl = run(True)
+    scale = max(1.0, float(pl[0].abs().max()))
+    err = float((dev[0] - pl[0]).abs().max())
+    e0, e1 = float(dev[3]), float(dev[4])
+    if not (err <= CG_LIMIT[dtype] * scale and np.isfinite(e1) and e1 <= e0):
+        raise AssertionError(f"CG {tag}: batched vs transcribed search "
+                             f"{err:.3e} (limit {CG_LIMIT[dtype]} x "
+                             f"{scale:g}), E0 {e0} E1 {e1}")
+    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+            "bitwise": bool(torch.equal(dev[0], pl[0])), "E0": e0, "E1": e1}
+
+
+def phase_batched(e2e, tmp):
+    """Phase 20: the CG trainer, [batch] data parallelism, [batch]+[tile],
+    HPNN_DISTRIBUTED and their kill + --resume, on the card."""
+    import torch
+
+    from hpnn_tpu_torch.ops.convergence_tile import (train_epoch_tiled,
+                                                     train_epoch_tiled_plain)
+    from hpnn_tpu_torch.ops.convergence_tile_kernel import train_tile
+    from hpnn_tpu_torch.models.kernel import weights_to_torch
+    from hpnn_tpu_torch.train import cg
+
+    root = os.path.join(tmp, "batched")
+    mnist512 = os.path.join(e2e["root"], "samples")
+    res = {"cg": {}, "dp": {}, "tile": {}, "dist": {}, "resume": {},
+           "part_wall_s": {}}
+    t_part = [time.perf_counter()]
+
+    def done(name):
+        now = time.perf_counter()
+        res["part_wall_s"][name] = now - t_part[0]
+        t_part[0] = now
+    # --- CG: batched search vs transcription, then train_nn --trainer cg.
+    # The MNIST bars scaled to [0, 1] (pixel / 255): at pixel scale a
+    # probe saturates hidden units past exp's range, and the autograd of
+    # the literal 2/(1+exp(-x))-1 is then 0 * inf = NaN -- in the JAX
+    # package's jax.value_and_grad as in torch (measured on the CPU, both
+    # packages NaN after one epoch); SNN and the native LNN take 0/1
+    # targets (with -1 targets the SNN loss has no lower bound)
+    xs, ts, labels = _bar_corpus(TRAIN_FILES, MNIST, tuple(range(10)), 5)
+    xs = np.round(xs / 255.0, 1)
+    cg_dirs = {"pm1": (ts, os.path.join(root, "cg_pm1")),
+               "01": ((ts + 1.0) / 2.0, os.path.join(root, "cg_01"))}
+    for cts, d in cg_dirs.values():
+        _write_samples(d, xs, cts, labels)
+    cg_cases = (("mnist ANN f64", "ANN", "f64", "", "pm1"),
+                ("mnist SNN f64", "SNN", "f64", "", "01"),
+                ("mnist LNN-native f64", "LNN", "f64", "[lnn] native\n",
+                 "01"),
+                ("mnist ANN f32", "ANN", "f32", "[dtype] f32\n", "pm1"))
+    for tag, kind, dtype, extra, tgt in cg_cases:
+        cts, cdir = cg_dirs[tgt]
+        mod = _cg_module(tag, kind, dtype, xs, cts)
+        cwd = _b_conf(os.path.join(root, "cg", tag.replace(" ", "_")),
+                      kind, "CG", MNIST, cdir, extra)
+        cg.CG_METRICS.update(epochs=0, iters=0, device_ms=[])
+        run = _ckpt_train(cwd, ["--trainer", "cg", "--epochs", str(EPOCHS),
+                                "nn.conf"], {"HPNN_CG_SYNC_DEBUG": "error"})
+        lines = re.findall(r"E0=\s*(\S+) E1=\s*(\S+)", run["out"])
+        if len(lines) != EPOCHS or len(cg.CG_METRICS["device_ms"]) != EPOCHS \
+                or not all(np.isfinite(float(b)) and float(b) <= float(a)
+                           for a, b in lines):
+            raise AssertionError(f"train_nn --trainer cg ({tag}): {lines}, "
+                                 f"{cg.CG_METRICS}")
+        dms = list(cg.CG_METRICS["device_ms"])
+        res["cg"][tag] = {**mod, "epoch_device_ms": dms,
+                          "ms_per_iter": [m / 8 for m in dms],
+                          "evals_per_iter": cg.EVALS_PER_ITER,
+                          "wall_s": run["wall_s"],
+                          "E": [[float(a), float(b)] for a, b in lines]}
+        log(f"CG {tag}: batched search {mod['ms']:.2f} ms an epoch of 8 "
+            f"iterations with no host synchronisation, transcribed "
+            f"{mod['plain_ms']:.2f} ms, weights "
+            f"{'bit-identical' if mod['bitwise'] else 'within'} "
+            f"({mod['max_abs_err']:.3e}); train_nn --trainer cg --epochs "
+            f"{EPOCHS}: epochs' device time "
+            + ", ".join(f"{m:.2f}" for m in dms) + f" ms "
+            f"({dms[-1] / 8:.3f} ms an iteration, {cg.EVALS_PER_ITER} loss "
+            f"evaluations an iteration), E1 {lines[-1][1]}")
+    done("cg")
+    # --- [batch] B on 4096 files
+    dirs = {}
+    for name, topo, classes, seed in (("mnist", MNIST, tuple(range(10)), 7),
+                                      ("xrd", XRD, tuple(range(230)), 8)):
+        bx, bt, bl = _bar_corpus(BATCH_FILES, topo, classes, seed)
+        dirs[name] = os.path.join(root, f"{name}{BATCH_FILES}")
+        _write_samples(dirs[name], bx, bt, bl)
+    done("write_4096")
+    for corpus, topo, dtype in (("mnist", MNIST, "f64"),
+                                ("mnist", MNIST, "bf16"),
+                                ("xrd", XRD, "f32")):
+        for bsz in (32, 128):
+            for train in ("BP", "BPM"):
+                tag = f"{corpus} {dtype} batch {bsz} {train}"
+                cwd = _b_conf(os.path.join(root, "dp", tag.replace(" ", "_")),
+                              "ANN", train, topo, dirs[corpus],
+                              f"[batch] {bsz}\n[dtype] {dtype}\n")
+                run = _ckpt_train(cwd, ["--epochs", str(EPOCHS), "nn.conf"])
+                met = run["metrics"]
+                nb = -(-BATCH_FILES // bsz)
+                errs = [float(v) for v in
+                        re.findall(r"TRAINING BATCH\s+\d+\t err=\s*(\S+)",
+                                   run["out"])]
+                if met["mode"] != "dp-resident" \
+                        or met["h2d_bytes"] != EPOCHS * nb * bsz * 4 \
+                        or len(met["device_ms"]) != EPOCHS \
+                        or len(errs) != EPOCHS * nb \
+                        or not np.all(np.isfinite(errs)) \
+                        or sum(run["launches"].values()) != 0:
+                    raise AssertionError(f"[batch] {tag}: {met}, "
+                                         f"{len(errs)} batch lines, "
+                                         f"launches {run['launches']}")
+                dms = met["device_ms"]
+                res["dp"][tag] = {
+                    "epoch_device_ms": dms, "wall_s": run["wall_s"],
+                    "samples_per_s": BATCH_FILES * EPOCHS / sum(dms) * 1e3,
+                    "h2d_bytes": met["h2d_bytes"],
+                    "setup_h2d_bytes": met["setup_h2d_bytes"],
+                    "first_err": errs[0], "last_epoch_mean_err":
+                        float(np.mean(errs[-nb:]))}
+                log(f"[batch] {tag}: epochs' device time "
+                    + ", ".join(f"{m:.1f}" for m in dms) + " ms = "
+                    f"{res['dp'][tag]['samples_per_s']:.0f} samples/s; "
+                    f"H2D {met['h2d_bytes']} bytes over the epochs (the "
+                    f"slot maps) and {met['setup_h2d_bytes']} once; wall "
+                    f"{run['wall_s']:.2f} s")
+                if tag == "mnist f64 batch 32 BPM":
+                    re_run = _ckpt_train(cwd, ["--epochs", str(EPOCHS),
+                                               "nn.conf"],
+                                         {"HPNN_NO_EPOCH_PIPELINE": "1"})
+                    if (re_run["out"], re_run["sha"]) != (run["out"],
+                                                          run["sha"]):
+                        raise AssertionError(f"[batch] {tag}: the restaging "
+                                             "route differs")
+                    res["dp"][tag]["restage_wall_s"] = re_run["wall_s"]
+    replay_ms, replay_host = _dp_replay(dirs["mnist"], 32)
+    res["dp_replay"] = {"cell": "mnist f64 batch 32 BPM, one epoch",
+                        "ms": replay_ms, "host_ms": replay_host}
+    log(f"[batch] mnist f64 batch 32 BPM epoch alone on the card: "
+        f"{replay_ms:.1f} ms between events, {replay_host:.1f} ms of host "
+        "launches (median of 3)")
+    done("dp")
+    # --- [batch] 32 + [tile] T: launches, invariance, the plain version
+    tile_root = _b_conf(os.path.join(root, "tile"), "ANN", "BP", MNIST,
+                        mnist512, "[batch] 32\n")
+    groups = -(-TRAIN_FILES // 32)
+    tile_runs = {}
+    for t in (4, 1):
+        run = _ckpt_train(tile_root, ["--epochs", "2", "--tile", str(t),
+                                      "nn.conf"])
+        want = 2 * -(-groups // t)
+        if run["launches"]["train_tile"] != want \
+                or run["launches"]["train_epoch"] != 0 \
+                or run["out"].count("N_ITER=") != 2 * TRAIN_FILES:
+            raise AssertionError(f"[batch] 32 --tile {t}: launches "
+                                 f"{run['launches']}, want train_tile {want}")
+        tile_runs[t] = run
+    if (tile_runs[4]["out"], tile_runs[4]["sha"]) != (tile_runs[1]["out"],
+                                                      tile_runs[1]["sha"]):
+        raise AssertionError("[batch] 32: --tile 4 and --tile 1 differ")
+    nn, exs, ets = _epoch_inputs(tile_root)
+    w = weights_to_torch(nn.kernel.weights, torch.float64, "cuda")
+    x, t = _to_card(exs, torch.float64), _to_card(ets, torch.float64)
+    train_tile.launches = 0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    wk, sk = train_epoch_tiled(w, x, t, "ANN", False, tile=32,
+                               launch_groups=4, defer_stats=True)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end)
+    tile_launches = train_tile.launches
+    wp, sp = train_epoch_tiled_plain(w, x, t, "ANN", False, tile=32)
+    werr, dn = _check_train("[batch] 32 tile 4", "f64", sk, sp, wk, wp,
+                            name="train_tile", scaled=True)
+    lane_iters = int(sk[:, 2].sum().item())
+    iters_cli = sum(int(v) for v in re.findall(
+        r"N_ITER=\s*(\d+)", tile_runs[4]["out"].split("EPOCH ")[1]))
+    if iters_cli != lane_iters:
+        raise AssertionError(f"[batch] 32 tile 4: train_nn's first epoch "
+                             f"ran {iters_cli} lane iterations, the replay "
+                             f"{lane_iters}")
+    bitwise = _bitwise(tuple(wk), tuple(wp)) and _bitwise(sk, sp)
+    res["tile"] = {"launches": {t: r["launches"]["train_tile"]
+                                for t, r in tile_runs.items()},
+                   "replay_launches": tile_launches, "epoch_ms": ms,
+                   "lane_iters": lane_iters,
+                   "lane_iters_per_s": lane_iters / ms * 1e3,
+                   "max_abs_err": werr, "bitwise": bitwise}
+    log(f"[batch] 32 + --tile 4 / --tile 1: train_tile launched "
+        f"{tile_runs[4]['launches']['train_tile']} / "
+        f"{tile_runs[1]['launches']['train_tile']} times in 2 epochs, "
+        f"streams and kernel.opt identical; the epoch replayed in "
+        f"{tile_launches} launches: {ms:.1f} ms, {lane_iters} lane "
+        f"iterations = {lane_iters / ms * 1e3:.0f} lane-iterations/s, "
+        f"against train_epoch_tiled_plain "
+        f"{'bit-identical' if bitwise else f'within {werr:.3e}'}")
+    done("tile")
+    # --- HPNN_DISTRIBUTED: world 1 on NCCL, 2 gloo ranks, the bailout
+    dist_root = _b_conf(os.path.join(root, "dist"), "ANN", "BPM", MNIST,
+                        mnist512, "[batch] 32\n")
+    argv = ["-v", "-v", "-v", "--epochs", "2", "nn.conf"]
+    one = _ckpt_train(dist_root, argv)
+    with socket.socket() as so:
+        so.bind(("127.0.0.1", 0))
+        port = so.getsockname()[1]
+    nccl = _ckpt_train(dist_root, argv, {
+        "HPNN_DISTRIBUTED": "1", "HPNN_COORDINATOR": f"127.0.0.1:{port}",
+        "HPNN_NUM_PROCESSES": "1", "HPNN_PROCESS_ID": "0"})
+    strip = lambda o: "".join(ln for ln in o.splitlines(True)   # noqa: E731
+                              if not ln.startswith("NN(DBG):"))
+    if "rank 0 of 1 (nccl)" not in nccl["out"] \
+            or strip(nccl["out"]) != strip(one["out"]) \
+            or nccl["sha"] != one["sha"]:
+        raise AssertionError("HPNN_DISTRIBUTED=1 at world 1 on NCCL is not "
+                             "bit-identical to one process")
+    with open(os.path.join(dist_root, "kernel.opt")) as fp:
+        ref = fp.read()
+    gloo = _gloo_ranks(2, dist_root, ["-v", "-v", "--epochs", "2"])
+    with open(os.path.join(dist_root, "kernel.opt")) as fp:
+        got = fp.read()
+    gerr = _kernel_diff(ref, got)
+    batch_lines = lambda o: re.findall(r"TRAINING BATCH[^\n]*", o)  # noqa
+    if any(r[0] != 0 for r in gloo) or gerr > 1e-11 \
+            or batch_lines(gloo[0][1]) != batch_lines(one["out"]):
+        raise AssertionError(f"2 gloo ranks: rcs {[r[0] for r in gloo]}, "
+                             f"weights {gerr:.3e} from one process")
+    bad = os.path.join(dist_root, "bad.conf")
+    with open(os.path.join(dist_root, "nn.conf")) as fp:
+        text = fp.read()
+    with open(bad, "w") as fp:
+        fp.write(text.replace(mnist512, mnist512 + "_missing"))
+    t0 = time.perf_counter()
+    bail = _gloo_ranks(2, dist_root, ["-v", "-v"], confs=["nn.conf",
+                                                          "bad.conf"])
+    bail_s = time.perf_counter() - t0
+    if any(r[0] == 0 for r in bail) or "coordinated bailout" not in bail[0][2]:
+        raise AssertionError(f"a missing sample dir on rank 1: rcs "
+                             f"{[r[0] for r in bail]}")
+    res["dist"] = {"nccl_world1_bitwise": True, "gloo2_max_abs_err": gerr,
+                   "bailout_s": bail_s}
+    log(f"HPNN_DISTRIBUTED: world 1 on NCCL bit-identical to one process; "
+        f"2 gloo CPU ranks within {gerr:.3e} of the card's one process; a "
+        f"missing sample dir on rank 1 ended both ranks non-zero in "
+        f"{bail_s:.1f} s")
+    done("dist")
+    # --- kill at epoch 1 + --resume: CG and [batch] 32 BPM
+    for tag, kind, train, extra, flags, sdir in (
+            ("cg", "ANN", "CG", "", ["--trainer", "cg"],
+             cg_dirs["pm1"][1]),
+            ("batch 32 BPM", "ANN", "BPM", "[batch] 32\n", [], mnist512)):
+        base = os.path.join(root, "resume", tag.replace(" ", "_"))
+        ck = ["--epochs", str(EPOCHS), "--ckpt-every", "1", "--ckpt-dir",
+              "ck", *flags, "nn.conf"]
+        full = _ckpt_train(_b_conf(base + "_full", kind, train, MNIST,
+                                   sdir, extra), ck)
+        part = _b_conf(base + "_part", kind, train, MNIST, sdir, extra)
+        _ckpt_train(part, ck, {"HPNN_CKPT_KILL_AT_EPOCH": str(KILL_AT)})
+        resumed = _ckpt_train(part, ["--epochs", str(EPOCHS), "--resume",
+                                     "--ckpt-dir", "ck", *flags, "nn.conf"])
+        if resumed["sha"] != full["sha"]:
+            raise AssertionError(f"--resume ({tag}): kernel.opt differs from "
+                                 "the uninterrupted run's")
+        res["resume"][tag] = {"full_wall_s": full["wall_s"],
+                              "resume_wall_s": resumed["wall_s"]}
+        log(f"kill at epoch {KILL_AT} + --resume ({tag}): kernel.opt "
+            f"byte-identical to the uninterrupted run; wall "
+            f"{resumed['wall_s']:.2f} s (uninterrupted {full['wall_s']:.2f})")
+    done("resume")
+    log("phase 20 wall by part: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in res["part_wall_s"].items()))
+    return res
+
+
+def _kernel_diff(a: str, b: str) -> float:
+    """Largest weight difference of two kernel texts."""
+    va = np.array([float(v) for v in re.findall(r"-?\d+\.\d+", a)])
+    vb = np.array([float(v) for v in re.findall(r"-?\d+\.\d+", b)])
+    if va.shape != vb.shape:
+        return float("inf")
+    return float(np.abs(va - vb).max()) if va.size else 0.0
+
+
+def _gloo_ranks(world, cwd, argv, confs=None):
+    """``train_nn --device cpu`` as ``world`` gloo ranks in ``cwd``, each
+    with a time limit: a list of (rc, stdout, stderr)."""
+    with socket.socket() as so:
+        so.bind(("127.0.0.1", 0))
+        port = so.getsockname()[1]
+    procs = []
+    for r in range(world):
+        env = dict(os.environ, HPNN_DISTRIBUTED="1",
+                   HPNN_COORDINATOR=f"127.0.0.1:{port}",
+                   HPNN_NUM_PROCESSES=str(world), HPNN_PROCESS_ID=str(r),
+                   HPNN_DIST_TIMEOUT_S="60", OMP_NUM_THREADS="2",
+                   CUDA_VISIBLE_DEVICES="",
+                   PYTHONPATH=ROOT + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "hpnn_tpu_torch.cli", "train_nn", *argv,
+             "--device", "cpu", confs[r] if confs else "nn.conf"],
+            cwd=cwd, env=env, text=True, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE))
+    out = []
+    try:
+        for p in procs:
+            o, e = p.communicate(timeout=DIST_LIMIT_S)
+            out.append((p.returncode, o, e))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2631,6 +3045,7 @@ def main(argv=None) -> int:
         tile_epoch = phase_tile_time(e2e, tile_e2e, epoch)
         tuned = phase_autotune(tmp)
         tile_auto = phase_tile_auto(e2e, tuned, tile_epoch)
+        batched = phase_batched(e2e, tmp)       # each run counts from 0
     cells = phase_times()
     bpm = phase_bpm()
     rep = next(c for c in cells if c["layer"] == "784->300"
@@ -2754,7 +3169,12 @@ def main(argv=None) -> int:
         "epochs_device_ms": ep_b4["epoch_device_ms"],
         "epochs_wall_s": ep_b4["wall_s"],
         "ckpt_launches": ck_b4["launches"],
-        "ckpt_wall_s": ck_b4["wall_s"]}, {
+        "ckpt_wall_s": ck_b4["wall_s"],
+        "batch_tile_launches": batched["tile"]["launches"],
+        "batch_tile_epoch_ms": batched["tile"]["epoch_ms"],
+        "batch_tile_lane_iters_per_s": batched["tile"]["lane_iters_per_s"],
+        "batch_tile_vs_plain_bitwise": batched["tile"]["bitwise"],
+        "batch_tile_max_abs_err": batched["tile"]["max_abs_err"]}, {
         "name": "fused_bpm_update", "route": "cuda",
         "source": "hpnn_tpu_torch/csrc/fused_bpm_update.cu",
         "replaces": "hpnn_tpu/ops/pallas_kernels.py:141",
@@ -2789,6 +3209,7 @@ def main(argv=None) -> int:
                        "train_nn_resume": ckpt_runs,
                        "corpus": corpus_res,
                        "serve_rest": serve_rest,
+                       "batched": batched,
                        "invariance_plans": invariance_plans,
                        "bpm": bpm,
                        "errors": [{"layer": k[0], "scale": k[1],

@@ -11,6 +11,7 @@ Ported so far: ``python -m hpnn_tpu_torch.cli run_nn`` and ``serve_nn``
 (every layer product in the CUDA kernel ``fused_linear_act``), and
 ``train_nn`` per sample (``train_epoch``), in tiles (``train_tile``), over
 ``--epochs N`` on a device-resident pipeline, with checkpoint bundles and
-a bit-exact ``--resume`` (``ckpt/``).  Citations like ``src/ann.c:883`` point into the
+a bit-exact ``--resume`` (``ckpt/``), with the CG trainer (``train/``) and
+``[batch]`` data parallelism over ``torch.distributed`` (``parallel/``).  Citations like ``src/ann.c:883`` point into the
 reference C library; ``hpnn_tpu/...`` into the JAX package this ports.
 """

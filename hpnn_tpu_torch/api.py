@@ -38,6 +38,17 @@ Multi-epoch runs (``ckpt.trainer.train_loop``, ``train_nn --epochs N``)
 continue one glibc shuffle stream (``NNDef.shuffle_rng``) and train
 through :class:`_EpochPipeline`: the corpus read and uploaded once a run,
 the weights kept on the device, one int32 permutation uploaded an epoch.
+
+Two more training routes, the JAX package's batched trainers:
+
+* an opted-in native trainer (``train.native_trainer``: ``[trainer] cg``,
+  ``--trainer cg`` or ``HPNN_TRAINER=cg`` on a ``[train] CG`` conf) takes
+  the whole epoch (``train.cg``), one ``TRAINING CG`` line an epoch;
+* ``[batch] B`` trains minibatch data-parallel (``parallel.dp``), one
+  ``TRAINING BATCH`` line a batch, over the ``torch.distributed`` world
+  under ``HPNN_DISTRIBUTED``; with ``[tile]`` every batch-sized group
+  trains to convergence in the ``train_tile`` kernel instead, with the
+  per-sample grammar.
 """
 
 from __future__ import annotations
@@ -51,6 +62,7 @@ import torch
 
 from .io.conf import NN_TYPE_ANN, NN_TYPE_LNN, NN_TYPE_SNN, NN_TYPE_UKN
 from .io.conf import NN_TRAIN_BP, NN_TRAIN_BPM, NNConf, load_conf
+from .parallel import coord
 from .io import corpus as corpus_io
 from .io.corpus import load_resident
 from .io.kernel_io import load_kernel
@@ -79,8 +91,8 @@ class NNDef:
     # the last train_kernel epoch's summary (samples, mean final dEp,
     # successes)
     last_epoch_stats: dict | None = None
-    # the CG trainer's carry (cg_* arrays) restored from a snapshot bundle;
-    # carried into the next bundle unchanged (the CG trainer is not ported)
+    # the CG trainer's carry (cg_d, cg_g, cg_meta: unpadded float64), the
+    # snapshot payload a resume restores
     trainer_state: dict | None = None
 
 
@@ -210,15 +222,88 @@ def _resolve_tile(conf: NNConf, weights, dtype, kind: str, momentum: bool,
 
 def _unported_route(conf: NNConf) -> str | None:
     """The conf keyword that selects a training route the port does not
-    have yet ([batch] N: data parallel, [model] N: row sharding,
-    [trainer] cg: the CG trainer), or None."""
-    if conf.batch > 0:
-        return "[batch]"
+    have yet ([model] N: row sharding, alone or beside [batch]), or
+    None."""
     if conf.model > 1:
         return "[model]"
-    if conf.trainer == "cg":
-        return "[trainer] cg"
     return None
+
+
+class DPRefused(RuntimeError):
+    """A data-parallel request this process layout cannot honour."""
+
+
+def _dp_device_count() -> int:
+    """The data axis of the [batch] routes: the world size (one rank a
+    device), capped by ``HPNN_DP_DEVICES`` where the cap can be honoured.
+    A cap above the world warns and uses the world (as the JAX package
+    does over its visible devices); a cap below it would need ranks to sit
+    out of the run, which the port cannot express, so it is refused
+    (:class:`DPRefused`)."""
+    from .utils.env import env_device_cap, env_int
+
+    world = coord.world_size()
+    cap = env_int("HPNN_DP_DEVICES", 0)
+    if 0 < cap < world:
+        raise DPRefused(f"HPNN_DP_DEVICES={cap} < {world} processes: every "
+                        "rank of the world is a data shard, so the cap "
+                        "cannot be honoured (refused)")
+    return env_device_cap("HPNN_DP_DEVICES", world)
+
+
+def _dp_slot_map(s: int, bsz: int, n_batches: int, bsz_pad: int):
+    """Epoch-invariant [batch] slot geometry, the one source for both the
+    restage staging and the resident pipeline: real row i lands at flat
+    slot (i//bsz)*bsz_pad + i%bsz, every other slot is a masked pad.
+    Returns (pos, mask) with mask (n_batches, bsz_pad) float64 of 1.0 on
+    real slots."""
+    pos = (np.arange(s) // bsz) * bsz_pad + np.arange(s) % bsz
+    mask = np.zeros((n_batches, bsz_pad), np.float64)
+    mask.reshape(-1)[pos] = 1.0
+    return pos, mask
+
+
+def _dp_banner_lines(s: int, bsz: int, n_batches: int, bsz_pad: int,
+                     n_data: int, unsharded: bool) -> list[str]:
+    """[batch] minibatch-route console banners, the one source for the
+    restage and resident routes (a byte-parity surface)."""
+    lines = []
+    if unsharded:
+        lines.append("DP: one device visible; minibatch training runs "
+                     "unsharded\n")
+    padded_rows = n_batches * bsz_pad - s
+    if padded_rows:
+        lines.append(f"DP: padding {padded_rows} masked row(s) "
+                     f"(S={s}, batch={bsz} -> {bsz_pad} over {n_data} "
+                     "data-shard(s))\n")
+    return lines
+
+
+def _dp_tiled_banner(group: int, pad_to: int, meshed: bool,
+                     storage) -> str:
+    """[batch]+[tile] engine banner, shared restage/resident (parity
+    surface)."""
+    eff = -(-group // pad_to) * pad_to
+    return ("DP: batched-tile convergence engine (group=" + str(group)
+            + (f" -> {eff} over {pad_to} data-shard(s)" if eff != group
+               else "")
+            + (f", mesh={pad_to}" if meshed else "")
+            + (f", storage={storage}" if storage else "") + ")\n")
+
+
+def _dp_geometry(conf: NNConf, s: int):
+    """(bsz, n_batches, n_data, bsz_pad) of a [batch] epoch over s rows."""
+    bsz = min(conf.batch, s)
+    n_batches = -(-s // bsz)
+    n_data = _dp_device_count()
+    bsz_pad = -(-bsz // n_data) * n_data
+    return bsz, n_batches, n_data, bsz_pad
+
+
+def _dp_tiled_route(conf: NNConf) -> bool:
+    """[batch] + [tile] takes the batched-tile engine in one process; a
+    multi-process run keeps minibatch DP (the engine is single-card)."""
+    return bool(_tile_request(conf)) and coord.world_size() == 1
 
 
 def shuffle_order(conf: NNConf, n: int, rng=None) -> list[int]:
@@ -240,14 +325,20 @@ def shuffle_order(conf: NNConf, n: int, rng=None) -> list[int]:
 # shuffle itself (shuffle_s), the route ("resident" or "restage"), and on
 # a card each resident epoch's device time from its gather to the end of
 # its launch (device_ms, CUDA events, filled as the epochs are joined)
+# On the [batch] routes also the data axis (dp_devices) and the update
+# state's bytes on this rank's device against a replicated layout's
 EPOCH_METRICS = {"epochs": 0, "h2d_bytes": 0, "setup_h2d_bytes": 0,
                  "stage_s": 0.0, "shuffle_s": 0.0, "mode": None,
-                 "device_ms": []}
+                 "device_ms": [], "dp_devices": 0,
+                 "opt_state_bytes_per_device": 0,
+                 "opt_state_replicated_bytes": 0}
 
 
 def reset_epoch_metrics() -> None:
     EPOCH_METRICS.update(epochs=0, h2d_bytes=0, setup_h2d_bytes=0,
-                         stage_s=0.0, shuffle_s=0.0, mode=None, device_ms=[])
+                         stage_s=0.0, shuffle_s=0.0, mode=None, device_ms=[],
+                         dp_devices=0, opt_state_bytes_per_device=0,
+                         opt_state_replicated_bytes=0)
 
 
 # test-dir prefetch started by the last train_kernel call: tests join it
@@ -348,12 +439,15 @@ def run_kernel(nn: NNDef, device="cuda", parity: str = "strict"):
 
 def train_kernel(nn: NNDef, device="cuda") -> bool:
     """_NN(train,kernel) (``libhpnn.c:1149-1305``): the seeded shuffle of
-    the sample dir, one epoch of per-sample train-to-convergence on
-    ``device``, the per-sample console lines.  The trained weights go back
+    the sample dir, one epoch on ``device``, the console lines.  The epoch
+    is per-sample train-to-convergence (or the batched-tile engine under
+    ``[tile]``), an opted-in native trainer's (``[trainer] cg``), or
+    minibatch data-parallel under ``[batch]``.  The trained weights go back
     to ``nn.kernel.weights`` as float64 numpy arrays.  In a multi-epoch run
-    (``nn.shuffle_rng`` set) the epoch goes through the run's
+    (``nn.shuffle_rng`` set) a BP/BPM epoch goes through the run's
     :class:`_EpochPipeline` when the corpus allows one."""
     from . import ops
+    from .train import native_trainer
 
     conf = nn.conf
     if nn.kernel is None or conf.samples is None or conf.type == NN_TYPE_UKN:
@@ -393,66 +487,229 @@ def train_kernel(nn: NNDef, device="cuda") -> bool:
     else:
         prologue()
     nn.last_epoch_stats = None
-    pipe = _pipeline_for(nn, conf, dev)
-    if pipe is not None:
-        return _train_kernel_pipelined(nn, pipe, kernel_kind(conf),
-                                       momentum, finish)
-    names = list_sample_dir(conf.samples)
-    if names is None:
-        nn_error(f"can't open sample directory: {conf.samples}\n")
-        return False
-    t_sh = time.perf_counter()
-    order = shuffle_order(conf, len(names), nn.shuffle_rng)
-    EPOCH_METRICS["shuffle_s"] += time.perf_counter() - t_sh
-    t_stage = time.perf_counter()
-    # the corpus loads on its own thread while this one uploads the
-    # master weights and loads the epoch kernel's library
-    handle = corpus_io.load_ordered_async(conf.samples, names, order,
-                                          "TRAINING", nn.kernel.n_inputs,
-                                          nn.kernel.n_outputs)
-    dtype = dtype_of(conf)
-    kind = kernel_kind(conf)
-    # [dtype] bf16 trains float32 master weights (bfloat16 samples,
-    # activations and deltas): bfloat16 storage rounds BPM-sized updates
-    # away
-    master = torch.float32 if dtype == torch.bfloat16 else dtype
-    weights = weights_to_torch(nn.kernel.weights, master, dev)
-    if conf.train in (NN_TRAIN_BP, NN_TRAIN_BPM):
-        with nn_log.capture():   # its warning prints with the decision below
-            tiled = bool(_tile_request(conf))
-        _load_library(dev, "train_tile" if tiled else "train_epoch")
-    events, xs, ts = handle.result()
-    if xs is None or conf.train not in (NN_TRAIN_BP, NN_TRAIN_BPM):
-        # CG/SPLX are declared but unimplemented (libhpnn.c:1253-1257):
-        # each per-file header is printed, nothing trains, and the call
-        # returns TRUE -- every header is left unterminated
-        for line, _ in events:
-            nn_out(line)
+    try:
+        pipe = _pipeline_for(nn, conf, dev)
+        if pipe is not None:
+            return _train_kernel_pipelined(nn, pipe, kernel_kind(conf),
+                                           momentum, finish)
+        names = list_sample_dir(conf.samples)
+        if names is None:
+            # the failing rank names its cause, then drags its peers out
+            # of the agreement gate (ann.c:242-248, extended to the data)
+            nn_error(f"can't open sample directory: {conf.samples}\n")
+            coord.agree_all(False, (0,) * coord.FINGERPRINT_WIDTH)
+            return False
+        t_sh = time.perf_counter()
+        order = shuffle_order(conf, len(names), nn.shuffle_rng)
+        EPOCH_METRICS["shuffle_s"] += time.perf_counter() - t_sh
+        t_stage = time.perf_counter()
+        # the corpus loads on its own thread while this one uploads the
+        # master weights and loads the epoch kernel's library
+        handle = corpus_io.load_ordered_async(conf.samples, names, order,
+                                              "TRAINING", nn.kernel.n_inputs,
+                                              nn.kernel.n_outputs)
+        dtype = dtype_of(conf)
+        kind = kernel_kind(conf)
+        # [dtype] bf16 trains float32 master weights (bfloat16 samples,
+        # activations and deltas): bfloat16 storage rounds BPM-sized
+        # updates away
+        master = torch.float32 if dtype == torch.bfloat16 else dtype
+        weights = weights_to_torch(nn.kernel.weights, master, dev)
+        entry = native_trainer(conf)
+        trainable = conf.train in (NN_TRAIN_BP, NN_TRAIN_BPM)
+        if entry is None and trainable:
+            with nn_log.capture():   # its warning prints with the decision
+                tiled = bool(_tile_request(conf))
+            if conf.batch <= 0 or _dp_tiled_route(conf):
+                _load_library(dev, "train_tile" if tiled else "train_epoch")
+        events, xs, ts = handle.result()
+        # agreement gate before any return path: a rank whose corpus
+        # differs drags every rank out of the coming collectives
+        if not coord.agree_all(True, (0 if xs is None else xs.shape[0],
+                                      nn.kernel.n_inputs,
+                                      nn.kernel.n_outputs, 0)):
+            return False
+        if entry is not None and xs is not None:
+            # the native trainer takes the whole epoch (its own grammar);
+            # [dtype] bf16 runs it on the float32 masters throughout
+            xs_dev, ts_dev = _upload(xs, master, dev), _upload(ts, master,
+                                                               dev)
+            EPOCH_METRICS["stage_s"] += time.perf_counter() - t_stage
+            EPOCH_METRICS["h2d_bytes"] += (xs_dev.nbytes + ts_dev.nbytes
+                                           + sum(w.nbytes for w in weights))
+            EPOCH_METRICS["epochs"] += 1
+            EPOCH_METRICS["mode"] = f"restage-{entry.name}"
+            new = entry.run_epoch(nn, weights, xs_dev, ts_dev, kind, master)
+            nn.kernel.weights = weights_to_numpy(new)
+            return finish()
+        if xs is None or not trainable:
+            # CG/SPLX are declared but unimplemented (libhpnn.c:1253-1257):
+            # each per-file header is printed, nothing trains, and the call
+            # returns TRUE -- every header is left unterminated
+            for line, _ in events:
+                nn_out(line)
+            return finish()
+        if conf.batch > 0:
+            if coord.world_size() == 1:
+                _prefetch_tests(conf, nn.kernel)
+            EPOCH_METRICS["stage_s"] += time.perf_counter() - t_stage
+            return _train_kernel_dp(nn, weights, xs, ts, kind, momentum,
+                                    finish, events, dev)
+        xs_dev, ts_dev = _upload(xs, dtype, dev), _upload(ts, dtype, dev)
+        EPOCH_METRICS["stage_s"] += time.perf_counter() - t_stage
+        EPOCH_METRICS["h2d_bytes"] += (xs_dev.nbytes + ts_dev.nbytes
+                                       + sum(w.nbytes for w in weights))
+        EPOCH_METRICS["epochs"] += 1
+        EPOCH_METRICS["mode"] = "restage"
+        tile, storage = 0, None
+        if _tile_request(conf):
+            # groups of S trained to convergence in lockstep: a documented
+            # trajectory divergence for S > 1, the per-sample grammar
+            # unchanged
+            tile, storage = _resolve_tile(conf, weights, dtype, kind,
+                                          momentum, dev)
+        train_epoch_fn, _ = ops.select_train_epoch(dtype, kind=kind,
+                                                   device=dev, tile=tile,
+                                                   storage=storage)
+        _prefetch_tests(conf, nn.kernel)
+        new_weights, stats = train_epoch_fn(weights, xs_dev, ts_dev, kind,
+                                            momentum, alpha=0.2)  # :1248
+        nn.kernel.weights = weights_to_numpy(new_weights)
+        nn.last_epoch_stats = _emit_training_lines(events, stats, kind,
+                                                   momentum)
         return finish()
+    except DPRefused as exc:
+        nn_error(f"{exc}\n")
+        return False
+
+
+def _dp_stage_batches(xs, ts, s: int, bsz: int, n_batches: int,
+                      bsz_pad: int):
+    """[batch] host staging: one fancy-index scatter of the shuffled rows
+    into (n_batches, bsz_pad, n) float64 arrays.  Returns (xb, tb, mb)
+    with pad slots zero and mask 1.0 on real slots."""
+    xb = np.zeros((n_batches, bsz_pad, xs.shape[1]), np.float64)
+    tb = np.zeros((n_batches, bsz_pad, ts.shape[1]), np.float64)
+    pos, mb = _dp_slot_map(s, bsz, n_batches, bsz_pad)
+    xb.reshape(-1, xs.shape[1])[pos] = xs
+    tb.reshape(-1, ts.shape[1])[pos] = ts
+    return xb, tb, mb
+
+
+def _note_opt_state(dw, shapes, wdtype) -> None:
+    """The update state's measured bytes on this rank's device (the BPM
+    momentum slice) beside the bytes a replicated layout would hold."""
+    from .parallel.mesh import per_device_bytes
+
+    params = sum(int(np.prod(sh)) for sh in shapes)
+    itemsize = torch.empty((), dtype=wdtype).element_size()
+    EPOCH_METRICS["opt_state_bytes_per_device"] = per_device_bytes(
+        [dw] if dw is not None else [])
+    EPOCH_METRICS["opt_state_replicated_bytes"] = \
+        params * itemsize * (dw is not None)
+
+
+def _train_kernel_dp(nn: NNDef, weights, xs, ts, kind: str, momentum: bool,
+                     finish, events, dev) -> bool:
+    """Data-parallel minibatch epoch ([batch] B), restaged from the host.
+
+    The reference's per-family learning rates and BPM update order, one
+    minibatch step a batch of B shuffled samples.  Every sample trains:
+    batches are padded to a multiple of the world size with masked rows
+    (numerically the unpadded batch).  Each rank stages its share of every
+    batch's slots (``parallel.mesh.shard_bounds``); a multi-process run
+    all-reduces the gradient sums.  With a tile request in one process
+    the route swaps its engine for the batched-tile one
+    (:func:`_train_kernel_dp_tiled`)."""
+    from . import ops
+    from .parallel.dp import dp_epoch, dp_export_weights, dp_resident_carry
+    from .parallel.mesh import shard_bounds
+
+    conf = nn.conf
+    world, rank = coord.world_size(), coord.process_index()
+    if _tile_request(conf):
+        if world == 1:
+            return _train_kernel_dp_tiled(nn, weights, xs, ts, kind,
+                                          momentum, finish, events, dev)
+        # once a process, not once an epoch
+        if not getattr(nn, "_tile_mp_warned", False):
+            nn._tile_mp_warned = True
+            nn_warn("[tile] engine is single-controller; multi-process "
+                    "[batch] runs keep minibatch DP\n")
+    t_stage = time.perf_counter()
+    lr = ops.bpm_learn_rate(kind) if momentum else ops.bp_learn_rate(kind)
+    s = xs.shape[0]
+    dtype = dtype_of(conf)
+    bsz, n_batches, n_data, bsz_pad = _dp_geometry(conf, s)
+    for line in _dp_banner_lines(s, bsz, n_batches, bsz_pad, n_data,
+                                 unsharded=n_data == 1):
+        nn_out(line)
+    xb, tb, mb = _dp_stage_batches(xs, ts, s, bsz, n_batches, bsz_pad)
+    lo, hi = shard_bounds(bsz_pad, world, rank)
+    jxb = _upload(np.ascontiguousarray(xb[:, lo:hi]), dtype, dev)
+    jtb = _upload(np.ascontiguousarray(tb[:, lo:hi]), dtype, dev)
+    jmb = _upload(np.ascontiguousarray(mb[:, lo:hi]), dtype, dev)
+    shapes = tuple(tuple(int(d) for d in w.shape) for w in weights)
+    w_flat = dp_resident_carry(weights, world)
+    EPOCH_METRICS["stage_s"] += time.perf_counter() - t_stage
+    EPOCH_METRICS["h2d_bytes"] += (jxb.nbytes + jtb.nbytes + jmb.nbytes
+                                   + sum(w.nbytes for w in weights))
+    EPOCH_METRICS["epochs"] += 1
+    EPOCH_METRICS["mode"] = "dp-restage"
+    EPOCH_METRICS["dp_devices"] = n_data
+    w_flat, dw, errs = dp_epoch(w_flat, jxb, jtb, jmb, kind, momentum, lr,
+                                0.2, shapes, world, rank)
+    _note_opt_state(dw, shapes, w_flat.dtype)
+    errs = errs.to(device="cpu", dtype=torch.float64).numpy()
+    for i in range(n_batches):
+        nn_out(f"TRAINING BATCH {i:8d}\t err={errs[i]:15.10f}\n")
+    nn.last_epoch_stats = {"samples": int(s),
+                           "mean_final": float(np.mean(errs)),
+                           "success": 0}
+    nn.kernel.weights = dp_export_weights(w_flat, shapes)
+    return finish()
+
+
+def _train_kernel_dp_tiled(nn: NNDef, weights, xs, ts, kind: str,
+                           momentum: bool, finish, events, dev) -> bool:
+    """[batch] + [tile]: the batched-tile convergence engine on the [batch]
+    route.  The [batch] value is the convergence group (the S lanes of
+    each lockstep step); a positive [tile] value sets how many groups ride
+    one ``train_tile`` launch -- execution granularity only, the stats and
+    weights identical for any value."""
+    from .parallel.dp import dp_tiled_epoch
+
+    conf = nn.conf
+    dtype = dtype_of(conf)
+    s = xs.shape[0]
+    group = min(conf.batch, s)
+    req = _tile_request(conf)
+    if req < 0:
+        nn_warn("[tile] auto on the [batch] route: the group size IS "
+                "the minibatch and [tile] only sets launch granularity "
+                "(results identical for any value) -- the autotuner "
+                "does not apply; default launch sizing used\n")
+    storage = _tile_storage_env()
+    nn_out(_dp_tiled_banner(group, 1, meshed=False, storage=storage))
+    t_stage = time.perf_counter()
     xs_dev, ts_dev = _upload(xs, dtype, dev), _upload(ts, dtype, dev)
     EPOCH_METRICS["stage_s"] += time.perf_counter() - t_stage
     EPOCH_METRICS["h2d_bytes"] += (xs_dev.nbytes + ts_dev.nbytes
                                    + sum(w.nbytes for w in weights))
     EPOCH_METRICS["epochs"] += 1
-    EPOCH_METRICS["mode"] = "restage"
-    tile, storage = 0, None
-    if _tile_request(conf):
-        # groups of S trained to convergence in lockstep: a documented
-        # trajectory divergence for S > 1, the per-sample grammar unchanged
-        tile, storage = _resolve_tile(conf, weights, dtype, kind, momentum,
-                                      dev)
-    train_epoch_fn, _ = ops.select_train_epoch(dtype, kind=kind, device=dev,
-                                               tile=tile, storage=storage)
-    _prefetch_tests(conf, nn.kernel)
-    new_weights, stats = train_epoch_fn(weights, xs_dev, ts_dev, kind,
-                                        momentum, alpha=0.2)  # libhpnn.c:1248
-    nn.kernel.weights = weights_to_numpy(new_weights)
+    EPOCH_METRICS["mode"] = "dp-tiled-restage"
+    EPOCH_METRICS["dp_devices"] = 1
+    new_w, stats = dp_tiled_epoch(weights, xs_dev, ts_dev, kind, momentum,
+                                  group, alpha=0.2,
+                                  launch_groups=max(0, req), storage=storage)
+    # the per-sample grammar again: load order == stats order
     nn.last_epoch_stats = _emit_training_lines(events, stats, kind, momentum)
+    nn.kernel.weights = weights_to_numpy(new_w)
     return finish()
 
 
 class _EpochPipeline:
-    """Device-resident multi-epoch training state (resident mode).
+    """Device-resident multi-epoch training state.
 
     Built once a multi-epoch run (``ckpt.trainer.train_loop`` drives it
     through :func:`train_kernel`): the corpus is read once in listing
@@ -462,31 +719,44 @@ class _EpochPipeline:
     once.  Each epoch's host work is the glibc shuffle (a byte-parity
     obligation), the shuffle-order events and skip diagnostics rebuilt
     from the corpus's status codes, and one upload of an int32
-    permutation; an ``index_select`` on the card gathers the epoch's rows
-    for one ``train_epoch`` or ``train_tile`` launch.  Its stats come back
-    through a non-blocking copy and an event, so epoch k+1 is queued
-    before epoch k's stats are read; the console lines wait in
-    ``pending`` (with literals such as the trainer's EPOCH banner) and
-    :meth:`join` renders them in order at the run's join points.
+    permutation; an ``index_select`` on the card gathers the epoch's rows.
+    Its stats come back through a non-blocking copy and an event, so
+    epoch k+1 is queued before epoch k's stats are read; the console lines
+    wait in ``pending`` (with literals such as the trainer's EPOCH banner)
+    and :meth:`join` renders them in order at the run's join points.
+
+    Modes: ``resident`` (per sample, or the batched-tile engine under
+    ``[tile]``: one ``train_epoch`` or ``train_tile`` launch an epoch),
+    ``dp-resident`` (``[batch]``: the permutation scattered into batch
+    slots, gathered and reshaped on the card, the minibatch epoch of
+    ``parallel.dp`` on the flat weight carry; in a multi-process run each
+    rank gathers its own share of every batch's slots) and
+    ``dp-tiled-resident`` (``[batch]`` + ``[tile]`` in one process: the
+    batched-tile engine with the batch as the group).
 
     The trajectory is bit-identical to the restaging route (a cast then a
     gather equals a gather then a cast; the master weights round-trip
-    through float64 losslessly), and the console stream byte-identical.
+    through float64 losslessly; a masked slot contributes exactly zero
+    whichever row fills it), and the console stream byte-identical.
     ``HPNN_NO_EPOCH_PIPELINE=1`` takes the restaging route."""
 
-    mode = "resident"
-
-    def __init__(self, rc, dtype: torch.dtype, device: torch.device):
+    def __init__(self, rc, dtype: torch.dtype, device: torch.device,
+                 dp: str | None = None):
         self.rc = rc                      # ResidentCorpus (listing order)
         self.dtype = dtype
         self.wdtype = torch.float32 if dtype == torch.bfloat16 else dtype
         self.device = device
+        self.dp = dp                      # None | "sgd" | "tiled"
+        self.mode = {None: "resident", "sgd": "dp-resident",
+                     "tiled": "dp-tiled-resident"}[dp]
         self.weights = None               # device carry across epochs
+        self.shapes = None                # weight shapes ([batch] carry)
         self.x_dev = None
         self.t_dev = None
         self.train_fn = None
+        self._dp_state = None             # per-run [batch] geometry
         # console segments in order: ("out", text) literals, ("entries",
-        # captured output) and _EpochLines of epochs not rendered yet
+        # captured output) and the line renderers of epochs not joined yet
         self.pending: list = []
 
     @classmethod
@@ -494,53 +764,83 @@ class _EpochPipeline:
         """The pipeline for this run, or None when the corpus is missing,
         empty, or has non-replayable diagnostics (the run then restages
         every epoch).  A warm pack loads the corpus without reading its
-        files."""
+        files.  In a multi-process run the rows stay pack-backed
+        (``prefer_mmap``) and upload in row blocks; every rank holds the
+        whole corpus on its device and gathers its own slots from it."""
         names = list_sample_dir(conf.samples)
         if not names:
             return None
+        multi = coord.world_size() > 1
         rc = load_resident(conf.samples, names, nn.kernel.n_inputs,
-                           nn.kernel.n_outputs)
+                           nn.kernel.n_outputs, prefer_mmap=multi)
         if rc is None or rc.n_rows == 0:
             return None
-        pipe = cls(rc, dtype_of(conf), device)
+        dp = None
+        if conf.batch > 0:
+            dp = "tiled" if _dp_tiled_route(conf) else "sgd"
+        pipe = cls(rc, dtype_of(conf), device, dp=dp)
         # the one corpus upload of the run
-        pipe.x_dev = _upload(rc.X, pipe.dtype, device)
-        pipe.t_dev = _upload(rc.T, pipe.dtype, device)
+        pipe.x_dev = _upload_rows(rc, "x", pipe.dtype, device)
+        pipe.t_dev = _upload_rows(rc, "t", pipe.dtype, device)
         EPOCH_METRICS["setup_h2d_bytes"] += (pipe.x_dev.nbytes
                                              + pipe.t_dev.nbytes)
         rc.release_rows()
         nn_dbg(f"epoch pipeline: {pipe.mode}, {rc.n_rows} row(s)\n")
         return pipe
 
-    def run_epoch(self, nn, events, sel, kind: str, momentum: bool) -> int:
-        """Queue one epoch's device work on the resident corpus and its
-        stats readback; returns the bytes this epoch uploaded."""
-        from . import ops
-
+    def _stage_weights(self, nn) -> None:
+        """The first epoch stages the float64 host weights; afterwards the
+        carry stays on the device."""
         if self.weights is None:
-            # the first epoch stages the float64 host weights; afterwards
-            # the carry stays on the device
             self.weights = weights_to_torch(nn.kernel.weights, self.wdtype,
                                             self.device)
             EPOCH_METRICS["setup_h2d_bytes"] += sum(
                 w.nbytes for w in self.weights)
-        if self.train_fn is None:
-            tile, storage = 0, None
-            if _tile_request(nn.conf):
-                tile, storage = _resolve_tile(nn.conf, self.weights,
-                                              self.dtype, kind, momentum,
-                                              self.device)
-            self.train_fn, _ = ops.select_train_epoch(
-                self.dtype, kind=kind, device=self.device, tile=tile,
-                storage=storage, defer_stats=True)
-        perm, start = torch.from_numpy(sel), None
+            self.shapes = tuple(tuple(int(d) for d in w.shape)
+                                for w in self.weights)
+
+    def _upload_sel(self, sel: np.ndarray):
+        """The epoch's one upload (an int32 index vector) and, on a card, a
+        timing event recorded before it."""
+        perm, start = torch.from_numpy(np.ascontiguousarray(sel)), None
         if self.device.type == "cuda":
             # pinned, so the upload queues behind the previous epoch's
             # launch instead of waiting for it
             perm = perm.pin_memory()
             start = torch.cuda.Event(enable_timing=True)
             start.record(torch.cuda.current_stream(self.device))
-        sel_dev = perm.to(self.device, non_blocking=True)  # the upload
+        return perm.to(self.device, non_blocking=True), start
+
+    def run_epoch(self, nn, events, sel, kind: str, momentum: bool) -> int:
+        """Queue one epoch's device work on the resident corpus and its
+        stats readback; returns the bytes this epoch uploaded."""
+        from . import ops
+
+        if self.dp == "sgd":
+            return self._run_epoch_dp(nn, sel, kind, momentum)
+        self._stage_weights(nn)
+        if self.train_fn is None:
+            if self.dp == "tiled":
+                self.train_fn = self._dp_tiled_fn(nn.conf, kind, momentum)
+            else:
+                tile, storage = 0, None
+                if _tile_request(nn.conf):
+                    tile, storage = _resolve_tile(nn.conf, self.weights,
+                                                  self.dtype, kind, momentum,
+                                                  self.device)
+                self.train_fn, _ = ops.select_train_epoch(
+                    self.dtype, kind=kind, device=self.device, tile=tile,
+                    storage=storage, defer_stats=True)
+        if self.dp == "tiled":
+            st = self._dp_state
+            if st["auto_warn"]:
+                nn_warn("[tile] auto on the [batch] route: the group size "
+                        "IS the minibatch and [tile] only sets launch "
+                        "granularity (results identical for any value) -- "
+                        "the autotuner does not apply; default launch "
+                        "sizing used\n")
+            self.pending.append(("out", st["banner"]))
+        sel_dev, start = self._upload_sel(sel)
         xs = self.x_dev.index_select(0, sel_dev)
         ts = self.t_dev.index_select(0, sel_dev)
         self.weights, stats = self.train_fn(self.weights, xs, ts, kind,
@@ -550,13 +850,81 @@ class _EpochPipeline:
                                         start))
         return sel.nbytes
 
+    def _dp_tiled_fn(self, conf, kind: str, momentum: bool):
+        """The [batch]+[tile] epoch function and its banner (the strings of
+        :func:`_train_kernel_dp_tiled`)."""
+        import functools
+
+        from .parallel.dp import dp_tiled_epoch
+
+        group = min(conf.batch, self.rc.n_rows)
+        req = _tile_request(conf)
+        storage = _tile_storage_env()
+        self._dp_state = {
+            "auto_warn": req < 0,
+            "banner": _dp_tiled_banner(group, 1, meshed=False,
+                                       storage=storage)}
+        EPOCH_METRICS["dp_devices"] = 1
+        return functools.partial(dp_tiled_epoch, group=group,
+                                 launch_groups=max(0, req), storage=storage,
+                                 defer_stats=True)
+
+    def _run_epoch_dp(self, nn, sel, kind: str, momentum: bool) -> int:
+        """One minibatch epoch on the resident corpus: the host scatters
+        the permutation into this rank's batch slots (its only upload),
+        the card gathers and reshapes the batches and runs the epoch on
+        the flat weight carry."""
+        from . import ops
+        from .parallel.dp import dp_epoch, dp_resident_carry
+        from .parallel.mesh import shard_bounds
+
+        world, rank = coord.world_size(), coord.process_index()
+        if self._dp_state is None:
+            s = self.rc.n_rows
+            bsz, n_batches, n_data, bsz_pad = _dp_geometry(nn.conf, s)
+            pos, mask = _dp_slot_map(s, bsz, n_batches, bsz_pad)
+            lo, hi = shard_bounds(bsz_pad, world, rank)
+            self._stage_weights(nn)
+            self.weights = dp_resident_carry(self.weights, world)
+            self._dp_state = {
+                "s": s, "pos": pos, "lo": lo, "hi": hi,
+                "n_batches": n_batches, "bsz_pad": bsz_pad,
+                "mb": _upload(np.ascontiguousarray(mask[:, lo:hi]),
+                              self.dtype, self.device),
+                "lr": (ops.bpm_learn_rate(kind) if momentum
+                       else ops.bp_learn_rate(kind)),
+                "banners": _dp_banner_lines(s, bsz, n_batches, bsz_pad,
+                                            n_data, unsharded=n_data == 1)}
+            EPOCH_METRICS["dp_devices"] = n_data
+        st = self._dp_state
+        for text in st["banners"]:
+            self.pending.append(("out", text))
+        # padded slots read row 0: their mask is 0, so they add nothing
+        slots = np.zeros(st["n_batches"] * st["bsz_pad"], np.int32)
+        slots[st["pos"]] = sel
+        mine = np.ascontiguousarray(
+            slots.reshape(st["n_batches"], -1)[:, st["lo"]:st["hi"]])
+        sel_dev, start = self._upload_sel(mine.reshape(-1))
+        nb, width = mine.shape
+        xb = self.x_dev.index_select(0, sel_dev).view(nb, width, -1)
+        tb = self.t_dev.index_select(0, sel_dev).view(nb, width, -1)
+        self.weights, dw, errs = dp_epoch(
+            self.weights, xb, tb, st["mb"], kind, momentum, st["lr"], 0.2,
+            self.shapes, world, rank)
+        _note_opt_state(dw, self.shapes, self.wdtype)
+        self.pending.append(_DPLines(errs, st["s"], nn_log.get_verbosity(),
+                                     start))
+        return mine.nbytes
+
     def join(self, nn) -> list[dict]:
         """Emit the pending console segments in order and copy the weight
         carry back to ``nn.kernel.weights`` (float64, what kernel.opt
         dumps).  Returns the joined epochs' summaries, oldest first."""
+        from .parallel.dp import dp_export_weights
+
         sums = []
         for item in self.pending:
-            if isinstance(item, _EpochLines):
+            if isinstance(item, (_EpochLines, _DPLines)):
                 text, summary = item.render()
                 nn_log.nn_raw(text)
                 sums.append(summary)
@@ -567,8 +935,28 @@ class _EpochPipeline:
                 nn_log.replay(item[1])
         self.pending = []
         if self.weights is not None:
-            nn.kernel.weights = weights_to_numpy(self.weights)
+            nn.kernel.weights = (
+                dp_export_weights(self.weights, self.shapes)
+                if self.dp == "sgd" else weights_to_numpy(self.weights))
         return sums
+
+
+def _upload_rows(rc, which: str, dtype: torch.dtype, dev) -> torch.Tensor:
+    """The resident corpus's X (``which="x"``) or T on ``dev``: one upload,
+    or (pack-backed rows of a multi-process run) row blocks read through
+    :meth:`ResidentCorpus.padded_row_block`, so no float64 copy of the
+    whole corpus is made on the host."""
+    src = rc.X if which == "x" else rc.T
+    if isinstance(src, np.memmap):
+        n, width = int(src.shape[0]), int(src.shape[1])
+        out = torch.empty((n, width), dtype=dtype, device=dev)
+        step = max(1, (64 << 20) // max(1, width * 8))
+        for lo in range(0, n, step):
+            hi = min(n, lo + step)
+            out[lo:hi] = _upload(rc.padded_row_block(which, lo, hi, n),
+                                 dtype, dev)
+        return out
+    return _upload(src, dtype, dev)
 
 
 class _EpochLines:
@@ -582,35 +970,79 @@ class _EpochLines:
         self.events = events
         self.dtype, self.kind, self.momentum = dtype, kind, momentum
         self.verbosity = verbosity
-        self.start = start
-        self.end = self.done = None
-        if stats.device.type == "cuda":
-            stream = torch.cuda.current_stream(stats.device)
-            self.end = torch.cuda.Event(enable_timing=True)
-            self.end.record(stream)
-            host = torch.empty(stats.shape, dtype=stats.dtype,
-                               pin_memory=True)
-            host.copy_(stats, non_blocking=True)
-            self.done = torch.cuda.Event()
-            self.done.record(stream)
-            stats = host
-        self.stats = stats
+        self.readback = _Readback(stats, start)
 
     def render(self):
+        stats = stats_record(self.readback.result(), self.dtype)
+        return _render_training_lines(self.events, stats, self.kind,
+                                      self.momentum, self.verbosity)
+
+
+class _DPLines:
+    """One queued [batch] epoch's ``TRAINING BATCH`` lines (one a batch)
+    and its summary, rendered from the per-batch mean errors when due."""
+
+    def __init__(self, errs: torch.Tensor, n_samples: int, verbosity: int,
+                 start=None):
+        self.n_samples = n_samples
+        self.verbosity = verbosity
+        self.readback = _Readback(errs, start)
+
+    def render(self):
+        return _render_dp_lines(self.readback.result(), self.n_samples,
+                                self.verbosity)
+
+
+class _Readback:
+    """A device tensor's non-blocking copy into pinned host memory, with an
+    event to wait on; on the CPU the tensor itself.  ``start`` (an event
+    recorded before the epoch's upload) gives the epoch's device time."""
+
+    def __init__(self, t: torch.Tensor, start=None):
+        self.start = start
+        self.end = self.done = None
+        if t.device.type == "cuda":
+            stream = torch.cuda.current_stream(t.device)
+            self.end = torch.cuda.Event(enable_timing=True)
+            self.end.record(stream)
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(t, non_blocking=True)
+            self.done = torch.cuda.Event()
+            self.done.record(stream)
+            t = host
+        self.t = t
+
+    def result(self) -> torch.Tensor:
         if self.done is not None:
             self.done.synchronize()
             if self.start is not None:
                 EPOCH_METRICS["device_ms"].append(
                     self.start.elapsed_time(self.end))
-        stats = stats_record(self.stats, self.dtype)
-        return _render_training_lines(self.events, stats, self.kind,
-                                      self.momentum, self.verbosity)
+            self.done = None
+        return self.t
+
+
+def _render_dp_lines(errs, n_samples: int, verbosity: int):
+    """The minibatch console stream (one ``TRAINING BATCH`` line a batch,
+    :func:`_train_kernel_dp`'s format) and the epoch summary the
+    checkpoint manifest records.  Returns (stdout_text, epoch_summary)."""
+    errs = np.asarray(errs.to(torch.float64) if isinstance(errs, torch.Tensor)
+                      else errs, dtype=np.float64)
+    summary = {"samples": int(n_samples),
+               "mean_final": float(np.mean(errs)) if errs.size else None,
+               "success": 0}
+    if verbosity <= 1:
+        return "", summary
+    text = "".join(f"NN: TRAINING BATCH {i:8d}\t err={e:15.10f}\n"
+                   for i, e in enumerate(errs))
+    return text, summary
 
 
 def _pipeline_for(nn, conf, device):
     """The run's epoch pipeline: the one built at its first epoch (the
     decision is made once a run), a new one when this multi-epoch run
-    qualifies, else None (the restaging route)."""
+    qualifies, else None (the restaging route).  Across processes only
+    the minibatch [batch] route rides it."""
     cur = getattr(nn, "_epoch_pipeline", None)
     if isinstance(cur, _EpochPipeline):
         return cur
@@ -619,7 +1051,9 @@ def _pipeline_for(nn, conf, device):
     pipe = None
     if (nn.shuffle_rng is not None
             and conf.train in (NN_TRAIN_BP, NN_TRAIN_BPM)
-            and not os.environ.get("HPNN_NO_EPOCH_PIPELINE")):
+            and not os.environ.get("HPNN_NO_EPOCH_PIPELINE")
+            and (coord.world_size() == 1
+                 or (conf.batch > 0 and not _tile_request(conf)))):
         pipe = _EpochPipeline.build(nn, conf, device)
     nn._epoch_pipeline = pipe if pipe is not None else False
     return pipe
@@ -651,15 +1085,24 @@ def _train_kernel_pipelined(nn, pipe: _EpochPipeline, kind: str,
                             momentum: bool, finish) -> bool:
     """One epoch through the resident pipeline: shuffle, events and skip
     diagnostics from the corpus's status codes, the int32 permutation's
-    upload, the on-card gather and one launch; the console lines wait in
-    the pipeline until the trainer joins it (at once for a caller that
-    does not defer)."""
+    upload, the on-card gather and the epoch's launches; the console lines
+    wait in the pipeline until the trainer joins it (at once for a caller
+    that does not defer).  Every rank's shuffle must give the same
+    permutation: its crc32 rides the agreement gate."""
+    import zlib
+
     conf = nn.conf
     t0 = time.perf_counter()
     order = shuffle_order(conf, len(pipe.rc.names), nn.shuffle_rng)
     t1 = time.perf_counter()
     events, sel = pipe.rc.epoch_events(order)
-    _prefetch_tests(conf, nn.kernel)
+    if not coord.agree_all(True, (int(sel.size), nn.kernel.n_inputs,
+                                  nn.kernel.n_outputs,
+                                  zlib.crc32(np.ascontiguousarray(sel)
+                                             .tobytes()))):
+        return False
+    if coord.world_size() == 1:
+        _prefetch_tests(conf, nn.kernel)
     EPOCH_METRICS["h2d_bytes"] += pipe.run_epoch(nn, events, sel, kind,
                                                  momentum)
     EPOCH_METRICS["shuffle_s"] += t1 - t0

@@ -20,8 +20,10 @@ reproduce.
 Failures are never dropped: the first writer exception is re-raised from
 :meth:`flush` (the CLI flushes before declaring the run done).
 
-One process: every bundle records ``world_size`` 1 (the JAX package's
-multi-process snapshot barrier is not part of the port yet).
+A multi-process run (``HPNN_DISTRIBUTED``) writes one bundle a snapshot:
+every rank meets ``coord.snapshot_barrier`` on the training thread (the
+ranks prove they bundle the same epoch), then rank 0 alone writes, and the
+bundle records the world size that agreed on it.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import threading
 import numpy as np
 
 from ..io.conf import NN_TRAIN_BPM
+from ..parallel import coord
 from ..utils import nn_log
 from ..utils.nn_log import nn_out
 from . import snapshot as snap
@@ -96,6 +99,8 @@ class CheckpointManager:
                                nn.trainer_state.items()}
                               if getattr(nn, "trainer_state", None)
                               else None),
+            # the world size that agreed on this bundle behind the barrier
+            "world_size": coord.world_size(),
         }
 
     # --- saving -----------------------------------------------------------
@@ -105,6 +110,18 @@ class CheckpointManager:
             self.save(nn, epoch)
 
     def save(self, nn, epoch: int, sync: bool = False) -> None:
+        if coord.world_size() > 1:
+            # the coherent global step: the barrier runs here, on the
+            # training thread (never on the writer: a pool-thread
+            # collective would race the next epoch's), then rank 0 alone
+            # writes the bundle
+            if not coord.snapshot_barrier(epoch):
+                raise OSError(
+                    f"snapshot barrier failed at epoch {epoch}: ranks "
+                    "disagree on the bundle epoch (no bundle written)")
+            if coord.process_index() != 0:
+                self.last_saved_epoch = int(epoch)
+                return
         job = self._capture(nn, epoch)
         self.last_saved_epoch = int(epoch)
         # the one console line, emitted HERE (a fixed position in the
@@ -152,7 +169,8 @@ class CheckpointManager:
             seed=job["seed"], errors=job["errors"], name=job["name"],
             train=job["train"], dtype=job["dtype"],
             target_epochs=job["target_epochs"],
-            trainer_state=job.get("trainer_state"))
+            trainer_state=job.get("trainer_state"),
+            world_size=job.get("world_size", 1))
         snap.publish_snapshot(self.ckpt_dir, entry, seed=job["seed"],
                               errors=job["errors"],
                               keep_last=self.keep_last)

@@ -29,6 +29,7 @@ import signal
 import threading
 import time
 
+from ..parallel import coord
 from ..utils.env import env_int
 from ..utils.glibc_random import GlibcRandom
 from ..utils.nn_log import nn_out
@@ -100,6 +101,7 @@ def train_loop(nn, epochs: int, manager=None, start_epoch: int = 0,
             conf.seed = int(time.time())
         nn.shuffle_rng = GlibcRandom(conf.seed)
     kill_at = env_int("HPNN_CKPT_KILL_AT_EPOCH", 0)
+    world = coord.world_size()
     banner = epochs > 1 or start_epoch > 0
     if stop is None:
         stop = threading.Event()
@@ -129,6 +131,14 @@ def train_loop(nn, epochs: int, manager=None, start_epoch: int = 0,
             if not train_kernel(nn, device=device):
                 drain()
                 return False, False
+            # coordinated stop: a signal caught by one rank latches the
+            # stop on every rank at this boundary, so no rank runs ahead
+            # into the next epoch's collectives alone
+            stopping = stop.is_set()
+            if world > 1:
+                stopping = coord.any_flag(stopping)
+                if stopping:
+                    stop.set()
             if pipeline_active(nn):
                 pending.append(epoch)
                 # join only where the unpipelined loop needs the host
@@ -136,7 +146,7 @@ def train_loop(nn, epochs: int, manager=None, start_epoch: int = 0,
                 # signal, or the kill hook about to fire
                 due = (manager is not None and manager.every
                        and epoch % manager.every == 0)
-                if (due or epoch == epochs or stop.is_set()
+                if (due or epoch == epochs or stopping
                         or (kill_at and epoch == kill_at)):
                     drain()
             elif manager is not None:
@@ -148,7 +158,8 @@ def train_loop(nn, epochs: int, manager=None, start_epoch: int = 0,
             if kill_at and epoch == kill_at and epoch < epochs:
                 # the real signal path at a deterministic boundary
                 os.kill(os.getpid(), signal.SIGTERM)
-            if stop.is_set() and epoch < epochs:
+            if (stopping if world > 1 else stop.is_set()) \
+                    and epoch < epochs:
                 interrupted = True
                 drain()  # a signal may land after the join check above:
                 # the final snapshot below must see synced weights

@@ -2,7 +2,7 @@
 
     python -m hpnn_tpu_torch.cli train_nn [-h] [-v]... [-x] [-O n] [-B n]
         [-S n] [--device {cuda,cpu}] [--lnn native] [--tile S|auto]
-        [--epochs N] [--ckpt-every N] [--ckpt-dir DIR] [--ckpt-keep N]
+        [--trainer {cg,bp,bpm}] [--epochs N] [--ckpt-every N] [--ckpt-dir DIR] [--ckpt-keep N]
         [--resume [PATH]] [--replicate-to DIR] [--corpus-cache DIR]
         [--corpus-cache-max-mb N] [conf]
     python -m hpnn_tpu_torch.cli run_nn [-h] [-v]... [-O n] [-B n] [-S n]
@@ -22,7 +22,12 @@ owns host threads and CUDA streams), the conf defaults to ``./nn.conf``.
 ``train_nn`` dumps the untrained kernel to ``kernel.tmp`` before training
 and the trained one to ``kernel.opt`` after (``train_nn.c:224-243``);
 ``--tile S`` (or ``auto``) trains through the batched-tile engine and wins
-over the conf's ``[tile]``.  ``--epochs N`` trains N epochs in one process
+over the conf's ``[tile]``.  ``--trainer cg`` trains with the batched
+conjugate-gradient trainer (``train.cg``; ``bp``/``bpm`` select the
+reference trainers) and sets the conf's ``[train]`` to match.  A
+``[batch] B`` conf trains minibatch data-parallel, over the
+``torch.distributed`` world when ``HPNN_DISTRIBUTED`` is set
+(``runtime``).  ``--epochs N`` trains N epochs in one process
 (``ckpt.trainer.train_loop``: one continuing shuffle stream, the corpus and
 the weights resident on the device).  ``--ckpt-every/--ckpt-dir/
 --ckpt-keep`` write crash-safe snapshot bundles at epoch boundaries
@@ -37,8 +42,8 @@ puts the packed corpus cache (``io.corpus``) in DIR for this command and
 Every command runs on the GPU unless
 ``--device cpu`` is given; asking for the GPU on a host without one exits
 non-zero before anything is computed.  The JAX package's other options
-(its compilation cache, profiling, replication to a mesh router, mesh
-serving, jobs, tracing, QoS) are refused with a message naming them:
+(its compilation cache, profiling, row sharding, replication to a mesh
+router, mesh serving, jobs, tracing) are refused with a message naming them:
 later slices of the port bring them.
 """
 
@@ -87,6 +92,13 @@ def _help_text(name: str) -> str:
     ]
     if train:
         lines += [
+            "--trainer T \tselect the trainer from the registry:",
+            "\t'cg' (batched nonlinear conjugate gradient,",
+            "\tPolak-Ribiere + restart, on-device line search;",
+            "\tHPNN_CG_ITERS iterations per epoch), 'bp', or 'bpm'.",
+            "\tWins over the conf [train]/[trainer] keywords; CG",
+            "\tstate (direction/gradient/restarts) rides snapshot",
+            "\tbundles and resumes bit-exactly.",
             "--tile S \tbatched-tile convergence engine: train groups",
             "\tof S samples per GEMM-shaped step (per-lane convergence",
             "\tmasking; documented trajectory divergence vs per-sample",
@@ -158,11 +170,14 @@ def _parse_args(argv: list[str], name: str):
     """Reference-style parse; returns (filename, extras) or None on -h,
     raises SystemExit(-1) on syntax errors."""
     filename = None
-    extras = {"device": "cuda", "lnn": None, "tile": None, "resume": None}
+    extras = {"device": "cuda", "lnn": None, "tile": None, "resume": None,
+              "trainer": None}
     extras.update({dest: None for dest, _ in _STR_OPTS.values()})
     extras.update({dest: None for dest, _, _ in _UINT_OPTS.values()})
     choices = {"--device": ("device", runtime.DEVICES),
                "--lnn": ("lnn", ("native",))}
+    if name == "train_nn":
+        choices["--trainer"] = ("trainer", ("cg", "bp", "bpm"))
     numeric = "OBS"   # thread/BLAS/stream counts: checked, then ignored
     train = name == "train_nn"
     i = 0
@@ -414,6 +429,14 @@ def _train_nn_body(filename: str, extras: dict,
         neural.conf.lnn = extras["lnn"]
     if extras["tile"] is not None:
         neural.conf.tile = extras["tile"]   # the flag wins over [tile]
+    if extras["trainer"]:
+        # --trainer cg|bp|bpm selects a registry trainer and coerces the
+        # conf's [train], so snapshots and serving report it coherently
+        from .io.conf import NN_TRAIN_BP, NN_TRAIN_BPM, NN_TRAIN_CG
+
+        neural.conf.trainer = extras["trainer"]
+        neural.conf.train = {"cg": NN_TRAIN_CG, "bpm": NN_TRAIN_BPM,
+                             "bp": NN_TRAIN_BP}[extras["trainer"]]
     snap = None
     start_epoch = 0
     if resume:
@@ -426,18 +449,23 @@ def _train_nn_body(filename: str, extras: dict,
                 f"does not match the configured kernel "
                 f"{list(neural.kernel.params)}! (ABORTING)\n")
             return -1
-        if snap.world_size != 1:
+        from .parallel import coord
+
+        if snap.world_size != coord.world_size():
+            # a bundle is bit-exact only along the world size that wrote
+            # it: refuse on every rank instead of silently diverging
             sys.stderr.write(
                 f"FAILED to resume: snapshot {snap.tag} was written by "
-                f"a {snap.world_size}-process run, but this run has 1 "
-                "process(es)! Multi-process training is not ported yet: "
-                "resume it with hpnn_tpu (or retrain). (ABORTING)\n")
+                f"a {snap.world_size}-process run, but this run has "
+                f"{coord.world_size()} process(es)! Relaunch with the "
+                "matching HPNN_NUM_PROCESSES (or retrain). (ABORTING)\n")
             return -1
         # bit-exact restore: float64 weights from state.npz (not the
-        # quantized text), the effective seed and the epoch counter; the
-        # shuffle words go to train_loop.  BPM momentum rides the bundle
-        # too, but the update re-zeroes it at every sample entry
-        # (ann_raz_momentum, ann.c:2391), so restoring it changes nothing
+        # quantized text), the effective seed, the epoch counter and the
+        # CG carry; the shuffle words go to train_loop.  BPM momentum
+        # rides the bundle too, but every route re-zeroes it where the
+        # reference does (a sample's entry, ann.c:2391; a [batch] epoch's
+        # start), so restoring it changes nothing
         neural.kernel.weights = list(snap.weights)
         neural.conf.seed = snap.seed
         neural.trainer_state = snap.trainer_state

@@ -947,9 +947,30 @@ class ResidentCorpus:
         return _order_events(self.dirpath, self.names, order, self.header,
                              self.status, lines=self._lines)
 
+    def padded_row_block(self, which: str, lo: int, hi: int,
+                         total_rows: int) -> np.ndarray:
+        """Rows ``[lo, hi)`` of X (``which="x"``) or T as a contiguous
+        float64 block, zero rows standing in past ``n_rows`` (a pad up to
+        ``total_rows``).  With pack-backed memmap rows only the requested
+        range's pages are read, so a rank uploading its corpus in blocks
+        never holds a float64 copy of the whole of it."""
+        src = self.X if which == "x" else self.T
+        if not 0 <= lo <= hi <= total_rows:
+            raise ValueError(f"row block [{lo}, {hi}) outside "
+                             f"[0, {total_rows})")
+        width = int(src.shape[1]) if src is not None else 0
+        real_hi = min(hi, self.n_rows)
+        if lo >= real_hi:  # a block of padding only
+            return np.zeros((hi - lo, width), np.float64)
+        block = np.ascontiguousarray(src[lo:real_hi], np.float64)
+        if hi > real_hi:
+            block = np.concatenate(
+                [block, np.zeros((hi - real_hi, width), np.float64)])
+        return block
+
 
 def load_resident(dirpath: str, names: list[str], n_in: int, n_out: int,
-                  header: str = "TRAINING"):
+                  header: str = "TRAINING", prefer_mmap: bool = False):
     """Read a corpus once in listing order for device residency: the pack
     when it is warm, else every file under the build lock, classified into
     replayable status codes, and the pack written for the next run.
@@ -957,7 +978,11 @@ def load_resident(dirpath: str, names: list[str], n_in: int, n_out: int,
     are non-replayable (the caller keeps the per-epoch
     :func:`load_ordered` route, which emits them as they come).  Prints
     nothing of its own beyond a dbg summary: the per-epoch skip
-    diagnostics come from :meth:`ResidentCorpus.epoch_events`."""
+    diagnostics come from :meth:`ResidentCorpus.epoch_events`.
+
+    ``prefer_mmap=True`` (the multi-process pipeline) swaps a cold load's
+    in-memory rows for the freshly written pack's memmaps, so a rank that
+    built the pack still uploads from pack pages."""
     if n_in <= 0 or n_out <= 0:
         return None
     t0 = time.perf_counter()
@@ -976,8 +1001,10 @@ def load_resident(dirpath: str, names: list[str], n_in: int, n_out: int,
                     nn_dbg("resident corpus: non-replayable diagnostics; "
                            "per-epoch loads\n")
                     return None
-                if cache_enabled():
-                    _save_pack(dirpath, names, n_in, n_out, results, stats)
+                if (cache_enabled()
+                        and _save_pack(dirpath, names, n_in, n_out, results,
+                                       stats) and prefer_mmap):
+                    got = _try_load_pack(dirpath, names, n_in, n_out) or got
     rc = ResidentCorpus(dirpath, names, *got, header=header)
     stats = _note_load(mode, names, rc.X, t0)
     nn_dbg(f"resident corpus: {len(names)} file(s), {rc.n_rows} row(s) "

@@ -149,6 +149,41 @@ def weights_to_numpy(weights: Sequence[torch.Tensor]) -> list[np.ndarray]:
             for w in weights]
 
 
+def trainer_state_to_torch(state: dict, total: int, pad_to: int,
+                           dtype: torch.dtype, device):
+    """A CG carry in the bundle layout both packages write (``cg_d`` and
+    ``cg_g`` unpadded float64 vectors of ``total`` values, ``cg_meta`` =
+    [have, restarts, iters]) as ``(d, g, have, restarts)``: the vectors in
+    ``dtype`` on ``device``, zero-padded to a multiple of ``pad_to`` (the
+    world, the JAX package's data-axis layout).  None when the vectors'
+    size is not ``total``."""
+    d = np.asarray(state.get("cg_d", ()), np.float64).reshape(-1)
+    g = np.asarray(state.get("cg_g", ()), np.float64).reshape(-1)
+    meta = np.asarray(state.get("cg_meta", (0, 0, 0)), np.int64).reshape(-1)
+    if d.size != total or g.size != total:
+        return None
+    pad = (-total) % max(1, int(pad_to))
+
+    def up(v):
+        return torch.as_tensor(np.concatenate([v, np.zeros(pad)])).to(
+            device=device).to(dtype)
+
+    return (up(d), up(g), bool(meta[0]) if meta.size else False,
+            int(meta[1]) if meta.size > 1 else 0)
+
+
+def trainer_state_to_numpy(d: torch.Tensor, g: torch.Tensor, total: int,
+                           restarts: int, iters: int) -> dict:
+    """Inverse of :func:`trainer_state_to_torch`: the unpadded float64
+    bundle payload."""
+    def host(v):
+        return v[:total].detach().to(device="cpu",
+                                     dtype=torch.float64).numpy().copy()
+
+    return {"cg_d": host(d), "cg_g": host(g),
+            "cg_meta": np.asarray([1, int(restarts), int(iters)], np.int64)}
+
+
 class MLP(torch.nn.Module):
     """A kernel's layer weights as module buffers in the compute dtype on
     the compute device, evaluated through the fused forward.  Buffers, not

@@ -34,6 +34,10 @@ def ann_act(x: torch.Tensor) -> torch.Tensor:
     """2/(1+e^-x)-1 == tanh(x/2) (ann.c:883-885); the literal expression
     at float64, ``tanh(x*0.5)`` otherwise."""
     if x.dtype == torch.float64:
+        if x.requires_grad:
+            # the same expression out of place, for autograd (the CG
+            # trainer's gradient)
+            return 2.0 / (1.0 + torch.exp(-x)) - 1.0
         # 2.0/(1.0+exp(-1.0*x))-1.0, with in-place steps (fewer
         # allocations in the per-sample training loop): -x is -1.0*x
         # exactly, and torch evaluates 2.0/y as (1/y)*2, which scaling by

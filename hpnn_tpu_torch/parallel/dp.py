@@ -1,0 +1,209 @@
+"""Data parallelism: sample-batched training with summed gradients.
+
+The port of the JAX package's ``parallel/dp.py``.  The reference trains
+one sample at a time, each to convergence; a ``[batch] B`` conf instead
+does minibatch gradient descent with the same per-family update rules and
+learning rates:
+
+    grad_l = (1/B) * sum_b outer(delta_l[b], h_{l-1}[b])   = d^T h / B
+    BP:  W_l += lr * grad_l
+    BPM: dw_l += lr * grad_l ; W_l += dw_l ; dw_l *= alpha
+
+The per-sample deltas are the reference's explicit ones (``ops.steps``:
+the ANN dact output factor, the SNN t-o shortcut), batched as one
+(B, M) @ (M, N) product a layer; the batch contraction d^T h is one
+matmul.  Products here are plain torch: the JAX package computes them
+with XLA, outside any Pallas kernel.
+
+Across processes (``HPNN_DISTRIBUTED``, one rank a device) each rank
+takes its contiguous share of every batch's slots, sums d^T h over its
+rows together with its error sum and its real row count, and ONE
+all-reduce carries all three.  The update state -- the weights and the
+BPM momentum -- is a flat vector padded to the world (``parallel.mesh``),
+of which each rank updates its 1/N slice; an all-gather of the slices
+re-forms the weights the next batch's products read.  A multi-rank run
+equals the one-process run up to the summation order of the all-reduce.
+
+``[dtype] bf16`` follows the JAX package's promotion: the f32 master
+weights times the bf16 samples compute in f32 (XLA promotes a mixed
+product; torch refuses one, so the casts are explicit here), and the row
+count and error sums accumulate in at least f32, so the mean stays exact
+past 256 rows.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops import steps
+from ..ops.activations import ann_dact
+from . import coord
+from .mesh import flatten_state, shard_bounds, unflatten_state
+
+
+def _acc(dtype: torch.dtype) -> torch.dtype:
+    """At-least-f32 accumulation dtype (f64 stays f64)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def _deltas_and_inputs(weights, xs, ts, kind: str, mask=None):
+    """Per-sample forward, errors and deltas for a batch: (ds, hs, errs)
+    in the compute dtype (the promotion of the weights' and the samples'
+    dtypes), masked rows' deltas zeroed."""
+    cdt = torch.promote_types(weights[0].dtype, xs.dtype)
+    x, t = xs.to(cdt), ts.to(cdt)
+    acts, v = [], x
+    last = len(weights) - 1
+    for i, w in enumerate(weights):
+        v = steps._head(v @ w.T, kind, i == last)
+        acts.append(v)
+    errs = steps.error(acts[-1], t, kind)
+    out = acts[-1]
+    d = t - out if kind in (steps.SNN, steps.LNN) else (t - out) * ann_dact(out)
+    ds = [d]
+    for l in range(last, 0, -1):
+        ds.insert(0, (ds[0] @ weights[l]) * ann_dact(acts[l - 1]))
+    if mask is not None:
+        m = mask.to(cdt)[:, None]
+        ds = [d * m for d in ds]
+    return ds, (x, *acts[:-1]), errs
+
+
+def batched_grads(weights, xs, ts, kind: str, mask=None):
+    """Mean gradient per layer via the reference's explicit deltas, and
+    the mean error, over one batch in one process.
+
+    ``mask`` (B,) of 0/1 marks the real rows of a padded batch: a masked
+    row contributes nothing and the mean divides by the real count (the
+    SNN head makes a zero row non-neutral without this).  Returns (grads,
+    mean_error)."""
+    ds, hs, errs = _deltas_and_inputs(weights, xs, ts, kind, mask)
+    acc = _acc(errs.dtype)
+    if mask is None:
+        denom = torch.tensor(float(xs.shape[0]), dtype=acc, device=xs.device)
+        err = torch.sum(errs.to(acc)) / denom
+    else:
+        m = mask.to(acc)
+        denom = torch.clamp_min(torch.sum(m), 1.0)
+        err = torch.sum(errs.to(acc) * m) / denom
+    grads = tuple(((d.T @ h).to(acc) / denom).to(d.dtype)
+                  for d, h in zip(ds, hs))
+    return grads, err.to(errs.dtype)
+
+
+def dp_train_step(weights, xs, ts, kind: str, lr, mask=None):
+    """One minibatch BP step; returns (weights, mean_error)."""
+    grads, err = batched_grads(weights, xs, ts, kind, mask)
+    return tuple(w + lr * g for w, g in zip(weights, grads)), err
+
+
+def dp_train_step_momentum(weights, dw, xs, ts, kind: str, lr, alpha,
+                           mask=None):
+    """One minibatch BPM step in the reference order dw += lr*g; W += dw;
+    dw *= alpha (ann.c:1996-1999); returns (weights, dw, mean_error)."""
+    grads, err = batched_grads(weights, xs, ts, kind, mask)
+    dw = tuple(b + lr * g for b, g in zip(dw, grads))
+    weights = tuple(w + b for w, b in zip(weights, dw))
+    dw = tuple(alpha * b for b in dw)
+    return weights, dw, err
+
+
+def dp_resident_carry(weights, world: int = 1) -> torch.Tensor:
+    """The epoch-to-epoch weight carry: the master weights as one flat
+    vector padded to the world."""
+    return flatten_state(tuple(weights), world)
+
+
+def dp_export_weights(w_flat: torch.Tensor, shapes) -> list[np.ndarray]:
+    """Flat carry -> per-layer float64 numpy (what snapshots and the
+    ``kernel.opt`` dump read)."""
+    flat = w_flat.detach().to(device="cpu", dtype=torch.float64).numpy()
+    out, lo = [], 0
+    for sh in shapes:
+        n = int(np.prod(sh))
+        out.append(flat[lo:lo + n].reshape(sh).copy())
+        lo += n
+    return out
+
+
+def dp_epoch(w_flat, xb, tb, mb, kind: str, momentum: bool, lr, alpha,
+             shapes, world: int = 1, rank: int = 0):
+    """One minibatch epoch over this rank's slots of pre-batched tensors:
+    xb (n_batches, slots, n_in), tb (n_batches, slots, n_out), mb
+    (n_batches, slots) 0/1, where ``slots`` is the rank's share of each
+    batch (all of it in one process).  ``w_flat`` is
+    :func:`dp_resident_carry`'s vector; the BPM momentum starts at zero
+    each epoch, as the JAX package's scan starts it, and lives as this
+    rank's 1/N slice only.
+
+    No host read happens inside: the per-batch mean errors stay on the
+    device.  Returns (w_flat, dw_slice or None, errs (n_batches,))."""
+    n = w_flat.shape[0]
+    lo, hi = shard_bounds(n, world, rank)
+    dist = coord._dist() if world > 1 else None
+    if world > 1 and dist is None:
+        raise ValueError(f"dp_epoch: world {world} without a process group")
+    dw = torch.zeros(hi - lo, dtype=w_flat.dtype, device=w_flat.device) \
+        if momentum else None
+    errs = []
+    for i in range(xb.shape[0]):
+        ws = unflatten_state(w_flat, shapes)
+        if dist is None:
+            grads, err = batched_grads(ws, xb[i], tb[i], kind, mb[i])
+            g_flat = flatten_state(grads, world)
+        else:
+            ds, hs, e = _deltas_and_inputs(ws, xb[i], tb[i], kind, mb[i])
+            acc = _acc(e.dtype)
+            m = mb[i].to(acc)
+            # one all-reduce: [sum_l d^T h | pad | error sum, real rows]
+            buf = torch.zeros(n + 2, dtype=acc, device=w_flat.device)
+            off = 0
+            for d, h in zip(ds, hs):
+                k = d.shape[1] * h.shape[1]
+                buf[off:off + k] = (d.T @ h).to(acc).reshape(-1)
+                off += k
+            buf[n] = torch.sum(e.to(acc) * m)
+            buf[n + 1] = torch.sum(m)
+            dist.all_reduce(buf)
+            denom = torch.clamp_min(buf[n + 1], 1.0)
+            err = (buf[n] / denom).to(e.dtype)
+            g_flat = (buf[:n] / denom).to(ds[0].dtype)
+        g = g_flat[lo:hi]
+        if momentum:
+            dw = dw + lr * g
+            w_loc = w_flat[lo:hi] + dw
+            dw = alpha * dw
+        else:
+            w_loc = w_flat[lo:hi] + lr * g
+        if dist is None:
+            w_flat = w_loc
+        else:
+            parts = [torch.empty_like(w_loc) for _ in range(world)]
+            dist.all_gather(parts, w_loc.contiguous())
+            w_flat = torch.cat(parts)
+        errs.append(err)
+    return w_flat, dw, torch.stack(errs)
+
+
+def dp_tiled_epoch(weights, xs, ts, kind: str, momentum: bool, group: int,
+                   lr=None, alpha=0.2, launch_groups: int = 0, storage=None,
+                   defer_stats=False):
+    """``[batch]`` + ``[tile]``: every ``group``-sized set of samples trains
+    TO CONVERGENCE in lockstep with per-lane masking
+    (``ops.convergence_tile``, the ``train_tile`` kernel on a card) instead
+    of taking one minibatch step, so per-sample iteration counts and the
+    per-sample grammar apply again.  ``launch_groups`` is execution
+    granularity only: the weights carry launch to launch, and the stats
+    and weights are identical for any value."""
+    from ..ops.convergence_tile import train_epoch_tiled
+
+    return train_epoch_tiled(weights, xs, ts, kind, momentum, alpha=alpha,
+                             lr=lr, tile=max(1, int(group)),
+                             storage=storage, launch_groups=launch_groups,
+                             defer_stats=defer_stats)
+
+
+__all__ = ["batched_grads", "dp_epoch", "dp_export_weights",
+           "dp_resident_carry", "dp_tiled_epoch", "dp_train_step",
+           "dp_train_step_momentum"]

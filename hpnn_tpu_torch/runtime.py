@@ -10,11 +10,23 @@ once per process by :func:`init_all`:
   ever falls back to the CPU;
 * ``"cpu"`` only when the caller asks for it (``--device cpu`` on the
   CLIs, ``device="cpu"`` in the API; the tests do).
+
+``HPNN_DISTRIBUTED=1`` joins a ``torch.distributed`` process group (the
+counterpart of the JAX package's ``jax.distributed.initialize``, itself the
+reference's ``_NN(init,MPI)``): ``HPNN_COORDINATOR`` (host:port),
+``HPNN_NUM_PROCESSES`` and ``HPNN_PROCESS_ID`` name the rendezvous, or,
+without a coordinator, torch's own ``MASTER_ADDR``/``MASTER_PORT``/
+``WORLD_SIZE``/``RANK``.  The backend is NCCL on ``cuda`` (each rank on
+``cuda:<local rank>``) and gloo on ``cpu``; ``HPNN_DIST_TIMEOUT_S``
+(default 120) bounds every collective, so a lost peer ends the run
+instead of hanging it.  One process never joins a group.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import datetime
+import os
 
 import torch
 
@@ -103,6 +115,12 @@ def init_all(device: str | None = "cuda", rank: int = 0) -> int:
     except DeviceUnavailable as exc:
         nn_log.nn_error(f"{exc}\n")
         return -1
+    if os.environ.get("HPNN_DISTRIBUTED"):
+        try:
+            dev = _init_distributed(dev)
+        except (RuntimeError, ValueError) as exc:
+            nn_log.nn_error(f"device runtime init failed: {exc}\n")
+            return -1
     lib_runtime.device = dev
     lib_runtime.capability = return_capabilities()
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
@@ -112,9 +130,62 @@ def init_all(device: str | None = "cuda", rank: int = 0) -> int:
     return 0
 
 
+def _init_distributed(dev: torch.device) -> torch.device:
+    """Join the process group ``HPNN_DISTRIBUTED`` asks for; returns this
+    rank's device and gates console output on rank 0."""
+    import torch.distributed as dist
+
+    from .utils.env import env_float
+
+    if dist.is_initialized():
+        rank = dist.get_rank()
+    else:
+        kwargs = {}
+        if os.environ.get("HPNN_COORDINATOR"):
+            missing = [v for v in ("HPNN_NUM_PROCESSES", "HPNN_PROCESS_ID")
+                       if v not in os.environ]
+            if missing:
+                raise RuntimeError(
+                    "HPNN_COORDINATOR requires " + " and ".join(missing)
+                    + " to be set (coordinator host:port, total process "
+                    "count, this process's 0-based id)")
+            kwargs = dict(
+                init_method=f"tcp://{os.environ['HPNN_COORDINATOR']}",
+                world_size=int(os.environ["HPNN_NUM_PROCESSES"]),
+                rank=int(os.environ["HPNN_PROCESS_ID"]))
+        elif not all(v in os.environ for v in ("MASTER_ADDR", "MASTER_PORT",
+                                               "WORLD_SIZE", "RANK")):
+            raise RuntimeError(
+                "HPNN_DISTRIBUTED needs HPNN_COORDINATOR, "
+                "HPNN_NUM_PROCESSES and HPNN_PROCESS_ID (or torch's "
+                "MASTER_ADDR, MASTER_PORT, WORLD_SIZE and RANK)")
+        timeout = datetime.timedelta(
+            seconds=env_float("HPNN_DIST_TIMEOUT_S", 120.0, lo=1.0))
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        if dev.type == "cuda":
+            local = int(os.environ.get(
+                "LOCAL_RANK", kwargs.get("rank", os.environ.get("RANK", 0))))
+            dev = torch.device("cuda", local % torch.cuda.device_count())
+            torch.cuda.set_device(dev)
+            kwargs["device_id"] = dev
+        dist.init_process_group(backend, timeout=timeout, **kwargs)
+        rank = dist.get_rank()
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    nn_log.set_rank(rank)
+    nn_log.nn_dbg(f"runtime: rank {rank} of {dist.get_world_size()} "
+                  f"({dist.get_backend()})\n")
+    return dev
+
+
 def deinit_all() -> int:
     """_NN(deinit,all) (libhpnn.c:395-407): reset the runtime state and
-    the verbosity."""
+    the verbosity, and leave the process group of a multi-process run."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
+        nn_log.set_rank(0)
     global lib_runtime
     lib_runtime = NNRuntime()
     nn_log.set_verbosity(0)

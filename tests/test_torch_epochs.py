@@ -141,10 +141,16 @@ def _jax(argv, env=None):
 
 
 def _port(argv, env=None):
+    import hpnn_tpu_torch.api as api
     from hpnn_tpu_torch.cli import train_nn_main
 
-    return _run(train_nn_main, [*argv[:-1], "--device", "cpu", argv[-1]],
-                env)
+    res = _run(train_nn_main, [*argv[:-1], "--device", "cpu", argv[-1]],
+               env)
+    # the test-dir prefetch resolves the conf's relative test dir: it must
+    # end before the test leaves its working directory
+    if api._prefetch_thread is not None:
+        api._prefetch_thread.join()
+    return res
 
 
 def _weights(text):

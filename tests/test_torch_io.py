@@ -173,3 +173,37 @@ def test_env_knobs_match_jax(value, monkeypatch):
     for default in (None, 1, 20):
         assert (t_env.env_device_cap("HPNN_TEST_KNOB", 8, default)
                 == jax_env.env_device_cap("HPNN_TEST_KNOB", 8, default))
+
+
+def test_cg_state_carries_across_the_packages():
+    """The CG carry the JAX package writes (``run_cg_epoch``'s
+    ``trainer_state``) goes into the port's padded device layout and back
+    to the same bundle payload, bit for bit; a mismatched size is None."""
+    import jax.numpy as jnp
+
+    from hpnn_tpu.train.cg import run_cg_epoch
+    from hpnn_tpu_torch.models.kernel import (trainer_state_to_numpy,
+                                              trainer_state_to_torch)
+
+    class NN:
+        pass
+
+    nn = NN()
+    nn.conf = type("C", (), {"batch": 0, "seed": 1})()
+    nn.trainer_state = None
+    rng = np.random.default_rng(2)
+    ws = (rng.normal(size=(4, 5)), rng.normal(size=(3, 4)))
+    run_cg_epoch(nn, ws, rng.normal(size=(6, 5)), rng.normal(size=(6, 3)),
+                 "LNN", jnp.float64)
+    st = nn.trainer_state
+    total = 4 * 5 + 3 * 4
+    d, g, have, restarts = trainer_state_to_torch(st, total, 3,
+                                                  torch.float64, "cpu")
+    assert d.shape == (total + (-total) % 3,) and have is True
+    back = trainer_state_to_numpy(d, g, total, restarts,
+                                  int(st["cg_meta"][2]))
+    for k in ("cg_d", "cg_g", "cg_meta"):
+        assert back[k].dtype == st[k].dtype
+        assert np.array_equal(back[k], st[k])
+    assert trainer_state_to_torch(st, total + 1, 1, torch.float64,
+                                  "cpu") is None

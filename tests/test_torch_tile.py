@@ -413,14 +413,14 @@ def test_bad_tile_env_warnings_match_jax(tmp_path, monkeypatch, name, value):
     assert pout == jout and perr == jerr
 
 
-@pytest.mark.parametrize("extra,keyword", [("[batch] 4\n", "[batch]"),
-                                           ("[model] 2\n", "[model]"),
-                                           ("[trainer] cg\n", "[trainer] cg")])
+@pytest.mark.parametrize("extra,keyword", [("[model] 2\n", "[model]"),
+                                           ("[batch] 4\n[model] 2\n",
+                                            "[model]")])
 def test_unported_route_keywords_exit_nonzero(tmp_path, monkeypatch, extra,
                                               keyword):
-    """A conf that asks for a route the port does not have yet stops with
-    the keyword named, instead of training per sample (or printing CG
-    headers) under it."""
+    """A conf that asks for a route the port does not have yet ([model]
+    row sharding, alone or beside [batch]) stops with the keyword named,
+    instead of training per sample under it."""
     from hpnn_tpu_torch.cli import train_nn_main
 
     monkeypatch.chdir(tmp_path)
@@ -432,6 +432,30 @@ def test_unported_route_keywords_exit_nonzero(tmp_path, monkeypatch, extra,
     assert "FAILED to train kernel!" in err
     assert "TRAINING FILE" not in out
     assert not (tmp_path / "kernel.opt").exists()
+
+
+@pytest.mark.parametrize("extra,marker", [("[batch] 4\n", "TRAINING BATCH"),
+                                          ("[trainer] cg\n", "TRAINING CG")])
+def test_formerly_unported_route_keywords_train_like_jax(tmp_path,
+                                                         monkeypatch, extra,
+                                                         marker):
+    """The keywords the port once refused now train, as in the JAX
+    package: ``[batch] 4`` minibatch data-parallel, and ``[trainer] cg``
+    the CG trainer (the keyword also sets ``[train]`` to CG).  Streams
+    byte-identical, weights within 1e-11."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("HPNN_DP_DEVICES", "1")
+    _write_fuzz_case(tmp_path, *FUZZ_CASES[2], extra=extra)
+    import hpnn_tpu_torch.api as api
+
+    (jrc, jout, jerr, jtmp, jw), (prc, pout, perr, ptmp, pw) = _train_both(
+        tmp_path, ["-v", "-v", "nn.conf"])
+    if api._prefetch_thread is not None:  # it reads ./tests: end it here
+        api._prefetch_thread.join()
+    assert jrc == prc == 0
+    assert pout == jout and perr == jerr and ptmp == jtmp
+    assert marker in pout
+    assert max(float(np.abs(a - b).max()) for a, b in zip(jw, pw)) < 1e-11
 
 
 @pytest.mark.parametrize("extra", ["[model] 1\n", "[trainer] bpm\n",

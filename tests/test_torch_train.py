@@ -559,7 +559,7 @@ def test_train_nn_cuda_without_gpu_exits_nonzero(tmp_path, monkeypatch,
 # options too: test_train_nn_corpus_cache_option below); a mesh router is
 # the one --replicate-to destination still refused
 UNPORTED_TRAIN_OPTIONS = {"--profile-dir": "2", "--model-parallel": "2",
-                          "--trainer": "2", "--compile-cache": "2",
+                          "--compile-cache": "2",
                           "--replicate-to": "http://127.0.0.1:1"}
 
 
@@ -575,6 +575,29 @@ def test_train_nn_unported_option_exits_nonzero(tmp_path, monkeypatch,
     assert exc.value.code != 0
     assert "later slice" in capsys.readouterr().err
     assert not (tmp_path / "kernel.tmp").exists()
+
+
+@pytest.mark.parametrize("value", ["cg", "bp", "bpm", "CG", "splx"])
+def test_train_nn_trainer_option_parses_like_jax(value):
+    """``--trainer`` (refused by the port until the CG trainer came): the
+    registry names parse, case-folded, as in the JAX package; another
+    value is a syntax error in both."""
+    from hpnn_tpu.cli import _parse_args as jax_parse
+    from hpnn_tpu_torch.cli import _parse_args as port_parse
+
+    argv = ["--trainer", value, "nn.conf"]
+    if value == "splx":
+        for parse in (lambda: jax_parse(argv, "train_nn", train=True),
+                      lambda: port_parse(argv, "train_nn")):
+            with contextlib.redirect_stdout(io.StringIO()), \
+                    contextlib.redirect_stderr(io.StringIO()), \
+                    pytest.raises(SystemExit):
+                parse()
+        return
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, _, jx = jax_parse(argv, "train_nn", train=True)
+        _, px = port_parse(argv, "train_nn")
+    assert px["trainer"] == jx["trainer"] == value.lower()
 
 
 @pytest.mark.parametrize("opt", ["--corpus-cache", "--corpus-cache-max-mb"])
