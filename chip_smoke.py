@@ -167,6 +167,27 @@ fault; no phase catches its own failure.
    kernel file that generation loaded), and ``fused_linear_act`` must have
    launched 2 times a batch ``/metrics`` counts.  Prints ``/metrics``
    p50/p99 by phase, each swap's wall time and the requests a second.
+21. ``[model]`` row sharding (run right after phase 20).  At world 1 on
+   the card the model axis clamps to one shard: ``train_nn`` of phase 9's
+   conf and files with ``[model] 2``, ``-S 2`` and ``--model-parallel 2``
+   each prints the JAX package's clamp warning, launches ``train_epoch``
+   once, and gives the unsharded run's stream (minus the warning) and
+   kernel.opt byte for byte; ``--epochs 3`` with ``[model] 2`` reports the
+   ``tp-resident`` pipeline, ``tp_devices`` 1, 3 launches and phase 16's
+   kernel.opt; ``run_nn`` of phase 4's MNIST ANN f64 conf with ``[model]
+   2`` warns, launches ``fused_linear_act`` twice and gives phase 4's
+   outputs and verdict lines.  The tp@K serving tier on a LocalMesh of the
+   card repeated 2 and 4 times (``HPNN_EPOCH_DEVICE_BUDGET_MB=0``), ring
+   and all-gather schedules: MNIST ANN f64 and XRD 851-230-230 ANN f32 at
+   buckets 1, 3 and 64 against the strict tier (1e-12 f64, 1e-5 f32), each
+   shard's first-layer rows bit-identical to the full layer's, the
+   ``fused_linear_act`` launches a batch and the device ms a batch beside
+   the strict tier's.  Meanwhile 2 gloo CPU ranks train ``[model] 2`` per
+   sample on the first 64 of phase 9's files (from the kernel the earlier
+   phases trained on them) and 4 ranks ``[batch] 32`` x
+   ``[model] 2`` for 2 epochs on the 512, held to the card's one process
+   (the lines equal; kernel.opt within 1e-12 per sample, 1e-11 on the
+   grid).
 15. One JSON line of every kernel (launches on its main path, the largest
    kernel-vs-plain error over every cell and dtype, times and bound;
    ``fused_linear_act`` adds its B=1 cell and its worst ratio to the
@@ -180,14 +201,16 @@ fault; no phase catches its own failure.
    (``ckpt_launches``, ``ckpt_wall_s``), and phase 18's epoch times
    (``corpus_epochs_device_ms``); ``fused_linear_act`` phase 18's
    launches (``corpus_launches``); ``fused_bpm_update`` its warm, cold and
-   floor times), then the result line.
+   floor times; ``train_epoch`` and ``fused_linear_act`` their launches on
+   phase 21's paths, ``tp_launches``), then the result line.
 
 Main paths: ``fused_linear_act``'s is phases 4-5, ``train_epoch``'s phase 9
 and ``train_tile``'s phase 12 (train_nn, then run_nn of its kernel, which
 launches ``fused_linear_act`` too), phase 16's two ``--epochs`` runs,
 phase 17's checkpointed, killed and resumed runs, phase 18's runs and
-phase 19's server (``serve_rest_launches``); every count is set to 0
-just before a path and read just after it.  ``fused_bpm_update`` has no caller on any
+phase 19's server (``serve_rest_launches``) and phase 21's TP routes
+(``tp_launches``); every count is set to 0 just before a path and read
+just after it.  ``fused_bpm_update`` has no caller on any
 path, as in the JAX package: its ``launches`` are the paths' (0), its
 ``phase_launches`` phase 13's.  ``--json PATH`` also writes every cell's
 numbers to PATH.
@@ -2918,6 +2941,298 @@ def phase_batched(e2e, tmp):
     return res
 
 
+TP_WARN = "NN(WARN): [model] 2 > 1 visible device(s); using 1\n"
+TP_FILES = 64              # phase 21: the per-sample gloo run's files
+TP_SERVE_BUCKETS = (1, 3, 64)
+TP_LIMIT = {"f64": 1e-12, "f32": 1e-5}   # tp@K answers vs the strict tier
+
+
+def _tp_train(cwd, argv, base, launches, tag):
+    """A phase 21 ``train_nn`` at world 1 (the counts set to 0 just before
+    it): the clamp warning once an epoch before that epoch's lines, the
+    stream without it equal to ``base``'s, and ``train_epoch`` launched
+    ``launches`` times."""
+    run = _ckpt_train(cwd, argv)
+    warn = run["out"].count(TP_WARN)
+    epochs = max(1, run["out"].count("EPOCH "))
+    got = run["launches"]
+    if warn != epochs or run["out"].index(TP_WARN) > run["out"].index(
+            "TRAINING FILE") or got["train_epoch"] != launches \
+            or got["train_tile"] != 0:
+        raise AssertionError(f"{tag}: {warn} clamp warnings in {epochs} "
+                             f"epoch(s), launches {got}")
+    if base is not None and (run["out"].replace(TP_WARN, "") != base["out"]
+                             or run["sha"] != base["sha"]):
+        raise AssertionError(f"{tag}: the stream or kernel.opt differs from "
+                             "the unsharded run's")
+    return run
+
+
+def _tp_serve(runs, results):
+    """The tp@K serving tier on a LocalMesh of the one card repeated K
+    times (every kernel over a zero budget): answers against the strict
+    tier, each shard's first-layer rows against the full layer's, B2
+    launches and device ms a batch beside the strict tier's."""
+    import torch
+
+    from hpnn_tpu_torch import ops
+    from hpnn_tpu_torch.ops.kernels import fused_linear_act
+    from hpnn_tpu_torch.parallel import LocalMesh, tp
+    from hpnn_tpu_torch.serve.registry import ModelRegistry
+
+    confs = {name: (conf, dtype) for name, conf, _, dtype, _ in runs}
+    strict = ModelRegistry(max_batch=64, device="cuda")
+    cells = {}
+    old = {k: os.environ.get(k) for k in ("HPNN_EPOCH_DEVICE_BUDGET_MB",
+                                          "HPNN_NO_TP_OVERLAP")}
+    os.environ["HPNN_EPOCH_DEVICE_BUDGET_MB"] = "0"
+    try:
+        for name in ("mnist_ann_f64", "xrd_ann_f32"):
+            conf, dtype = confs[name]
+            ref_model = strict.register_conf(conf, name=name)
+            xs = results[name][1]
+            for k in (2, 4):
+                mesh = LocalMesh([torch.device("cuda", 0)] * k)
+                for sched in ("ring", "gather"):
+                    if sched == "gather":
+                        os.environ["HPNN_NO_TP_OVERLAP"] = "1"
+                    else:
+                        os.environ.pop("HPNN_NO_TP_OVERLAP", None)
+                    reg = ModelRegistry(max_batch=64, device="cuda",
+                                        tp_mesh=mesh)
+                    m = reg.register_conf(conf, name=name)
+                    if reg.route_for(m) != f"tp@{k}":
+                        raise AssertionError(f"tp@{k} {name}: route "
+                                             f"{reg.route_for(m)}")
+                    tag = f"{name} tp@{k} {sched}"
+                    cell = {"launches_per_batch": {}, "max_abs_err": 0.0,
+                            "ms": {}, "strict_ms": {}}
+                    for b in TP_SERVE_BUCKETS:
+                        rows = xs[:b]
+                        fused_linear_act.launches = 0   # the batch's path
+                        h = reg.dispatch(m, rows)
+                        got = reg.collect(h)
+                        cell["launches_per_batch"][b] = \
+                            fused_linear_act.launches
+                        want = strict.forward(ref_model, rows)
+                        err = float(np.abs(got - want).max())
+                        if h.tier != f"tp@{k}" or not err <= TP_LIMIT[dtype]:
+                            raise AssertionError(
+                                f"{tag} B={b}: tier {h.tier}, {err:.3e} "
+                                f"from the strict tier")
+                        cell["max_abs_err"] = max(cell["max_abs_err"], err)
+                        carry, _ = m.tp_weights(mesh)
+                        dt = m.dtype
+                        x = torch.as_tensor(rows).cuda().to(dt)
+                        fn, _ = ops.select_run_batch(dt, device="cuda",
+                                                     model_mesh=mesh)
+                        # four calls a timed run: the spin covers their
+                        # enqueue (2K + 2 launches and the adds each)
+                        cell["ms"][b] = _device_ms(
+                            lambda: fn(carry, x, m.kind), launches=4,
+                            runs=10)
+                        sw = ref_model.mlp.weights
+                        sfn, _ = ops.select_run_batch(dt, device="cuda")
+                        cell["strict_ms"][b] = _device_ms(
+                            lambda: sfn(sw, x, m.kind), launches=4,
+                            runs=10)
+                    # a shard's first-layer block is the full layer's rows
+                    w0 = ref_model.mlp.weights[0]
+                    x = torch.as_tensor(xs[:64]).cuda().to(m.dtype)
+                    full = fused_linear_act(w0, x, True)
+                    blocks = torch.cat([fused_linear_act(s_[0], x, True)
+                                        for s_ in carry.shards], dim=1)
+                    if not torch.equal(blocks[:, :w0.shape[0]], full):
+                        raise AssertionError(f"{tag}: a row block's rows "
+                                             "differ from the full layer's")
+                    cell["blocks_bitwise"] = True
+                    cell["weight_bytes_per_shard"] = tp.carry_bytes(carry)
+                    cells[tag] = cell
+                    log(f"serve {tag}: answers within "
+                        f"{cell['max_abs_err']:.3e} of the strict tier "
+                        f"(limit {TP_LIMIT[dtype]:g}), row blocks "
+                        f"bit-identical to the full layer's rows; "
+                        f"fused_linear_act a batch "
+                        f"{cell['launches_per_batch']}; device ms a batch "
+                        + ", ".join(f"B={b} {cell['ms'][b]:.4f} (strict "
+                                    f"{cell['strict_ms'][b]:.4f})"
+                                    for b in TP_SERVE_BUCKETS))
+    finally:
+        for kk, v in old.items():
+            if v is None:
+                os.environ.pop(kk, None)
+            else:
+                os.environ[kk] = v
+    return cells
+
+
+def phase_tp(e2e, tmp, runs, results, epochs_runs):
+    """Phase 21: ``[model]`` row sharding.  At world 1 on the card the
+    model axis clamps to one shard and the TP routes run the existing
+    kernels; the tp@K serving tier puts K row blocks on the one card; 2
+    and 4 gloo CPU ranks run the sharded engines against the card's one
+    process."""
+    from hpnn_tpu_torch import cli
+    from hpnn_tpu_torch.ops.kernels import fused_linear_act
+
+    res = {"train": {}, "run_nn": {}, "serve": {}, "gloo": {},
+           "part_wall_s": {}}
+    t_part = [time.perf_counter()]
+
+    def done(name):
+        now = time.perf_counter()
+        res["part_wall_s"][name] = now - t_part[0]
+        t_part[0] = now
+
+    root = os.path.join(tmp, "tp")
+    mnist512 = os.path.join(e2e["root"], "samples")
+    # --- the card's one-process references of the gloo runs, then the
+    # gloo ranks in the background (CPU only) while the card works.  The
+    # per-sample run starts from a kernel trained on these files (the
+    # one the earlier phases left), so its 64 samples take tens of
+    # iterations each, not thousands: on the CPU every iteration pays
+    # three collectives
+    s64 = os.path.join(root, "samples64")
+    os.makedirs(s64)
+    for f in sorted(os.listdir(mnist512))[:TP_FILES]:
+        shutil.copy(os.path.join(mnist512, f), s64)
+    pre = os.path.join(root, "pre.opt")
+    shutil.copy(os.path.join(e2e["root"], "kernel.opt"), pre)
+    gloo = {}
+    for tag, world, samples, extra, flags, init in (
+            ("per-sample [model] 2", 2, s64, "[model] 2\n", [], pre),
+            ("[batch] 32 x [model] 2", 4, mnist512,
+             "[batch] 32\n[model] 2\n", ["--epochs", "2"], None)):
+        dirs = []
+        for side in ("card", "gloo"):
+            d = _b_conf(os.path.join(root, tag.replace(" ", "_") + side),
+                        "ANN", "BP", MNIST, samples, extra)
+            if init:
+                path = os.path.join(d, "nn.conf")
+                with open(path) as fp:
+                    text = fp.read()
+                with open(path, "w") as fp:
+                    fp.write(text.replace("[init] generate",
+                                          f"[init] {init}"))
+            dirs.append(d)
+        ref, cwd = dirs
+        card = _ckpt_train(ref, [*flags, "nn.conf"])
+        with open(os.path.join(ref, "kernel.opt")) as fp:
+            card_opt = fp.read()
+        t0 = time.perf_counter()
+        procs = _gloo_start(world, cwd, ["-v", "-v", *flags])
+        gloo[tag] = (world, cwd, card, card_opt, procs, t0)
+    done("gloo_start")
+    # --- train_nn at world 1: [model] 2, -S 2, --model-parallel 2
+    here = e2e["root"]
+    with open(os.path.join(here, "nn.conf")) as fp:
+        conf = fp.read()
+    with open(os.path.join(here, "tp.conf"), "w") as fp:
+        fp.write(conf + "[model] 2\n")
+    base = _ckpt_train(here, ["nn.conf"])
+    iters = sum(int(v) for v in re.findall(r"N_ITER=\s*(\d+)", base["out"]))
+    if base["launches"]["train_epoch"] != 1:
+        raise AssertionError(f"phase 21's unsharded run: {base['launches']}")
+    for tag, argv in (("[model] 2", ["tp.conf"]),
+                      ("-S 2", ["-S", "2", "nn.conf"]),
+                      ("--model-parallel 2",
+                       ["--model-parallel", "2", "nn.conf"])):
+        run = _tp_train(here, argv, base, 1, f"train_nn {tag}")
+        res["train"][tag] = {"launches": run["launches"],
+                             "wall_s": run["wall_s"],
+                             "mode": run["metrics"]["mode"],
+                             "tp_devices": run["metrics"]["tp_devices"]}
+    ep = _tp_train(here, ["--epochs", str(EPOCHS), "tp.conf"], None, EPOCHS,
+                   f"train_nn --epochs {EPOCHS} [model] 2")
+    met = ep["metrics"]
+    if met["mode"] != "tp-resident" or met["tp_devices"] != 1 \
+            or ep["sha"] != epochs_runs["per-sample"]["opt_sha256"] \
+            or len(met["device_ms"]) != EPOCHS:
+        raise AssertionError(f"train_nn --epochs {EPOCHS} [model] 2: "
+                             f"{met}, kernel.opt differs from phase 16's: "
+                             f"{ep['sha'] != epochs_runs['per-sample']['opt_sha256']}")
+    res["train"][f"--epochs {EPOCHS} [model] 2"] = {
+        "launches": ep["launches"], "wall_s": ep["wall_s"],
+        "mode": met["mode"], "tp_devices": met["tp_devices"],
+        "epoch_device_ms": met["device_ms"],
+        "weight_bytes_per_device": met["weight_bytes_per_device"]}
+    log(f"train_nn [model] 2, -S 2, --model-parallel 2 at world 1: the "
+        f"clamp warning, train_epoch launched once each, streams and "
+        f"kernel.opt byte-identical to the unsharded run ({iters} "
+        f"iterations; phase 9: {e2e['iters']}); --epochs {EPOCHS}: "
+        f"{met['mode']}, tp_devices {met['tp_devices']}, train_epoch "
+        f"{ep['launches']['train_epoch']} launches, epochs' device time "
+        + ", ".join(f"{m:.1f}" for m in met["device_ms"])
+        + " ms, kernel.opt byte-identical to phase 16's")
+    done("train")
+    # --- run_nn [model] 2: the warning, 2 B2 launches, phase 4's verdicts
+    name = "mnist_ann_f64"
+    conf_path = next(c for n, c, *_ in runs if n == name)
+    with open(conf_path) as fp:
+        text = fp.read()
+    tp_conf = conf_path.replace(".conf", "_model2.conf")
+    with open(tp_conf, "w") as fp:
+        fp.write(text + "[model] 2\n")
+    outs_txt = {}
+    for tag, path in (("plain", conf_path), ("[model] 2", tp_conf)):
+        fused_linear_act.launches = 0
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc, outs = cli.run_nn(["-v", "-v", "--device", "cuda", path])
+        outs_txt[tag] = (rc, outs, out.getvalue(),
+                         fused_linear_act.launches)
+    rc, outs, text_tp, launched = outs_txt["[model] 2"]
+    if rc != 0 or launched != 2 or text_tp.count(TP_WARN) != 1 \
+            or text_tp.replace(TP_WARN, "") != outs_txt["plain"][2] \
+            or not np.array_equal(outs, results[name][0]):
+        raise AssertionError(f"run_nn [model] 2: rc={rc}, launches "
+                             f"{launched}, warning "
+                             f"{text_tp.count(TP_WARN)}, outputs equal to "
+                             f"phase 4's: "
+                             f"{np.array_equal(outs, results[name][0])}")
+    res["run_nn"] = {"launches": launched, "pass": text_tp.count("[PASS]")}
+    log(f"run_nn [model] 2 ({name}): the clamp warning, fused_linear_act "
+        f"launched {launched} times, verdict lines and outputs identical to "
+        f"phase 4's (PASS {text_tp.count('[PASS]')}/{N_FILES})")
+    done("run_nn")
+    # --- the tp@K serving tier on one card
+    res["serve"] = _tp_serve(runs, results)
+    done("serve")
+    # --- the gloo ranks against the card's one process
+    for tag, (world, cwd, card, card_opt, procs, t0) in gloo.items():
+        ranks = _gloo_wait(procs)
+        wall = time.perf_counter() - t0
+        with open(os.path.join(cwd, "kernel.opt")) as fp:
+            got = fp.read()
+        err = _kernel_diff(card_opt, got)
+        limit = 1e-11 if "batch" in tag else 1e-12
+        key = "TRAINING BATCH" if "batch" in tag else "TRAINING FILE"
+        lines = lambda o: re.findall(key + r"[^\n]*", o)  # noqa: E731
+        if any(r[0] != 0 for r in ranks) or err > limit \
+                or lines(ranks[0][1]) != lines(card["out"]) \
+                or not lines(card["out"]):
+            raise AssertionError(
+                f"{world} gloo ranks ({tag}): rcs {[r[0] for r in ranks]}, "
+                f"weights {err:.3e} from the card (limit {limit:g}), lines "
+                f"equal {lines(ranks[0][1]) == lines(card['out'])}\n"
+                f"{ranks[0][2][-1500:]}")
+        n_iter = sum(int(v) for v in re.findall(r"N_ITER=\s*(\d+)",
+                                                ranks[0][1]))
+        res["gloo"][tag] = {"world": world, "max_abs_err": err,
+                            "wall_s": wall, "iters": n_iter,
+                            "card_wall_s": card["wall_s"]}
+        log(f"{world} gloo CPU ranks, {tag}: {key} lines equal to the "
+            f"card's one process, kernel.opt within {err:.3e} (limit "
+            f"{limit:g}); wall {wall:.1f} s from the ranks' start, "
+            "process start and corpus load included"
+            + (f" ({n_iter} iterations)" if n_iter else "")
+            + f"; the card's one process {card['wall_s']:.2f} s")
+    done("gloo_wait")
+    log("phase 21 wall by part: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in res["part_wall_s"].items()))
+    return res
+
+
 def _kernel_diff(a: str, b: str) -> float:
     """Largest weight difference of two kernel texts."""
     va = np.array([float(v) for v in re.findall(r"-?\d+\.\d+", a)])
@@ -2927,9 +3242,9 @@ def _kernel_diff(a: str, b: str) -> float:
     return float(np.abs(va - vb).max()) if va.size else 0.0
 
 
-def _gloo_ranks(world, cwd, argv, confs=None):
-    """``train_nn --device cpu`` as ``world`` gloo ranks in ``cwd``, each
-    with a time limit: a list of (rc, stdout, stderr)."""
+def _gloo_start(world, cwd, argv, confs=None):
+    """Start ``train_nn --device cpu`` as ``world`` gloo ranks in ``cwd``
+    (no card visible to them); :func:`_gloo_wait` collects them."""
     with socket.socket() as so:
         so.bind(("127.0.0.1", 0))
         port = so.getsockname()[1]
@@ -2947,6 +3262,12 @@ def _gloo_ranks(world, cwd, argv, confs=None):
              "--device", "cpu", confs[r] if confs else "nn.conf"],
             cwd=cwd, env=env, text=True, stdout=subprocess.PIPE,
             stderr=subprocess.PIPE))
+    return procs
+
+
+def _gloo_wait(procs):
+    """Each rank's (rc, stdout, stderr), each with a time limit; a rank
+    past it is killed, and so are the others."""
     out = []
     try:
         for p in procs:
@@ -2958,6 +3279,12 @@ def _gloo_ranks(world, cwd, argv, confs=None):
                 p.kill()
                 p.communicate()
     return out
+
+
+def _gloo_ranks(world, cwd, argv, confs=None):
+    """``train_nn --device cpu`` as ``world`` gloo ranks in ``cwd``, each
+    with a time limit: a list of (rc, stdout, stderr)."""
+    return _gloo_wait(_gloo_start(world, cwd, argv, confs))
 
 
 def main(argv=None) -> int:
@@ -3046,6 +3373,7 @@ def main(argv=None) -> int:
         tuned = phase_autotune(tmp)
         tile_auto = phase_tile_auto(e2e, tuned, tile_epoch)
         batched = phase_batched(e2e, tmp)       # each run counts from 0
+        tp_res = phase_tp(e2e, tmp, runs, results, epochs_runs)  # from 0
     cells = phase_times()
     bpm = phase_bpm()
     rep = next(c for c in cells if c["layer"] == "784->300"
@@ -3087,7 +3415,12 @@ def main(argv=None) -> int:
         "serve_rest_batches": serve_rest["batches"],
         "corpus_launches": {f"{tag} {m}": r[m]["launches"]
                             for tag, r in corpus_res["run_nn"].items()
-                            for m in ("off", "cold", "warm")}}, {
+                            for m in ("off", "cold", "warm")},
+        "tp_launches": {
+            "run_nn [model] 2": tp_res["run_nn"]["launches"],
+            **{f"{tag} B={b}": c["launches_per_batch"][b]
+               for tag, c in tp_res["serve"].items()
+               for b in TP_SERVE_BUCKETS}}}, {
         "name": "train_epoch", "route": "cuda",
         "source": "hpnn_tpu_torch/csrc/train_epoch.cu",
         "replaces": "hpnn_tpu/ops/convergence_pallas.py:208",
@@ -3122,7 +3455,9 @@ def main(argv=None) -> int:
         "ckpt_wall_s": ck_b1["wall_s"],
         "corpus_epochs_device_ms": {
             m: r["epoch_device_ms"]
-            for m, r in corpus_res["train_nn_epochs"].items()}}, {
+            for m, r in corpus_res["train_nn_epochs"].items()},
+        "tp_launches": {f"train_nn {tag}": r["launches"]["train_epoch"]
+                        for tag, r in tp_res["train"].items()}}, {
         "name": "train_tile", "route": "cuda",
         "source": "hpnn_tpu_torch/csrc/train_tile.cu",
         "replaces": "hpnn_tpu/ops/convergence_tile.py:423",
@@ -3210,6 +3545,7 @@ def main(argv=None) -> int:
                        "corpus": corpus_res,
                        "serve_rest": serve_rest,
                        "batched": batched,
+                       "tp": tp_res,
                        "invariance_plans": invariance_plans,
                        "bpm": bpm,
                        "errors": [{"layer": k[0], "scale": k[1],

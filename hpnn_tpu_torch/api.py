@@ -48,7 +48,14 @@ Two more training routes, the JAX package's batched trainers:
   ``TRAINING BATCH`` line a batch, over the ``torch.distributed`` world
   under ``HPNN_DISTRIBUTED``; with ``[tile]`` every batch-sized group
   trains to convergence in the ``train_tile`` kernel instead, with the
-  per-sample grammar.
+  per-sample grammar;
+* ``[model] N`` (or ``--model-parallel N``, or ``-S N``) trains with the
+  weights' rows sharded over N ranks of the world (``parallel.tp``): per
+  sample, or beside ``[batch]`` on a (data x model) grid.  ``run_nn``
+  evaluates such a conf through the row-sharded ring engine.  The world
+  is the model axis's "visible devices": a one-process run clamps to one
+  shard with the JAX package's warning and trains and evaluates on the
+  unsharded route.
 """
 
 from __future__ import annotations
@@ -220,13 +227,60 @@ def _resolve_tile(conf: NNConf, weights, dtype, kind: str, momentum: bool,
     return int(dec["tile"]), storage
 
 
-def _unported_route(conf: NNConf) -> str | None:
-    """The conf keyword that selects a training route the port does not
-    have yet ([model] N: row sharding, alone or beside [batch]), or
-    None."""
-    if conf.model > 1:
-        return "[model]"
-    return None
+def _model_shards(conf: NNConf) -> int:
+    """Row-sharding degree: ``[model] N`` (``--model-parallel N`` sets it)
+    wins; else the ``-S`` stream count (the reference's streams-a-GPU row
+    split, ``cuda_ann.cu:536-537``)."""
+    if conf.model > 0:
+        return conf.model
+    from . import runtime
+
+    return runtime.lib_runtime.n_streams
+
+
+def _clamped_model_mesh(shards: int, device):
+    """``(mesh, k)``: the 1 x k model axis of the TP train and eval routes,
+    ``shards`` clamped to the world (the port's visible devices, one rank
+    a device) with the JAX package's warning.  A request below the world
+    would leave ranks with no rows, which the port cannot express: refused
+    (:class:`DPRefused`)."""
+    from .parallel.mesh import make_mesh
+
+    world = coord.world_size()
+    if shards > world:
+        nn_warn(f"[model] {shards} > {world} visible device(s); "
+                f"using {world}\n")
+        shards = world
+    if shards < world:
+        raise DPRefused(f"[model] {shards} < {world} processes: every rank "
+                        "of the world is a model shard, so the request "
+                        "cannot be honoured (refused)")
+    return make_mesh(n_data=1, n_model=shards, device=device), shards
+
+
+def _hybrid_banner(n_data: int, n_model: int) -> str:
+    """The [batch] x [model] grid's banner, shared restage/resident."""
+    return (f"DP: hybrid mesh {n_data}x{n_model} "
+            "(batch rows over data, weight rows over model)\n")
+
+
+def _hybrid_model_axis(shards: int, ndev: int):
+    """``(n_model, warning or None)`` for [model] beside [batch]: the
+    largest divisor of the grid's devices not above the request (the
+    grid covers every device, so the model axis must divide it).  Shared
+    by the restage route and the pipeline, so the warnings stay
+    byte-identical."""
+    if shards <= 1:
+        return 1, None
+    if ndev == 1:
+        return 1, f"[model] {shards} > 1 visible device(s); using 1\n"
+    n_model = min(shards, ndev)
+    while ndev % n_model:
+        n_model -= 1
+    if n_model != shards:
+        return n_model, (f"[model] {shards} clamped to {n_model} "
+                         f"(device count {ndev})\n")
+    return n_model, None
 
 
 class DPRefused(RuntimeError):
@@ -291,19 +345,29 @@ def _dp_tiled_banner(group: int, pad_to: int, meshed: bool,
             + (f", storage={storage}" if storage else "") + ")\n")
 
 
-def _dp_geometry(conf: NNConf, s: int):
-    """(bsz, n_batches, n_data, bsz_pad) of a [batch] epoch over s rows."""
+def _dp_layout(conf: NNConf):
+    """``(ndev, n_data, n_model, warning or None)`` of a [batch] run: the
+    data axis's devices and, with [model] beside it, the grid's split."""
+    ndev = _dp_device_count()
+    n_model, warn = _hybrid_model_axis(_model_shards(conf), ndev)
+    return ndev, ndev // n_model, n_model, warn
+
+
+def _dp_geometry(conf: NNConf, s: int, n_data: int):
+    """(bsz, n_batches, bsz_pad) of a [batch] epoch over s rows and
+    ``n_data`` data shards."""
     bsz = min(conf.batch, s)
     n_batches = -(-s // bsz)
-    n_data = _dp_device_count()
     bsz_pad = -(-bsz // n_data) * n_data
-    return bsz, n_batches, n_data, bsz_pad
+    return bsz, n_batches, bsz_pad
 
 
 def _dp_tiled_route(conf: NNConf) -> bool:
     """[batch] + [tile] takes the batched-tile engine in one process; a
-    multi-process run keeps minibatch DP (the engine is single-card)."""
-    return bool(_tile_request(conf)) and coord.world_size() == 1
+    multi-process run keeps minibatch DP (the engine is single-card), and
+    so does [model] beside them (with the JAX package's warning)."""
+    return (bool(_tile_request(conf)) and coord.world_size() == 1
+            and _model_shards(conf) <= 1)
 
 
 def shuffle_order(conf: NNConf, n: int, rng=None) -> list[int]:
@@ -327,18 +391,22 @@ def shuffle_order(conf: NNConf, n: int, rng=None) -> list[int]:
 # its launch (device_ms, CUDA events, filled as the epochs are joined)
 # On the [batch] routes also the data axis (dp_devices) and the update
 # state's bytes on this rank's device against a replicated layout's
+# On the [model] routes the model axis (tp_devices) and the weight bytes
+# one device holds (weight_bytes_per_device, the largest row-block shard)
 EPOCH_METRICS = {"epochs": 0, "h2d_bytes": 0, "setup_h2d_bytes": 0,
                  "stage_s": 0.0, "shuffle_s": 0.0, "mode": None,
                  "device_ms": [], "dp_devices": 0,
                  "opt_state_bytes_per_device": 0,
-                 "opt_state_replicated_bytes": 0}
+                 "opt_state_replicated_bytes": 0, "tp_devices": 1,
+                 "weight_bytes_per_device": 0}
 
 
 def reset_epoch_metrics() -> None:
     EPOCH_METRICS.update(epochs=0, h2d_bytes=0, setup_h2d_bytes=0,
                          stage_s=0.0, shuffle_s=0.0, mode=None, device_ms=[],
                          dp_devices=0, opt_state_bytes_per_device=0,
-                         opt_state_replicated_bytes=0)
+                         opt_state_replicated_bytes=0, tp_devices=1,
+                         weight_bytes_per_device=0)
 
 
 # test-dir prefetch started by the last train_kernel call: tests join it
@@ -402,8 +470,11 @@ def load_tests(nn: NNDef):
 def run_kernel(nn: NNDef, device="cuda", parity: str = "strict"):
     """_NN(run,kernel) (``libhpnn.c:1306-1536``): one batched forward over
     the whole test dir on ``device``, then the reference's per-file
-    grammar.  Returns the (rows, n_out) float64 outputs in shuffle order
-    (None when nothing was evaluated)."""
+    grammar.  ``[model] N`` (or ``-S N``) evaluates through the
+    row-sharded ring engine over N ranks (``parallel.tp.tp_eval_batch``);
+    a world of one clamps to one shard with the JAX package's warning.
+    Returns the (rows, n_out) float64 outputs in shuffle order (None when
+    nothing was evaluated)."""
     from . import ops
 
     conf = nn.conf
@@ -414,6 +485,7 @@ def run_kernel(nn: NNDef, device="cuda", parity: str = "strict"):
     # loads the kernel's library
     handle = _load_tests_async(nn)
     if handle is None:
+        coord.agree_all(False, (0, 0, 0))
         return None
     dtype = dtype_of(conf)
     # LNN evaluates through the SNN branch (libhpnn.c:1455-1456) unless
@@ -423,13 +495,28 @@ def run_kernel(nn: NNDef, device="cuda", parity: str = "strict"):
     weights = weights_to_torch(nn.kernel.weights, dtype, dev)
     run_batch_fn, route = ops.select_run_batch(dtype, parity=parity,
                                                kind=kind, device=dev)
-    if route == "fused":
+    if route == "fused" or _model_shards(conf) > 1:
         _load_library(dev, "fused_linear_act")
     events, xs, ts = handle.result()
-    if xs is None:
-        for line, _ in events:
-            nn_out(line)
+    # a rank whose test dir differs drags every rank out of the sharded
+    # evaluation's collectives (the JAX package's run-path gate)
+    fp = ((xs.shape[0], nn.kernel.n_inputs, nn.kernel.n_outputs)
+          if xs is not None else (0, 0, 0))
+    if not coord.agree_all(xs is not None, fp):
+        if xs is None:
+            for line, _ in events:
+                nn_out(line)
         return None
+    shards = _model_shards(conf)
+    if shards > 1:
+        try:
+            mesh, k = _clamped_model_mesh(shards, dev)
+        except DPRefused as exc:
+            nn_error(f"{exc}\n")
+            return None
+        if k > 1:
+            run_batch_fn, _ = ops.select_run_batch(
+                dtype, parity=parity, kind=kind, device=dev, model_mesh=mesh)
     xs_dev = torch.as_tensor(xs, dtype=torch.float64).to(dev).to(dtype)
     outs = run_batch_fn(weights, xs_dev, kind).to(
         device="cpu", dtype=torch.float64).numpy()
@@ -441,9 +528,11 @@ def train_kernel(nn: NNDef, device="cuda") -> bool:
     """_NN(train,kernel) (``libhpnn.c:1149-1305``): the seeded shuffle of
     the sample dir, one epoch on ``device``, the console lines.  The epoch
     is per-sample train-to-convergence (or the batched-tile engine under
-    ``[tile]``), an opted-in native trainer's (``[trainer] cg``), or
-    minibatch data-parallel under ``[batch]``.  The trained weights go back
-    to ``nn.kernel.weights`` as float64 numpy arrays.  In a multi-epoch run
+    ``[tile]``), an opted-in native trainer's (``[trainer] cg``),
+    minibatch data-parallel under ``[batch]``, or row-sharded under
+    ``[model] N`` (per sample, or on a grid beside ``[batch]``).  The
+    trained weights go back to ``nn.kernel.weights`` as float64 numpy
+    arrays.  In a multi-epoch run
     (``nn.shuffle_rng`` set) a BP/BPM epoch goes through the run's
     :class:`_EpochPipeline` when the corpus allows one."""
     from . import ops
@@ -451,10 +540,6 @@ def train_kernel(nn: NNDef, device="cuda") -> bool:
 
     conf = nn.conf
     if nn.kernel is None or conf.samples is None or conf.type == NN_TYPE_UKN:
-        return False
-    unported = _unported_route(conf)
-    if unported:
-        nn_error(f"{unported} {LATER}\n")
         return False
     momentum = conf.train == NN_TRAIN_BPM
     # LNN without the native opt-in warns here and in finish() but trains
@@ -520,7 +605,10 @@ def train_kernel(nn: NNDef, device="cuda") -> bool:
         if entry is None and trainable:
             with nn_log.capture():   # its warning prints with the decision
                 tiled = bool(_tile_request(conf))
-            if conf.batch <= 0 or _dp_tiled_route(conf):
+            if _model_shards(conf) > 1 and conf.batch <= 0:
+                _load_library(dev, "train_epoch" if coord.world_size() == 1
+                              else "fused_linear_act")
+            elif conf.batch <= 0 or _dp_tiled_route(conf):
                 _load_library(dev, "train_tile" if tiled else "train_epoch")
         events, xs, ts = handle.result()
         # agreement gate before any return path: a rank whose corpus
@@ -554,6 +642,12 @@ def train_kernel(nn: NNDef, device="cuda") -> bool:
                 _prefetch_tests(conf, nn.kernel)
             EPOCH_METRICS["stage_s"] += time.perf_counter() - t_stage
             return _train_kernel_dp(nn, weights, xs, ts, kind, momentum,
+                                    finish, events, dev)
+        if _model_shards(conf) > 1:
+            if coord.world_size() == 1:
+                _prefetch_tests(conf, nn.kernel)
+            EPOCH_METRICS["stage_s"] += time.perf_counter() - t_stage
+            return _train_kernel_tp(nn, weights, xs, ts, kind, momentum,
                                     finish, events, dev)
         xs_dev, ts_dev = _upload(xs, dtype, dev), _upload(ts, dtype, dev)
         EPOCH_METRICS["stage_s"] += time.perf_counter() - t_stage
@@ -603,10 +697,49 @@ def _note_opt_state(dw, shapes, wdtype) -> None:
 
     params = sum(int(np.prod(sh)) for sh in shapes)
     itemsize = torch.empty((), dtype=wdtype).element_size()
-    EPOCH_METRICS["opt_state_bytes_per_device"] = per_device_bytes(
-        [dw] if dw is not None else [])
+    flat = []
+    stack = [dw] if dw is not None else []
+    while stack:   # a flat slice, or the hybrid's per-shard row blocks
+        v = stack.pop()
+        if isinstance(v, (tuple, list)):
+            stack.extend(v)
+        else:
+            flat.append(v)
+    EPOCH_METRICS["opt_state_bytes_per_device"] = per_device_bytes(flat)
     EPOCH_METRICS["opt_state_replicated_bytes"] = \
         params * itemsize * (dw is not None)
+
+
+def _train_kernel_tp(nn: NNDef, weights, xs, ts, kind: str, momentum: bool,
+                     finish, events, dev) -> bool:
+    """Row-sharded per-sample epoch (``[model] N``, ``-S N``), restaged
+    from the host: the model axis clamped to the world, the epoch of
+    ``parallel.tp.tp_train_epoch_resident`` (at one shard the per-sample
+    route itself: the ``train_epoch`` kernel on a card), every sample in
+    the reference's order and grammar."""
+    from .ops.convergence import stats_record
+    from .parallel.tp import (carry_bytes, tp_export_weights,
+                              tp_resident_carry, tp_train_epoch_resident)
+
+    conf = nn.conf
+    dtype = dtype_of(conf)
+    mesh, k = _clamped_model_mesh(_model_shards(conf), dev)
+    t_stage = time.perf_counter()
+    xs_dev, ts_dev = _upload(xs, dtype, dev), _upload(ts, dtype, dev)
+    carry = tp_resident_carry(weights, mesh)
+    EPOCH_METRICS["stage_s"] += time.perf_counter() - t_stage
+    EPOCH_METRICS["h2d_bytes"] += (xs_dev.nbytes + ts_dev.nbytes
+                                   + sum(w.nbytes for w in weights))
+    EPOCH_METRICS["epochs"] += 1
+    EPOCH_METRICS["mode"] = "tp-restage"
+    EPOCH_METRICS["tp_devices"] = k
+    EPOCH_METRICS["weight_bytes_per_device"] = carry_bytes(carry)
+    carry, stats = tp_train_epoch_resident(carry, xs_dev, ts_dev, kind,
+                                           momentum, mesh, alpha=0.2)
+    nn.last_epoch_stats = _emit_training_lines(
+        events, stats_record(stats, dtype), kind, momentum)
+    nn.kernel.weights = list(tp_export_weights(carry, mesh))
+    return finish()
 
 
 def _train_kernel_dp(nn: NNDef, weights, xs, ts, kind: str, momentum: bool,
@@ -615,58 +748,83 @@ def _train_kernel_dp(nn: NNDef, weights, xs, ts, kind: str, momentum: bool,
 
     The reference's per-family learning rates and BPM update order, one
     minibatch step a batch of B shuffled samples.  Every sample trains:
-    batches are padded to a multiple of the world size with masked rows
+    batches are padded to a multiple of the data shards with masked rows
     (numerically the unpadded batch).  Each rank stages its share of every
     batch's slots (``parallel.mesh.shard_bounds``); a multi-process run
-    all-reduces the gradient sums.  With a tile request in one process
-    the route swaps its engine for the batched-tile one
-    (:func:`_train_kernel_dp_tiled`)."""
+    all-reduces the gradient sums.  With [model] beside [batch] the world
+    is a (data x model) grid (``parallel.tp.tp_dp_train_epoch``).  With a
+    tile request in one process the route swaps its engine for the
+    batched-tile one (:func:`_train_kernel_dp_tiled`)."""
     from . import ops
     from .parallel.dp import dp_epoch, dp_export_weights, dp_resident_carry
-    from .parallel.mesh import shard_bounds
+    from .parallel.mesh import make_mesh, shard_bounds
 
     conf = nn.conf
     world, rank = coord.world_size(), coord.process_index()
     if _tile_request(conf):
-        if world == 1:
+        if world > 1:
+            # once a process, not once an epoch
+            if not getattr(nn, "_tile_mp_warned", False):
+                nn._tile_mp_warned = True
+                nn_warn("[tile] engine is single-controller; multi-process "
+                        "[batch] runs keep minibatch DP\n")
+        elif _model_shards(conf) > 1:
+            nn_warn("[tile] + [model] hybrid is not supported; minibatch "
+                    "DP keeps the hybrid mesh\n")
+        else:
             return _train_kernel_dp_tiled(nn, weights, xs, ts, kind,
                                           momentum, finish, events, dev)
-        # once a process, not once an epoch
-        if not getattr(nn, "_tile_mp_warned", False):
-            nn._tile_mp_warned = True
-            nn_warn("[tile] engine is single-controller; multi-process "
-                    "[batch] runs keep minibatch DP\n")
     t_stage = time.perf_counter()
     lr = ops.bpm_learn_rate(kind) if momentum else ops.bp_learn_rate(kind)
     s = xs.shape[0]
     dtype = dtype_of(conf)
-    bsz, n_batches, n_data, bsz_pad = _dp_geometry(conf, s)
+    ndev, n_data, n_model, clamp_warn = _dp_layout(conf)
+    if clamp_warn:
+        nn_warn(clamp_warn)
+    if n_model > 1:
+        nn_out(_hybrid_banner(n_data, n_model))
+    bsz, n_batches, bsz_pad = _dp_geometry(conf, s, n_data)
     for line in _dp_banner_lines(s, bsz, n_batches, bsz_pad, n_data,
-                                 unsharded=n_data == 1):
+                                 unsharded=ndev == 1):
         nn_out(line)
     xb, tb, mb = _dp_stage_batches(xs, ts, s, bsz, n_batches, bsz_pad)
-    lo, hi = shard_bounds(bsz_pad, world, rank)
+    mesh = make_mesh(n_data, n_model, device=dev) if n_model > 1 else None
+    lo, hi = shard_bounds(bsz_pad, n_data,
+                          mesh.data_index if mesh is not None else rank)
     jxb = _upload(np.ascontiguousarray(xb[:, lo:hi]), dtype, dev)
     jtb = _upload(np.ascontiguousarray(tb[:, lo:hi]), dtype, dev)
     jmb = _upload(np.ascontiguousarray(mb[:, lo:hi]), dtype, dev)
     shapes = tuple(tuple(int(d) for d in w.shape) for w in weights)
-    w_flat = dp_resident_carry(weights, world)
     EPOCH_METRICS["stage_s"] += time.perf_counter() - t_stage
     EPOCH_METRICS["h2d_bytes"] += (jxb.nbytes + jtb.nbytes + jmb.nbytes
                                    + sum(w.nbytes for w in weights))
     EPOCH_METRICS["epochs"] += 1
     EPOCH_METRICS["mode"] = "dp-restage"
     EPOCH_METRICS["dp_devices"] = n_data
-    w_flat, dw, errs = dp_epoch(w_flat, jxb, jtb, jmb, kind, momentum, lr,
-                                0.2, shapes, world, rank)
-    _note_opt_state(dw, shapes, w_flat.dtype)
+    EPOCH_METRICS["tp_devices"] = n_model
+    if mesh is not None:
+        from .parallel.tp import (carry_bytes, tp_dp_resident_carry,
+                                  tp_dp_train_epoch, tp_export_weights)
+
+        carry = tp_dp_resident_carry(weights, mesh)
+        EPOCH_METRICS["weight_bytes_per_device"] = carry_bytes(carry)
+        carry, dw, errs = tp_dp_train_epoch(carry, jxb, jtb, jmb, kind,
+                                            momentum, lr, 0.2, mesh=mesh)
+        _note_opt_state(dw, shapes, weights[0].dtype)
+        new_weights = list(tp_export_weights(carry, mesh))
+    else:
+        w_flat = dp_resident_carry(weights, world)
+        w_flat, dw, errs = dp_epoch(w_flat, jxb, jtb, jmb, kind, momentum,
+                                    lr, 0.2, shapes, world, rank)
+        _note_opt_state(dw, shapes, w_flat.dtype)
+        new_weights = dp_export_weights(w_flat, shapes)
     errs = errs.to(device="cpu", dtype=torch.float64).numpy()
     for i in range(n_batches):
         nn_out(f"TRAINING BATCH {i:8d}\t err={errs[i]:15.10f}\n")
     nn.last_epoch_stats = {"samples": int(s),
                            "mean_final": float(np.mean(errs)),
                            "success": 0}
-    nn.kernel.weights = dp_export_weights(w_flat, shapes)
+    nn.kernel.weights = new_weights
     return finish()
 
 
@@ -732,7 +890,13 @@ class _EpochPipeline:
     ``parallel.dp`` on the flat weight carry; in a multi-process run each
     rank gathers its own share of every batch's slots) and
     ``dp-tiled-resident`` (``[batch]`` + ``[tile]`` in one process: the
-    batched-tile engine with the batch as the group).
+    batched-tile engine with the batch as the group), and on the ``[model]``
+    routes ``tp-resident`` (the per-sample epoch on row blocks of the model
+    axis, ``parallel.tp``) and ``dp-tp-resident`` (``[batch]`` x
+    ``[model]``: the minibatch epoch on the (data x model) grid).  The
+    row-sharded carries stay on the device and are gathered only at the
+    join points (a snapshot, the end); a clamp warning is re-emitted each
+    epoch after that epoch's banner, where the restaging route prints it.
 
     The trajectory is bit-identical to the restaging route (a cast then a
     gather equals a gather then a cast; the master weights round-trip
@@ -741,14 +905,21 @@ class _EpochPipeline:
     ``HPNN_NO_EPOCH_PIPELINE=1`` takes the restaging route."""
 
     def __init__(self, rc, dtype: torch.dtype, device: torch.device,
-                 dp: str | None = None):
+                 dp: str | None = None, mesh=None, tp: bool = False,
+                 tp_warn: str | None = None):
         self.rc = rc                      # ResidentCorpus (listing order)
         self.dtype = dtype
         self.wdtype = torch.float32 if dtype == torch.bfloat16 else dtype
         self.device = device
         self.dp = dp                      # None | "sgd" | "tiled"
-        self.mode = {None: "resident", "sgd": "dp-resident",
-                     "tiled": "dp-tiled-resident"}[dp]
+        self.mesh = mesh                  # the [model] routes' RankMesh
+        self.tp = tp                      # pure [model], per sample
+        self.tp_warn = tp_warn            # the clamp warning, each epoch
+        hybrid = mesh is not None and mesh.n_model > 1
+        self.mode = ("tp-resident" if tp else
+                     {None: "resident",
+                      "sgd": "dp-tp-resident" if hybrid else "dp-resident",
+                      "tiled": "dp-tiled-resident"}[dp])
         self.weights = None               # device carry across epochs
         self.shapes = None                # weight shapes ([batch] carry)
         self.x_dev = None
@@ -775,17 +946,49 @@ class _EpochPipeline:
                            nn.kernel.n_outputs, prefer_mmap=multi)
         if rc is None or rc.n_rows == 0:
             return None
-        dp = None
+        from .parallel.mesh import make_mesh
+
+        dp, mesh, tp, tp_warn = None, None, False, None
+        n_data = n_model = 1
+        shards = _model_shards(conf)
         if conf.batch > 0:
+            if (_tile_request(conf) and shards > 1
+                    and coord.world_size() == 1):
+                # [tile]+[model] keeps the restage route, which warns and
+                # trains minibatch DP
+                return None
             dp = "tiled" if _dp_tiled_route(conf) else "sgd"
-        pipe = cls(rc, dtype_of(conf), device, dp=dp)
+            if dp == "sgd":
+                ndev, n_data, n_model, tp_warn = _dp_layout(conf)
+                if n_model > 1:
+                    mesh = make_mesh(n_data, n_model, device=device)
+        elif shards > 1:
+            # pure [model]: the per-sample TP epoch on the model axis (at
+            # one shard after the clamp too: the same route, so kill and
+            # --resume stay byte-exact)
+            world = coord.world_size()
+            if shards < world:
+                return None   # the restaging route refuses it
+            tp, n_model = True, min(shards, world)
+            if shards > world:
+                # _clamped_model_mesh's warning, re-emitted every epoch
+                tp_warn = (f"[model] {shards} > {world} visible "
+                           f"device(s); using {world}\n")
+            mesh = make_mesh(1, n_model, device=device)
+        pipe = cls(rc, dtype_of(conf), device, dp=dp, mesh=mesh, tp=tp,
+                   tp_warn=tp_warn)
         # the one corpus upload of the run
         pipe.x_dev = _upload_rows(rc, "x", pipe.dtype, device)
         pipe.t_dev = _upload_rows(rc, "t", pipe.dtype, device)
         EPOCH_METRICS["setup_h2d_bytes"] += (pipe.x_dev.nbytes
                                              + pipe.t_dev.nbytes)
         rc.release_rows()
-        nn_dbg(f"epoch pipeline: {pipe.mode}, {rc.n_rows} row(s)\n")
+        EPOCH_METRICS["tp_devices"] = n_model
+        if dp == "sgd" or tp:
+            EPOCH_METRICS["dp_devices"] = n_data
+        nn_dbg(f"epoch pipeline: {pipe.mode}, {rc.n_rows} row(s)"
+               + (f", mesh={n_data}x{n_model}" if mesh is not None else "")
+               + "\n")
         return pipe
 
     def _stage_weights(self, nn) -> None:
@@ -818,6 +1021,8 @@ class _EpochPipeline:
 
         if self.dp == "sgd":
             return self._run_epoch_dp(nn, sel, kind, momentum)
+        if self.tp:
+            return self._run_epoch_tp(nn, events, sel, kind, momentum)
         self._stage_weights(nn)
         if self.train_fn is None:
             if self.dp == "tiled":
@@ -850,6 +1055,31 @@ class _EpochPipeline:
                                         start))
         return sel.nbytes
 
+    def _run_epoch_tp(self, nn, events, sel, kind: str,
+                      momentum: bool) -> int:
+        """One per-sample epoch on the resident row-block carry
+        (``parallel.tp.tp_train_epoch_resident``): only the permutation
+        crosses to the device."""
+        from .parallel.tp import (carry_bytes, tp_resident_carry,
+                                  tp_train_epoch_resident)
+
+        if self.tp_warn:
+            self.pending.append(("entries", [("warn", self.tp_warn)]))
+        if self.weights is None:
+            self._stage_weights(nn)
+            self.weights = tp_resident_carry(self.weights, self.mesh)
+            EPOCH_METRICS["weight_bytes_per_device"] = carry_bytes(
+                self.weights)
+        sel_dev, start = self._upload_sel(sel)
+        xs = self.x_dev.index_select(0, sel_dev)
+        ts = self.t_dev.index_select(0, sel_dev)
+        self.weights, stats = tp_train_epoch_resident(
+            self.weights, xs, ts, kind, momentum, self.mesh, alpha=0.2)
+        self.pending.append(_EpochLines(events, stats, self.dtype, kind,
+                                        momentum, nn_log.get_verbosity(),
+                                        start))
+        return sel.nbytes
+
     def _dp_tiled_fn(self, conf, kind: str, momentum: bool):
         """The [batch]+[tile] epoch function and its banner (the strings of
         :func:`_train_kernel_dp_tiled`)."""
@@ -873,19 +1103,33 @@ class _EpochPipeline:
         """One minibatch epoch on the resident corpus: the host scatters
         the permutation into this rank's batch slots (its only upload),
         the card gathers and reshapes the batches and runs the epoch on
-        the flat weight carry."""
+        the flat weight carry (on the hybrid grid, on the row-block
+        carry of ``parallel.tp.tp_dp_train_epoch``)."""
         from . import ops
         from .parallel.dp import dp_epoch, dp_resident_carry
         from .parallel.mesh import shard_bounds
 
         world, rank = coord.world_size(), coord.process_index()
+        hybrid = self.mesh is not None
         if self._dp_state is None:
             s = self.rc.n_rows
-            bsz, n_batches, n_data, bsz_pad = _dp_geometry(nn.conf, s)
+            ndev, n_data, n_model, _ = _dp_layout(nn.conf)
+            bsz, n_batches, bsz_pad = _dp_geometry(nn.conf, s, n_data)
             pos, mask = _dp_slot_map(s, bsz, n_batches, bsz_pad)
-            lo, hi = shard_bounds(bsz_pad, world, rank)
+            lo, hi = shard_bounds(bsz_pad, n_data, self.mesh.data_index
+                                  if hybrid else rank)
             self._stage_weights(nn)
-            self.weights = dp_resident_carry(self.weights, world)
+            banners = _dp_banner_lines(s, bsz, n_batches, bsz_pad, n_data,
+                                       unsharded=ndev == 1)
+            if hybrid:
+                from .parallel.tp import carry_bytes, tp_dp_resident_carry
+
+                banners = [_hybrid_banner(n_data, n_model)] + banners
+                self.weights = tp_dp_resident_carry(self.weights, self.mesh)
+                EPOCH_METRICS["weight_bytes_per_device"] = carry_bytes(
+                    self.weights)
+            else:
+                self.weights = dp_resident_carry(self.weights, world)
             self._dp_state = {
                 "s": s, "pos": pos, "lo": lo, "hi": hi,
                 "n_batches": n_batches, "bsz_pad": bsz_pad,
@@ -893,10 +1137,12 @@ class _EpochPipeline:
                               self.dtype, self.device),
                 "lr": (ops.bpm_learn_rate(kind) if momentum
                        else ops.bp_learn_rate(kind)),
-                "banners": _dp_banner_lines(s, bsz, n_batches, bsz_pad,
-                                            n_data, unsharded=n_data == 1)}
+                "banners": banners}
             EPOCH_METRICS["dp_devices"] = n_data
         st = self._dp_state
+        if self.tp_warn:
+            # the restaging route warns before each epoch's banners
+            self.pending.append(("entries", [("warn", self.tp_warn)]))
         for text in st["banners"]:
             self.pending.append(("out", text))
         # padded slots read row 0: their mask is 0, so they add nothing
@@ -908,9 +1154,16 @@ class _EpochPipeline:
         nb, width = mine.shape
         xb = self.x_dev.index_select(0, sel_dev).view(nb, width, -1)
         tb = self.t_dev.index_select(0, sel_dev).view(nb, width, -1)
-        self.weights, dw, errs = dp_epoch(
-            self.weights, xb, tb, st["mb"], kind, momentum, st["lr"], 0.2,
-            self.shapes, world, rank)
+        if hybrid:
+            from .parallel.tp import tp_dp_train_epoch
+
+            self.weights, dw, errs = tp_dp_train_epoch(
+                self.weights, xb, tb, st["mb"], kind, momentum, st["lr"],
+                0.2, mesh=self.mesh)
+        else:
+            self.weights, dw, errs = dp_epoch(
+                self.weights, xb, tb, st["mb"], kind, momentum, st["lr"],
+                0.2, self.shapes, world, rank)
         _note_opt_state(dw, self.shapes, self.wdtype)
         self.pending.append(_DPLines(errs, st["s"], nn_log.get_verbosity(),
                                      start))
@@ -935,9 +1188,18 @@ class _EpochPipeline:
                 nn_log.replay(item[1])
         self.pending = []
         if self.weights is not None:
-            nn.kernel.weights = (
-                dp_export_weights(self.weights, self.shapes)
-                if self.dp == "sgd" else weights_to_numpy(self.weights))
+            if self.mesh is not None:
+                from .parallel.tp import tp_export_weights
+
+                # the row blocks gathered (a collective across ranks:
+                # every rank joins at the same points) and unpadded
+                nn.kernel.weights = list(tp_export_weights(self.weights,
+                                                           self.mesh))
+            elif self.dp == "sgd":
+                nn.kernel.weights = dp_export_weights(self.weights,
+                                                      self.shapes)
+            else:
+                nn.kernel.weights = weights_to_numpy(self.weights)
         return sums
 
 
@@ -1041,8 +1303,9 @@ def _render_dp_lines(errs, n_samples: int, verbosity: int):
 def _pipeline_for(nn, conf, device):
     """The run's epoch pipeline: the one built at its first epoch (the
     decision is made once a run), a new one when this multi-epoch run
-    qualifies, else None (the restaging route).  Across processes only
-    the minibatch [batch] route rides it."""
+    qualifies, else None (the restaging route).  Across processes the
+    minibatch [batch] route (hybrid too) and the [model] per-sample route
+    ride it."""
     cur = getattr(nn, "_epoch_pipeline", None)
     if isinstance(cur, _EpochPipeline):
         return cur
@@ -1053,7 +1316,8 @@ def _pipeline_for(nn, conf, device):
             and conf.train in (NN_TRAIN_BP, NN_TRAIN_BPM)
             and not os.environ.get("HPNN_NO_EPOCH_PIPELINE")
             and (coord.world_size() == 1
-                 or (conf.batch > 0 and not _tile_request(conf)))):
+                 or (conf.batch > 0 and not _tile_request(conf))
+                 or (conf.batch <= 0 and _model_shards(conf) > 1))):
         pipe = _EpochPipeline.build(nn, conf, device)
     nn._epoch_pipeline = pipe if pipe is not None else False
     return pipe

@@ -2,7 +2,7 @@
 
     python -m hpnn_tpu_torch.cli train_nn [-h] [-v]... [-x] [-O n] [-B n]
         [-S n] [--device {cuda,cpu}] [--lnn native] [--tile S|auto]
-        [--trainer {cg,bp,bpm}] [--epochs N] [--ckpt-every N] [--ckpt-dir DIR] [--ckpt-keep N]
+        [--model-parallel N] [--trainer {cg,bp,bpm}] [--epochs N] [--ckpt-every N] [--ckpt-dir DIR] [--ckpt-keep N]
         [--resume [PATH]] [--replicate-to DIR] [--corpus-cache DIR]
         [--corpus-cache-max-mb N] [conf]
     python -m hpnn_tpu_torch.cli run_nn [-h] [-v]... [-O n] [-B n] [-S n]
@@ -17,8 +17,10 @@
 ``train_nn`` and ``run_nn`` keep the reference parser
 (``tests/train_nn.c:59-255``, ``tests/run_nn.c:66-234``): flags combine
 (``-vv``), ``-x`` is accepted and does nothing (as in the reference),
--O/-B/-S take attached or separated values (checked, then ignored: PyTorch
-owns host threads and CUDA streams), the conf defaults to ``./nn.conf``.
+-O/-B/-S take attached or separated values (checked; -O and -B are then
+ignored: PyTorch owns host threads; -S N is the row-sharding degree when
+the conf sets no ``[model]``, as the reference's streams split each
+layer's rows), the conf defaults to ``./nn.conf``.
 ``train_nn`` dumps the untrained kernel to ``kernel.tmp`` before training
 and the trained one to ``kernel.opt`` after (``train_nn.c:224-243``);
 ``--tile S`` (or ``auto``) trains through the batched-tile engine and wins
@@ -27,7 +29,10 @@ conjugate-gradient trainer (``train.cg``; ``bp``/``bpm`` select the
 reference trainers) and sets the conf's ``[train]`` to match.  A
 ``[batch] B`` conf trains minibatch data-parallel, over the
 ``torch.distributed`` world when ``HPNN_DISTRIBUTED`` is set
-(``runtime``).  ``--epochs N`` trains N epochs in one process
+(``runtime``); a ``[model] N`` conf (``--model-parallel N`` wins over it,
+``-S N`` stands in for it) shards every layer's rows over N ranks of that
+world (``parallel.tp``), and ``run_nn`` evaluates it row-sharded.
+``--epochs N`` trains N epochs in one process
 (``ckpt.trainer.train_loop``: one continuing shuffle stream, the corpus and
 the weights resident on the device).  ``--ckpt-every/--ckpt-dir/
 --ckpt-keep`` write crash-safe snapshot bundles at epoch boundaries
@@ -42,8 +47,8 @@ puts the packed corpus cache (``io.corpus``) in DIR for this command and
 Every command runs on the GPU unless
 ``--device cpu`` is given; asking for the GPU on a host without one exits
 non-zero before anything is computed.  The JAX package's other options
-(its compilation cache, profiling, row sharding, replication to a mesh
-router, mesh serving, jobs, tracing) are refused with a message naming them:
+(its compilation cache, profiling, replication to a mesh router, mesh
+serving, jobs, tracing) are refused with a message naming them:
 later slices of the port bring them.
 """
 
@@ -72,11 +77,9 @@ def _help_text(name: str) -> str:
     lines += [
         "-O \tnumber of host threads (accepted and ignored).",
         "-B \tnumber of BLAS threads (accepted and ignored).",
-        "-S \tnumber of CUDA streams (accepted and ignored).",
+        "-S \tnumber of device shards (the [model] row split when",
+        "\tthe conf sets no [model]).",
     ]
-    if train:
-        lines.append("\t(the row-sharded route -S selects in hpnn_tpu is "
-                     "ROADMAP item 7.)")
     lines += [
         "--device {cuda,cpu} \twhere to compute (default cuda; no",
         "\tfallback: without a GPU, cuda exits non-zero).",
@@ -99,6 +102,12 @@ def _help_text(name: str) -> str:
             "\tWins over the conf [train]/[trainer] keywords; CG",
             "\tstate (direction/gradient/restarts) rides snapshot",
             "\tbundles and resumes bit-exactly.",
+            "--model-parallel N \tshard every layer's neuron rows over",
+            "\tN ranks (the reference's MPI_Allgather row split,",
+            "\toverlapped ring schedule); wins over the conf [model]",
+            "\tkeyword.  Composes with [batch] on a 2-D data x model",
+            "\tgrid; HPNN_NO_TP_OVERLAP=1 falls back to whole-layer",
+            "\tall-gathers.",
             "--tile S \tbatched-tile convergence engine: train groups",
             "\tof S samples per GEMM-shaped step (per-lane convergence",
             "\tmasking; documented trajectory divergence vs per-sample",
@@ -160,6 +169,7 @@ _STR_OPTS = {"--ckpt-dir": ("ckpt_dir", ("train_nn", "run_nn")),
              "--corpus-cache": ("corpus_cache", ("train_nn", "run_nn"))}
 # unsigned long options: option -> (extras key, least value, commands)
 _UINT_OPTS = {"--epochs": ("epochs", 1, ("train_nn",)),
+              "--model-parallel": ("model_parallel", 1, ("train_nn",)),
               "--ckpt-every": ("ckpt_every", 0, ("train_nn",)),
               "--ckpt-keep": ("ckpt_keep", 0, ("train_nn",)),
               "--corpus-cache-max-mb": ("corpus_cache_max_mb", 0,
@@ -171,14 +181,14 @@ def _parse_args(argv: list[str], name: str):
     raises SystemExit(-1) on syntax errors."""
     filename = None
     extras = {"device": "cuda", "lnn": None, "tile": None, "resume": None,
-              "trainer": None}
+              "trainer": None, "streams": None}
     extras.update({dest: None for dest, _ in _STR_OPTS.values()})
     extras.update({dest: None for dest, _, _ in _UINT_OPTS.values()})
     choices = {"--device": ("device", runtime.DEVICES),
                "--lnn": ("lnn", ("native",))}
     if name == "train_nn":
         choices["--trainer"] = ("trainer", ("cg", "bp", "bpm"))
-    numeric = "OBS"   # thread/BLAS/stream counts: checked, then ignored
+    numeric = "OBS"   # thread/BLAS counts checked then ignored; -S kept
     train = name == "train_nn"
     i = 0
     while i < len(argv):
@@ -287,6 +297,8 @@ def _parse_args(argv: list[str], name: str):
                             f"syntax error: bad -{c} parameter!\n")
                         sys.stdout.write(_help_text(name))
                         raise SystemExit(-1)
+                    if c == "S":
+                        extras["streams"] = _leading_uint(value)
                     break  # no combination after a numeric switch
                 sys.stderr.write("syntax error: unrecognized option!\n")
                 sys.stdout.write(_help_text(name))
@@ -311,12 +323,23 @@ def run_nn(argv: list[str] | None = None):
         if parsed is None:
             return 0, None
         filename, extras = parsed
-        if runtime.init_all(extras["device"]) != 0:
+        if _init(extras) != 0:
             return -1, None
         with _corpus_options(extras):
             return _run_nn_body(filename, extras)
     finally:
         runtime.deinit_all()
+
+
+def _init(extras: dict) -> int:
+    """``runtime.init_all`` on the command's device, then the ``-S``
+    stream count (init resets the runtime's state, as the reference's
+    ``_NN(init,all)`` does before its CLIs set their knobs)."""
+    if runtime.init_all(extras["device"]) != 0:
+        return -1
+    if extras["streams"]:
+        runtime.set_cuda_streams(extras["streams"])
+    return 0
 
 
 def _corpus_options(extras: dict):
@@ -371,7 +394,7 @@ def train_nn_main(argv: list[str] | None = None) -> int:
 
             sys.stderr.write(f"train_nn: {http_refusal(replicate_to)}\n")
             return -1
-        if runtime.init_all(extras["device"]) != 0:
+        if _init(extras) != 0:
             return -1
         with _corpus_options(extras):
             return _train_nn_body(filename, extras, replicate_to)
@@ -429,6 +452,9 @@ def _train_nn_body(filename: str, extras: dict,
         neural.conf.lnn = extras["lnn"]
     if extras["tile"] is not None:
         neural.conf.tile = extras["tile"]   # the flag wins over [tile]
+    if extras["model_parallel"] is not None:
+        # --model-parallel N: the row-sharding degree, wins over [model]
+        neural.conf.model = extras["model_parallel"]
     if extras["trainer"]:
         # --trainer cg|bp|bpm selects a registry trainer and coerces the
         # conf's [train], so snapshots and serving report it coherently

@@ -58,10 +58,16 @@ def select_train_epoch(dtype=torch.float64, kind=ANN, device="cuda", tile=0,
 
 
 def select_run_batch(dtype=torch.float64, parity="strict", kind=None,
-                     device="cuda"):
+                     device="cuda", model_mesh=None):
     """Pick the batched-inference implementation (run_kernel's and the
     serving registry's eval path).  Returns ``(fn, name)`` with fn
     call-compatible with ``run_batch(weights, xs, kind)``.
+
+    * ``model_mesh`` with a model axis wider than 1 overrides both tiers:
+      the row-sharded ring engine (``parallel.tp.tp_eval_batch``; fn also
+      takes a resident ``TPCarry`` as its weights), named ``"tp-ring"``,
+      or ``"tp-gather"`` under ``HPNN_NO_TP_OVERLAP=1``.  Its products are
+      ``fused_linear_act`` calls on each shard's device.
 
     * On CUDA, both tiers, every dtype and every kind go through the
       hand-written ``fused_linear_act`` kernel (``batched_forward_fused``),
@@ -75,6 +81,11 @@ def select_run_batch(dtype=torch.float64, parity="strict", kind=None,
     """
     if parity not in ("strict", "fast"):
         raise ValueError(f"parity must be 'strict' or 'fast': {parity!r}")
+    if model_mesh is not None and model_mesh.n_model > 1:
+        from ..parallel.tp import tp_eval_batch, tp_overlap_enabled
+
+        fn = functools.partial(tp_eval_batch, mesh=model_mesh)
+        return fn, "tp-ring" if tp_overlap_enabled() else "tp-gather"
     dev = torch.device(device)
     if dev.type == "cuda":
         if parity == "fast" and dtype == torch.float64:

@@ -13,12 +13,24 @@ one vector, zero-padded to a multiple of the world size, of which each
 rank updates a contiguous 1/N slice.  Every operation on it is
 value-preserving (concatenate, pad, slice, reshape), so the flat
 trajectory equals the per-layer one bit for bit.
+
+The row-sharding half (``[model]``, ``parallel.tp``): the zero padding
+that lets k row blocks divide every hidden layer (:func:`pad_topology`),
+the per-layer placement rule (:func:`layer_sharding`) and two model axes.
+:class:`RankMesh` is the (data x model) grid over the world, one rank a
+device, the model axis inner as the JAX package's ``make_mesh`` reshapes
+its devices, so a model group is consecutive ranks; :class:`LocalMesh` is
+K devices of one process (the serving tier's row blocks; a device may
+repeat).  Both answer the same few collectives over the model axis
+(``gather``, ``psum``, ``shift``), each taking and returning one tensor
+for every shard the process holds: one on a rank, K in a LocalMesh.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
 
 
 def flatten_state(tree, pad_to: int = 1) -> torch.Tensor:
@@ -63,5 +75,250 @@ def per_device_bytes(arrays) -> int:
                    if isinstance(a, torch.Tensor)))
 
 
-__all__ = ["flatten_state", "unflatten_state", "shard_bounds",
-           "per_device_bytes"]
+# --- row sharding ------------------------------------------------------------
+
+def pad_topology(weights, k: int):
+    """Zero-pad hidden layer widths up to multiples of ``k`` so k row
+    blocks divide them: zero rows, and the matching zero columns of the
+    next layer.  A padded neuron's pre-activation is 0, ``ann_act(0)`` is
+    0 and its outbound column is zero, so it adds nothing forward; its
+    delta is ``(W_next^T d)[pad] * dact(0) = 0``, so BP and BPM never move
+    it: the padding stays zero under training.  The output layer is never
+    padded (an SNN softmax would count a padded logit).  Returns
+    ``(padded, original_row_dims)``; every value is copied bit for bit."""
+    orig = [int(w.shape[0]) for w in weights]
+    padded, prev_pad = [], 0
+    last = len(weights) - 1
+    for i, w in enumerate(weights):
+        if prev_pad:
+            w = torch.cat([w, w.new_zeros((w.shape[0], prev_pad))], dim=1)
+        prev_pad = 0
+        if i < last:
+            prev_pad = (-w.shape[0]) % k
+            if prev_pad:
+                w = torch.cat([w, w.new_zeros((prev_pad, w.shape[1]))])
+        padded.append(w.contiguous())
+    return tuple(padded), orig
+
+
+def unpad_topology(weights, orig_dims):
+    """Undo :func:`pad_topology`: rows to the original widths, columns to
+    the previous layer's original width."""
+    out = []
+    for i, w in enumerate(weights):
+        m = w.shape[1] if i == 0 else orig_dims[i - 1]
+        out.append(w[:orig_dims[i], :m])
+    return tuple(out)
+
+
+def layer_sharding(w, k: int) -> str:
+    """``"rows"`` when the layer's row count divides the model axis (each
+    shard holds a row block), else ``"replicated"`` (the unpadded output
+    layer, typically)."""
+    return "rows" if w.shape[0] % max(1, k) == 0 else "replicated"
+
+
+def tp_device_count(n_visible: int) -> int:
+    """The serving tier's model-axis width: ``HPNN_TP_DEVICES`` capped to
+    the visible devices with the JAX package's warning; unset means 1 (no
+    row-sharded tier).  Training takes its width from ``[model]``,
+    ``--model-parallel`` or ``-S`` instead."""
+    from ..utils.env import env_device_cap
+
+    return env_device_cap("HPNN_TP_DEVICES", n_visible, default=1)
+
+
+class _Done:
+    """A finished transfer: ``wait()`` gives its tensors."""
+
+    def __init__(self, parts):
+        self.parts = parts
+
+    def wait(self):
+        return self.parts
+
+
+class LocalMesh:
+    """A 1 x K model axis of one process: shard i's tensors live on
+    ``devices[i]`` (repeats allowed, so K row blocks can share one card).
+    The collectives are copies between the shards' devices."""
+
+    n_data = 1
+    data_index = 0
+
+    def __init__(self, devices):
+        self.devices = tuple(torch.device(d) for d in devices)
+        if not self.devices:
+            raise ValueError("LocalMesh needs at least one device")
+        self.n_model = len(self.devices)
+        self.local = tuple(range(self.n_model))   # the shards held here
+
+    def device_of(self, i: int) -> torch.device:
+        return self.devices[i]
+
+    def gather(self, parts, only=None):
+        """Every shard's tensor concatenated along the last dim in shard
+        order, on each shard's device (on the shards ``only`` names)."""
+        devs = (self.devices if only is None
+                else [self.devices[i] for i in only])
+        return [torch.cat([p.to(d) for p in parts], dim=-1) for d in devs]
+
+    def psum(self, parts):
+        """The shards' tensors summed in shard order, on each device."""
+        tot = parts[0]
+        for p in parts[1:]:
+            tot = tot + p.to(tot.device)
+        return [tot.to(d) for d in self.devices]
+
+    def psum_data(self, t):
+        return t
+
+    def shift(self, parts):
+        """The ring step: shard i receives shard (i+1) mod K's tensor."""
+        k = self.n_model
+        return _Done([parts[(i + 1) % k].to(self.devices[i],
+                                            non_blocking=True)
+                      for i in range(k)])
+
+    def gather_rows(self, parts):
+        """Every shard's row block stacked in shard order, on the CPU."""
+        return torch.cat([p.to("cpu") for p in parts])
+
+
+class RankMesh:
+    """The (data x model) grid over the ``torch.distributed`` world, one
+    rank a device: rank r is data shard ``r // n_model`` and model shard
+    ``r % n_model``.  Built by :func:`make_mesh`, which creates every model
+    group and every data group on every rank in the same order."""
+
+    def __init__(self, n_data: int, n_model: int, rank: int, device,
+                 model_group=None, data_group=None):
+        self.n_data, self.n_model = int(n_data), int(n_model)
+        self.rank = int(rank)
+        self.data_index = self.rank // self.n_model
+        self.model_index = self.rank % self.n_model
+        self.local = (self.model_index,)
+        self.devices = (torch.device(device),)
+        self.model_group, self.data_group = model_group, data_group
+        base = self.data_index * self.n_model
+        self.model_ranks = tuple(base + m for m in range(self.n_model))
+
+    def device_of(self, i: int) -> torch.device:
+        return self.devices[0]
+
+    def _dist(self):
+        import torch.distributed as dist
+
+        return dist
+
+    def _all_gather(self, t, dim: int):
+        """The model group's tensors concatenated along ``dim`` in shard
+        order."""
+        if self.n_model == 1:
+            return t
+        src = t.contiguous()
+        out = [torch.empty_like(src) for _ in range(self.n_model)]
+        self._dist().all_gather(out, src, group=self.model_group)
+        return torch.cat(out, dim=dim)
+
+    def gather(self, parts, only=None):
+        return [self._all_gather(parts[0], -1)]
+
+    def psum(self, parts):
+        (t,) = parts
+        if self.n_model == 1:
+            return [t]
+        t = t.clone()
+        self._dist().all_reduce(t, group=self.model_group)
+        return [t]
+
+    def psum_data(self, t):
+        if self.n_data == 1:
+            return t
+        t = t.clone()
+        self._dist().all_reduce(t, group=self.data_group)
+        return t
+
+    def shift(self, parts):
+        """The ring step: send this shard's tensor to model shard
+        (m - 1) mod K and receive shard (m + 1) mod K's, as one batch of
+        point-to-point operations (the peers are global ranks)."""
+        (t,) = parts
+        dist = self._dist()
+        k, m = self.n_model, self.model_index
+        src = t.contiguous()
+        buf = torch.empty_like(src)
+        ops = [dist.P2POp(dist.isend, src, self.model_ranks[(m - 1) % k],
+                          group=self.model_group),
+               dist.P2POp(dist.irecv, buf, self.model_ranks[(m + 1) % k],
+                          group=self.model_group)]
+        return _Pending(dist.batch_isend_irecv(ops), buf, src)
+
+    def gather_rows(self, parts):
+        return self._all_gather(parts[0], 0).to("cpu")
+
+
+class _Pending:
+    """An issued ring step: ``wait()`` completes it and gives the received
+    tensor (the sent one is held until then)."""
+
+    def __init__(self, reqs, buf, src):
+        self.reqs, self.buf, self._src = reqs, buf, src
+
+    def wait(self):
+        for r in self.reqs:
+            r.wait()
+        self._src = None
+        return [self.buf]
+
+
+_MESHES: dict = {}
+
+
+def make_mesh(n_data: int | None = None, n_model: int = 1, device=None):
+    """The (data x model) :class:`RankMesh` of this run's world: ``n_data``
+    defaults to the world over ``n_model``; the grid must cover the world
+    (a rank outside it would have nothing to compute).  Groups are made
+    once a world and layout and reused."""
+    from . import coord
+
+    world, rank = coord.world_size(), coord.process_index()
+    n_model = max(1, int(n_model))
+    if n_data is None:
+        n_data = max(1, world // n_model)
+    if n_data * n_model != world:
+        raise ValueError(f"mesh {n_data}x{n_model} does not cover the "
+                         f"{world} process(es) of this run")
+    if device is None:
+        from ..runtime import lib_runtime
+
+        device = lib_runtime.device or torch.device("cpu")
+    key = (n_data, n_model, world, rank, str(device))
+    mesh = _MESHES.get(key)
+    if mesh is not None:
+        return mesh
+    mg = dg = None
+    if world > 1:
+        dist = coord._dist()
+        for d in range(n_data):
+            g = dist.new_group([d * n_model + m for m in range(n_model)])
+            if d == rank // n_model:
+                mg = g
+        for m in range(n_model):
+            g = dist.new_group([d * n_model + m for d in range(n_data)])
+            if m == rank % n_model:
+                dg = g
+    mesh = _MESHES[key] = RankMesh(n_data, n_model, rank, device, mg, dg)
+    return mesh
+
+
+def forget_meshes() -> None:
+    """Drop the cached meshes (their groups die with the process group)."""
+    _MESHES.clear()
+
+
+__all__ = ["LocalMesh", "RankMesh",
+           "flatten_state", "unflatten_state", "shard_bounds",
+           "per_device_bytes", "pad_topology", "unpad_topology",
+           "layer_sharding", "make_mesh", "forget_meshes",
+           "tp_device_count"]

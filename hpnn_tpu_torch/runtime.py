@@ -58,9 +58,23 @@ class NNRuntime:
     capability: int = 0
     device: torch.device | None = None
     initialized: bool = False
+    n_streams: int = 1   # -S: the row-sharding degree when [model] is unset
 
 
 lib_runtime = NNRuntime()
+
+
+def set_cuda_streams(n: int) -> bool:
+    """The reference's stream-pool knob (``libhpnn.c:471-505``, ``-S``):
+    its streams split each layer's rows (``cuda_ann.cu:536-537``), so here
+    it is the row-sharding degree ``api._model_shards`` reads when the
+    conf has no ``[model]``."""
+    lib_runtime.n_streams = max(1, int(n))
+    return True
+
+
+def get_cuda_streams() -> int:
+    return lib_runtime.n_streams
 
 
 def return_capabilities() -> int:
@@ -184,6 +198,9 @@ def deinit_all() -> int:
     import torch.distributed as dist
 
     if dist.is_available() and dist.is_initialized():
+        from .parallel.mesh import forget_meshes
+
+        forget_meshes()
         dist.destroy_process_group()
         nn_log.set_rank(0)
     global lib_runtime

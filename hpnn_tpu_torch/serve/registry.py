@@ -22,6 +22,14 @@ Two serving tiers (``ops.select_run_batch``'s two axes):
   the throughput forward (the GEMM chain for float64); answers are
   dtype-accurate but may differ from the strict tier at the ULP level.
 
+A third tier, ``tp@K``, serves a kernel too big for one device: with a
+model axis (``tp_mesh``, a ``parallel.LocalMesh`` of K devices) every
+bucket of a kernel whose cast weights exceed the per-device budget
+(``HPNN_EPOCH_DEVICE_BUDGET_MB``, the knob the trainer's epoch pipeline
+budgets against) runs the row-sharded ring engine
+(``parallel.tp.tp_eval_batch``) on a per-mesh carry of row blocks, built
+once and rebuilt on a swap.  A kernel that fits keeps its parity tier.
+
 The cache is keyed by (model, topology, dtype, bucket, kind, tier,
 live/pinned).  Requests are padded to power-of-two row buckets, so a
 model holds at most log2(max_batch)+1 entries per tier and variant.
@@ -117,13 +125,15 @@ class _InFlight:
     collected, the phase times."""
 
     __slots__ = ("out", "rows", "bucket", "served_gen", "pad_h2d_s",
-                 "device_s", "d2h_s", "span_s", "_events", "_bufs",
+                 "device_s", "d2h_s", "span_s", "tier", "_events", "_bufs",
                  "_pools")
 
-    def __init__(self, out, rows: int, bucket: int, served_gen=None):
+    def __init__(self, out, rows: int, bucket: int, served_gen=None,
+                 tier: str = "strict"):
         self.out = out
         self.rows = rows
         self.bucket = bucket
+        self.tier = tier              # the tier that served the bucket
         self.served_gen = served_gen  # the generation whose weights
         #                               actually launched
         self.pad_h2d_s = 0.0
@@ -171,6 +181,9 @@ class ServedModel:
         # device weights and the host kernels, pruned to gen_keep
         self._gen_weights: dict[int, MLP] = {}
         self._gen_kernels: dict[int, object] = {}
+        # mesh -> (row-sharded TPCarry, generation) for the tp@K tier,
+        # built at its first dispatch and rebuilt by every swap
+        self._tp_weights: dict = {}
         self.ab_window: dict | None = None
         self._pools: tuple[_ScratchPool, _ScratchPool] | None = None
         self._lock = threading.Lock()
@@ -202,6 +215,20 @@ class ServedModel:
         dispatch."""
         with self._lock:
             return self._holder
+
+    def tp_weights(self, mesh):
+        """The live generation as a row-sharded carry on ``mesh`` (the
+        tp@K tier): ``(TPCarry, generation)``, padded and placed once a
+        mesh and kept resident."""
+        from ..parallel.tp import tp_engine_carry
+
+        with self._lock:
+            cached = self._tp_weights.get(mesh)
+            if cached is None:
+                mlp, gen = self._holder[0]
+                cached = self._tp_weights[mesh] = (
+                    tp_engine_carry(mlp.weights, mesh), gen)
+            return cached
 
     def scratch_pools(self) -> tuple[_ScratchPool, _ScratchPool]:
         """The (input, output) host buffer pools at the current widths."""
@@ -236,14 +263,23 @@ class ServedModel:
         new_w = MLP.from_kernel(kernel, self.dtype, self.registry.device,
                                 self.kind)
         with self._lock:
+            meshes = list(self._tp_weights)
+        new_tp = {}
+        if meshes:
+            from ..parallel.tp import tp_engine_carry
+
+            new_tp = {m: tp_engine_carry(new_w.weights, m) for m in meshes}
+        with self._lock:
             old_kernel = self.nn.kernel
             self.nn.kernel = kernel
             gen = (self.generation + 1 if set_generation is None
                    else int(set_generation))
             if changed:
                 # callables built for the old topology keep the old
-                # holder and finish on shape-consistent old weights
+                # holder and finish on shape-consistent old weights; the
+                # old-shape carries are dropped
                 self._holder = [(new_w, gen)]
+                self._tp_weights = {m: (c, gen) for m, c in new_tp.items()}
                 self._gen_weights.clear()
                 self._gen_kernels.clear()
                 self.ab_window = None
@@ -265,6 +301,13 @@ class ServedModel:
                         "prev": old_gen,
                         "fraction": float(self.registry.ab_fraction)}
                 self._holder[0] = (new_w, gen)
+                # a mesh placed between the snapshot above and here still
+                # holds the old weights: evict it, its next dispatch
+                # builds the carry from the new holder
+                for m in [m for m in self._tp_weights if m not in new_tp]:
+                    del self._tp_weights[m]
+                for m, c in new_tp.items():
+                    self._tp_weights[m] = (c, gen)
             if changed:
                 if (kernel.n_inputs != self.n_inputs
                         or kernel.n_outputs != self.n_outputs):
@@ -381,7 +424,8 @@ class ModelRegistry:
     def __init__(self, max_batch: int = 64, parity: str = "strict",
                  fast_threshold: int = 256, device="cuda",
                  metrics: ServeMetrics | None = None,
-                 ab_fraction: float = 0.0, gen_keep: int = 2):
+                 ab_fraction: float = 0.0, gen_keep: int = 2,
+                 tp_mesh=None):
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1: {max_batch}")
         if not 0.0 <= float(ab_fraction) <= 1.0:
@@ -406,6 +450,8 @@ class ModelRegistry:
                     f"bucket {self.max_batch}; every bucket will serve "
                     "strict (raise -b/--max-batch or lower "
                     "--fast-threshold)\n")
+        # the tp@K tier's model axis (a LocalMesh), or None
+        self.tp_mesh = tp_mesh
         # A/B policy: during a hot swap this fraction of unpinned traffic
         # keeps going to the previous generation; gen_keep bounds the
         # retained generations a model keeps pinnable
@@ -442,15 +488,14 @@ class ModelRegistry:
                          "registered!\n")
                 return None
             self._models[name] = model
-        # the route label is the parity: the port has no tensor-parallel
-        # serving route
+        route = self.route_for(model)
         self.metrics.set_model_info(name, model.generation,
                                     model.loaded_at, kind=model.kind,
-                                    trainer=model.trainer, route=self.parity)
+                                    trainer=model.trainer, route=route)
         nn_out(f"serve: registered kernel '{name}' "
                f"({'x'.join(str(p) for p in model.topology)}, "
                f"{model.dtype_name}, {model.kind}, "
-               f"parity={self.parity}, route={self.parity})\n")
+               f"parity={self.parity}, route={route})\n")
         return model
 
     def get(self, name: str) -> ServedModel | None:
@@ -502,7 +547,8 @@ class ModelRegistry:
                               f"{type(exc).__name__}: {exc}")
         self.metrics.set_model_info(name, model.generation,
                                     model.loaded_at, kind=model.kind,
-                                    trainer=model.trainer, route=self.parity)
+                                    trainer=model.trainer,
+                                    route=self.route_for(model))
         nn_out(f"serve: reloaded kernel '{name}' from {src} "
                f"(generation {result['generation']}"
                f"{', topology changed' if result['topology_changed'] else ''}"
@@ -520,6 +566,28 @@ class ModelRegistry:
         return len(stale)
 
     # --- tier selection -------------------------------------------------
+    def tp_shards(self, model: ServedModel) -> int:
+        """The model axis ``model`` serves over, or 0 for the parity
+        tiers: the registry has a tp_mesh of K > 1 AND the kernel's cast
+        weights exceed the per-device budget
+        (``HPNN_EPOCH_DEVICE_BUDGET_MB``).  A kernel that fits replicates:
+        the ring's hops would be pure overhead."""
+        from ..utils.env import env_int
+
+        if self.tp_mesh is None or self.tp_mesh.n_model <= 1:
+            return 0
+        budget = env_int("HPNN_EPOCH_DEVICE_BUDGET_MB", 4096) << 20
+        itemsize = torch.empty((), dtype=model.dtype).element_size()
+        wbytes = sum(int(np.prod(w.shape)) * itemsize
+                     for w in model.nn.kernel.weights)
+        return self.tp_mesh.n_model if wbytes > budget else 0
+
+    def route_for(self, model: ServedModel) -> str:
+        """The /metrics route label: ``tp@K`` where the row-sharded tier
+        serves the kernel, else the parity."""
+        k = self.tp_shards(model)
+        return f"tp@{k}" if k else self.parity
+
     def tier_for(self, bucket: int) -> str:
         if self.parity != "fast" or bucket < self.fast_threshold:
             return "strict"
@@ -535,7 +603,10 @@ class ModelRegistry:
         holder's (weights, generation) at each call and returns ``(out,
         generation)``; the pinned variant takes the weights as its second
         argument."""
-        tier = self.tier_for(bucket)
+        tpk = self.tp_shards(model)
+        # the tp@K tier is per model (weights too big for one device), so
+        # every bucket of such a kernel takes it, pinned dispatch too
+        tier = f"tp@{tpk}" if tpk else self.tier_for(bucket)
         key = (model.name, model.topology, model.dtype_name, bucket,
                model.kind, tier, "pinned" if pinned else "live")
         with self._lock:
@@ -546,9 +617,20 @@ class ModelRegistry:
             from .. import ops
 
             run_batch_fn, path = ops.select_run_batch(
-                model.dtype, parity=tier, kind=model.kind,
-                device=self.device)
-            if pinned:
+                model.dtype, parity="strict" if tpk else tier,
+                kind=model.kind, device=self.device,
+                model_mesh=self.tp_mesh if tpk else None)
+            if tpk and not pinned:
+                tp_dict = model._tp_weights   # captured: see swap_kernel
+
+                def fn(x, _fn=run_batch_fn, _m=self.tp_mesh, _mo=model,
+                       _td=tp_dict, _k=model.kind, _dt=model.dtype):
+                    # one read: the carry and its generation
+                    carry, gen = _td.get(_m) or _mo.tp_weights(_m)
+                    return _fn(carry, x.to(_dt), _k), gen
+            elif pinned:
+                # (on the tp@K tier the pinned generation's weights are
+                # sharded a call: retained generations keep no carry)
                 def fn(x, w, _fn=run_batch_fn, _k=model.kind,
                        _dt=model.dtype):
                     # float64 -> dtype on the device: run_kernel's cast
@@ -591,7 +673,9 @@ class ModelRegistry:
         host[:rows] = xs
         if rows < bucket:
             host[rows:] = 0.0  # a reused buffer may carry a stale tail
-        h = _InFlight(None, rows, bucket, served_gen=served_gen)
+        tpk = self.tp_shards(model)
+        h = _InFlight(None, rows, bucket, served_gen=served_gen,
+                      tier=f"tp@{tpk}" if tpk else self.tier_for(bucket))
         if self.device.type != "cuda":
             t1 = time.monotonic()
             try:

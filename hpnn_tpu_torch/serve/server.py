@@ -80,6 +80,25 @@ class _HTTPError(Exception):
         self.retry_after = retry_after  # seconds; 429s render the header
 
 
+def _tp_mesh_from_env(device):
+    """The tp@K tier's model axis from ``HPNN_TP_DEVICES``: a LocalMesh
+    over the first K cards this process sees (K capped to them with the
+    JAX package's warning; one device on ``--device cpu``), or None below
+    two.  Kernels over the per-device budget serve row-sharded on it."""
+    import torch
+
+    from ..parallel.mesh import LocalMesh, tp_device_count
+
+    dev = torch.device(device)
+    n_visible = torch.cuda.device_count() if dev.type == "cuda" else 1
+    k = tp_device_count(n_visible)
+    if k <= 1:
+        return None
+    nn_out(f"serve: TP mesh 1x{k} ready (over-budget kernels serve "
+           "row-sharded)\n")
+    return LocalMesh([torch.device("cuda", i) for i in range(k)])
+
+
 class ServeApp:
     """Registry + one micro-batcher per kernel + metrics: everything the
     HTTP handler needs, independent of the socket layer (tests drive it
@@ -95,7 +114,8 @@ class ServeApp:
         self.registry = ModelRegistry(max_batch=max_batch, parity=parity,
                                       fast_threshold=fast_threshold,
                                       device=device, metrics=self.metrics,
-                                      ab_fraction=ab_fraction)
+                                      ab_fraction=ab_fraction,
+                                      tp_mesh=_tp_mesh_from_env(device))
         self.batchers: dict[str, MicroBatcher] = {}
         self.max_queue_rows = int(max_queue_rows)
         self.linger_s = float(linger_s)

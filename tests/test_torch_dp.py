@@ -232,11 +232,21 @@ def test_dp_tiled_launch_tiling_is_invisible(tmp_path, monkeypatch):
     assert all(r == runs[0] for r in runs)
 
 
-def test_batch_with_model_is_still_refused(tmp_path, monkeypatch):
+def test_batch_with_model_takes_the_grid_route(tmp_path, monkeypatch):
+    """[batch] beside [model] 2, once refused, trains on the (data x
+    model) grid; in one process the model axis clamps to 1 with the JAX
+    package's warning before the batch lines, and the run is the
+    [batch]-only run otherwise (the same kernel.opt bytes)."""
     _setup_with(tmp_path, monkeypatch, "ANN-BP", "[batch] 4\n[model] 2\n")
     p = _port(["-v", "-v", "nn.conf"])
-    assert p[0] != 0
-    assert "NN(ERR): [model] is not ported yet" in p[2]
+    conf = (tmp_path / "nn.conf").read_text()
+    (tmp_path / "nn.conf").write_text(conf.replace("[model] 2\n", ""))
+    q = _port(["-v", "-v", "nn.conf"])
+    warn = "NN(WARN): [model] 2 > 1 visible device(s); using 1\n"
+    assert p[0] == q[0] == 0 and p[2] == q[2]
+    assert p[1].index(warn) < p[1].index("TRAINING BATCH")
+    assert p[1].replace(warn, "") == q[1]
+    assert p[4] == q[4]
 
 
 @pytest.mark.parametrize("cap", ["1", "3"])

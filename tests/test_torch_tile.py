@@ -30,8 +30,9 @@ The same numpy inputs go through both packages:
   the lines tests/test_torch_train.py strips and the autotune debug line,
   which names the port's route), kernel.tmp byte-identical, kernel.opt
   within the parity_fuzz bound.
-* ``[batch]``, ``[model]`` and ``[trainer] cg`` confs, whose routes are not
-  ported, exit non-zero naming the keyword instead of training per sample.
+* ``[batch]``, ``[model]`` and ``[trainer] cg`` confs, which the port
+  once refused, take their routes (``[model]`` in one process: one shard,
+  with the JAX package's warning).
 """
 
 import json
@@ -44,8 +45,8 @@ import torch
 
 import jax.numpy as jnp
 
-from test_torch_train import (FUZZ_CASES, _capture, _stream, _torch,
-                              _train_both, _write_fuzz_case)
+from test_torch_train import (FUZZ_CASES, SMALL_CASE, _capture, _stream,
+                              _torch, _train_both, _write_fuzz_case)
 
 
 @pytest.fixture(autouse=True)
@@ -413,25 +414,33 @@ def test_bad_tile_env_warnings_match_jax(tmp_path, monkeypatch, name, value):
     assert pout == jout and perr == jerr
 
 
-@pytest.mark.parametrize("extra,keyword", [("[model] 2\n", "[model]"),
-                                           ("[batch] 4\n[model] 2\n",
-                                            "[model]")])
-def test_unported_route_keywords_exit_nonzero(tmp_path, monkeypatch, extra,
-                                              keyword):
-    """A conf that asks for a route the port does not have yet ([model]
-    row sharding, alone or beside [batch]) stops with the keyword named,
-    instead of training per sample under it."""
+@pytest.mark.parametrize("extra", ["[model] 2\n", "[batch] 4\n[model] 2\n"],
+                         ids=["model", "batch-model"])
+def test_model_route_keywords_train_on_one_shard(tmp_path, monkeypatch,
+                                                 extra):
+    """A conf that asks for row sharding ([model] 2, alone or beside
+    [batch]), which the port once refused, trains in one process on one
+    shard: the JAX package's clamp warning before the training lines, and
+    kernel.opt byte-identical to the same conf without [model] (one shard
+    is the unsharded route)."""
     from hpnn_tpu_torch.cli import train_nn_main
 
     monkeypatch.chdir(tmp_path)
-    _write_fuzz_case(tmp_path, *FUZZ_CASES[2], extra=extra)
-    rc, out, err = _capture(train_nn_main, ["-v", "-v", "--device", "cpu",
-                                            "nn.conf"])
-    assert rc != 0
-    assert f"NN(ERR): {keyword} is not ported yet" in err
-    assert "FAILED to train kernel!" in err
-    assert "TRAINING FILE" not in out
-    assert not (tmp_path / "kernel.opt").exists()
+    runs = []
+    _write_fuzz_case(tmp_path, *SMALL_CASE, extra=extra)
+    conf = (tmp_path / "nn.conf").read_text()
+    for text in (conf, conf.replace("[model] 2\n", "")):
+        (tmp_path / "nn.conf").write_text(text)
+        rc, out, err = _capture(train_nn_main, ["-v", "-v", "--device",
+                                                "cpu", "nn.conf"])
+        runs.append((rc, out, err, (tmp_path / "kernel.opt").read_text()))
+    warn = "NN(WARN): [model] 2 > 1 visible device(s); using 1\n"
+    (rc, out, err, opt), (rc0, out0, _, opt0) = runs
+    assert rc == rc0 == 0 and "FAILED" not in err
+    assert out.count(warn) == 1
+    assert out.index(warn) < out.index("TRAINING")
+    assert out.replace(warn, "") == out0
+    assert opt == opt0
 
 
 @pytest.mark.parametrize("extra,marker", [("[batch] 4\n", "TRAINING BATCH"),

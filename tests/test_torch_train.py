@@ -556,11 +556,36 @@ def test_train_nn_cuda_without_gpu_exits_nonzero(tmp_path, monkeypatch,
 
 # the JAX package's train_nn options the port does not have yet (the
 # checkpoint options are ported: tests/test_torch_ckpt.py; the corpus-cache
-# options too: test_train_nn_corpus_cache_option below); a mesh router is
+# options too: test_train_nn_corpus_cache_option below; --model-parallel:
+# test_train_nn_model_parallel_option_takes_the_tp_route); a mesh router is
 # the one --replicate-to destination still refused
-UNPORTED_TRAIN_OPTIONS = {"--profile-dir": "2", "--model-parallel": "2",
-                          "--compile-cache": "2",
+UNPORTED_TRAIN_OPTIONS = {"--profile-dir": "2", "--compile-cache": "2",
                           "--replicate-to": "http://127.0.0.1:1"}
+
+
+def test_train_nn_model_parallel_option_takes_the_tp_route(tmp_path,
+                                                           monkeypatch):
+    """``--model-parallel 2``, once refused, is the row-sharding degree
+    (it wins over a conf's [model]); one process clamps it to one shard
+    with the JAX package's warning and trains the unsharded route: the
+    same kernel.opt bytes as without it."""
+    from hpnn_tpu_torch.cli import train_nn_main
+
+    monkeypatch.chdir(tmp_path)
+    _write_fuzz_case(tmp_path, *SMALL_CASE, extra="[model] 3\n")
+    rc, out, err = _capture(train_nn_main, ["-v", "-v", "--model-parallel",
+                                            "2", "--device", "cpu",
+                                            "nn.conf"])
+    opt = (tmp_path / "kernel.opt").read_text()
+    conf = (tmp_path / "nn.conf").read_text()
+    (tmp_path / "nn.conf").write_text(conf.replace("[model] 3\n", ""))
+    rc0, out0, _ = _capture(train_nn_main, ["-v", "-v", "--device", "cpu",
+                                            "nn.conf"])
+    warn = "NN(WARN): [model] 2 > 1 visible device(s); using 1\n"
+    assert rc == rc0 == 0 and "later slice" not in err
+    assert out.index(warn) < out.index("TRAINING FILE")
+    assert out.replace(warn, "") == out0
+    assert opt == (tmp_path / "kernel.opt").read_text()
 
 
 @pytest.mark.parametrize("opt", list(UNPORTED_TRAIN_OPTIONS))
@@ -677,13 +702,17 @@ def test_train_nn_help_and_flags(tmp_path, monkeypatch, capsys):
     monkeypatch.chdir(tmp_path)
     assert train_nn_main(["-h"]) == 0
     text = capsys.readouterr().out
-    assert "-x \t" in text and "ROADMAP item 7" in text
+    assert "-x \t" in text and "-S \tnumber of device shards" in text
+    assert "ROADMAP" not in text
     _write_fuzz_case(tmp_path, *SMALL_CASE)
-    # -x is a no-op, -O/-B/-S are checked and ignored, ./nn.conf default
+    # -x is a no-op, -O/-B are checked and ignored, -S 2 is the row split
+    # (one process: one shard, the JAX package's warning), ./nn.conf
+    # default
     assert main(["train_nn", "-vvx", "-O", "2", "-B4", "-S", "2",
                  "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert out.count("N_ITER=") == 2
+    assert "[model] 2 > 1 visible device(s); using 1" in out
     assert (tmp_path / "kernel.opt").exists()
     with pytest.raises(SystemExit):
         train_nn_main(["-S", "0", "--device", "cpu"])
