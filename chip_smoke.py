@@ -188,6 +188,26 @@ fault; no phase catches its own failure.
    ``[model] 2`` for 2 epochs on the 512, held to the card's one process
    (the lines equal; kernel.opt within 1e-12 per sample, 1e-11 on the
    grid).
+22. The jobs service (run right after phase 21): ``serve_nn -b 64
+   --ab-fraction 0.25 --jobs 2 --auto-promote`` (an in-process
+   ``ServeApp``) serves a generated MNIST ANN f64 784-300-10 kernel to 8
+   closed-loop clients of 1 and 64 rows.  Job A, a JSON submit of the
+   tutorial conf (BP, f64, seed 10958) on phase 9's 512 files with its 512
+   test files held out, 3 epochs, a snapshot each: ``done``, exactly 3
+   ``train_epoch`` launches, at least 3 swaps, kernel.opt byte-identical to
+   the port's offline ``train_nn --epochs 3 --ckpt-every 1`` of its
+   generated conf, and its auto-promote decision printed with its eval
+   requests.  Job B, 64 of those files uploaded in 4 chunks, 2 epochs: its
+   pack equal to a ``ChunkedPackWriter`` of the same chunks.  Job C, job
+   A's submit again, cancelled after its first epoch and resumed with
+   ``resume_job`` to epoch 3: kernel.opt byte-identical to job A's.  A
+   second server on the job dir reports the four jobs.  No reply other
+   than 200, every answer bit-identical to the strict forward of the
+   kernel file its generation loaded, and ``fused_linear_act`` launched 2
+   times a batch.  Prints job A's epochs' device time beside phase 16's,
+   the yield gate's wait an epoch, each swap's wall time, the 1-row client
+   p50/p99 with no job and during job A, the launches, each job's submit
+   to done and the phase's seconds.
 15. One JSON line of every kernel (launches on its main path, the largest
    kernel-vs-plain error over every cell and dtype, times and bound;
    ``fused_linear_act`` adds its B=1 cell and its worst ratio to the
@@ -200,7 +220,9 @@ fault; no phase catches its own failure.
    phase 16 and their launches and wall times in phase 17
    (``ckpt_launches``, ``ckpt_wall_s``), and phase 18's epoch times
    (``corpus_epochs_device_ms``); ``fused_linear_act`` phase 18's
-   launches (``corpus_launches``); ``fused_bpm_update`` its warm, cold and
+   launches (``corpus_launches``); both their launches in phase 22
+   (``jobs_launches``) and job A's epoch times
+   (``jobs_epochs_device_ms``); ``fused_bpm_update`` its warm, cold and
    floor times; ``train_epoch`` and ``fused_linear_act`` their launches on
    phase 21's paths, ``tp_launches``), then the result line.
 
@@ -208,8 +230,9 @@ Main paths: ``fused_linear_act``'s is phases 4-5, ``train_epoch``'s phase 9
 and ``train_tile``'s phase 12 (train_nn, then run_nn of its kernel, which
 launches ``fused_linear_act`` too), phase 16's two ``--epochs`` runs,
 phase 17's checkpointed, killed and resumed runs, phase 18's runs and
-phase 19's server (``serve_rest_launches``) and phase 21's TP routes
-(``tp_launches``); every count is set to 0 just before a path and read
+phase 19's server (``serve_rest_launches``), phase 21's TP routes
+(``tp_launches``) and phase 22's server and jobs (``jobs_launches``);
+every count is set to 0 just before a path and read
 just after it.  ``fused_bpm_update`` has no caller on any
 path, as in the JAX package: its ``launches`` are the paths' (0), its
 ``phase_launches`` phase 13's.  ``--json PATH`` also writes every cell's
@@ -3287,6 +3310,372 @@ def _gloo_ranks(world, cwd, argv, confs=None):
     return _gloo_wait(_gloo_start(world, cwd, argv, confs))
 
 
+# --- phase 22: the jobs service -------------------------------------------
+
+JOB_CLIENTS = 8             # phase 22: closed-loop client threads
+JOB_ROWS = (1, 64)          # phase 22: request sizes, alternated
+JOB_QUIET_S = 3.0           # phase 22: traffic alone, before job A
+JOB_B_FILES = 64            # phase 22: job B's uploaded files
+JOB_B_CHUNKS = 4            # phase 22: ... in this many chunks
+JOB_B_EPOCHS = 2
+
+
+def _post_body(base, path, body, ctype):
+    req = urllib.request.Request(base + path, data=body,
+                                 headers={"Content-Type": ctype})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as exc:
+        return exc.code, json.loads(exc.read())
+
+
+def _multipart(params, files, boundary="hpnnPhase22"):
+    """A multipart/form-data body: an optional ``params`` JSON field and
+    one part a (name, bytes) corpus file; returns (body, content type)."""
+    parts = []
+    if params is not None:
+        parts.append(f'--{boundary}\r\nContent-Disposition: form-data; '
+                     f'name="params"\r\n\r\n{json.dumps(params)}\r\n'
+                     .encode())
+    for name, data in files:
+        parts.append(f'--{boundary}\r\nContent-Disposition: form-data; '
+                     f'name="corpus"; filename="{name}"\r\n'
+                     'Content-Type: application/octet-stream\r\n\r\n'
+                     .encode() + data + b"\r\n")
+    parts.append(f"--{boundary}--\r\n".encode())
+    return b"".join(parts), f"multipart/form-data; boundary={boundary}"
+
+
+def _job_wait(base, jid, done=("done", "failed", "cancelled",
+                               "interrupted"), key="status",
+              timeout_s=600.0):
+    """Poll GET /v1/jobs/<id> until ``key`` is in ``done`` (or, for a
+    callable ``done``, until it holds); returns the record."""
+    end = time.monotonic() + timeout_s
+    while time.monotonic() < end:
+        st, snap = _http(base, f"/v1/jobs/{jid}", None, method="GET")
+        if st != 200:
+            raise AssertionError(f"GET /v1/jobs/{jid}: {st} {snap}")
+        if (done(snap) if callable(done) else snap[key] in done):
+            return snap
+        time.sleep(0.005)
+    raise AssertionError(f"job {jid} stalled: {snap}")
+
+
+def _pctl(xs, p):
+    return float(np.percentile(xs, p)) if xs else float("nan")
+
+
+def phase_jobs(e2e, epochs_runs, tmp, card, device="cuda"):
+    """Phase 22: ``serve_nn --jobs 2 --auto-promote`` serves an MNIST ANN
+    f64 784-300-10 kernel to 8 closed-loop clients while job A trains the
+    tutorial conf on phase 9's files (3 epochs, a snapshot each, held out
+    on phase 9's test files), job B trains 64 files uploaded in 4 chunks,
+    and job C, job A's submit again, is cancelled after its first epoch
+    and resumed to epoch 3; then a second server on the same job dir
+    reports the history."""
+    from hpnn_tpu_torch import api, cli
+    from hpnn_tpu_torch.io.corpus import ChunkedPackWriter, pack_path
+    from hpnn_tpu_torch.ops.convergence_kernel import train_epoch_kernel
+    from hpnn_tpu_torch.ops.kernels import fused_linear_act
+    from hpnn_tpu_torch.serve.server import serve_in_thread
+
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "jobs_phase")
+    os.makedirs(root)
+    served = os.path.join(root, "mnist0.opt")
+    _dump_generated(served, MNIST, 10958)
+    conf = os.path.join(root, "mnist.conf")
+    _serve_conf(conf, "mnist", served, MNIST, "f64")
+    job_dir = os.path.join(root, "jobs")
+    pool = _inputs(np.random.default_rng(22), SERVE_POOL, MNIST[0], "pixel")
+    samples = os.path.join(e2e["root"], "samples")
+    job_a = {"epochs": EPOCHS, "seed": 10958, "train": "BP", "dtype": "f64",
+             "hidden": MNIST[1], "samples": samples, "ckpt_every": 1,
+             "test_samples": os.path.join(e2e["root"], "tests")}
+    gen_files = {1: served}     # generation -> the kernel file it serves
+    swaps, yields = [], []      # (job, wall s) of each swap / gate wait
+    serve_argv = ["-p", "0", "--device", device, "--no-warmup", "-b", "64",
+                  "-q", str(64 * JOB_CLIENTS), "--ab-fraction", "0.25",
+                  "--jobs", "2", "--auto-promote", "--job-dir", job_dir,
+                  conf]
+
+    fused_linear_act.launches = 0          # phase 22's path from here
+    banner = io.StringIO()
+    with contextlib.redirect_stdout(banner):
+        app, _ = cli.serve_app(serve_argv)
+    if app is None or "SERVE: online training enabled (queue=2, job-dir=" \
+            f"{job_dir}, ab-fraction=0.25, auth=OFF (pass --auth-token), " \
+            "auto-promote)\n" not in banner.getvalue():
+        raise AssertionError(f"serve_nn --jobs (phase 22): {banner.getvalue()}")
+    model, sched = app.registry.get("mnist"), app.jobs
+    real_reload, real_rollback = app.reload_model, model.rollback
+    real_into, real_yield = sched._reload_into_serving, sched._yield_to_eval
+
+    def reload_model(name, kernel_path=None, **kw):
+        res = real_reload(name, kernel_path, **kw)
+        # copy what loaded at once, so the check reads those bytes
+        keep = os.path.join(root, f"gen{res['generation']}.opt")
+        shutil.copy(res["source"], keep)
+        gen_files[res["generation"]] = keep
+        return res
+
+    def rollback(gen=None):
+        res = real_rollback(gen)
+        gen_files[res["generation"]] = gen_files[res["rolled_back_to"]]
+        return res
+
+    def reload_into(job, ckpt_dir, state):
+        g0, t0 = model.generation, time.perf_counter()
+        real_into(job, ckpt_dir, state)
+        if model.generation != g0:
+            swaps.append((job.job_id, time.perf_counter() - t0))
+
+    def yield_to_eval(stop):
+        t0 = time.perf_counter()
+        real_yield(stop)
+        yields.append(time.perf_counter() - t0)
+
+    app.reload_model, model.rollback = reload_model, rollback
+    sched._reload_into_serving = reload_into
+    sched._yield_to_eval = yield_to_eval
+    httpd, th = serve_in_thread(app, "127.0.0.1", 0)
+    base = "http://%s:%d" % httpd.server_address[:2]
+    answers, failures, lat = [], [], []
+    stop = threading.Event()
+
+    def client(i):
+        k = i
+        while not stop.is_set():
+            rows = JOB_ROWS[k % len(JOB_ROWS)]
+            lo = (97 * k + 31 * i) % (SERVE_POOL - rows)
+            k += 1
+            t0 = time.time()
+            st, body = _http(base, "/v1/kernels/mnist/infer",
+                             {"inputs": pool[lo:lo + rows].tolist()})
+            t1 = time.time()
+            if st != 200:
+                failures.append((st, body))
+                return
+            answers.append((lo, rows, body["generation"],
+                            np.asarray(body["outputs"], np.float64)))
+            lat.append((t0, t1 - t0, rows))
+
+    jobs, walls = {}, {}
+
+    def submit(tag, params):
+        t0 = time.perf_counter()
+        st, job = _http(base, "/v1/kernels/mnist/train", params)
+        if st != 202:
+            raise AssertionError(f"job {tag} (phase 22): {st} {job}")
+        return job["job_id"], t0
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(JOB_CLIENTS)]
+    try:
+        for t in threads:
+            t.start()
+        t_quiet = time.time()
+        time.sleep(JOB_QUIET_S)
+        quiet = (t_quiet, time.time())
+        # job A: the tutorial conf, 3 epochs, a snapshot and a swap each
+        train_epoch_kernel.launches = 0
+        api.reset_epoch_metrics()
+        n_yield = len(yields)
+        jid, t0 = submit("A", job_a)
+        jobs["A"] = _job_wait(base, jid)
+        walls["A"] = time.perf_counter() - t0
+        b1_launches = train_epoch_kernel.launches
+        device_ms = list(api.EPOCH_METRICS["device_ms"])
+        yields_a = yields[n_yield:]
+        jobs["A"] = _job_wait(base, jid, lambda s: s["auto_promote"])
+        # job B: 64 files uploaded in 4 chunks, 2 epochs
+        names = sorted(os.listdir(samples))[:JOB_B_FILES]
+        per = JOB_B_FILES // JOB_B_CHUNKS
+        chunks = [names[i:i + per] for i in range(0, JOB_B_FILES, per)]
+
+        def files(chunk):
+            return [(n, open(os.path.join(samples, n), "rb").read())
+                    for n in chunk]
+
+        t0 = time.perf_counter()
+        st, job = _post_body(base, "/v1/kernels/mnist/train/chunked",
+                             *_multipart({"epochs": JOB_B_EPOCHS,
+                                          "seed": 10958, "train": "BP",
+                                          "ckpt_every": 1},
+                                         files(chunks[0])))
+        if st != 202:
+            raise AssertionError(f"job B (phase 22): {st} {job}")
+        jid_b = job["job_id"]
+        for n, chunk in enumerate(chunks[1:], 2):
+            final = "?final=1" if n == len(chunks) else ""
+            st, out = _post_body(base, f"/v1/jobs/{jid_b}/corpus{final}",
+                                 *_multipart(None, files(chunk)))
+            if st != 200 or out != {"job": jid_b, "chunks": n,
+                                    "complete": bool(final)}:
+                raise AssertionError(f"job B chunk {n}: {st} {out}")
+        jobs["B"] = _job_wait(base, jid_b)
+        walls["B"] = time.perf_counter() - t0
+        # job C: job A's submit, cancelled after its first epoch, resumed
+        jid, t0 = submit("C", job_a)
+        _job_wait(base, jid, lambda s: s["epoch"] >= 1)
+        st, body = _http(base, f"/v1/jobs/{jid}/cancel", {})
+        jobs["C"] = _job_wait(base, jid)
+        walls["C"] = time.perf_counter() - t0
+        if st != 200 or jobs["C"]["status"] != "cancelled" \
+                or not 1 <= jobs["C"]["epoch"] < EPOCHS \
+                or not jobs["C"]["resumable"]:
+            raise AssertionError(f"job C (phase 22): cancel {st}, "
+                                 f"{jobs['C']}")
+        jid, t0 = submit("C'", {"resume_job": jid, "epochs": EPOCHS})
+        jobs["C'"] = _job_wait(base, jid)
+        walls["C'"] = time.perf_counter() - t0
+        stop.set()
+        for t in threads:
+            t.join(timeout=120)
+            if t.is_alive():
+                raise AssertionError("jobs (phase 22): a client hung")
+        snap = app.metrics.snapshot()
+        launches = fused_linear_act.launches   # the path ends here
+    finally:
+        stop.set()
+        httpd.shutdown()
+        httpd.server_close()
+        app.close(drain=True)
+        th.join(timeout=60)
+    if failures:
+        raise AssertionError(f"jobs (phase 22): non-200 answers "
+                             f"{failures[:3]}")
+    for tag in ("A", "B", "C'"):
+        if jobs[tag]["status"] != "done":
+            raise AssertionError(f"job {tag} (phase 22): {jobs[tag]}")
+    a, b = jobs["A"], jobs["B"]
+    if b1_launches != EPOCHS or len(a["generations"]) < 3:
+        raise AssertionError(f"job A (phase 22): train_epoch launched "
+                             f"{b1_launches} times, generations "
+                             f"{a['generations']}")
+    if device == "cuda" and len(device_ms) != EPOCHS:
+        raise AssertionError(f"job A (phase 22): epoch times {device_ms}")
+    if launches != 2 * snap["batches_total"]:
+        raise AssertionError(f"fused_linear_act launched {launches} times "
+                             f"for {snap['batches_total']} batches")
+
+    def opt(rec):
+        with open(os.path.join(rec["path"], "kernel.opt"), "rb") as fp:
+            return fp.read()
+
+    # job A against the offline train_nn of its own conf
+    offline = os.path.join(root, "offline")
+    os.makedirs(offline)
+    cwd = os.getcwd()
+    os.chdir(offline)
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.train_nn_main(
+                ["-v", "-v", "--device", device, "--epochs", str(EPOCHS),
+                 "--ckpt-every", "1", "--ckpt-dir", "ck",
+                 os.path.join(a["path"], "nn.conf")])
+        with open("kernel.opt", "rb") as fp:
+            offline_opt = fp.read()
+    finally:
+        os.chdir(cwd)
+    if rc != 0 or opt(a) != offline_opt:
+        raise AssertionError(f"job A (phase 22): kernel.opt differs from "
+                             f"the offline train_nn (rc {rc})")
+    if opt(jobs["C'"]) != opt(a):
+        raise AssertionError("job C (phase 22): the cancelled and resumed "
+                             "job's kernel.opt differs from job A's")
+    # job B's pack: a ChunkedPackWriter of the same chunks of its files
+    cdir = os.path.join(b["path"], "corpus")
+    with open(pack_path(cdir), "rb") as fp:
+        pack = fp.read()
+    os.unlink(pack_path(cdir))
+    writer = ChunkedPackWriter(cdir, MNIST[0], MNIST[2])
+    for chunk in chunks:
+        writer.add_sample_files(chunk)
+    if not writer.finalize() or open(pack_path(cdir), "rb").read() != pack:
+        raise AssertionError("job B (phase 22): the upload's pack differs "
+                             "from a ChunkedPackWriter of its chunks")
+    # a second server on the job dir reports the history
+    with contextlib.redirect_stdout(io.StringIO()):
+        app2, _ = cli.serve_app(serve_argv)
+    try:
+        history = {j["job_id"]: j["status"] for j in app2.jobs.list()}
+    finally:
+        app2.close(drain=True)
+    want = {jobs[t]["job_id"]: jobs[t]["status"] for t in jobs}
+    if history != want:
+        raise AssertionError(f"restart (phase 22): history {history}, "
+                             f"wanted {want}")
+    # every answer against the strict forward of its generation's file
+    refs, n_gens = {}, {}
+    for lo, rows, gen, outs in answers:
+        if gen not in refs:
+            refs[gen] = _strict_pool(gen_files[gen], _dtypes()["f64"], pool)
+        n_gens[gen] = n_gens.get(gen, 0) + 1
+        if not np.array_equal(outs, refs[gen][lo:lo + rows]):
+            raise AssertionError(f"jobs (phase 22): generation {gen} rows "
+                                 f"{lo}:{lo + rows} not bit-identical to "
+                                 "its strict forward")
+    one_row = {k: [s for t0, s, r in lat if r == 1 and lo <= t0 <= hi]
+               for k, (lo, hi) in (("no job", quiet),
+                                   ("job A", (a["started"],
+                                              a["finished"])))}
+    rec, resumed = a["auto_promote"], "C'"
+    res = {"answers": len(answers),
+           "answers_by_generation": {str(g): c
+                                     for g, c in sorted(n_gens.items())},
+           "b1_launches": b1_launches, "b2_launches": launches,
+           "batches": snap["batches_total"],
+           "epoch_device_ms": device_ms,
+           "phase16_epoch_device_ms": epochs_runs["per-sample"]
+           ["epoch_device_ms"],
+           "yield_s": yields_a,
+           "swap_s": {t: [s for j, s in swaps if j == jobs[t]["job_id"]]
+                      for t in jobs},
+           "one_row_ms": {k: {"p50": _pctl(v, 50) * 1e3,
+                              "p99": _pctl(v, 99) * 1e3, "n": len(v)}
+                          for k, v in one_row.items()},
+           "submit_to_done_s": walls,
+           "generations": {t: jobs[t]["generations"] for t in jobs},
+           "auto_promote": rec,
+           "cancelled_at_epoch": jobs["C"]["epoch"],
+           "pack_bytes": len(pack),
+           "seconds": time.perf_counter() - t_phase}
+    log(f"jobs (phase 22): {len(answers)} answers over generations "
+        f"{res['answers_by_generation']}, all 200 and bit-identical to the "
+        "strict forward of their generation; job A done in "
+        f"{walls['A']:.2f} s, train_epoch launched {b1_launches} times "
+        f"(one an epoch), generations {a['generations']}, kernel.opt "
+        f"byte-identical to the offline train_nn; job B ({JOB_B_FILES} "
+        f"files in {JOB_B_CHUNKS} chunks) done in "
+        f"{walls['B']:.2f} s, pack ({len(pack)} bytes) equal to a "
+        "ChunkedPackWriter's; job C cancelled at epoch "
+        f"{jobs['C']['epoch']} and resumed to {EPOCHS} in "
+        f"{walls['C'] + walls[resumed]:.2f} s, kernel.opt "
+        "byte-identical to job A's; restart reports "
+        f"{len(history)} jobs; fused_linear_act launched {launches} "
+        f"times ({snap['batches_total']} batches)")
+    log(f"jobs (phase 22) auto-promote: {rec['action']} candidate gen "
+        f"{rec['candidate']} err {rec['candidate_err']} vs baseline gen "
+        f"{rec['baseline']} err {rec['baseline_err']}, "
+        f"{rec['eval_requests']} eval requests over {rec['test_rows']} "
+        "test rows")
+    log(f"jobs (phase 22) times ({card}): job A epochs' device time "
+        + ", ".join(f"{ms:.1f}" for ms in device_ms) + " ms (phase 16: "
+        + ", ".join(f"{ms:.1f}" for ms in res["phase16_epoch_device_ms"])
+        + " ms); yield gate " + ", ".join(f"{s:.3f}" for s in yields_a)
+        + " s an epoch; swaps " + ", ".join(
+            f"{s:.3f}" for s in res["swap_s"]["A"]) + " s; 1-row p50/p99 "
+        + ", ".join(f"{k} {v['p50']:.1f}/{v['p99']:.1f} ms (n={v['n']})"
+                    for k, v in res["one_row_ms"].items())
+        + "; submit to done " + ", ".join(
+            f"{t} {s:.2f} s" for t, s in walls.items())
+        + f"; phase {res['seconds']:.1f} s")
+    return res
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3374,6 +3763,7 @@ def main(argv=None) -> int:
         tile_auto = phase_tile_auto(e2e, tuned, tile_epoch)
         batched = phase_batched(e2e, tmp)       # each run counts from 0
         tp_res = phase_tp(e2e, tmp, runs, results, epochs_runs)  # from 0
+        jobs_res = phase_jobs(e2e, epochs_runs, tmp, card)     # from 0
     cells = phase_times()
     bpm = phase_bpm()
     rep = next(c for c in cells if c["layer"] == "784->300"
@@ -3420,7 +3810,9 @@ def main(argv=None) -> int:
             "run_nn [model] 2": tp_res["run_nn"]["launches"],
             **{f"{tag} B={b}": c["launches_per_batch"][b]
                for tag, c in tp_res["serve"].items()
-               for b in TP_SERVE_BUCKETS}}}, {
+               for b in TP_SERVE_BUCKETS}},
+        "jobs_launches": jobs_res["b2_launches"],
+        "jobs_batches": jobs_res["batches"]}, {
         "name": "train_epoch", "route": "cuda",
         "source": "hpnn_tpu_torch/csrc/train_epoch.cu",
         "replaces": "hpnn_tpu/ops/convergence_pallas.py:208",
@@ -3457,7 +3849,9 @@ def main(argv=None) -> int:
             m: r["epoch_device_ms"]
             for m, r in corpus_res["train_nn_epochs"].items()},
         "tp_launches": {f"train_nn {tag}": r["launches"]["train_epoch"]
-                        for tag, r in tp_res["train"].items()}}, {
+                        for tag, r in tp_res["train"].items()},
+        "jobs_launches": jobs_res["b1_launches"],
+        "jobs_epochs_device_ms": jobs_res["epoch_device_ms"]}, {
         "name": "train_tile", "route": "cuda",
         "source": "hpnn_tpu_torch/csrc/train_tile.cu",
         "replaces": "hpnn_tpu/ops/convergence_tile.py:423",
@@ -3546,6 +3940,7 @@ def main(argv=None) -> int:
                        "serve_rest": serve_rest,
                        "batched": batched,
                        "tp": tp_res,
+                       "jobs": jobs_res,
                        "invariance_plans": invariance_plans,
                        "bpm": bpm,
                        "errors": [{"layer": k[0], "scale": k[1],

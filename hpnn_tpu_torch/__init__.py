@@ -12,6 +12,9 @@ Ported so far: ``python -m hpnn_tpu_torch.cli run_nn`` and ``serve_nn``
 ``train_nn`` per sample (``train_epoch``), in tiles (``train_tile``), over
 ``--epochs N`` on a device-resident pipeline, with checkpoint bundles and
 a bit-exact ``--resume`` (``ckpt/``), with the CG trainer (``train/``) and
-``[batch]`` data parallelism over ``torch.distributed`` (``parallel/``).  Citations like ``src/ann.c:883`` point into the
-reference C library; ``hpnn_tpu/...`` into the JAX package this ports.
+``[batch]`` data parallelism and ``[model]`` row sharding over
+``torch.distributed`` (``parallel/``), and the jobs service, ``serve_nn
+--jobs N``, which trains a kernel while serving it (``jobs/``).
+Citations like ``src/ann.c:883`` point into the reference C library;
+``hpnn_tpu/...`` into the JAX package this ports.
 """

@@ -60,8 +60,10 @@ Two more training routes, the JAX package's batched trainers:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
+import threading
 import time
 
 import numpy as np
@@ -1485,7 +1487,156 @@ def _print_verdicts(events, outs, ts, kind: str, n_out: int) -> None:
                 nn_cout(f" [FAIL idx={target + 1}]\n")
 
 
-__all__ = ["EPOCH_METRICS", "NNDef", "configure", "dtype_of", "kernel_kind",
-           "load_tests", "native_lnn", "pipeline_active",
+# --- the jobs service's training entry --------------------------------------
+#
+# The jobs scheduler (``jobs/scheduler.py``) runs K workers, each pinned to
+# a disjoint slice of the serve process's device list.  The slice is
+# thread-local: a worker wraps its ``train_job`` in ``device_slice``, which
+# also makes the slice's first card this thread's current CUDA device.
+# The port's data and model axes are the ``torch.distributed`` world, so a
+# slice decides where a job trains (its first device), not how it shards.
+
+_DEVICE_SLICE = threading.local()
+
+
+def slice_devices() -> list | None:
+    """This thread's pinned device slice, or None (whole process)."""
+    return getattr(_DEVICE_SLICE, "devices", None)
+
+
+@contextlib.contextmanager
+def device_slice(devices):
+    """Pin this thread to ``devices`` (nest-safe; a no-op for a falsy
+    list).  On a card, ``devices[0]`` is the thread's current CUDA device
+    for the duration, so nothing of a job lands on another card."""
+    if not devices:
+        yield
+        return
+    prev = getattr(_DEVICE_SLICE, "devices", None)
+    _DEVICE_SLICE.devices = list(devices)
+    dev = torch.device(devices[0])
+    try:
+        with (torch.cuda.device(dev) if dev.type == "cuda"
+              else contextlib.nullcontext()):
+            yield
+    finally:
+        _DEVICE_SLICE.devices = prev
+
+
+def train_job(conf_path: str, *, epochs: int, ckpt_dir: str,
+              ckpt_every: int = 1, ckpt_keep: int = 0,
+              kernel_out: str | None = None, resume: str | None = None,
+              stop=None, on_epoch=None, replicate_to: str | None = None,
+              devices=None) -> dict:
+    """Reentrant in-process training (the jobs service's entry).
+
+    ``train_nn``'s checkpoint path -- configure, ``ckpt.train_loop`` with
+    crash-safe snapshots, the final kernel dump and the manifest stamp --
+    without the process-wide side effects the CLI owns: no runtime
+    init/deinit, no cwd-relative ``kernel.tmp``/``kernel.opt`` (the caller
+    names ``kernel_out``), no stderr writes, and signal handlers only on
+    the main thread.  So a serve process's worker thread can call it while
+    eval traffic runs, and the same conf, corpus and seed give the kernel
+    bytes of an offline ``train_nn --epochs N --ckpt-every K``.
+
+    ``resume`` names a checkpoint dir or bundle to continue bit-exactly
+    (``--resume``).  ``stop``/``on_epoch`` pass through to
+    :func:`ckpt.trainer.train_loop`.  ``devices`` pins the run to a device
+    slice (:func:`device_slice`) and trains on its first device; None
+    trains on the runtime's device (the card unless ``init_all`` chose the
+    CPU).
+
+    Returns ``{"ok", "interrupted", "epoch", "errors", "error"}``, the JAX
+    package's keys; it does not raise for conf or corpus problems (the
+    scheduler maps the dict to a job status).  A checkpoint writer failure
+    raises, as the CLI's flush-before-done does, and so does a kernel
+    failure on a card: a job never trains on a plain version."""
+    with device_slice(devices):
+        if devices:
+            device = torch.device(devices[0])
+        else:
+            from . import runtime
+
+            device = runtime.lib_runtime.device or "cuda"
+        return _train_job_pinned(
+            conf_path, epochs=epochs, ckpt_dir=ckpt_dir,
+            ckpt_every=ckpt_every, ckpt_keep=ckpt_keep,
+            kernel_out=kernel_out, resume=resume, stop=stop,
+            on_epoch=on_epoch, replicate_to=replicate_to, device=device)
+
+
+def _train_job_pinned(conf_path: str, *, epochs: int, ckpt_dir: str,
+                      ckpt_every: int, ckpt_keep: int,
+                      kernel_out: str | None, resume: str | None,
+                      stop, on_epoch, replicate_to: str | None,
+                      device) -> dict:
+    from .ckpt import CheckpointManager, load_snapshot, train_loop
+    from .io.kernel_io import dump_kernel_to_path
+
+    def fail(msg: str) -> dict:
+        return {"ok": False, "interrupted": False, "epoch": 0,
+                "errors": [], "error": msg}
+
+    nn = configure(conf_path)
+    if nn is None or nn.kernel is None:
+        return fail(f"cannot read NN configuration {conf_path}")
+    snap = None
+    start_epoch = 0
+    if resume:
+        snap = load_snapshot(resume)
+        if snap is None:
+            return fail(f"no resumable snapshot at {resume}")
+        if snap.topology != list(nn.kernel.params):
+            return fail(f"snapshot topology {snap.topology} does not "
+                        f"match the configured kernel "
+                        f"{list(nn.kernel.params)}")
+        if snap.world_size != coord.world_size():
+            return fail(f"snapshot {snap.tag} was written by a "
+                        f"{snap.world_size}-process run; this run has "
+                        f"{coord.world_size()}")
+        # float64 weights from the bundle (not the quantized text), the
+        # effective seed, the CG carry; the shuffle words go to train_loop
+        nn.kernel.weights = list(snap.weights)
+        nn.conf.seed = snap.seed
+        nn.trainer_state = snap.trainer_state
+        start_epoch = snap.epoch
+    mgr = CheckpointManager(ckpt_dir, every=ckpt_every,
+                            keep_last=ckpt_keep, target_epochs=epochs,
+                            replicate_to=replicate_to)
+    if snap is not None:
+        mgr.seed_errors(snap.errors)
+    if start_epoch >= epochs:
+        # nothing left to train (a job interrupted in its final epoch):
+        # finish as a completed run does -- the dump, and record_final's
+        # generation bump, which tells watchers the run ended
+        if kernel_out:
+            dump_kernel_to_path(nn.kernel, kernel_out)
+            mgr.record_final(kernel_out)
+        else:
+            mgr.flush()
+        return {"ok": True, "interrupted": False, "epoch": start_epoch,
+                "errors": list(mgr.errors), "error": None}
+    trained, interrupted = train_loop(
+        nn, epochs, manager=mgr, start_epoch=start_epoch,
+        rng_state=snap.rng_state if snap is not None else None,
+        stop=stop, on_epoch=on_epoch, device=device)
+    if not trained:
+        mgr.flush()
+        return fail("training failed")
+    if kernel_out:
+        # an interrupted run dumps too, as the CLI does: kernel_out holds
+        # the last trained state
+        dump_kernel_to_path(nn.kernel, kernel_out)
+        mgr.record_final(kernel_out)
+    else:
+        mgr.flush()
+    return {"ok": True, "interrupted": bool(interrupted),
+            "epoch": len(mgr.errors), "errors": list(mgr.errors),
+            "error": None}
+
+
+__all__ = ["EPOCH_METRICS", "NNDef", "configure", "device_slice", "dtype_of",
+           "kernel_kind", "load_tests", "native_lnn", "pipeline_active",
            "pipeline_defer_out", "pipeline_join", "reset_epoch_metrics",
-           "run_kernel", "shuffle_order", "train_kernel"]
+           "run_kernel", "shuffle_order", "slice_devices", "train_job",
+           "train_kernel"]

@@ -12,7 +12,8 @@
         [-b MAX_BATCH] [-q QUEUE_ROWS] [--linger-ms MS] [--timeout-s S]
         [--parity {strict,fast}] [--fast-threshold N]
         [--warmup-mode {background,sync,off}] [--device {cuda,cpu}]
-        [conf ...]
+        [--jobs N [--job-workers K] [--job-dir DIR] [--job-auto-resume]
+        [--replicate-to DIR] [--auto-promote]] [conf ...]
 
 ``train_nn`` and ``run_nn`` keep the reference parser
 (``tests/train_nn.c:59-255``, ``tests/run_nn.c:66-234``): flags combine
@@ -44,12 +45,16 @@ a checkpoint manifest (``--ckpt-dir``, default ``./ckpt``) recorded a
 different fingerprint for the kernel it evaluates.  ``--corpus-cache DIR``
 puts the packed corpus cache (``io.corpus``) in DIR for this command and
 ``--corpus-cache-max-mb N`` caps that dir's size.
-Every command runs on the GPU unless
+``serve_nn --jobs N`` adds the online training service
+(``jobs/``: ``POST /v1/kernels/<name>/train`` trains a kernel while it is
+served, each epoch's snapshot hot-reloaded), with ``--job-workers K``,
+``--job-dir DIR``, ``--job-auto-resume``, ``--replicate-to DIR`` and
+``--auto-promote``.  Every command runs on the GPU unless
 ``--device cpu`` is given; asking for the GPU on a host without one exits
 non-zero before anything is computed.  The JAX package's other options
 (its compilation cache, profiling, replication to a mesh router, mesh
-serving, jobs, tracing) are refused with a message naming them:
-later slices of the port bring them.
+serving, tracing) are refused with a message naming them: later slices of
+the port bring them.
 """
 
 from __future__ import annotations
@@ -619,6 +624,41 @@ def _serve_parser():
                     "$HPNN_SERVE_TOKEN; unset = open")
     ap.add_argument("--device", choices=runtime.DEVICES, default="cuda",
                     help="where to compute (default cuda; no fallback)")
+    ap.add_argument("--jobs", type=int, default=0, metavar="N",
+                    help="enable the online training service with an "
+                    "N-job bounded queue (POST /v1/kernels/<name>/train; "
+                    "0: disabled).  Scheduler workers share the device "
+                    "with eval traffic at epoch granularity and hot-swap "
+                    "every epoch-boundary snapshot into serving")
+    ap.add_argument("--job-workers", type=int, default=None, metavar="K",
+                    help="(with --jobs) concurrent training jobs: K "
+                    "scheduler workers, each pinned to a disjoint "
+                    "best-fit slice of this process's devices.  Default: "
+                    "$HPNN_JOB_WORKERS or 1")
+    ap.add_argument("--job-dir", default="./jobs", metavar="DIR",
+                    help="persistent job state/corpus/checkpoint root "
+                    "(default ./jobs); a restarted server reports the "
+                    "directory's job history")
+    ap.add_argument("--job-auto-resume", action="store_true",
+                    default=False,
+                    help="(with --jobs) lease-based auto-resume: "
+                    "interrupted and expired-lease jobs are re-queued "
+                    "from their newest verified local-or-replicated "
+                    "bundle, bounded by HPNN_JOB_MAX_RETRIES with "
+                    "jittered backoff, then failed with a reason.  "
+                    "Default: $HPNN_JOB_AUTO_RESUME=1")
+    ap.add_argument("--replicate-to", default=None, metavar="DIR",
+                    help="(with --jobs) ship every verified snapshot "
+                    "bundle, content-addressed, to DIR; auto-resume "
+                    "restores from DIR when the local dir is lost.  "
+                    "Default: $HPNN_REPLICATE_TO.  (A mesh router, "
+                    "http://HOST:PORT, is not ported yet.)")
+    ap.add_argument("--auto-promote", action="store_true", default=False,
+                    help="(with --jobs) when a training job finishes, "
+                    "evaluate its candidate generation against the "
+                    "pre-job baseline on a held-out test dir (the "
+                    "submit's 'test_samples' or the conf's [test_dir]) "
+                    "and promote if better, roll back on regression")
     return ap
 
 
@@ -643,6 +683,14 @@ def serve_app(argv: list[str]):
     if rest:
         sys.stderr.write(_serve_refusal(rest))
         return None, 2
+    replicate_to = (args.replicate_to or os.environ.get("HPNN_REPLICATE_TO")
+                    or None)
+    if (args.jobs > 0 or args.replicate_to) and replicate_to \
+            and replicate_to.startswith(("http://", "https://")):
+        from .ckpt.replicate import http_refusal
+
+        sys.stderr.write(f"serve_nn: {http_refusal(replicate_to)}\n")
+        return None, -1
     from .serve.server import ServeApp
 
     nn_log.set_verbosity(0)
@@ -700,13 +748,38 @@ def serve_app(argv: list[str]):
             runtime.deinit_all()
             return None, -1
         app.watch_manifest(wname, wdir, interval_s=args.watch_interval)
+    if args.jobs > 0:
+        from .utils.env import env_int
+
+        app.enable_jobs(args.job_dir, capacity=args.jobs,
+                        auto_promote=args.auto_promote,
+                        auto_resume=args.job_auto_resume or None,
+                        replicate_to=replicate_to,
+                        job_workers=args.job_workers
+                        or env_int("HPNN_JOB_WORKERS", 1, lo=1))
+        jobs = app.jobs
+        tok = "on" if auth_token else "OFF (pass --auth-token)"
+        promo = ", auto-promote" if args.auto_promote else ""
+        res = ", auto-resume" if jobs.auto_resume else ""
+        rep = (f", replicate-to={jobs.replicate_to}"
+               if jobs.replicate_to else "")
+        wrk = (f", workers={jobs.workers} over {jobs.slices.n} device(s)"
+               if jobs.workers > 1 else "")
+        sys.stdout.write(f"SERVE: online training enabled "
+                         f"(queue={args.jobs}, job-dir={args.job_dir}, "
+                         f"ab-fraction={args.ab_fraction:g}, "
+                         f"auth={tok}{promo}{res}{rep}{wrk})\n")
+    elif args.auto_promote:
+        sys.stderr.write("serve: --auto-promote is inert without "
+                         "--jobs N (ignored)\n")
     return app, args
 
 
 def serve_nn_main(argv: list[str] | None = None) -> int:
     """serve_nn: a long-lived inference server over the same ``.conf``
-    files run_nn takes.  SIGTERM/SIGINT drain: admission stops, every
-    admitted request is answered, then the process exits 0."""
+    files run_nn takes.  SIGTERM/SIGINT drain: admission stops, a running
+    training job finishes its epoch, snapshots and lands ``interrupted``,
+    every admitted request is answered, then the process exits 0."""
     import signal
     import threading
 

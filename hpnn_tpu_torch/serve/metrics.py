@@ -240,6 +240,9 @@ class ServeMetrics:
         self._model_info: dict[str, dict] = {}
         self.reloads = {"ok": 0, "error": 0}
         self._gen_requests: dict[str, dict[str, int]] = {}
+        # the job scheduler's gauges, read through a callback at render
+        # time (like queue depth) so they can never go stale
+        self._jobs_fn: Callable[[], dict] | None = None
 
     # --- write side -----------------------------------------------------
     def count_request(self, outcome: str) -> None:
@@ -329,6 +332,12 @@ class ServeMetrics:
                 info["route"] = str(route)
             self._model_info[name] = info
 
+    def set_jobs_source(self, fn: Callable[[], dict] | None) -> None:
+        """Attach the job scheduler's live metrics callback (queue depth,
+        running jobs, trained epochs, slices)."""
+        with self._lock:
+            self._jobs_fn = fn
+
     def count_reload(self, ok: bool) -> None:
         with self._lock:
             self.reloads["ok" if ok else "error"] += 1
@@ -380,6 +389,8 @@ class ServeMetrics:
         # outside our own
         depths = {name: fn() for name, fn in list(self._depth_fns.items())}
         lanes = {name: fn() for name, fn in list(self._lane_fns.items())}
+        jobs_fn = self._jobs_fn   # it takes the scheduler's locks too
+        jobs = jobs_fn() if jobs_fn is not None else None
         with self._lock:
             out = {
                 "requests": dict(self.requests),
@@ -392,6 +403,7 @@ class ServeMetrics:
                 "reloads": dict(self.reloads),
                 "generations": {k: dict(v)
                                 for k, v in self._gen_requests.items()},
+                "jobs": jobs,
                 # "off" only under HPNN_NO_NATIVE_IO: a loader that
                 # fails to build raises instead
                 "native_io": native_io_status(),
@@ -505,6 +517,8 @@ class ServeMetrics:
                     "hpnn_serve_generation_requests_total"
                     f'{{kernel="{_escape_label(kernel)}",'
                     f'generation="{_escape_label(gen)}"}} {n}')
+        if snap.get("jobs") is not None:
+            lines += _jobs_prometheus(snap["jobs"])
         lines += [
             "# HELP hpnn_serve_queue_depth Requests waiting per kernel.",
             "# TYPE hpnn_serve_queue_depth gauge",
@@ -607,6 +621,85 @@ class ServeMetrics:
         lines += [f'hpnn_kernel_launches_total{{kernel="{k}"}} {v}'
                   for k, v in snap["kernel_launches"].items()]
         return "\n".join(lines) + "\n"
+
+
+def _jobs_prometheus(j: dict) -> list[str]:
+    """The ``hpnn_jobs_*`` families of one jobs snapshot (the JAX
+    package's names, help texts and labels)."""
+    running = j.get("running") or {}
+    lines = [
+        "# HELP hpnn_jobs_queue_depth Training jobs queued.",
+        "# TYPE hpnn_jobs_queue_depth gauge",
+        f"hpnn_jobs_queue_depth {j['queue_depth']}",
+        "# HELP hpnn_jobs_running Whether a training job is "
+        "running (1) or the device serves eval only (0).",
+        "# TYPE hpnn_jobs_running gauge",
+        f"hpnn_jobs_running {1 if running else 0}",
+        "# HELP hpnn_jobs_trained_epochs_total Cumulative "
+        "epochs trained by the jobs subsystem.",
+        "# TYPE hpnn_jobs_trained_epochs_total counter",
+        f"hpnn_jobs_trained_epochs_total {j['trained_epochs_total']}",
+        "# HELP hpnn_jobs_upload_chunks_total Corpus chunks "
+        "accepted by the chunked upload endpoints.",
+        "# TYPE hpnn_jobs_upload_chunks_total counter",
+        f"hpnn_jobs_upload_chunks_total {j.get('upload_chunks_total', 0)}",
+    ]
+    if running:
+        lines += [
+            "# HELP hpnn_jobs_running_epoch Running job's last "
+            "completed epoch.",
+            "# TYPE hpnn_jobs_running_epoch gauge",
+            f"hpnn_jobs_running_epoch {running.get('epoch', 0)}",
+        ]
+        if running.get("mean_err") is not None:
+            lines += [
+                "# HELP hpnn_jobs_running_mean_err Running "
+                "job's last epoch mean final error.",
+                "# TYPE hpnn_jobs_running_mean_err gauge",
+                f"hpnn_jobs_running_mean_err {running['mean_err']}",
+            ]
+    lines += [
+        "# HELP hpnn_jobs_total Jobs by lifecycle status.",
+        "# TYPE hpnn_jobs_total gauge",
+    ]
+    for status, n in sorted(j.get("by_status", {}).items()):
+        lines.append(f'hpnn_jobs_total{{status="{_escape_label(status)}"}}'
+                     f" {n}")
+    if "slice_devices_total" in j:
+        # the worker pool's device occupancy and one row per pinned job
+        lines += [
+            "# HELP hpnn_jobs_slices_active Training jobs "
+            "holding a device slice.",
+            "# TYPE hpnn_jobs_slices_active gauge",
+            f"hpnn_jobs_slices_active {j['slices_active']}",
+            "# HELP hpnn_jobs_slice_devices_in_use Devices "
+            "held by job slices (of hpnn_jobs_slice_devices_total).",
+            "# TYPE hpnn_jobs_slice_devices_in_use gauge",
+            f"hpnn_jobs_slice_devices_in_use {j['slice_devices_in_use']}",
+            "# HELP hpnn_jobs_slice_devices_total Devices the "
+            "placement scheduler owns.",
+            "# TYPE hpnn_jobs_slice_devices_total gauge",
+            f"hpnn_jobs_slice_devices_total {j['slice_devices_total']}",
+            "# HELP hpnn_jobs_queued_placements Slice requests "
+            "waiting for devices to free.",
+            "# TYPE hpnn_jobs_queued_placements gauge",
+            f"hpnn_jobs_queued_placements {j.get('queued_placements', 0)}",
+            "# HELP hpnn_jobs_slice_devices Devices pinned per "
+            "running job (dp x tp grid labels).",
+            "# TYPE hpnn_jobs_slice_devices gauge",
+        ]
+        for rj in j.get("running_jobs") or []:
+            sl = rj.get("slice") or {}
+            if not sl:
+                continue
+            lines.append(
+                "hpnn_jobs_slice_devices"
+                f'{{job="{_escape_label(rj["job"])}",'
+                f'kernel="{_escape_label(rj.get("kernel") or "")}",'
+                f'dp="{sl.get("dp", 1)}",'
+                f'tp="{sl.get("tp", 1)}"}} '
+                f'{sl.get("size", 0)}')
+    return lines
 
 
 __all__ = ["PHASES", "LatencyHistogram", "ServeMetrics"]

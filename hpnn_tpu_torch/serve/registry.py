@@ -285,7 +285,7 @@ class ServedModel:
                 self.ab_window = None
             else:
                 # retain the outgoing generation only when something can
-                # consume it (an A/B fraction): a plain --watch-ckpt
+                # consume it (retain_generations): a plain --watch-ckpt
                 # server must not hold extra device copies per swap
                 old_gen = self.generation
                 keep = (self.registry.gen_keep
@@ -457,6 +457,9 @@ class ModelRegistry:
         # retained generations a model keeps pinnable
         self.ab_fraction = float(ab_fraction)
         self.gen_keep = max(0, int(gen_keep))
+        # swaps retain generations only when something consumes them: an
+        # A/B fraction, or the jobs service (ServeApp.enable_jobs turns
+        # this on for rollback, pins and auto-promote's baseline)
         self.retain_generations = self.ab_fraction > 0.0
         # the A/B draw's own generator, never the module-level random
         self.rng = random.Random()

@@ -21,6 +21,20 @@ Endpoints:
 * ``GET /metrics`` -- Prometheus text; ``?format=json`` for the JSON
   snapshot (``serve/metrics.py``).
 
+With ``serve_nn --jobs N`` (``ServeApp.enable_jobs``, ``jobs/``), the
+training service:
+
+* ``POST /v1/kernels/<name>/train`` -- submit a training job (JSON with a
+  server-side ``samples`` dir, or multipart/form-data: a ``params`` JSON
+  field and corpus file parts); 202 with the job record.
+* ``POST /v1/kernels/<name>/train/chunked`` -- submit on the first corpus
+  chunk; ``POST /v1/jobs/<id>/corpus[?final=1]`` appends the rest.  A
+  body over ``HPNN_JOBS_MAX_BODY_MB`` is a 413 that names the chunked
+  endpoint.
+* ``GET /v1/jobs[?state=S&limit=N]``, ``GET /v1/jobs/<id>`` and
+  ``GET /v1/jobs/<id>/events`` (chunked NDJSON until the job is terminal).
+* ``POST /v1/jobs/<id>/{cancel,promote,rollback}``.
+
 Request headers:
 
 * ``X-HPNN-Generation: G`` -- pin the request to generation G (the
@@ -32,15 +46,19 @@ Request headers:
 * ``X-HPNN-Deadline-Ms: N`` -- the request's own deadline (wins over the
   body's ``timeout_ms``): an expired one is a 504 at admission.
 
-The mutating endpoint (reload) honors ``--auth-token`` /
-``HPNN_SERVE_TOKEN``: when configured, a request without the matching
-``Authorization: Bearer`` (or ``X-HPNN-Token``) header gets 401.
+The mutating endpoints (reload, the train submits, corpus chunks, job
+actions) honor ``--auth-token`` / ``HPNN_SERVE_TOKEN``: when configured,
+a request without the matching ``Authorization: Bearer`` (or
+``X-HPNN-Token``) header gets 401.
 
-Status mapping: 200 result; 400 malformed body, wrong input width, too
-many rows or a bad header; 401 missing or invalid token on reload; 404
-unknown kernel, path or pinned generation; 409 reload failed (the old
-weights keep serving); 429 queue full (Retry-After from the queue's
-measured drain rate); 503 draining; 504 deadline exceeded; 500 anything
+Status mapping: 200 result (202 for a train submit); 400 malformed body,
+wrong input width, too many rows, a bad header or bad job params; 401
+missing or invalid token on a mutating endpoint; 404 unknown kernel, job,
+path or pinned generation; 409 reload failed (the old weights keep
+serving), a job action in a conflicting state or a closed upload; 413 a
+jobs body over its cap; 429 queue full (Retry-After from the queue's
+measured drain rate; 1 s for the job queue); 503 draining, or
+``jobs_disabled`` without ``--jobs``; 504 deadline exceeded; 500 anything
 else.  An error body is ``{"error": <message>, "reason": <outcome>}``.
 
 ``ThreadingHTTPServer`` gives one thread per connection; they all block
@@ -50,6 +68,7 @@ launching its forward.
 
 from __future__ import annotations
 
+import contextlib
 import hmac
 import json
 import math
@@ -69,6 +88,13 @@ from .registry import ModelRegistry
 
 _INFER_RE = re.compile(r"^/v1/kernels/([^/]+)/infer$")
 _RELOAD_RE = re.compile(r"^/v1/kernels/([^/]+)/reload$")
+_TRAIN_RE = re.compile(r"^/v1/kernels/([^/]+)/train$")
+_TRAIN_CHUNKED_RE = re.compile(r"^/v1/kernels/([^/]+)/train/chunked$")
+_JOB_CORPUS_RE = re.compile(r"^/v1/jobs/([^/]+)/corpus$")
+_JOB_RE = re.compile(r"^/v1/jobs/([^/]+)$")
+_JOB_EVENTS_RE = re.compile(r"^/v1/jobs/([^/]+)/events$")
+_JOB_ACTION_RE = re.compile(
+    r"^/v1/jobs/([^/]+)/(cancel|promote|rollback)$")
 
 
 class _HTTPError(Exception):
@@ -78,6 +104,67 @@ class _HTTPError(Exception):
         self.status = status
         self.outcome = outcome
         self.retry_after = retry_after  # seconds; 429s render the header
+
+
+def _jobs_body_cap_bytes() -> int:
+    """The body cap of the jobs endpoints: one POST (a single-shot train
+    submit or one corpus chunk) carries at most HPNN_JOBS_MAX_BODY_MB (0
+    disables).  It is enforced from the Content-Length, before the body
+    is read; an oversized single-shot submit gets a 413 that points at
+    the chunked endpoint."""
+    from ..utils.env import env_int
+
+    return env_int("HPNN_JOBS_MAX_BODY_MB", 64, lo=0) << 20
+
+
+def _read_spool(path: str | None) -> bytes:
+    """A request body spooled to disk by ``_spool_body`` (its size was
+    capped from the Content-Length, so one read is bounded)."""
+    if not path:
+        return b""
+    with open(path, "rb") as fp:
+        return fp.read()
+
+
+def _parse_multipart(body: bytes,
+                     content_type: str) -> tuple[dict, list]:
+    """A multipart/form-data train submit: the ``params`` field (JSON)
+    and the corpus file parts (filename -> sample text bytes), decoded by
+    the stdlib email parser."""
+    import email.parser
+    import email.policy
+
+    try:
+        msg = email.parser.BytesParser(
+            policy=email.policy.default).parsebytes(
+            b"Content-Type: " + content_type.encode("latin-1")
+            + b"\r\nMIME-Version: 1.0\r\n\r\n" + body)
+    except Exception as exc:
+        raise _HTTPError(400, "bad_request", f"bad multipart body: {exc}")
+    if not msg.is_multipart():
+        raise _HTTPError(400, "bad_request",
+                         "multipart body has no parts (bad boundary?)")
+    params: dict = {}
+    files: list[tuple[str, bytes]] = []
+    for part in msg.iter_parts():
+        payload = part.get_payload(decode=True)
+        if payload is None:
+            continue
+        fname = part.get_filename()
+        if fname:
+            files.append((fname, payload))
+            continue
+        field = part.get_param("name", header="content-disposition")
+        if field == "params":
+            try:
+                params = json.loads(payload.decode("utf-8"))
+            except (UnicodeDecodeError, json.JSONDecodeError) as exc:
+                raise _HTTPError(400, "bad_request",
+                                 f"bad params JSON: {exc}")
+            if not isinstance(params, dict):
+                raise _HTTPError(400, "bad_request",
+                                 "'params' must be a JSON object")
+    return params, files
 
 
 def _tp_mesh_from_env(device):
@@ -124,6 +211,7 @@ class ServeApp:
         self._warming_lock = threading.Lock()
         self._watchers: list[threading.Thread] = []
         self._closed = False
+        self.jobs = None              # the JobScheduler (enable_jobs)
         self.started_mono = time.monotonic()  # /healthz uptime_s
 
     def _warm(self, model) -> None:
@@ -179,6 +267,11 @@ class ServeApp:
 
     def close(self, drain: bool = True) -> None:
         self._closed = True  # also stops the manifest watchers
+        if self.jobs is not None:
+            # the jobs first: a running job finishes its in-flight epoch,
+            # snapshots and lands `interrupted` (resumable) before the
+            # eval batchers stop
+            self.jobs.drain()
         for b in self.batchers.values():
             b.close(drain=drain)
 
@@ -208,6 +301,35 @@ class ServeApp:
         if auth.startswith("Bearer ") and _eq(auth[7:].strip()):
             return True
         return _eq(headers.get("X-HPNN-Token") or "")
+
+    # --- online training jobs -------------------------------------------
+    def enable_jobs(self, job_dir: str, capacity: int = 8,
+                    preempt_wait_s: float = 2.0,
+                    auto_promote: bool = False,
+                    auto_resume: bool | None = None,
+                    replicate_to: str | None = None,
+                    job_workers: int = 1, devices=None):
+        """Attach the train-while-serving job service (``serve_nn --jobs
+        N``): a bounded queue, ``job_workers`` slice-pinned scheduler
+        workers over ``devices`` (default: this process's cards, or the
+        CPU device) and the persistent job store under ``job_dir``, with
+        its gauges in /metrics.  ``auto_promote`` evaluates a finished
+        job's candidate generation on a held-out test dir and promotes or
+        rolls back; ``auto_resume``/``replicate_to`` re-queue interrupted
+        jobs from their newest verified bundle, local or replicated."""
+        from ..jobs import JobScheduler
+
+        # jobs consume retained generations (rollback, pins, canary
+        # counters) even without an A/B fraction
+        self.registry.retain_generations = True
+        self.jobs = JobScheduler(self, job_dir, capacity=capacity,
+                                 preempt_wait_s=preempt_wait_s,
+                                 auto_promote=auto_promote,
+                                 auto_resume=auto_resume,
+                                 replicate_to=replicate_to,
+                                 job_workers=job_workers, devices=devices)
+        self.metrics.set_jobs_source(self.jobs.metrics_snapshot)
+        return self.jobs
 
     # --- model lifecycle (hot reload) -----------------------------------
     def reload_model(self, name: str, kernel_path: str | None = None,
@@ -297,7 +419,13 @@ class ServeApp:
                 "device": str(reg.device),
                 "uptime_s": round(self.uptime_s(), 3),
                 "queue_depth": {name: b.depth() for name, b in
-                                self.batchers.items()}}
+                                self.batchers.items()},
+                "active_jobs": 0 if self.jobs is None else
+                self.jobs.queue.depth() + self.jobs.running_count()}
+        if self.jobs is not None:
+            # which device slices the job workers hold, and how many
+            # asks await placement
+            body["job_slices"] = self.jobs.slices.occupancy()
         if warming:
             body["warming"] = warming
         return (200 if status == "ok" else 503), body
@@ -445,6 +573,183 @@ class ServeApp:
         except Exception as exc:
             raise _HTTPError(500, "error", f"{type(exc).__name__}: {exc}")
 
+    # --- job endpoints --------------------------------------------------
+    def _jobs_or_503(self):
+        if self.jobs is None:
+            raise _HTTPError(503, "jobs_disabled",
+                             "online training is disabled "
+                             "(start serve_nn with --jobs N)")
+        return self.jobs
+
+    @staticmethod
+    def _submit_error(exc) -> _HTTPError:
+        """A submit's JobQueueFull -> 429, unknown kernel -> 404, any
+        other JobError -> 400."""
+        from ..jobs import JobQueueFull
+
+        if isinstance(exc, JobQueueFull):
+            return _HTTPError(429, "queue_full", str(exc))
+        msg = str(exc)
+        if "unknown kernel" in msg:
+            return _HTTPError(404, "not_found", msg)
+        return _HTTPError(400, "bad_request", msg)
+
+    def handle_train(self, name: str, body: bytes,
+                     content_type: str = "") -> dict:
+        """POST /v1/kernels/<name>/train: submit a training job, as JSON
+        (a server-side ``samples`` path) or multipart/form-data (a
+        ``params`` JSON field and corpus file parts).  202 with the job
+        record; 400 bad params, 404 unknown kernel, 429 queue full."""
+        from ..jobs import JobError, JobQueueFull
+
+        jobs = self._jobs_or_503()
+        corpus_files = None
+        if content_type.startswith("multipart/form-data"):
+            params, corpus_files = _parse_multipart(body, content_type)
+        elif body.strip():
+            try:
+                params = json.loads(body.decode("utf-8"))
+            except (UnicodeDecodeError, json.JSONDecodeError) as exc:
+                raise _HTTPError(400, "bad_request", f"bad JSON: {exc}")
+            if not isinstance(params, dict):
+                raise _HTTPError(400, "bad_request",
+                                 "body must be an object")
+        else:
+            params = {}
+        try:
+            job = jobs.submit(name, params, corpus_files=corpus_files)
+        except (JobQueueFull, JobError) as exc:
+            raise self._submit_error(exc)
+        return job.to_dict()
+
+    def handle_train_chunked(self, name: str, spool: str | None,
+                             content_type: str = "") -> dict:
+        """POST /v1/kernels/<name>/train/chunked: submit a training job
+        on its first corpus chunk (multipart: ``params`` and file parts).
+        The job queues at once and holds training until the upload
+        closes; 202 with the job record and the chunk endpoint."""
+        from ..jobs import JobError, JobQueueFull
+
+        jobs = self._jobs_or_503()
+        params, files = _parse_multipart(_read_spool(spool), content_type)
+        try:
+            job = jobs.submit_chunked(name, params, files)
+        except (JobQueueFull, JobError) as exc:
+            raise self._submit_error(exc)
+        out = job.to_dict()
+        out["upload"] = {"endpoint": f"/v1/jobs/{job.job_id}/corpus",
+                         "chunks": 1, "complete": False}
+        return out
+
+    def handle_job_corpus(self, job_id: str, spool: str | None,
+                          content_type: str = "",
+                          query: str = "") -> dict:
+        """POST /v1/jobs/<id>/corpus[?final=1]: append one corpus chunk
+        to a chunked-upload job; ``final=1`` closes the upload (with
+        files, or as a bare close) and releases the runner's hold."""
+        import urllib.parse
+
+        from ..jobs import JobError
+
+        jobs = self._jobs_or_503()
+        q = urllib.parse.parse_qs(query or "")
+        final = (q.get("final") or ["0"])[-1] in ("1", "true")
+        body = _read_spool(spool)
+        files: list = []
+        if body.strip():
+            try:
+                _params, files = _parse_multipart(body, content_type)
+            except _HTTPError as exc:
+                # a bare close is often an empty multipart (the closing
+                # boundary only): no files, not a malformed body
+                if "no parts" not in str(exc):
+                    raise
+        if not files and not final:
+            raise _HTTPError(400, "bad_request",
+                             "chunk carries no corpus files (send "
+                             "files, or final=1 to close the upload)")
+        try:
+            return jobs.upload_chunk(job_id, files, final)
+        except JobError as exc:
+            msg = str(exc)
+            if "unknown job" in msg:
+                raise _HTTPError(404, "not_found", msg)
+            if "no open chunked" in msg or "no longer accepting" in msg:
+                raise _HTTPError(409, "conflict", msg)
+            raise _HTTPError(400, "bad_request", msg)
+
+    def handle_job_get(self, job_id: str) -> dict:
+        jobs = self._jobs_or_503()
+        snap = jobs.get(job_id)
+        if snap is None:
+            raise _HTTPError(404, "not_found", f"unknown job '{job_id}'")
+        return snap
+
+    def handle_job_list(self, state: str | None = None,
+                        limit: str | None = None) -> dict:
+        """GET /v1/jobs[?state=S&limit=N]: the whole history, or the
+        records in one lifecycle state and/or the N most recent (ids are
+        monotonic, so the tail is the recency window)."""
+        from ..jobs.state import JOB_STATES
+
+        jobs = self._jobs_or_503()
+        records = jobs.list()
+        if state is not None:
+            if state not in JOB_STATES:
+                raise _HTTPError(
+                    400, "bad_request",
+                    f"'state' must be one of {list(JOB_STATES)}: "
+                    f"{state!r}")
+            records = [r for r in records if r.get("status") == state]
+        if limit is not None:
+            try:
+                n = int(limit)
+            except ValueError:
+                raise _HTTPError(400, "bad_request",
+                                 f"'limit' must be an integer: {limit!r}")
+            if n < 1:
+                raise _HTTPError(400, "bad_request",
+                                 f"'limit' must be >= 1: {n}")
+            records = records[-n:]
+        return {"jobs": records}
+
+    def handle_job_action(self, job_id: str, action: str) -> dict:
+        """POST /v1/jobs/<id>/{cancel,promote,rollback}.  Cancel stops the
+        job at its next epoch boundary (a final snapshot is written);
+        promote/rollback finalize the job's A/B window on its kernel."""
+        from ..jobs import JobError
+
+        jobs = self._jobs_or_503()
+        job = jobs.store.get(job_id)
+        if job is None:
+            raise _HTTPError(404, "not_found", f"unknown job '{job_id}'")
+        if action == "cancel":
+            try:
+                return jobs.cancel(job_id)
+            except JobError as exc:
+                raise _HTTPError(409, "conflict", str(exc))
+        model = self.registry.get(job.kernel)
+        if model is None:
+            raise _HTTPError(404, "not_found",
+                             f"job '{job_id}' kernel '{job.kernel}' is "
+                             "not registered")
+        if action == "promote":
+            result = model.promote()
+        else:  # rollback
+            try:
+                result = model.rollback()
+            except KeyError as exc:
+                raise _HTTPError(409, "conflict", str(exc))
+            # a rollback is a weights swap: the lifecycle metrics follow,
+            # as for a reload
+            self.metrics.count_reload(True)
+            self.metrics.set_model_info(model.name, model.generation,
+                                        model.loaded_at)
+        jobs.finalize(job_id,
+                      "promoted" if action == "promote" else "rolled_back")
+        result["job"] = jobs.get(job_id)
+        return result
+
 
 class _Handler(BaseHTTPRequestHandler):
     protocol_version = "HTTP/1.1"
@@ -487,10 +792,90 @@ class _Handler(BaseHTTPRequestHandler):
                             .encode("utf-8"),
                             content_type="text/plain; version=0.0.4")
         else:
-            self._reply(404, {"error": f"no route {path}"})
+            self._do_get_jobs(path, query)
+
+    def _do_get_jobs(self, path: str, query: str) -> None:
+        try:
+            if path == "/v1/jobs":
+                import urllib.parse
+
+                q = urllib.parse.parse_qs(query or "")
+                self._reply(200, self.app.handle_job_list(
+                    state=(q.get("state") or [None])[-1],
+                    limit=(q.get("limit") or [None])[-1]))
+                return
+            m = _JOB_EVENTS_RE.match(path)
+            if m is not None:
+                self._stream_job_events(m.group(1))
+                return
+            m = _JOB_RE.match(path)
+            if m is not None:
+                self._reply(200, self.app.handle_job_get(m.group(1)))
+                return
+        except _HTTPError as exc:
+            self._reply(exc.status,
+                        {"error": str(exc), "reason": exc.outcome})
+            return
+        self._reply(404, {"error": f"no route {path}"})
+
+    # --- job progress streaming ----------------------------------------
+    def _write_chunk(self, data: bytes) -> None:
+        """One HTTP/1.1 chunked-transfer frame (b"" is the terminator)."""
+        if data:
+            self.wfile.write(b"%X\r\n" % len(data) + data + b"\r\n")
+        else:
+            self.wfile.write(b"0\r\n\r\n")
+        self.wfile.flush()
+
+    def _stream_job_events(self, job_id: str,
+                           max_s: float = 3600.0) -> None:
+        """GET /v1/jobs/<id>/events: a chunked NDJSON feed, one line per
+        observed change (status, epoch, error trajectory, generation
+        swaps, slice), closed when the job is terminal.  A client that
+        disconnects ends the stream; the job is unaffected."""
+        from ..jobs.state import TERMINAL_STATES
+
+        snap = self.app.handle_job_get(job_id)  # 404/503 before headers
+        self.send_response(200)
+        self.send_header("Content-Type", "application/x-ndjson")
+        self.send_header("Transfer-Encoding", "chunked")
+        self.send_header("Cache-Control", "no-cache")
+        self.end_headers()
+        last = None
+        deadline = time.monotonic() + max_s
+        try:
+            while time.monotonic() < deadline:
+                slice_ = snap.get("slice")
+                key = (snap["status"], snap["epoch"],
+                       len(snap["errors"]), len(snap["generations"]),
+                       slice_ is not None)
+                if key != last:
+                    last = key
+                    event = {
+                        "job": snap["job_id"],
+                        "kernel": snap["kernel"],
+                        "status": snap["status"],
+                        "epoch": snap["epoch"],
+                        "epochs": snap["epochs"],
+                        "errors": snap["errors"],
+                        "generations": snap["generations"],
+                        "slice": slice_,
+                    }
+                    self._write_chunk(
+                        (json.dumps(event) + "\n").encode("utf-8"))
+                if snap["status"] in TERMINAL_STATES:
+                    break
+                time.sleep(0.05)
+                snap = self.app.handle_job_get(job_id)
+            self._write_chunk(b"")
+        except (BrokenPipeError, ConnectionResetError, _HTTPError):
+            self.close_connection = True
 
     def do_POST(self) -> None:
         path = self.path.partition("?")[0]
+        ck = _TRAIN_CHUNKED_RE.match(path)
+        jc = _JOB_CORPUS_RE.match(path)
+        tr = _TRAIN_RE.match(path)
         try:
             length = int(self.headers.get("Content-Length") or 0)
         except ValueError:
@@ -499,24 +884,117 @@ class _Handler(BaseHTTPRequestHandler):
             self._reply(400, {"error": "bad Content-Length",
                               "reason": "bad_request"})
             return
-        # drain the body first, whatever the route: unread bytes would be
-        # parsed as the next request line on a keep-alive connection
-        body = self.rfile.read(length) if length > 0 else b""
-        r = _RELOAD_RE.match(path)
-        if r is not None:
-            if not self.app.authorized(self.headers):
-                self._reply(401, {"error": "missing or invalid auth token",
-                                  "reason": "unauthorized"},
-                            extra_headers={"WWW-Authenticate": "Bearer"})
-                return
-            try:
-                out = self.app.handle_reload(r.group(1), body)
-            except _HTTPError as exc:
-                self._reply(exc.status,
-                            {"error": str(exc), "reason": exc.outcome})
-                return
-            self._reply(200, out)
+        cap = _jobs_body_cap_bytes()
+        if cap and length > cap and (ck or jc or tr):
+            self._refuse_too_large(length, cap, ck or tr)
             return
+        spool = None
+        if ck or jc:
+            # corpus chunks stream to a disk spool as they leave the
+            # socket: no more than one capped chunk sits in memory
+            body = b""
+            spool = self._spool_body(length)
+        else:
+            # drain the body first, whatever the route: unread bytes
+            # would be parsed as the next request line on a keep-alive
+            # connection
+            body = self.rfile.read(length) if length > 0 else b""
+        try:
+            self._do_post_routed(path, body, spool, ck, jc, tr)
+        finally:
+            if spool is not None:
+                with contextlib.suppress(OSError):
+                    os.unlink(spool)
+
+    def _refuse_too_large(self, length: int, cap: int, named) -> None:
+        """413 from the Content-Length alone, the body discarded in
+        bounded pieces (replying while the client still sends would show
+        it a broken pipe instead of the 413); a single-shot submit is
+        pointed at the chunked endpoint."""
+        self.close_connection = True
+        self.app.metrics.count_request("too_large")
+        remaining = length
+        while remaining > 0:
+            piece = self.rfile.read(min(1 << 20, remaining))
+            if not piece:
+                break
+            remaining -= len(piece)
+        chunked = (f"/v1/kernels/{named.group(1)}/train/chunked" if named
+                   else "/v1/kernels/<name>/train/chunked")
+        self._reply(413, {
+            "error": f"body is {length} bytes; the per-request cap "
+                     f"is {cap} (HPNN_JOBS_MAX_BODY_MB)",
+            "reason": "too_large",
+            "hint": "split the corpus across chunked uploads: "
+                    f"POST {chunked} with the first files, then "
+                    "POST /v1/jobs/<id>/corpus per chunk "
+                    "(?final=1 on the last)",
+        }, extra_headers={"X-HPNN-Chunked-Endpoint": chunked})
+
+    def _spool_body(self, length: int) -> str:
+        """Drain the request body to a temp spool file in bounded pieces;
+        returns its path (the caller unlinks it)."""
+        import tempfile
+
+        fd, spool = tempfile.mkstemp(prefix=".hpnn-upload-",
+                                     suffix=".spool")
+        with os.fdopen(fd, "wb") as fp:
+            remaining = length
+            while remaining > 0:
+                piece = self.rfile.read(min(1 << 20, remaining))
+                if not piece:
+                    break
+                fp.write(piece)
+                remaining -= len(piece)
+        return spool
+
+    def _do_post_routed(self, path: str, body: bytes, spool, ck, jc,
+                        tr) -> None:
+        r = _RELOAD_RE.match(path)
+        a = _JOB_ACTION_RE.match(path)
+        if (r or tr or a or ck or jc) \
+                and not self.app.authorized(self.headers):
+            # every mutating endpoint sits behind the token when one is
+            # configured; infer, metrics and healthz stay open
+            self._reply(401, {"error": "missing or invalid auth token",
+                              "reason": "unauthorized"},
+                        extra_headers={"WWW-Authenticate": "Bearer"})
+            return
+        ctype = self.headers.get("Content-Type", "")
+        # route -> (call, success status); a submit's 429 carries
+        # Retry-After
+        if r is not None:
+            call, ok = (lambda: self.app.handle_reload(r.group(1), body),
+                        200)
+        elif tr is not None:
+            call, ok = (lambda: self.app.handle_train(
+                tr.group(1), body, content_type=ctype), 202)
+        elif ck is not None:
+            call, ok = (lambda: self.app.handle_train_chunked(
+                ck.group(1), spool, content_type=ctype), 202)
+        elif jc is not None:
+            call, ok = (lambda: self.app.handle_job_corpus(
+                jc.group(1), spool, content_type=ctype,
+                query=self.path.partition("?")[2]), 200)
+        elif a is not None:
+            call, ok = (lambda: self.app.handle_job_action(a.group(1),
+                                                           a.group(2)),
+                        200)
+        else:
+            self._do_infer(path, body)
+            return
+        try:
+            out = call()
+        except _HTTPError as exc:
+            headers = ({"Retry-After": "1"}
+                       if exc.status == 429 and (tr or ck) else None)
+            self._reply(exc.status,
+                        {"error": str(exc), "reason": exc.outcome},
+                        extra_headers=headers)
+            return
+        self._reply(ok, out)
+
+    def _do_infer(self, path: str, body: bytes) -> None:
         m = _INFER_RE.match(path)
         if m is None:
             self.app.metrics.count_request("not_found")

@@ -612,12 +612,12 @@ def test_generation_counter_cap_matches_jax():
 
 
 def test_metrics_snapshot_keys_match_jax():
-    """The JSON snapshot carries the JAX snapshot's keys for every family
-    the port has: all of them but ``jobs``, plus ``kernel_launches``."""
+    """The JSON snapshot carries every key of the JAX snapshot (``jobs``
+    included), plus ``kernel_launches``."""
     keys = {}
     for pkg in PKGS:
         keys[pkg] = set(_serve(pkg)[2].ServeMetrics().snapshot())
-    assert keys["port"] == (keys["jax"] - {"jobs"}) | {"kernel_launches"}
+    assert keys["port"] == keys["jax"] | {"kernel_launches"}
 
 
 def _prom_families(text):
