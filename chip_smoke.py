@@ -208,6 +208,32 @@ fault; no phase catches its own failure.
    the yield gate's wait an epoch, each swap's wall time, the 1-row client
    p50/p99 with no job and during job A, the launches, each job's submit
    to done and the phase's seconds.
+23. Observability (run right after phase 22).  ``train_nn --epochs 3
+   --profile-dir D`` on phase 9's files and conf with ``HPNN_TRACE=1
+   HPNN_PROFILE=1 HPNN_DBG_TRACE=1``: the stream less its ``#PROF`` and
+   ``#DBG`` lines, and kernel.opt, byte-identical to phase 16's untraced
+   run; ``train_epoch`` launched exactly 3 times; the ``#PROF`` phases in
+   the JAX package's order; each epoch's ``#DBG[train-in]`` sums the
+   previous epoch's ``train-out``, the last ``train-out`` kernel.opt's
+   sums (each weight rounded to 1e-15 in the file); D's Chrome trace
+   holding 3 device events of ``train_epoch_kernel``, their durations
+   printed beside phase 16's epoch events.  Then ``serve_nn -b 64 --trace
+   --span-dir S --profile-dir P --jobs 1`` (in process) on phase 16's
+   kernel.opt: 8 closed-loop clients of 1 and 64 rows, each request with
+   its own ``X-HPNN-Trace-Id``, for 3 s, with ``POST /v1/debug/profile
+   {"seconds": 2}`` inside: every answer bit-identical to the strict
+   forward; sampled ids' ``/v1/debug/trace?trace=<id>`` trees
+   ``serve.request`` -> {parse, queue_wait, batch_assembly, pad_h2d,
+   device_launch, d2h, respond}; the capture's ``fused_linear_act``
+   device events equal the wrapper's launches between the profiler's
+   start and stop, 2 a batch (within one batch at each edge); the
+   search, critical and timeline endpoints' bodies equal ``obs.tool``'s
+   stdout over S.  A job of 2 epochs on 64 of the files: ``?trace=job:<id>``
+   holds ``jobs.run`` -> 2 ``train.epoch`` with ``ckpt.snapshot_write``
+   and ``serve.hot_swap`` under them, ``?trace=events`` its slice grant
+   and ``?timeline=1`` its ``job.state`` transitions; 2 ``train_epoch``
+   launches.  Last, 8 clients of 1 row for 3 s each with tracing off, on
+   and sampled at 0.1 (seeded): their p50/p99 printed.
 15. One JSON line of every kernel (launches on its main path, the largest
    kernel-vs-plain error over every cell and dtype, times and bound;
    ``fused_linear_act`` adds its B=1 cell and its worst ratio to the
@@ -224,14 +250,19 @@ fault; no phase catches its own failure.
    (``jobs_launches``) and job A's epoch times
    (``jobs_epochs_device_ms``); ``fused_bpm_update`` its warm, cold and
    floor times; ``train_epoch`` and ``fused_linear_act`` their launches on
-   phase 21's paths, ``tp_launches``), then the result line.
+   phase 21's paths, ``tp_launches``; phase 23's: ``train_epoch``'s
+   launches and profiled durations (``obs_launches``,
+   ``obs_profile_us``), ``fused_linear_act``'s profiled events and
+   launches in the capture (``obs_profile_events``,
+   ``obs_profile_launches``)), then the result line.
 
 Main paths: ``fused_linear_act``'s is phases 4-5, ``train_epoch``'s phase 9
 and ``train_tile``'s phase 12 (train_nn, then run_nn of its kernel, which
 launches ``fused_linear_act`` too), phase 16's two ``--epochs`` runs,
 phase 17's checkpointed, killed and resumed runs, phase 18's runs and
 phase 19's server (``serve_rest_launches``), phase 21's TP routes
-(``tp_launches``) and phase 22's server and jobs (``jobs_launches``);
+(``tp_launches``), phase 22's server and jobs (``jobs_launches``) and
+phase 23's traced run and capture (``obs_*``);
 every count is set to 0 just before a path and read
 just after it.  ``fused_bpm_update`` has no caller on any
 path, as in the JAX package: its ``launches`` are the paths' (0), its
@@ -1804,6 +1835,8 @@ def phase_train_epochs(e2e):
         runs[tag] = {"launches": got, "wall_s": res["wall_s"],
                      "opt_sha256": hashlib.sha256(
                          res["opt"].encode()).hexdigest(),
+                     "out_sha256": hashlib.sha256(
+                         res["out"].encode()).hexdigest(),
                      "restage_wall_s": restage["wall_s"],
                      "epoch_device_ms": met["device_ms"],
                      "epoch_iters": iters,
@@ -3676,6 +3709,470 @@ def phase_jobs(e2e, epochs_runs, tmp, card, device="cuda"):
     return res
 
 
+# --- phase 23: observability ------------------------------------------------
+
+OBS_CLIENTS = 8             # phase 23: closed-loop client threads
+OBS_ROWS = (1, 64)          # phase 23: request sizes, alternated
+OBS_LOAD_S = 3.0            # phase 23: traced load, the capture inside it
+OBS_PROFILE_S = 2.0         # phase 23: POST /v1/debug/profile seconds
+OBS_COST_S = 1.5            # phase 23: a tracing mode's 1-row window
+# phase 23: the windows, in turns (each mode 3 s in all), after one
+# untraced window before any profile in the server's life
+OBS_COST_MODES = ("off", "on", "sample 0.1", "sample 0.1", "on", "off")
+OBS_JOB_FILES = 64          # phase 23: the traced job's files
+OBS_JOB_EPOCHS = 2
+OBS_TREE = {"parse", "queue_wait", "batch_assembly", "pad_h2d",
+            "device_launch", "d2h", "respond"}
+B1_NAME = re.compile(r"\btrain_epoch_kernel\b")
+B2_NAME = re.compile(r"\b(simt_kernel|direct_simt|mma_kernel|direct_mma)\b")
+B2_SUM = re.compile(r"\bstage_sum_kernel\b")
+
+
+def _profile_kernels(trace_file):
+    """The device-kernel events of a ``torch.profiler`` Chrome trace:
+    (name, start us, duration us), in start order."""
+    with open(trace_file) as fp:
+        events = json.load(fp)["traceEvents"]
+    return sorted((e["name"], float(e["ts"]), float(e.get("dur", 0.0)))
+                  for e in events
+                  if e.get("cat") == "kernel" and e.get("ph") == "X")
+
+
+def _dbg_sums(text, tag):
+    """The ``#DBG[<tag> W<i>]`` sums of a stream, in order."""
+    return [(int(i), float(v)) for i, v in re.findall(
+        rf"^#DBG\[{tag} W(\d+)\]: acc=(-?[0-9.]+)$", text, re.M)]
+
+
+def _obs_train(e2e, epochs_runs, root):
+    """Part A: ``train_nn --epochs 3 --profile-dir D`` on phase 9's files
+    with ``HPNN_TRACE=1 HPNN_PROFILE=1 HPNN_DBG_TRACE=1``."""
+    from hpnn_tpu_torch.io.kernel_io import load_kernel
+    from hpnn_tpu_torch.obs import trace as obs_trace
+
+    from hpnn_tpu_torch.obs import profiler
+
+    prof_dir = os.path.join(root, "train_profile")
+    records, real_stop = [], profiler.stop
+
+    def stop():
+        records.append(real_stop())
+        return records[-1]
+
+    profiler.stop = stop
+    try:
+        run = _train_epochs(e2e["root"], ("--profile-dir", prof_dir),
+                            {"HPNN_TRACE": "1", "HPNN_PROFILE": "1",
+                             "HPNN_DBG_TRACE": "1"})
+    finally:
+        profiler.stop = real_stop
+    spans = obs_trace.snapshot()
+    obs_trace.disable()
+    base = epochs_runs["per-sample"]
+    kept = "".join(ln for ln in run["out"].splitlines(True)
+                   if not ln.startswith(("#PROF: ", "#DBG[")))
+    if hashlib.sha256(kept.encode()).hexdigest() != base["out_sha256"] \
+            or hashlib.sha256(run["opt"].encode()).hexdigest() \
+            != base["opt_sha256"]:
+        raise AssertionError("traced train_nn (phase 23): the stream less "
+                             "its #PROF/#DBG lines, or kernel.opt, differs "
+                             "from phase 16's untraced run")
+    if run["launches"]["train_epoch"] != EPOCHS \
+            or run["launches"]["train_tile"] != 0:
+        raise AssertionError(f"traced train_nn (phase 23): launches "
+                             f"{run['launches']}, want train_epoch {EPOCHS}")
+    prof = re.findall(r"^#PROF: (\S+) [0-9.]+s$", run["out"], re.M)
+    want = ["init_all", "configure"] \
+        + ["warmup", "load_samples", "train_epoch"] * EPOCHS \
+        + ["train_kernel"]
+    if prof != want:
+        raise AssertionError(f"traced train_nn (phase 23): #PROF phases "
+                             f"{prof}, want {want}")
+    # the checksums: each epoch's train-in is the previous train-out, and
+    # the last train-out is kernel.opt's sums (each weight in the file is
+    # rounded to 1e-15 by %17.15f, the printed sum to 1e-15 by %.15f)
+    ins, outs = _dbg_sums(run["out"], "train-in"), \
+        _dbg_sums(run["out"], "train-out")
+    n_w = len(MNIST[1]) + 1
+    if len(ins) != EPOCHS * n_w or len(outs) != EPOCHS * n_w \
+            or ins[n_w:] != outs[:-n_w]:
+        raise AssertionError(f"traced train_nn (phase 23): #DBG lines "
+                             f"{ins} {outs}")
+    with tempfile.NamedTemporaryFile("w", suffix=".opt") as fp:
+        fp.write(run["opt"])
+        fp.flush()
+        weights = load_kernel(fp.name).weights
+    dbg_err = []
+    for (i, acc), w in zip(outs[-n_w:], weights):
+        tol = w.size * 5e-16 + 1e-15
+        dbg_err.append(abs(acc - float(np.sum(np.asarray(w, np.float64)))))
+        if dbg_err[-1] > tol:
+            raise AssertionError(f"traced train_nn (phase 23): #DBG W{i} "
+                                 f"{acc!r} vs kernel.opt's sum, off by "
+                                 f"{dbg_err[-1]:.3e} > {tol:.3e}")
+    names = [s["name"] for s in spans]
+    if names.count("train.epoch") != EPOCHS \
+            or names.count("train_epoch") != EPOCHS:
+        raise AssertionError(f"traced train_nn (phase 23): spans {names}")
+    files = [os.path.join(prof_dir, n) for n in os.listdir(prof_dir)
+             if n.endswith(".pt.trace.json")]
+    if len(files) != 1:
+        raise AssertionError(f"train_nn --profile-dir (phase 23): {files}")
+    kernels = _profile_kernels(files[0])
+    b1 = [k for k in kernels if B1_NAME.search(k[0])]
+    if len(b1) != EPOCHS:
+        raise AssertionError(
+            f"train_nn --profile-dir (phase 23): {len(b1)} events of "
+            f"train_epoch_kernel, want {EPOCHS}; kernel names "
+            f"{sorted({k[0] for k in kernels})[:8]}")
+    return {"launches": run["launches"], "wall_s": run["wall_s"],
+            "profiler": {k: records[0][k] for k in ("start_s", "seconds",
+                                                    "stop_s")},
+            "prof_phases": len(prof), "dbg_max_err": max(dbg_err),
+            "spans": len(spans), "b1_name": b1[0][0],
+            "b1_profile_us": [k[2] for k in b1],
+            "phase16_epoch_device_ms": base["epoch_device_ms"],
+            "kernel_events": len(kernels),
+            "trace_bytes": os.path.getsize(files[0])}
+
+
+def _obs_load(base, pool, rows_cycle, traced, seconds, during=None):
+    """``OBS_CLIENTS`` closed-loop clients for ``seconds`` (traced: each
+    request with its own ``X-HPNN-Trace-Id``), ``during()`` called half a
+    second in; returns (answers, latencies, during's result).  Answers are
+    (first row, rows, echoed trace id, outputs); any non-200 fails."""
+    answers, lat, failures = [], [], []
+    stop = threading.Event()
+
+    def client(i):
+        k = i
+        while not stop.is_set():
+            rows = rows_cycle[k % len(rows_cycle)]
+            lo = (97 * k + 31 * i) % (SERVE_POOL - rows)
+            k += 1
+            hdr = {"X-HPNN-Trace-Id": f"req-{i}-{k}"} if traced else None
+            t0 = time.time()
+            st, body = _http(base, "/v1/kernels/mnist/infer",
+                             {"inputs": pool[lo:lo + rows].tolist()}, hdr)
+            t1 = time.time()
+            if st != 200:
+                failures.append((st, body))
+                return
+            answers.append((lo, rows, body.get("trace"),
+                            np.asarray(body["outputs"], np.float64)))
+            lat.append((t1 - t0, rows))
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(OBS_CLIENTS)]
+    out = None
+    for t in threads:
+        t.start()
+    try:
+        if during is not None:
+            time.sleep(0.5)
+            t0 = time.perf_counter()
+            out = during()
+            time.sleep(max(0.0, seconds - 0.5 - (time.perf_counter() - t0)))
+        else:
+            time.sleep(seconds)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=120)
+    if any(t.is_alive() for t in threads) or failures:
+        raise AssertionError(f"observability (phase 23): clients "
+                             f"{failures[:3]}")
+    return answers, lat, out
+
+
+def _get_raw(base, path):
+    try:
+        with urllib.request.urlopen(base + path, timeout=120) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as exc:
+        return exc.code, exc.read()
+
+
+def _tool_stdout(argv):
+    """``python -m hpnn_tpu_torch.obs.tool`` in this process: (rc,
+    stdout bytes)."""
+    from hpnn_tpu_torch.obs import tool
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(io.StringIO()):
+        rc = tool.main(argv)
+    return rc, out.getvalue().encode()
+
+
+def phase_observability(e2e, epochs_runs, tmp, card):
+    """Phase 23: the training run traced and profiled, a traced server
+    with a live profile capture, a traced job, and what tracing costs."""
+    from hpnn_tpu_torch import cli
+    from hpnn_tpu_torch.obs import profiler
+    from hpnn_tpu_torch.obs import trace as obs_trace
+    from hpnn_tpu_torch.ops.convergence_kernel import train_epoch_kernel
+    from hpnn_tpu_torch.ops.kernels import fused_linear_act
+    from hpnn_tpu_torch.serve.server import serve_in_thread
+
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "obs_phase")
+    os.makedirs(root)
+    served = os.path.join(root, "mnist.opt")
+    _dump_generated(served, MNIST, 10958)
+    conf = os.path.join(root, "mnist.conf")
+    _serve_conf(conf, "mnist", served, MNIST, "f64")
+    span_dir = os.path.join(root, "spans")
+    pool = _inputs(np.random.default_rng(23), SERVE_POOL, MNIST[0], "pixel")
+    with contextlib.redirect_stdout(io.StringIO()):
+        app, _ = cli.serve_app([
+            "-p", "0", "--device", "cuda", "--no-warmup", "-b", "64",
+            "-q", str(64 * OBS_CLIENTS), "--trace", "--span-dir", span_dir,
+            "--profile-dir", os.path.join(root, "serve_profile"),
+            "--jobs", "1", "--job-dir", os.path.join(root, "jobs"), conf])
+    if app is None or not obs_trace.enabled() or obs_trace.get_role() \
+            != "local" or app.span_exporter is None:
+        raise AssertionError("serve_nn --trace --span-dir (phase 23)")
+    httpd, th = serve_in_thread(app, "127.0.0.1", 0)
+    base = "http://%s:%d" % httpd.server_address[:2]
+    res = {}
+    try:
+        # the 1-row client untraced, before any profile in this server
+        obs_trace.disable()
+        _, lat, _ = _obs_load(base, pool, (1,), False, OBS_COST_S)
+        res["before_profiles_one_row_ms"] = {
+            "p50": _pctl([s * 1e3 for s, _ in lat], 50),
+            "p99": _pctl([s * 1e3 for s, _ in lat], 99), "n": len(lat)}
+        # A: the training run traced and profiled, the server idle and
+        # its spool detached
+        obs_trace.set_exporter(None)
+        t0 = time.perf_counter()
+        res["train"] = _obs_train(e2e, epochs_runs, root)
+        res["train_s"] = time.perf_counter() - t0
+        obs_trace.enable()                 # the server's --trace again
+        obs_trace.set_exporter(app.span_exporter)
+        # B + C: traced clients, a live capture inside their window; the
+        # wrapper's launches and the batches are read where the profiler
+        # starts and stops
+        marks = {}
+        real_start, real_stop = profiler._start_trace, profiler._stop_trace
+
+        def start_trace():
+            prof = real_start()
+            marks["start"] = (fused_linear_act.launches,
+                              app.metrics.batches_total)
+            return prof
+
+        def stop_trace(prof, out_dir):
+            marks["stop"] = (fused_linear_act.launches,
+                             app.metrics.batches_total)
+            return real_stop(prof, out_dir)
+
+        profiler._start_trace, profiler._stop_trace = start_trace, stop_trace
+        try:
+            answers, lat, capture = _obs_load(
+                base, pool, OBS_ROWS, True, OBS_LOAD_S, lambda: _http(
+                    base, "/v1/debug/profile", {"seconds": OBS_PROFILE_S}))
+        finally:
+            profiler._start_trace, profiler._stop_trace = real_start, \
+                real_stop
+        if capture[0] != 200:
+            raise AssertionError(f"POST /v1/debug/profile (phase 23): "
+                                 f"{capture}")
+        if profiler.active() is not None:
+            raise AssertionError("profile capture (phase 23) left running")
+        ref = _strict_pool(served, _dtypes()["f64"], pool)
+        for lo, rows, tid, outs in answers:
+            if not np.array_equal(outs, ref[lo:lo + rows]) or not tid:
+                raise AssertionError(f"traced serving (phase 23): rows "
+                                     f"{lo}:{lo + rows} ({tid}) not "
+                                     "bit-identical to the strict forward")
+        for _lo, _rows, tid, _outs in answers[::max(1, len(answers) // 8)]:
+            st, raw = _get_raw(base, f"/v1/debug/trace?trace={tid}")
+            spans = [json.loads(ln) for ln in raw.decode().splitlines()]
+            roots = [s for s in spans if s["name"] == "serve.request"]
+            kids = {s["name"] for s in spans
+                    if roots and s["parent"] == roots[0]["span"]}
+            if st != 200 or len(roots) != 1 or kids != OBS_TREE \
+                    or len(spans) != len(OBS_TREE) + 1:
+                raise AssertionError(f"/v1/debug/trace?trace={tid} (phase "
+                                     f"23): {st} {[s['name'] for s in spans]}")
+        kernels = _profile_kernels(capture[1]["trace_file"])
+        b2 = [k for k in kernels if B2_NAME.search(k[0])]
+        b2_sum = [k for k in kernels if B2_SUM.search(k[0])]
+        l0, n0 = marks["start"]
+        l1, n1 = marks["stop"]
+        launches, batches = l1 - l0, n1 - n0
+        # a batch's two layer launches may straddle the start or the stop
+        if not (batches > 0 and abs(launches - 2 * batches) <= 2
+                and abs(len(b2) - launches) <= 2):
+            raise AssertionError(
+                f"POST /v1/debug/profile (phase 23): {len(b2)} "
+                f"fused_linear_act kernel events ({len(b2_sum)} stage "
+                f"sums), the wrapper launched {launches} times over "
+                f"{batches} batches; kernel names "
+                f"{sorted({k[0] for k in kernels})[:8]}")
+        one = [s * 1e3 for s, r in lat if r == 1]
+        res["serve"] = {
+            "answers": len(answers),
+            "one_row_ms": {"p50": _pctl(one, 50), "p99": _pctl(one, 99)},
+            "profile": {"seconds": capture[1]["seconds"],
+                        "start_s": capture[1]["start_s"],
+                        "stop_s": capture[1]["stop_s"],
+                        "b2_events": len(b2), "stage_sum_events":
+                        len(b2_sum), "launches": launches,
+                        "batches": batches,
+                        "b2_names": sorted({k[0] for k in b2}),
+                        "b2_us_per_batch": sum(k[2] for k in b2)
+                        / max(1, batches),
+                        "kernel_events": len(kernels),
+                        "trace_bytes": os.path.getsize(
+                            capture[1]["trace_file"])}}
+        # the endpoints' bodies against the offline tool over the spool
+        live = [_get_raw(base, "/v1/debug/trace/search?kernel=mnist")[1],
+                _get_raw(base, "/v1/debug/trace/critical?kernel=mnist")[1],
+                _get_raw(base, "/v1/debug/trace?timeline=1")[1]]
+        offline = [_tool_stdout(["search", "--span-dir", span_dir,
+                                 "--kernel", "mnist"]),
+                   _tool_stdout(["critical", "--span-dir", span_dir,
+                                 "--kernel", "mnist"]),
+                   _tool_stdout(["timeline", "--span-dir", span_dir])]
+        if [o for _, o in offline] != live or any(rc for rc, _ in offline):
+            raise AssertionError("obs.tool (phase 23): the offline stdout "
+                                 "differs from the endpoints' bodies")
+        crit = json.loads(live[1])
+        res["critical"] = {"traces": crit["traces_analyzed"],
+                           "top_phase": crit["top_phase"],
+                           "share_p99": {p: v["share_p99"] for p, v in
+                                         crit["phases"].items()}}
+        # D: a traced job of 2 epochs on 64 of phase 9's files
+        samples = os.path.join(e2e["root"], "samples")
+        jsrc = os.path.join(root, "job_samples")
+        os.makedirs(jsrc)
+        for n in sorted(os.listdir(samples))[:OBS_JOB_FILES]:
+            shutil.copy(os.path.join(samples, n), jsrc)
+        train_epoch_kernel.launches = 0
+        t0 = time.perf_counter()
+        st, job = _http(base, "/v1/kernels/mnist/train", {
+            "epochs": OBS_JOB_EPOCHS, "seed": 10958, "train": "BP",
+            "dtype": "f64", "hidden": MNIST[1], "samples": jsrc,
+            "ckpt_every": 1})
+        if st != 202 or job["status"] != "queued":
+            raise AssertionError(f"traced job (phase 23): {st} {job}")
+        jid = job["job_id"]
+        done = _job_wait(base, jid)
+        job_s = time.perf_counter() - t0
+        if done["status"] != "done" \
+                or train_epoch_kernel.launches != OBS_JOB_EPOCHS:
+            raise AssertionError(f"traced job (phase 23): {done}, "
+                                 f"{train_epoch_kernel.launches} launches")
+        st, raw = _get_raw(base, f"/v1/debug/trace?trace=job:{jid}")
+        spans = [json.loads(ln) for ln in raw.decode().splitlines()]
+        byid = {s["span"]: s for s in spans}
+        run = [s for s in spans if s["name"] == "jobs.run"]
+        epochs = [s for s in spans if s["name"] == "train.epoch"
+                  and run and s["parent"] == run[0]["span"]]
+        under = {s["name"] for s in spans
+                 if byid.get(s["parent"], {}).get("name") == "train.epoch"}
+        if len(run) != 1 or len(epochs) != OBS_JOB_EPOCHS \
+                or not {"ckpt.snapshot_write", "serve.hot_swap"} <= under:
+            raise AssertionError(f"?trace=job:{jid} (phase 23): "
+                                 f"{[s['name'] for s in spans]}")
+        states = [(s["previous"], s["status"]) for s in spans
+                  if s["name"] == "job.state"]
+        st, raw = _get_raw(base, "/v1/debug/trace?trace=events")
+        events = [json.loads(ln) for ln in raw.decode().splitlines()]
+        st2, raw = _get_raw(base, "/v1/debug/trace?timeline=1")
+        timeline = [(e["detail"]["previous"], e["detail"]["status"])
+                    for e in map(json.loads, raw.decode().splitlines())
+                    if e["name"] == "job.state"
+                    and e["detail"].get("job") == jid]
+        if st != 200 or st2 != 200 or timeline != states \
+                or states[0] != ("", "queued") \
+                or states[-1] != ("running", "done") \
+                or not any(e["name"] == "event.job_slice_granted"
+                           and e.get("job") == jid for e in events):
+            raise AssertionError(f"job {jid} transitions (phase 23): "
+                                 f"{states} / timeline {timeline} / "
+                                 f"events {[e['name'] for e in events]}")
+        res["job"] = {"seconds": job_s, "spans": len(spans),
+                      "transitions": len(states),
+                      "generations": done["generations"]}
+        # E: what tracing costs the 1-row client: off, on (ring + spool),
+        # head-sampled at 0.1 (seeded), in turns; no request carries an id
+        cost = {}
+        for mode in OBS_COST_MODES:
+            if mode == "off":
+                obs_trace.disable()
+            else:
+                obs_trace.enable()
+                obs_trace.set_sample_rate(0.1 if mode != "on" else None,
+                                          seed=23)
+            n_spans = obs_trace.last_seq()
+            answers, lat, _ = _obs_load(base, pool, (1,), False,
+                                        OBS_COST_S)
+            c = cost.setdefault(mode, {"ms": [], "traced": 0, "spans": 0,
+                                       "windows_p50": []})
+            ms = [s * 1e3 for s, _ in lat]
+            c["ms"] += ms
+            c["windows_p50"].append(_pctl(ms, 50))
+            c["traced"] += sum(1 for a in answers if a[2])
+            c["spans"] += obs_trace.last_seq() - n_spans \
+                if mode != "off" else 0
+            st = obs_trace.sample_stats()   # a fresh sampler a window
+            if st is not None:
+                c["sampled"] = c.get("sampled", 0) + st["sampled_total"]
+                c["dropped"] = c.get("dropped", 0) + st["dropped_total"]
+        for c in cost.values():
+            ms = c.pop("ms")
+            c.update(p50=_pctl(ms, 50), p99=_pctl(ms, 99), n=len(ms))
+        res["cost_one_row_ms"] = cost
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        app.close(drain=True)
+        th.join(timeout=60)
+        obs_trace.disable()
+        obs_trace.set_sample_rate(None)
+    res["seconds"] = time.perf_counter() - t_phase
+    tr, sv = res["train"], res["serve"]
+    bp = res["before_profiles_one_row_ms"]
+    log(f"observability (phase 23): traced+profiled train_nn --epochs "
+        f"{EPOCHS}: stream (less {tr['prof_phases']} #PROF and the #DBG "
+        f"lines) and kernel.opt byte-identical to phase 16, train_epoch "
+        f"launched {tr['launches']['train_epoch']} times, #DBG train-out "
+        f"within {tr['dbg_max_err']:.2e} of kernel.opt's sums, "
+        f"{tr['spans']} spans; the profile names {EPOCHS} "
+        f"'{tr['b1_name']}' events; wall {tr['wall_s']:.2f} s, the "
+        f"profiler's start {tr['profiler']['start_s']:.3f} s and stop "
+        f"{tr['profiler']['stop_s']:.3f} s")
+    log(f"observability (phase 23) times ({card}): B1 profiled "
+        + ", ".join(f"{us / 1e3:.1f}" for us in tr["b1_profile_us"])
+        + " ms an epoch (phase 16 events: "
+        + ", ".join(f"{ms:.1f}" for ms in tr["phase16_epoch_device_ms"])
+        + f" ms); 1-row p50/p99 before any profile {bp['p50']:.2f}/"
+        f"{bp['p99']:.2f} ms (n={bp['n']}); traced serving "
+        f"{sv['answers']} answers bit-identical, "
+        f"trees complete, 1-row p50/p99 {sv['one_row_ms']['p50']:.2f}/"
+        f"{sv['one_row_ms']['p99']:.2f} ms; live capture "
+        f"{sv['profile']['seconds']:.2f} s (start "
+        f"{sv['profile']['start_s']:.3f} s, stop "
+        f"{sv['profile']['stop_s']:.3f} s): {sv['profile']['b2_events']} "
+        f"fused_linear_act events ({sv['profile']['stage_sum_events']} "
+        f"stage sums) for {sv['profile']['launches']} launches over "
+        f"{sv['profile']['batches']} batches, "
+        f"{sv['profile']['b2_us_per_batch']:.1f} us a batch; obs.tool "
+        "search/critical/timeline == the endpoints; critical top phase "
+        f"{res['critical']['top_phase']}; job {res['job']['seconds']:.2f} s,"
+        f" {res['job']['transitions']} transitions; tracing cost 1-row "
+        "p50/p99 " + ", ".join(
+            f"{m} {c['p50']:.2f}/{c['p99']:.2f} ms (n={c['n']}; window "
+            f"p50s " + "/".join(f"{v:.2f}" for v in c["windows_p50"]) + ")"
+            for m, c in res["cost_one_row_ms"].items())
+        + f"; phase {res['seconds']:.1f} s")
+    return res
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3764,6 +4261,7 @@ def main(argv=None) -> int:
         batched = phase_batched(e2e, tmp)       # each run counts from 0
         tp_res = phase_tp(e2e, tmp, runs, results, epochs_runs)  # from 0
         jobs_res = phase_jobs(e2e, epochs_runs, tmp, card)     # from 0
+        obs_res = phase_observability(e2e, epochs_runs, tmp, card)  # from 0
     cells = phase_times()
     bpm = phase_bpm()
     rep = next(c for c in cells if c["layer"] == "784->300"
@@ -3812,7 +4310,11 @@ def main(argv=None) -> int:
                for tag, c in tp_res["serve"].items()
                for b in TP_SERVE_BUCKETS}},
         "jobs_launches": jobs_res["b2_launches"],
-        "jobs_batches": jobs_res["batches"]}, {
+        "jobs_batches": jobs_res["batches"],
+        "obs_profile_events": obs_res["serve"]["profile"]["b2_events"],
+        "obs_profile_launches": obs_res["serve"]["profile"]["launches"],
+        "obs_profile_us_per_batch":
+            obs_res["serve"]["profile"]["b2_us_per_batch"]}, {
         "name": "train_epoch", "route": "cuda",
         "source": "hpnn_tpu_torch/csrc/train_epoch.cu",
         "replaces": "hpnn_tpu/ops/convergence_pallas.py:208",
@@ -3851,7 +4353,9 @@ def main(argv=None) -> int:
         "tp_launches": {f"train_nn {tag}": r["launches"]["train_epoch"]
                         for tag, r in tp_res["train"].items()},
         "jobs_launches": jobs_res["b1_launches"],
-        "jobs_epochs_device_ms": jobs_res["epoch_device_ms"]}, {
+        "jobs_epochs_device_ms": jobs_res["epoch_device_ms"],
+        "obs_launches": obs_res["train"]["launches"]["train_epoch"],
+        "obs_profile_us": obs_res["train"]["b1_profile_us"]}, {
         "name": "train_tile", "route": "cuda",
         "source": "hpnn_tpu_torch/csrc/train_tile.cu",
         "replaces": "hpnn_tpu/ops/convergence_tile.py:423",
@@ -3941,6 +4445,7 @@ def main(argv=None) -> int:
                        "batched": batched,
                        "tp": tp_res,
                        "jobs": jobs_res,
+                       "observability": obs_res,
                        "invariance_plans": invariance_plans,
                        "bpm": bpm,
                        "errors": [{"layer": k[0], "scale": k[1],

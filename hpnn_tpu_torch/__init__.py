@@ -13,8 +13,10 @@ Ported so far: ``python -m hpnn_tpu_torch.cli run_nn`` and ``serve_nn``
 ``--epochs N`` on a device-resident pipeline, with checkpoint bundles and
 a bit-exact ``--resume`` (``ckpt/``), with the CG trainer (``train/``) and
 ``[batch]`` data parallelism and ``[model]`` row sharding over
-``torch.distributed`` (``parallel/``), and the jobs service, ``serve_nn
---jobs N``, which trains a kernel while serving it (``jobs/``).
+``torch.distributed`` (``parallel/``), the jobs service, ``serve_nn
+--jobs N``, which trains a kernel while serving it (``jobs/``), and
+observability: spans, the flight recorder and span spool, ``#PROF`` and
+``#DBG``, and ``torch.profiler`` captures (``obs/``).
 Citations like ``src/ann.c:883`` point into the reference C library;
 ``hpnn_tpu/...`` into the JAX package this ports.
 """

@@ -56,6 +56,20 @@ Two more training routes, the JAX package's batched trainers:
   is the model axis's "visible devices": a one-process run clamps to one
   shard with the JAX package's warning and trains and evaluates on the
   unsharded route.
+
+Tracing (``utils/trace.py``, ``obs/``) at the JAX package's places and
+names: the ``#PROF`` phases ``warmup``, ``load_samples``/``load_tests``,
+``train_epoch`` (``train_epoch_<trainer>``, ``train_epoch_dp``,
+``train_epoch_tp`` on those routes) and ``eval_batch``, each also a span
+under tracing; ``HPNN_DBG_TRACE``'s ``train-in``/``train-out`` checksums
+around a restaged epoch (and so no resident pipeline under it); the
+pipeline's ``corpus_load``, ``corpus_gather``, ``device_launch`` and
+``stats_drain`` spans.  The resident ``[batch]`` epoch gathers its batch
+rows on the card inside its ``device_launch`` span, where the JAX
+package's resident DP program gathers inside its launch; the JAX
+package's host-streamed shard mode has no counterpart here.  Spans and
+phases are host intervals: a launch returns before the card finishes,
+and nothing here synchronizes for them.
 """
 
 from __future__ import annotations
@@ -78,10 +92,12 @@ from .io.kernel_io import load_kernel
 from .io.samples import list_sample_dir
 from .models.kernel import (Kernel, generate_kernel, is_regression,
                             weights_to_numpy, weights_to_torch)
+from .obs import trace as obs_trace
 from .ops.convergence import stats_record
 from .utils import nn_log
 from .utils.glibc_random import GlibcRandom, shuffled_indices
 from .utils.nn_log import nn_cout, nn_dbg, nn_error, nn_out, nn_warn
+from .utils.trace import phase, trace_enabled, trace_weights
 
 DTYPES = {"f64": torch.float64, "f32": torch.float32, "bf16": torch.bfloat16}
 LATER = "is not ported yet: a later slice of hpnn_tpu_torch brings it"
@@ -494,12 +510,14 @@ def run_kernel(nn: NNDef, device="cuda", parity: str = "strict"):
     # the native linear-output head is opted in
     kind = kernel_kind(conf)
     dev = torch.device(device)
-    weights = weights_to_torch(nn.kernel.weights, dtype, dev)
-    run_batch_fn, route = ops.select_run_batch(dtype, parity=parity,
-                                               kind=kind, device=dev)
-    if route == "fused" or _model_shards(conf) > 1:
-        _load_library(dev, "fused_linear_act")
-    events, xs, ts = handle.result()
+    with phase("warmup"):
+        weights = weights_to_torch(nn.kernel.weights, dtype, dev)
+        run_batch_fn, route = ops.select_run_batch(dtype, parity=parity,
+                                                   kind=kind, device=dev)
+        if route == "fused" or _model_shards(conf) > 1:
+            _load_library(dev, "fused_linear_act")
+    with phase("load_tests"):
+        events, xs, ts = handle.result()
     # a rank whose test dir differs drags every rank out of the sharded
     # evaluation's collectives (the JAX package's run-path gate)
     fp = ((xs.shape[0], nn.kernel.n_inputs, nn.kernel.n_outputs)
@@ -519,9 +537,10 @@ def run_kernel(nn: NNDef, device="cuda", parity: str = "strict"):
         if k > 1:
             run_batch_fn, _ = ops.select_run_batch(
                 dtype, parity=parity, kind=kind, device=dev, model_mesh=mesh)
-    xs_dev = torch.as_tensor(xs, dtype=torch.float64).to(dev).to(dtype)
-    outs = run_batch_fn(weights, xs_dev, kind).to(
-        device="cpu", dtype=torch.float64).numpy()
+    with phase("eval_batch"):
+        xs_dev = torch.as_tensor(xs, dtype=torch.float64).to(dev).to(dtype)
+        outs = run_batch_fn(weights, xs_dev, kind).to(
+            device="cpu", dtype=torch.float64).numpy()
     _print_verdicts(events, outs, ts, kind, nn.kernel.n_outputs)
     return outs
 
@@ -601,18 +620,23 @@ def train_kernel(nn: NNDef, device="cuda") -> bool:
         # activations and deltas): bfloat16 storage rounds BPM-sized
         # updates away
         master = torch.float32 if dtype == torch.bfloat16 else dtype
-        weights = weights_to_torch(nn.kernel.weights, master, dev)
         entry = native_trainer(conf)
         trainable = conf.train in (NN_TRAIN_BP, NN_TRAIN_BPM)
-        if entry is None and trainable:
-            with nn_log.capture():   # its warning prints with the decision
-                tiled = bool(_tile_request(conf))
-            if _model_shards(conf) > 1 and conf.batch <= 0:
-                _load_library(dev, "train_epoch" if coord.world_size() == 1
-                              else "fused_linear_act")
-            elif conf.batch <= 0 or _dp_tiled_route(conf):
-                _load_library(dev, "train_tile" if tiled else "train_epoch")
-        events, xs, ts = handle.result()
+        with phase("warmup"):
+            weights = weights_to_torch(nn.kernel.weights, master, dev)
+            if entry is None and trainable:
+                # the tile request's warning prints with the decision
+                with nn_log.capture():
+                    tiled = bool(_tile_request(conf))
+                if _model_shards(conf) > 1 and conf.batch <= 0:
+                    _load_library(dev, "train_epoch"
+                                  if coord.world_size() == 1
+                                  else "fused_linear_act")
+                elif conf.batch <= 0 or _dp_tiled_route(conf):
+                    _load_library(dev, "train_tile" if tiled
+                                  else "train_epoch")
+        with phase("load_samples"):
+            events, xs, ts = handle.result()
         # agreement gate before any return path: a rank whose corpus
         # differs drags every rank out of the coming collectives
         if not coord.agree_all(True, (0 if xs is None else xs.shape[0],
@@ -629,9 +653,14 @@ def train_kernel(nn: NNDef, device="cuda") -> bool:
                                            + sum(w.nbytes for w in weights))
             EPOCH_METRICS["epochs"] += 1
             EPOCH_METRICS["mode"] = f"restage-{entry.name}"
-            new = entry.run_epoch(nn, weights, xs_dev, ts_dev, kind, master)
-            nn.kernel.weights = weights_to_numpy(new)
-            return finish()
+            trace_weights(weights, "train-in")
+            with phase(f"train_epoch_{entry.name}"):
+                new = entry.run_epoch(nn, weights, xs_dev, ts_dev, kind,
+                                      master)
+                nn.kernel.weights = weights_to_numpy(new)
+            ok = finish()
+            trace_weights(nn.kernel.weights, "train-out")
+            return ok
         if xs is None or not trainable:
             # CG/SPLX are declared but unimplemented (libhpnn.c:1253-1257):
             # each per-file header is printed, nothing trains, and the call
@@ -639,18 +668,25 @@ def train_kernel(nn: NNDef, device="cuda") -> bool:
             for line, _ in events:
                 nn_out(line)
             return finish()
+        trace_weights(weights, "train-in")
         if conf.batch > 0:
             if coord.world_size() == 1:
                 _prefetch_tests(conf, nn.kernel)
             EPOCH_METRICS["stage_s"] += time.perf_counter() - t_stage
-            return _train_kernel_dp(nn, weights, xs, ts, kind, momentum,
-                                    finish, events, dev)
+            with phase("train_epoch_dp"):
+                ok = _train_kernel_dp(nn, weights, xs, ts, kind, momentum,
+                                      finish, events, dev)
+            trace_weights(nn.kernel.weights, "train-out")
+            return ok
         if _model_shards(conf) > 1:
             if coord.world_size() == 1:
                 _prefetch_tests(conf, nn.kernel)
             EPOCH_METRICS["stage_s"] += time.perf_counter() - t_stage
-            return _train_kernel_tp(nn, weights, xs, ts, kind, momentum,
-                                    finish, events, dev)
+            with phase("train_epoch_tp"):
+                ok = _train_kernel_tp(nn, weights, xs, ts, kind, momentum,
+                                      finish, events, dev)
+            trace_weights(nn.kernel.weights, "train-out")
+            return ok
         xs_dev, ts_dev = _upload(xs, dtype, dev), _upload(ts, dtype, dev)
         EPOCH_METRICS["stage_s"] += time.perf_counter() - t_stage
         EPOCH_METRICS["h2d_bytes"] += (xs_dev.nbytes + ts_dev.nbytes
@@ -668,12 +704,16 @@ def train_kernel(nn: NNDef, device="cuda") -> bool:
                                                    device=dev, tile=tile,
                                                    storage=storage)
         _prefetch_tests(conf, nn.kernel)
-        new_weights, stats = train_epoch_fn(weights, xs_dev, ts_dev, kind,
-                                            momentum, alpha=0.2)  # :1248
-        nn.kernel.weights = weights_to_numpy(new_weights)
+        with phase("train_epoch"):
+            new_weights, stats = train_epoch_fn(weights, xs_dev, ts_dev,
+                                                kind, momentum,
+                                                alpha=0.2)  # :1248
+            nn.kernel.weights = weights_to_numpy(new_weights)
         nn.last_epoch_stats = _emit_training_lines(events, stats, kind,
                                                    momentum)
-        return finish()
+        ok = finish()
+        trace_weights(nn.kernel.weights, "train-out")
+        return ok
     except DPRefused as exc:
         nn_error(f"{exc}\n")
         return False
@@ -944,8 +984,10 @@ class _EpochPipeline:
         if not names:
             return None
         multi = coord.world_size() > 1
-        rc = load_resident(conf.samples, names, nn.kernel.n_inputs,
-                           nn.kernel.n_outputs, prefer_mmap=multi)
+        with obs_trace.span("corpus_load", samples=conf.samples,
+                            files=len(names)):
+            rc = load_resident(conf.samples, names, nn.kernel.n_inputs,
+                               nn.kernel.n_outputs, prefer_mmap=multi)
         if rc is None or rc.n_rows == 0:
             return None
         from .parallel.mesh import make_mesh
@@ -1047,11 +1089,14 @@ class _EpochPipeline:
                         "the autotuner does not apply; default launch "
                         "sizing used\n")
             self.pending.append(("out", st["banner"]))
-        sel_dev, start = self._upload_sel(sel)
-        xs = self.x_dev.index_select(0, sel_dev)
-        ts = self.t_dev.index_select(0, sel_dev)
-        self.weights, stats = self.train_fn(self.weights, xs, ts, kind,
-                                            momentum, alpha=0.2)
+        with obs_trace.span("corpus_gather", rows=int(sel.size)):
+            sel_dev, start = self._upload_sel(sel)
+            xs = self.x_dev.index_select(0, sel_dev)
+            ts = self.t_dev.index_select(0, sel_dev)
+        with obs_trace.span("device_launch", rows=int(sel.size),
+                            mode=self.mode):
+            self.weights, stats = self.train_fn(self.weights, xs, ts, kind,
+                                                momentum, alpha=0.2)
         self.pending.append(_EpochLines(events, stats, self.dtype, kind,
                                         momentum, nn_log.get_verbosity(),
                                         start))
@@ -1072,11 +1117,14 @@ class _EpochPipeline:
             self.weights = tp_resident_carry(self.weights, self.mesh)
             EPOCH_METRICS["weight_bytes_per_device"] = carry_bytes(
                 self.weights)
-        sel_dev, start = self._upload_sel(sel)
-        xs = self.x_dev.index_select(0, sel_dev)
-        ts = self.t_dev.index_select(0, sel_dev)
-        self.weights, stats = tp_train_epoch_resident(
-            self.weights, xs, ts, kind, momentum, self.mesh, alpha=0.2)
+        with obs_trace.span("corpus_gather", rows=int(sel.size)):
+            sel_dev, start = self._upload_sel(sel)
+            xs = self.x_dev.index_select(0, sel_dev)
+            ts = self.t_dev.index_select(0, sel_dev)
+        with obs_trace.span("device_launch", rows=int(sel.size),
+                            mode=self.mode):
+            self.weights, stats = tp_train_epoch_resident(
+                self.weights, xs, ts, kind, momentum, self.mesh, alpha=0.2)
         self.pending.append(_EpochLines(events, stats, self.dtype, kind,
                                         momentum, nn_log.get_verbosity(),
                                         start))
@@ -1133,7 +1181,7 @@ class _EpochPipeline:
             else:
                 self.weights = dp_resident_carry(self.weights, world)
             self._dp_state = {
-                "s": s, "pos": pos, "lo": lo, "hi": hi,
+                "s": s, "pos": pos, "lo": lo, "hi": hi, "n_data": n_data,
                 "n_batches": n_batches, "bsz_pad": bsz_pad,
                 "mb": _upload(np.ascontiguousarray(mask[:, lo:hi]),
                               self.dtype, self.device),
@@ -1154,18 +1202,22 @@ class _EpochPipeline:
             slots.reshape(st["n_batches"], -1)[:, st["lo"]:st["hi"]])
         sel_dev, start = self._upload_sel(mine.reshape(-1))
         nb, width = mine.shape
-        xb = self.x_dev.index_select(0, sel_dev).view(nb, width, -1)
-        tb = self.t_dev.index_select(0, sel_dev).view(nb, width, -1)
-        if hybrid:
-            from .parallel.tp import tp_dp_train_epoch
+        # the gather on the card belongs to the epoch's launches, as the
+        # JAX package's resident DP epoch gathers inside its program
+        with obs_trace.span("device_launch", rows=int(sel.size),
+                            mode=self.mode, n_data=st["n_data"]):
+            xb = self.x_dev.index_select(0, sel_dev).view(nb, width, -1)
+            tb = self.t_dev.index_select(0, sel_dev).view(nb, width, -1)
+            if hybrid:
+                from .parallel.tp import tp_dp_train_epoch
 
-            self.weights, dw, errs = tp_dp_train_epoch(
-                self.weights, xb, tb, st["mb"], kind, momentum, st["lr"],
-                0.2, mesh=self.mesh)
-        else:
-            self.weights, dw, errs = dp_epoch(
-                self.weights, xb, tb, st["mb"], kind, momentum, st["lr"],
-                0.2, self.shapes, world, rank)
+                self.weights, dw, errs = tp_dp_train_epoch(
+                    self.weights, xb, tb, st["mb"], kind, momentum,
+                    st["lr"], 0.2, mesh=self.mesh)
+            else:
+                self.weights, dw, errs = dp_epoch(
+                    self.weights, xb, tb, st["mb"], kind, momentum,
+                    st["lr"], 0.2, self.shapes, world, rank)
         _note_opt_state(dw, self.shapes, self.wdtype)
         self.pending.append(_DPLines(errs, st["s"], nn_log.get_verbosity(),
                                      start))
@@ -1177,6 +1229,10 @@ class _EpochPipeline:
         dumps).  Returns the joined epochs' summaries, oldest first."""
         from .parallel.dp import dp_export_weights
 
+        with obs_trace.span("stats_drain", pending=len(self.pending)):
+            return self._join(nn, dp_export_weights)
+
+    def _join(self, nn, dp_export_weights) -> list[dict]:
         sums = []
         for item in self.pending:
             if isinstance(item, (_EpochLines, _DPLines)):
@@ -1307,7 +1363,9 @@ def _pipeline_for(nn, conf, device):
     decision is made once a run), a new one when this multi-epoch run
     qualifies, else None (the restaging route).  Across processes the
     minibatch [batch] route (hybrid too) and the [model] per-sample route
-    ride it."""
+    ride it.  ``HPNN_DBG_TRACE`` keeps the run on the restaging route, as
+    in the JAX package: the weight checksums read each epoch's weights
+    on the host."""
     cur = getattr(nn, "_epoch_pipeline", None)
     if isinstance(cur, _EpochPipeline):
         return cur
@@ -1317,6 +1375,7 @@ def _pipeline_for(nn, conf, device):
     if (nn.shuffle_rng is not None
             and conf.train in (NN_TRAIN_BP, NN_TRAIN_BPM)
             and not os.environ.get("HPNN_NO_EPOCH_PIPELINE")
+            and not trace_enabled()
             and (coord.world_size() == 1
                  or (conf.batch > 0 and not _tile_request(conf))
                  or (conf.batch <= 0 and _model_shards(conf) > 1))):
@@ -1369,8 +1428,9 @@ def _train_kernel_pipelined(nn, pipe: _EpochPipeline, kind: str,
         return False
     if coord.world_size() == 1:
         _prefetch_tests(conf, nn.kernel)
-    EPOCH_METRICS["h2d_bytes"] += pipe.run_epoch(nn, events, sel, kind,
-                                                 momentum)
+    with phase("train_epoch"):
+        EPOCH_METRICS["h2d_bytes"] += pipe.run_epoch(nn, events, sel, kind,
+                                                     momentum)
     EPOCH_METRICS["shuffle_s"] += t1 - t0
     EPOCH_METRICS["stage_s"] += time.perf_counter() - t1
     EPOCH_METRICS["epochs"] += 1

@@ -30,10 +30,12 @@ from __future__ import annotations
 
 import os
 import threading
+import time
 
 import numpy as np
 
 from ..io.conf import NN_TRAIN_BPM
+from ..obs import trace as obs_trace
 from ..parallel import coord
 from ..utils import nn_log
 from ..utils.nn_log import nn_out
@@ -130,12 +132,17 @@ class CheckpointManager:
         nn_out(f"CKPT: snapshot {snap.snapshot_tag(epoch)}\n")
         if sync:
             self.flush()
-            self._write(job)
+            with obs_trace.span("ckpt.snapshot_write", epoch=job["epoch"],
+                                sync=True):
+                self._write(job)
             return
         from concurrent.futures import Future
 
         from ..io.corpus import io_pool
 
+        # the write runs on a pool thread, its span parented under the
+        # caller's epoch span: the context is captured here, recorded there
+        ctx = obs_trace.current_ctx()
         # bundles land in epoch order, but the chain never PARKS a pool
         # worker waiting on its predecessor: each job is submitted from
         # the previous future's done-callback, so at most ONE pool thread
@@ -145,18 +152,25 @@ class CheckpointManager:
             prev = self._future
             self._future = fut
         if prev is None:
-            io_pool().submit(self._run_job, job, fut, None)
+            io_pool().submit(self._run_job, job, fut, None, ctx)
         else:
             prev.add_done_callback(
-                lambda p: io_pool().submit(self._run_job, job, fut, p))
+                lambda p: io_pool().submit(self._run_job, job, fut, p, ctx))
 
-    def _run_job(self, job: dict, fut, prev) -> None:
+    def _run_job(self, job: dict, fut, prev, ctx=None) -> None:
         if prev is not None and prev.exception() is not None:
             fut.set_exception(prev.exception())  # first failure wins
             return
         try:
+            t0 = time.monotonic()
             with nn_log.capture():  # the writer never prints
                 self._write(job)
+            if obs_trace.enabled():
+                obs_trace.record(
+                    "ckpt.snapshot_write", t0, time.monotonic(),
+                    trace_id=ctx[0] if ctx else None,
+                    parent_id=ctx[1] if ctx else None,
+                    epoch=job["epoch"], sync=False)
         except Exception as exc:  # noqa: BLE001 -- surfaced at flush
             fut.set_exception(exc)
         else:

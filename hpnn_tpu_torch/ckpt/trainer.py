@@ -92,6 +92,7 @@ def train_loop(nn, epochs: int, manager=None, start_epoch: int = 0,
     order, so the manifest equals the unpipelined run's."""
     from ..api import (pipeline_active, pipeline_defer_out, pipeline_join,
                        train_kernel)
+    from ..obs import trace as obs_trace
 
     conf = nn.conf
     if rng_state is not None:
@@ -124,37 +125,42 @@ def train_loop(nn, epochs: int, manager=None, start_epoch: int = 0,
     try:
         for epoch in range(start_epoch + 1, epochs + 1):
             last_epoch = epoch
-            if banner:
-                text = f"EPOCH {epoch:8d}/{epochs:8d}\n"
-                if not pipeline_defer_out(nn, text):
-                    nn_out(text)
-            if not train_kernel(nn, device=device):
-                drain()
-                return False, False
-            # coordinated stop: a signal caught by one rank latches the
-            # stop on every rank at this boundary, so no rank runs ahead
-            # into the next epoch's collectives alone
-            stopping = stop.is_set()
-            if world > 1:
-                stopping = coord.any_flag(stopping)
-                if stopping:
-                    stop.set()
-            if pipeline_active(nn):
-                pending.append(epoch)
-                # join only where the unpipelined loop needs the host
-                # state: a due snapshot, the final epoch, a latched
-                # signal, or the kill hook about to fire
-                due = (manager is not None and manager.every
-                       and epoch % manager.every == 0)
-                if (due or epoch == epochs or stopping
-                        or (kill_at and epoch == kill_at)):
+            # the epoch's span root: train_kernel's phases, the deferred
+            # stats drain, the snapshot write and the jobs scheduler's
+            # epoch callback (hot swap, eval yield) nest under it through
+            # the thread-local span stack -- a no-op when tracing is off
+            with obs_trace.span("train.epoch", epoch=epoch, epochs=epochs):
+                if banner:
+                    text = f"EPOCH {epoch:8d}/{epochs:8d}\n"
+                    if not pipeline_defer_out(nn, text):
+                        nn_out(text)
+                if not train_kernel(nn, device=device):
                     drain()
-            elif manager is not None:
-                stats = nn.last_epoch_stats
-                manager.epoch_done(nn, epoch, stats.get("mean_final")
-                                   if stats else None)
-            if on_epoch is not None:
-                on_epoch(epoch, manager)
+                    return False, False
+                # coordinated stop: a signal caught by one rank latches the
+                # stop on every rank at this boundary, so no rank runs ahead
+                # into the next epoch's collectives alone
+                stopping = stop.is_set()
+                if world > 1:
+                    stopping = coord.any_flag(stopping)
+                    if stopping:
+                        stop.set()
+                if pipeline_active(nn):
+                    pending.append(epoch)
+                    # join only where the unpipelined loop needs the host
+                    # state: a due snapshot, the final epoch, a latched
+                    # signal, or the kill hook about to fire
+                    due = (manager is not None and manager.every
+                           and epoch % manager.every == 0)
+                    if (due or epoch == epochs or stopping
+                            or (kill_at and epoch == kill_at)):
+                        drain()
+                elif manager is not None:
+                    stats = nn.last_epoch_stats
+                    manager.epoch_done(nn, epoch, stats.get("mean_final")
+                                       if stats else None)
+                if on_epoch is not None:
+                    on_epoch(epoch, manager)
             if kill_at and epoch == kill_at and epoch < epochs:
                 # the real signal path at a deterministic boundary
                 os.kill(os.getpid(), signal.SIGTERM)

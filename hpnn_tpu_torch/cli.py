@@ -4,16 +4,18 @@
         [-S n] [--device {cuda,cpu}] [--lnn native] [--tile S|auto]
         [--model-parallel N] [--trainer {cg,bp,bpm}] [--epochs N] [--ckpt-every N] [--ckpt-dir DIR] [--ckpt-keep N]
         [--resume [PATH]] [--replicate-to DIR] [--corpus-cache DIR]
-        [--corpus-cache-max-mb N] [conf]
+        [--corpus-cache-max-mb N] [--profile-dir DIR] [conf]
     python -m hpnn_tpu_torch.cli run_nn [-h] [-v]... [-O n] [-B n] [-S n]
         [--device {cuda,cpu}] [--lnn native] [--ckpt-dir DIR]
-        [--corpus-cache DIR] [--corpus-cache-max-mb N] [conf]
+        [--corpus-cache DIR] [--corpus-cache-max-mb N] [--profile-dir DIR]
+        [conf]
     python -m hpnn_tpu_torch.cli serve_nn [-v]... [-a ADDR] [-p PORT]
         [-b MAX_BATCH] [-q QUEUE_ROWS] [--linger-ms MS] [--timeout-s S]
         [--parity {strict,fast}] [--fast-threshold N]
         [--warmup-mode {background,sync,off}] [--device {cuda,cpu}]
         [--jobs N [--job-workers K] [--job-dir DIR] [--job-auto-resume]
-        [--replicate-to DIR] [--auto-promote]] [conf ...]
+        [--replicate-to DIR] [--auto-promote]] [--trace]
+        [--trace-sample P] [--span-dir DIR] [--profile-dir DIR] [conf ...]
 
 ``train_nn`` and ``run_nn`` keep the reference parser
 (``tests/train_nn.c:59-255``, ``tests/run_nn.c:66-234``): flags combine
@@ -49,12 +51,20 @@ puts the packed corpus cache (``io.corpus``) in DIR for this command and
 (``jobs/``: ``POST /v1/kernels/<name>/train`` trains a kernel while it is
 served, each epoch's snapshot hot-reloaded), with ``--job-workers K``,
 ``--job-dir DIR``, ``--job-auto-resume``, ``--replicate-to DIR`` and
-``--auto-promote``.  Every command runs on the GPU unless
-``--device cpu`` is given; asking for the GPU on a host without one exits
-non-zero before anything is computed.  The JAX package's other options
-(its compilation cache, profiling, replication to a mesh router, mesh
-serving, tracing) are refused with a message naming them: later slices of
-the port bring them.
+``--auto-promote``.  ``serve_nn --trace`` turns on span tracing and the
+flight recorder (``obs/``; ``--trace-sample P`` head-samples it,
+``--span-dir DIR`` spools the spans durably), ``--profile-dir DIR`` is
+where ``POST /v1/debug/profile`` writes its ``torch.profiler`` capture,
+and ``train_nn``/``run_nn --profile-dir DIR`` profile the whole run.
+``HPNN_PROFILE=1`` prints ``#PROF: <phase> <secs>`` lines and
+``HPNN_DBG_TRACE=1`` the ``#DBG`` weight checksums (``utils/trace.py``).
+A serve_nn that drains on SIGTERM, or dies of a fault, dumps its flight
+recorder into the job dir (or the cwd).  Every command runs on the GPU
+unless ``--device cpu`` is given; asking for the GPU on a host without
+one exits non-zero before anything is computed.  The JAX package's other
+options (its compilation cache, replication to a mesh router, mesh
+serving, SLO objectives) are refused with a message naming them: later
+slices of the port bring them.
 """
 
 from __future__ import annotations
@@ -64,7 +74,9 @@ import sys
 
 from . import runtime
 from .api import LATER, configure, run_kernel, train_kernel
+from .obs.profiler import profile_run
 from .utils import nn_log
+from .utils.trace import phase
 
 
 def _help_text(name: str) -> str:
@@ -97,6 +109,9 @@ def _help_text(name: str) -> str:
         "\tdir: least-recently-used packs past the cap are evicted (the",
         "\tin-flight run's pack never is; 0: no cap).",
         "--ckpt-dir DIR \tcheckpoint directory (default ./ckpt).",
+        "--profile-dir DIR \tcapture the whole run as a torch.profiler",
+        "\tChrome trace into DIR (TensorBoard-loadable; the card's",
+        "\tkernels under their names).",
     ]
     if train:
         lines += [
@@ -171,7 +186,8 @@ def _syntax_error(name: str, key: str):
 # checkpoint directory parses for run_nn too (its staleness guard)
 _STR_OPTS = {"--ckpt-dir": ("ckpt_dir", ("train_nn", "run_nn")),
              "--replicate-to": ("replicate_to", ("train_nn",)),
-             "--corpus-cache": ("corpus_cache", ("train_nn", "run_nn"))}
+             "--corpus-cache": ("corpus_cache", ("train_nn", "run_nn")),
+             "--profile-dir": ("profile_dir", ("train_nn", "run_nn"))}
 # unsigned long options: option -> (extras key, least value, commands)
 _UINT_OPTS = {"--epochs": ("epochs", 1, ("train_nn",)),
               "--model-parallel": ("model_parallel", 1, ("train_nn",)),
@@ -328,9 +344,12 @@ def run_nn(argv: list[str] | None = None):
         if parsed is None:
             return 0, None
         filename, extras = parsed
-        if _init(extras) != 0:
-            return -1, None
-        with _corpus_options(extras):
+        with phase("init_all"):
+            if _init(extras) != 0:
+                return -1, None
+        # --profile-dir D: the run under a torch.profiler capture; a
+        # start failure warns and runs unprofiled
+        with _corpus_options(extras), profile_run(extras["profile_dir"]):
             return _run_nn_body(filename, extras)
     finally:
         runtime.deinit_all()
@@ -357,7 +376,8 @@ def _corpus_options(extras: dict):
 
 
 def _run_nn_body(filename: str, extras: dict):
-    neural = configure(filename)
+    with phase("configure"):
+        neural = configure(filename)
     if neural is None:
         sys.stderr.write("FAILED to read NN configuration file! (ABORTING)\n")
         return -1, None
@@ -372,7 +392,9 @@ def _run_nn_body(filename: str, extras: dict):
             from .ckpt import check_kernel_fingerprint
 
             check_kernel_fingerprint(neural.conf.f_kernel, ckpt_dir)
-    return 0, run_kernel(neural, device=runtime.lib_runtime.device)
+    with phase("run_kernel"):
+        outs = run_kernel(neural, device=runtime.lib_runtime.device)
+    return 0, outs
 
 
 def run_nn_main(argv: list[str] | None = None) -> int:
@@ -399,9 +421,13 @@ def train_nn_main(argv: list[str] | None = None) -> int:
 
             sys.stderr.write(f"train_nn: {http_refusal(replicate_to)}\n")
             return -1
-        if _init(extras) != 0:
-            return -1
-        with _corpus_options(extras):
+        with phase("init_all"):
+            if _init(extras) != 0:
+                return -1
+        # --profile-dir D: the whole run (configure, train, dump) under a
+        # torch.profiler capture; a start failure warns and runs
+        # unprofiled
+        with _corpus_options(extras), profile_run(extras["profile_dir"]):
             return _train_nn_body(filename, extras, replicate_to)
     finally:
         runtime.deinit_all()
@@ -449,7 +475,8 @@ def _train_nn_body(filename: str, extras: dict,
     ckpt_dir = extras["ckpt_dir"] or "./ckpt"
     every = extras["ckpt_every"] if extras["ckpt_every"] is not None else 1
     keep = extras["ckpt_keep"] or 0
-    neural = configure(filename)
+    with phase("configure"):
+        neural = configure(filename)
     if neural is None:
         sys.stderr.write("FAILED to read NN configuration file! (ABORTING)\n")
         return -1
@@ -528,12 +555,14 @@ def _train_nn_body(filename: str, extras: dict,
                                     replicate_to=replicate_to)
             if snap is not None:
                 mgr.seed_errors(snap.errors)
-        trained, _interrupted = train_loop(
-            neural, epochs, manager=mgr, start_epoch=start_epoch,
-            rng_state=snap.rng_state if snap is not None else None,
-            device=device)
+        with phase("train_kernel"):
+            trained, _interrupted = train_loop(
+                neural, epochs, manager=mgr, start_epoch=start_epoch,
+                rng_state=snap.rng_state if snap is not None else None,
+                device=device)
     else:
-        trained = train_kernel(neural, device=device)
+        with phase("train_kernel"):
+            trained = train_kernel(neural, device=device)
     if not trained:
         sys.stderr.write("FAILED to train kernel!\n")
         return -1
@@ -620,8 +649,33 @@ def _serve_parser():
                     "X-HPNN-Generation pins per request either way)")
     ap.add_argument("--auth-token", default=None, metavar="TOKEN",
                     help="require this bearer token (or X-HPNN-Token) on "
-                    "the mutating endpoint (reload).  Default: "
+                    "every mutating endpoint: reload, train submits, job "
+                    "actions, profile captures.  Default: "
                     "$HPNN_SERVE_TOKEN; unset = open")
+    ap.add_argument("--trace", action="store_true", default=False,
+                    help="enable span tracing + the flight recorder "
+                    "(GET /v1/debug/trace; every infer request gets a "
+                    "trace id, X-HPNN-Trace-Id honored/echoed).  "
+                    "Default: $HPNN_TRACE; off costs nothing")
+    ap.add_argument("--trace-sample", type=float, default=None,
+                    metavar="P",
+                    help="head-based trace sampling: keep each new "
+                    "trace with probability P (decided once at trace "
+                    "birth; an explicit X-HPNN-Trace-Id or a high-QoS "
+                    "request always captures; dropped requests take "
+                    "the zero-allocation no-trace path).  Default: "
+                    "$HPNN_TRACE_SAMPLE, else keep everything")
+    ap.add_argument("--span-dir", default=None, metavar="DIR",
+                    help="durable span export: stream recorded spans "
+                    "into rotating NDJSON segments under DIR "
+                    "(fsync-on-rotate, size/age retention via "
+                    "HPNN_SPAN_* knobs), so traces survive SIGKILL; "
+                    "GET /v1/debug/trace?spool=1 reads them back.  "
+                    "Default: $HPNN_SPAN_DIR, else ring-only")
+    ap.add_argument("--profile-dir", default=None, metavar="DIR",
+                    help="destination for POST /v1/debug/profile "
+                    "torch.profiler captures (default: a fresh temp dir "
+                    "per capture)")
     ap.add_argument("--device", choices=runtime.DEVICES, default="cuda",
                     help="where to compute (default cuda; no fallback)")
     ap.add_argument("--jobs", type=int, default=0, metavar="N",
@@ -705,6 +759,17 @@ def serve_app(argv: list[str]):
                          f"{args.ab_fraction} (ABORTING)\n")
         runtime.deinit_all()
         return None, -1
+    if args.trace_sample is not None \
+            and not 0.0 <= args.trace_sample <= 1.0:
+        sys.stderr.write(f"--trace-sample must be in [0, 1]: "
+                         f"{args.trace_sample} (ABORTING)\n")
+        runtime.deinit_all()
+        return None, -1
+    from .obs import trace as obs_trace
+
+    # this process's role names its post-mortem dump files
+    # (trace-<reason>-<role>-<pid>.ndjson)
+    obs_trace.set_role("local")
     auth_token = (args.auth_token or os.environ.get("HPNN_SERVE_TOKEN")
                   or None)
     app = ServeApp(max_batch=args.max_batch, max_queue_rows=args.queue_rows,
@@ -712,7 +777,9 @@ def serve_app(argv: list[str]):
                    default_timeout_s=args.timeout_s, parity=args.parity,
                    fast_threshold=args.fast_threshold,
                    device=runtime.lib_runtime.device,
-                   auth_token=auth_token, ab_fraction=args.ab_fraction)
+                   auth_token=auth_token, ab_fraction=args.ab_fraction,
+                   trace=args.trace or None, trace_sample=args.trace_sample,
+                   span_dir=args.span_dir, profile_dir=args.profile_dir)
     n_ok = 0
     for conf in args.confs:
         model = app.add_model(conf, warmup=warmup_mode != "off",
@@ -779,7 +846,10 @@ def serve_nn_main(argv: list[str] | None = None) -> int:
     """serve_nn: a long-lived inference server over the same ``.conf``
     files run_nn takes.  SIGTERM/SIGINT drain: admission stops, a running
     training job finishes its epoch, snapshots and lands ``interrupted``,
-    every admitted request is answered, then the process exits 0."""
+    every admitted request is answered, then the process exits 0.  The
+    flight recorder is dumped on the way out (and on a fault escaping the
+    server loop) into the job dir, or the cwd without jobs; with a span
+    spool the spool is the post-mortem."""
     import signal
     import threading
 
@@ -806,15 +876,45 @@ def serve_nn_main(argv: list[str] | None = None) -> int:
             prev[sig] = signal.signal(sig, _drain)
         except ValueError:  # not the main thread: no handlers
             pass
+    dump_dir = args.job_dir if args.jobs > 0 else "."
+    dumped = False
     try:
         httpd.serve_forever()
+    except Exception:
+        from .obs import trace as obs_trace
+
+        path = obs_trace.dump_to_dir(dump_dir, reason="fault")
+        dumped = True   # one post-mortem a process, fault-tagged
+        if path:
+            sys.stderr.write(f"SERVE: flight recorder dumped to {path}\n")
+        raise
     finally:
         for sig, old in prev.items():
             signal.signal(sig, old)
         httpd.server_close()
         app.close(drain=True)
+        if not dumped:
+            _shutdown_dump(app, dump_dir)
         runtime.deinit_all()
     return 0
+
+
+def _shutdown_dump(app, dump_dir: str) -> None:
+    """The drain's post-mortem: with a span spool, the spool itself
+    (``app.close`` flushed and rotated every span into finalized
+    segments); else the ring dumped as NDJSON into ``dump_dir``."""
+    from .obs import trace as obs_trace
+
+    if app.span_exporter is not None:
+        from .obs.export import list_segments
+
+        segs = list_segments(app.span_exporter.span_dir)
+        path = segs[-1] if segs else None
+    else:
+        path = obs_trace.dump_to_dir(dump_dir, reason="shutdown")
+    if path:
+        sys.stdout.write(f"SERVE: flight recorder dumped to {path}\n")
+        sys.stdout.flush()
 
 
 COMMANDS = {"train_nn": train_nn_main, "run_nn": run_nn_main,

@@ -40,6 +40,7 @@ import random
 import threading
 import time
 
+from ..obs import trace as obs_trace
 from ..utils import nn_log
 from ..utils.env import env_device_cap, env_float, env_int
 from ..utils.nn_log import nn_out, nn_warn
@@ -160,8 +161,18 @@ class JobScheduler:
     def submit(self, kernel: str, params: dict,
                corpus_files: list[tuple[str, bytes]] | None = None,
                upload_incomplete: bool = False) -> JobState:
+        """:meth:`admit`'s job alone."""
+        return self.admit(kernel, params, corpus_files=corpus_files,
+                          upload_incomplete=upload_incomplete)[0]
+
+    def admit(self, kernel: str, params: dict,
+              corpus_files: list[tuple[str, bytes]] | None = None,
+              upload_incomplete: bool = False) -> tuple[JobState, dict]:
         """Validate, materialize the job dir (conf and uploaded corpus)
-        and enqueue.  Raises :class:`JobError` (HTTP 400) on bad
+        and enqueue.  Returns the job and its record as admitted
+        (``"status": "queued"``), taken before the queue submit: a worker
+        may dequeue the job and mark it running before the caller renders
+        its reply.  Raises :class:`JobError` (HTTP 400) on bad
         parameters, :class:`JobQueueFull` (429) when the queue is full.
 
         ``upload_incomplete`` (chunked uploads): the job enters the queue
@@ -201,6 +212,7 @@ class JobScheduler:
             job.resumed_from = clean.get("resumed_from")
             self._write_conf(job, model, clean)
             self.store.update(job)
+            record = self.store.snapshot(job.job_id)
             self.queue.submit(job)
         except Exception:
             # the job never ran: a failed admission (429 racing the
@@ -210,22 +222,24 @@ class JobScheduler:
             raise
         nn_out(f"jobs: {job.job_id} queued for kernel '{kernel}' "
                f"({clean['epochs']} epoch(s), train={clean['train']})\n")
-        return job
+        return job, record
 
     # --- chunked upload --------------------------------------------------
     def submit_chunked(self, kernel: str, params: dict,
-                       first_chunk: list[tuple[str, bytes]]) -> JobState:
+                       first_chunk: list[tuple[str, bytes]]) -> dict:
         """Admit a job on its first corpus chunk: it is queued at once
         (conf written, marker held), the chunk's rows enter an incremental
         pack build (``io.corpus.ChunkedPackWriter``), and later
-        :meth:`upload_chunk` calls append the rest."""
+        :meth:`upload_chunk` calls append the rest.  Returns the job's
+        record as admitted (``"status": "queued"``), whatever a worker
+        has done with the job since."""
         if not first_chunk:
             raise JobError("chunk 1 must carry at least one corpus file")
         model = self.app.registry.get(kernel)
         if model is None:
             raise JobError(f"unknown kernel '{kernel}'")
-        job = self.submit(kernel, params, corpus_files=first_chunk,
-                          upload_incomplete=True)
+        job, record = self.admit(kernel, params, corpus_files=first_chunk,
+                                 upload_incomplete=True)
         from ..io.corpus import ChunkedPackWriter
 
         writer = ChunkedPackWriter(os.path.join(job.path, JOB_CORPUS),
@@ -237,7 +251,7 @@ class JobScheduler:
                 "writer": writer, "chunks": 1,
                 "deadline": time.monotonic() + self.upload_wait_s}
             self.upload_chunks_total += 1
-        return job
+        return record
 
     def upload_chunk(self, job_id: str,
                      corpus_files: list[tuple[str, bytes]],
@@ -674,6 +688,16 @@ class JobScheduler:
 
     def _run_job(self, job: JobState, stop: threading.Event,
                  devices=None) -> None:
+        # one trace a job, keyed by the job id: every epoch span,
+        # snapshot write and hot swap on this worker thread nests under
+        # it -- `GET /v1/debug/trace?trace=job:<id>` is the job's tree
+        with obs_trace.span("jobs.run", trace_id=f"job:{job.job_id}",
+                            job=job.job_id, kernel=job.kernel,
+                            epochs=job.epochs):
+            self._run_job_traced(job, stop, devices)
+
+    def _run_job_traced(self, job: JobState, stop: threading.Event,
+                        devices=None) -> None:
         from ..api import train_job
 
         # chunked upload in flight: hold training until the last chunk
@@ -849,6 +873,19 @@ class JobScheduler:
         if not names:
             return self._skip_promote(job,
                                       f"test dir {test_dir} is empty")
+        with obs_trace.span("jobs.auto_promote", job=job.job_id,
+                            kernel=job.kernel, candidate=candidate,
+                            baseline=baseline):
+            return self._promote_on_eval(job, model, test_dir, names,
+                                         candidate, baseline)
+
+    def _promote_on_eval(self, job: JobState, model, test_dir: str,
+                         names: list, candidate: int,
+                         baseline: int) -> None:
+        """The eval and the decision of :meth:`_auto_promote`."""
+        from ..io import corpus as corpus_io
+        from ..models.kernel import is_regression
+
         _events, xs, ts = corpus_io.load_ordered(
             test_dir, names, list(range(len(names))), "TESTING",
             model.n_inputs, model.n_outputs)
@@ -917,16 +954,19 @@ class JobScheduler:
         epoch waits (at most ``preempt_wait_s``).  Training resumes only
         after the queues stay drained for a short quiesce window, so a
         momentary zero between a saturated client's drain and its next
-        arrivals does not let an epoch barge in."""
-        deadline = time.monotonic() + self.preempt_wait_s
-        quiet = 0
-        while not stop.is_set() and time.monotonic() < deadline:
-            depths = [b.depth() for b in self.app.batchers.values()]
-            if any(depths):
-                quiet = 0
-            elif (quiet := quiet + 1) >= YIELD_QUIESCE_TICKS:
-                return
-            time.sleep(0.001)
+        arrivals does not let an epoch barge in.  The wait is a span
+        (``jobs.yield_to_eval``): device contention shows in the job's
+        trace as time spent here."""
+        with obs_trace.span("jobs.yield_to_eval"):
+            deadline = time.monotonic() + self.preempt_wait_s
+            quiet = 0
+            while not stop.is_set() and time.monotonic() < deadline:
+                depths = [b.depth() for b in self.app.batchers.values()]
+                if any(depths):
+                    quiet = 0
+                elif (quiet := quiet + 1) >= YIELD_QUIESCE_TICKS:
+                    return
+                time.sleep(0.001)
 
     def _write_console(self, job: JobState, entries: list) -> None:
         try:

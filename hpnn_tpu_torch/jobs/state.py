@@ -127,14 +127,34 @@ class JobState:
         return cls(**{k: v for k, v in d.items() if k in fields})
 
 
+def _record_transition(job_id: str, kernel: str, prev: str,
+                       status: str, epoch: int) -> None:
+    """One job lifecycle transition as a zero-duration recorder span
+    (``?trace=job:<id>`` and the timeline both see it); never raises into
+    the store's write path."""
+    try:
+        from ..obs import trace as obs_trace
+
+        if not obs_trace.enabled():
+            return
+        now = time.monotonic()
+        obs_trace.record("job.state", now, now,
+                         trace_id=f"job:{job_id}", parent_id=None,
+                         job=job_id, kernel=kernel, status=status,
+                         previous=prev, epoch=epoch)
+    except Exception:
+        pass
+
+
 class JobStore:
     """Directory-backed job index: create/load/update, crash recovery.
 
     One lock serializes every record mutation and snapshot read, so HTTP
     threads see a consistent record while a worker updates it; the writes
     are atomic on disk, so an outside reader of job.json sees the old or
-    the new record whole.  (The JAX package also records each status
-    change as a span; the port's span recorder is a later slice.)
+    the new record whole.  A status change also lands in the flight
+    recorder as a zero-duration ``job.state`` span under the job's trace
+    id (``job:<id>``), the incident timeline's jobs feed.
     """
 
     def __init__(self, root: str):
@@ -193,6 +213,8 @@ class JobStore:
                            path=path, created=time.time())
             self._jobs[job_id] = job
             self._save_locked(job)
+        # the birth transition: the timeline's first jobs entry
+        _record_transition(job_id, kernel, "", "queued", 0)
         return job
 
     def discard(self, job: JobState) -> None:
@@ -204,11 +226,17 @@ class JobStore:
 
     def update(self, job: JobState, **fields) -> None:
         """Mutate and persist under the store lock (the workers' only
-        write path; HTTP readers snapshot under the same lock)."""
+        write path; HTTP readers snapshot under the same lock).  A status
+        change is recorded as a ``job.state`` span outside the lock."""
         with self._mu:
+            prev = job.status
             for k, v in fields.items():
                 setattr(job, k, v)
             self._save_locked(job)
+            status = job.status
+            epoch = job.epoch
+        if status != prev:
+            _record_transition(job.job_id, job.kernel, prev, status, epoch)
 
     def get(self, job_id: str) -> JobState | None:
         with self._mu:

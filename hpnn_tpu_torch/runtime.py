@@ -123,6 +123,11 @@ def init_all(device: str | None = "cuda", rank: int = 0) -> int:
     global lib_runtime
     lib_runtime = NNRuntime()
     nn_log.set_rank(rank)
+    from .obs import trace as obs_trace
+
+    # HPNN_TRACE=1: span tracing and the flight recorder from process
+    # start (serve_nn can also enable it later with --trace)
+    obs_trace.enable_from_env()
     pin_full_float32()
     try:
         dev = resolve_device(device)

@@ -30,6 +30,14 @@ device launch per batch (the port of ``hpnn_tpu/serve/batcher.py``).
 * **graceful drain** -- ``close(drain=True)`` stops admission
   (:class:`ServeClosed`), answers everything already admitted, then
   joins the worker.
+* **tracing** -- a request admitted with a trace context (the HTTP
+  layer's ``(trace_id, root_span_id)``) gets its ``queue_wait``,
+  ``batch_assembly``, ``pad_h2d``, ``device_launch`` and ``d2h`` spans
+  recorded by the worker thread with that context passed explicitly,
+  before its submitter is woken; its trace id also competes for the
+  latency histograms' exemplar slot.  The spans are host intervals (the
+  card's own times are the registry's CUDA events); recording adds no
+  synchronization and no host read.
 
 One batcher (and one worker thread) per served model: batches must be
 model-homogeneous.
@@ -44,6 +52,7 @@ from collections import deque
 
 import numpy as np
 
+from ..obs import trace as obs_trace
 from ..utils.nn_log import nn_dbg, nn_event, nn_warn
 from .metrics import ServeMetrics
 from .qos import LANE_NAMES
@@ -87,10 +96,11 @@ class LocalBackend:
 class _Pending:
     __slots__ = ("xs", "rows", "deadline", "gen", "served_gen", "t_enq",
                  "t_dispatch", "event", "result", "error", "bucket",
-                 "lane", "seq")
+                 "lane", "seq", "trace")
 
     def __init__(self, xs: np.ndarray, deadline: float,
-                 gen: int | None = None, lane: int = 1):
+                 gen: int | None = None, lane: int = 1,
+                 trace: tuple[str, str] | None = None):
         self.xs = xs
         self.rows = xs.shape[0]
         self.deadline = deadline
@@ -104,6 +114,7 @@ class _Pending:
         self.event = threading.Event()
         self.result: np.ndarray | None = None
         self.error: Exception | None = None
+        self.trace = trace        # (trace_id, root_span_id) or None
 
 
 class MicroBatcher:
@@ -182,12 +193,15 @@ class MicroBatcher:
     # --- client side ----------------------------------------------------
     def submit(self, xs: np.ndarray, timeout_s: float,
                gen: int | None = None, return_gen: bool = False,
-               lane: int = 1):
+               lane: int = 1, trace: tuple[str, str] | None = None):
         """Enqueue (rows, n_inputs) float64 rows and block until the batch
         holding them completes.  Raises QueueFull / DeadlineExceeded /
         ServeClosed; a model exception propagates.  ``gen`` pins the
         request to one generation; ``lane`` is its QoS lane (0 high,
-        1 normal, 2 low).  ``return_gen`` returns ``(rows, served_gen)``."""
+        1 normal, 2 low); ``trace`` is the HTTP layer's span context
+        ``(trace_id, root_span_id)``, under which the worker records the
+        request's batch spans.  ``return_gen`` returns
+        ``(rows, served_gen)``."""
         rows = xs.shape[0]
         if not 1 <= rows <= self.max_batch:
             raise ValueError(
@@ -197,7 +211,7 @@ class MicroBatcher:
                 f"deadline already expired at admission "
                 f"({timeout_s * 1e3:.1f} ms remaining)")
         p = _Pending(xs, time.monotonic() + timeout_s, gen=gen,
-                     lane=int(lane))
+                     lane=int(lane), trace=trace)
         with self._cv:
             if self._closing:
                 raise ServeClosed(f"kernel '{self.model.name}' draining")
@@ -220,18 +234,19 @@ class MicroBatcher:
         if p.error is not None:
             raise p.error
         lat = time.monotonic() - p.t_enq
-        self.metrics.latency.observe(lat)
+        tid = trace[0] if trace else None
+        self.metrics.latency.observe(lat, trace_id=tid)
         if p.bucket:
             # slow-request flag: against this kernel+bucket's p99 before
             # this observation joins it
             h = self.metrics.bucket_latency(self.model.name, p.bucket)
             thr = self.metrics.slow_threshold_s(h)
-            h.observe(lat)
+            h.observe(lat, trace_id=tid)
             if thr is not None and lat > thr:
                 nn_event("slow_request", kernel=self.model.name,
                          bucket=p.bucket, latency_ms=round(lat * 1e3, 3),
                          threshold_ms=round(thr * 1e3, 3),
-                         generation=p.served_gen, trace="")
+                         generation=p.served_gen, trace=tid or "")
         return (p.result, p.served_gen) if return_gen else p.result
 
     # --- worker ---------------------------------------------------------
@@ -408,12 +423,45 @@ class MicroBatcher:
         else:
             self.metrics.observe_phase("device", t_c0 - t_launched)
             self.metrics.observe_phase("d2h", t_c1 - t_c0)
+        tracing = obs_trace.enabled()
+        if tracing:
+            batch_attrs = {
+                "kernel": self.model.name,
+                "bucket": handle.bucket,
+                "batch_rows": rows,
+                "batch_requests": len(live),
+                "tier": getattr(handle, "tier", "strict"),
+                "cache_hit": bool(getattr(handle, "cache_hit", True)),
+                "generation": live[0].served_gen,
+            }
+            pad_s = getattr(handle, "pad_h2d_s", 0.0)
         off = 0
         for p in live:
             p.result = outs[off:off + p.rows]
             off += p.rows
             # queue_latency doubles as the queue_wait phase
-            self.metrics.queue_latency.observe(p.t_dispatch - p.t_enq)
+            self.metrics.queue_latency.observe(
+                p.t_dispatch - p.t_enq,
+                trace_id=p.trace[0] if p.trace else None)
+            if tracing and p.trace is not None:
+                tid, root = p.trace
+                obs_trace.record("queue_wait", p.t_enq, p.t_dispatch,
+                                 trace_id=tid, parent_id=root,
+                                 rows=p.rows)
+                obs_trace.record("batch_assembly", t0, t_asm1,
+                                 trace_id=tid, parent_id=root,
+                                 **batch_attrs)
+                # the registry-measured window, ending at the launch
+                obs_trace.record("pad_h2d", t_launched - pad_s,
+                                 t_launched, trace_id=tid,
+                                 parent_id=root, bucket=handle.bucket)
+                obs_trace.record("device_launch", t_launched, t_c0,
+                                 trace_id=tid, parent_id=root,
+                                 **batch_attrs)
+                obs_trace.record("d2h", t_c0, t_c1, trace_id=tid,
+                                 parent_id=root, bucket=handle.bucket)
+            # spans recorded before the wakeup: once the submitter
+            # returns, this request's tree is already in the recorder
             p.event.set()
 
     def _loop(self) -> None:

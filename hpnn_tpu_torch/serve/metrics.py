@@ -66,8 +66,9 @@ class LatencyHistogram:
     An ``observe`` carrying a trace id competes to be the histogram's
     exemplar, the slowest recent traced observation: it takes the slot
     when it is at least as slow as the incumbent or the incumbent is
-    older than :data:`EXEMPLAR_MAX_AGE_S`.  No port path passes trace ids
-    yet, so the slot stays empty until tracing is ported."""
+    older than :data:`EXEMPLAR_MAX_AGE_S`.  The batcher passes the trace id
+    of each traced request, so the exemplar names a trace worth pulling
+    from the flight recorder (``/v1/debug/trace?trace=<id>``)."""
 
     EXEMPLAR_MAX_AGE_S = 60.0
 
@@ -391,6 +392,14 @@ class ServeMetrics:
         lanes = {name: fn() for name, fn in list(self._lane_fns.items())}
         jobs_fn = self._jobs_fn   # it takes the scheduler's locks too
         jobs = jobs_fn() if jobs_fn is not None else None
+        # trace sampling and the span spool: process-wide obs state,
+        # absent when unconfigured (the series must not exist for a
+        # keep-all or ring-only recorder)
+        from ..obs import trace as obs_trace
+
+        sampling = obs_trace.sample_stats()
+        exporter = obs_trace.get_exporter()
+        export = exporter.stats() if exporter is not None else None
         with self._lock:
             out = {
                 "requests": dict(self.requests),
@@ -411,6 +420,10 @@ class ServeMetrics:
         out["batch_fill_ratio"] = round(self.batch_fill_ratio(), 4)
         out["queue_depth"] = depths
         out["lanes"] = lanes
+        if sampling is not None:
+            out["trace_sampling"] = sampling
+        if export is not None:
+            out["span_export"] = export
         out["latency"] = self.latency.snapshot()
         out["queue_latency"] = self.queue_latency.snapshot()
         out["device_time"] = self.device_time.snapshot()
@@ -519,6 +532,7 @@ class ServeMetrics:
                     f'generation="{_escape_label(gen)}"}} {n}')
         if snap.get("jobs") is not None:
             lines += _jobs_prometheus(snap["jobs"])
+        lines += _obs_prometheus(snap)
         lines += [
             "# HELP hpnn_serve_queue_depth Requests waiting per kernel.",
             "# TYPE hpnn_serve_queue_depth gauge",
@@ -621,6 +635,66 @@ class ServeMetrics:
         lines += [f'hpnn_kernel_launches_total{{kernel="{k}"}} {v}'
                   for k, v in snap["kernel_launches"].items()]
         return "\n".join(lines) + "\n"
+
+
+def _obs_prometheus(snap: dict) -> list[str]:
+    """The ``hpnn_trace_*`` and ``hpnn_span_export_*`` families (the JAX
+    package's), present only when a sampler or a span spool is
+    configured."""
+    lines: list[str] = []
+    if snap.get("trace_sampling") is not None:
+        ts = snap["trace_sampling"]
+        lines += [
+            "# HELP hpnn_trace_sample_rate Head-sampling keep "
+            "probability at trace birth.",
+            "# TYPE hpnn_trace_sample_rate gauge",
+            f"hpnn_trace_sample_rate {ts['rate']}",
+            "# HELP hpnn_trace_decisions_total Head-sampling "
+            "decisions by outcome (forced = explicit trace id or "
+            "high-QoS, counted inside sampled).",
+            "# TYPE hpnn_trace_decisions_total counter",
+            'hpnn_trace_decisions_total{outcome="sampled"} '
+            f"{ts['sampled_total']}",
+            'hpnn_trace_decisions_total{outcome="dropped"} '
+            f"{ts['dropped_total']}",
+            'hpnn_trace_decisions_total{outcome="forced"} '
+            f"{ts['forced_total']}",
+        ]
+    if snap.get("span_export") is not None:
+        se = snap["span_export"]
+        lines += [
+            "# HELP hpnn_span_export_spans_total Spans shipped to "
+            "the durable spool (dropped = bounded queue full).",
+            "# TYPE hpnn_span_export_spans_total counter",
+            'hpnn_span_export_spans_total{outcome="exported"} '
+            f"{se['exported_total']}",
+            'hpnn_span_export_spans_total{outcome="dropped"} '
+            f"{se['dropped_total']}",
+            "# HELP hpnn_span_export_rotations_total Finalized "
+            "(fsync'd + renamed) spool segments.",
+            "# TYPE hpnn_span_export_rotations_total counter",
+            f"hpnn_span_export_rotations_total "
+            f"{se['rotations_total']}",
+            "# HELP hpnn_span_export_segments Finalized segments "
+            "currently retained in the span dir.",
+            "# TYPE hpnn_span_export_segments gauge",
+            f"hpnn_span_export_segments {se['segments']}",
+            "# HELP hpnn_span_export_open_bytes Bytes written to "
+            "the current open (unrotated) spool segment.",
+            "# TYPE hpnn_span_export_open_bytes gauge",
+            f"hpnn_span_export_open_bytes {se['open_bytes']}",
+            "# HELP hpnn_span_export_oldest_segment_age_s Age of "
+            "the oldest retained finalized segment (0 when none).",
+            "# TYPE hpnn_span_export_oldest_segment_age_s gauge",
+            f"hpnn_span_export_oldest_segment_age_s "
+            f"{se.get('oldest_segment_age_s', 0.0)}",
+            "# HELP hpnn_span_export_index_builds_total Trace-index"
+            " sidecars built at segment rotation.",
+            "# TYPE hpnn_span_export_index_builds_total counter",
+            f"hpnn_span_export_index_builds_total "
+            f"{se.get('index_builds_total', 0)}",
+        ]
+    return lines
 
 
 def _jobs_prometheus(j: dict) -> list[str]:

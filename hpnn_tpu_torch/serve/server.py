@@ -20,6 +20,24 @@ Endpoints:
   uptime and the queued rows per kernel.
 * ``GET /metrics`` -- Prometheus text; ``?format=json`` for the JSON
   snapshot (``serve/metrics.py``).
+* ``GET /v1/debug/trace[?trace=ID&limit=N&since_seq=S&spool=1&timeline=1]``
+  -- the flight recorder (``obs/``) as NDJSON, one completed span a line;
+  404 until tracing is on (``--trace`` / ``HPNN_TRACE=1``).  An infer
+  request's trace id (``X-HPNN-Trace-Id``, or minted) is echoed in the
+  response header and body, and its tree ``serve.request`` -> {``parse``,
+  ``queue_wait``, ``batch_assembly``, ``pad_h2d``, ``device_launch``,
+  ``d2h``, ``respond``} is in the recorder before the reply leaves.
+  ``spool=1`` reads the ``--span-dir`` spool back, ``timeline=1`` renders
+  the incident timeline; ``GET /v1/debug/trace/search`` and
+  ``/v1/debug/trace/critical`` answer from the spool's indexes (the ring
+  without one).  With ``--trace-sample P`` keep/drop is decided once at a
+  trace's birth; an explicit trace id or a high-priority request always
+  captures.
+* ``POST /v1/debug/profile`` -- ``{"seconds": N, "dir": PATH?}``: a
+  ``torch.profiler`` capture of the live server (a Chrome trace; the
+  card's kernels by their ``__global__`` names), behind the auth token;
+  409 while one runs, 501 when the profiler cannot start.  The default
+  destination is ``--profile-dir``, else a fresh temp dir.
 
 With ``serve_nn --jobs N`` (``ServeApp.enable_jobs``, ``jobs/``), the
 training service:
@@ -47,19 +65,21 @@ Request headers:
   body's ``timeout_ms``): an expired one is a 504 at admission.
 
 The mutating endpoints (reload, the train submits, corpus chunks, job
-actions) honor ``--auth-token`` / ``HPNN_SERVE_TOKEN``: when configured,
-a request without the matching ``Authorization: Bearer`` (or
-``X-HPNN-Token``) header gets 401.
+actions, profile captures) honor ``--auth-token`` /
+``HPNN_SERVE_TOKEN``: when configured, a request without the matching
+``Authorization: Bearer`` (or ``X-HPNN-Token``) header gets 401.
 
 Status mapping: 200 result (202 for a train submit); 400 malformed body,
 wrong input width, too many rows, a bad header or bad job params; 401
 missing or invalid token on a mutating endpoint; 404 unknown kernel, job,
-path or pinned generation; 409 reload failed (the old weights keep
-serving), a job action in a conflicting state or a closed upload; 413 a
+path or pinned generation, tracing off or no spool on a debug read;
+409 reload failed (the old weights keep serving), a job action in a
+conflicting state, a closed upload or a profile already running; 413 a
 jobs body over its cap; 429 queue full (Retry-After from the queue's
-measured drain rate; 1 s for the job queue); 503 draining, or
-``jobs_disabled`` without ``--jobs``; 504 deadline exceeded; 500 anything
-else.  An error body is ``{"error": <message>, "reason": <outcome>}``.
+measured drain rate; 1 s for the job queue); 501 profiler unavailable;
+503 draining, or ``jobs_disabled`` without ``--jobs``; 504 deadline
+exceeded; 500 anything else.  An error body is ``{"error": <message>,
+"reason": <outcome>}``.
 
 ``ThreadingHTTPServer`` gives one thread per connection; they all block
 in ``MicroBatcher.submit`` and each kernel's worker thread is the only one
@@ -80,6 +100,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
+from ..obs import trace as obs_trace
 from ..utils.nn_log import nn_dbg, nn_out, nn_warn
 from . import qos
 from .batcher import DeadlineExceeded, MicroBatcher, QueueFull, ServeClosed
@@ -195,9 +216,35 @@ class ServeApp:
                  linger_s: float = 0.0, default_timeout_s: float = 30.0,
                  parity: str = "strict", fast_threshold: int = 256,
                  device="cuda", metrics: ServeMetrics | None = None,
-                 auth_token: str | None = None, ab_fraction: float = 0.0):
+                 auth_token: str | None = None, ab_fraction: float = 0.0,
+                 trace: bool | None = None, trace_sample: float | None = None,
+                 span_dir: str | None = None,
+                 profile_dir: str | None = None):
         self.metrics = metrics or ServeMetrics()
         self.auth_token = auth_token or None
+        self.profile_dir = profile_dir  # /v1/debug/profile default dest
+        # span tracing: an explicit flag wins -- True enables, False
+        # disables (even when HPNN_TRACE was set at init_all), None
+        # defers to the env
+        if trace:
+            obs_trace.enable()
+        elif trace is None:
+            obs_trace.enable_from_env()
+        else:
+            obs_trace.disable()
+        # head-based sampling: decided once at a trace's birth (do_POST);
+        # the flag wins over HPNN_TRACE_SAMPLE
+        if trace_sample is not None:
+            obs_trace.set_sample_rate(trace_sample)
+        # durable span export: spans stream off the ring into rotating
+        # NDJSON segments under span_dir, so they survive SIGKILL
+        self.span_exporter = None
+        span_dir = span_dir or os.environ.get("HPNN_SPAN_DIR") or None
+        if span_dir:
+            from ..obs.export import SpanExporter
+
+            self.span_exporter = SpanExporter(span_dir)
+            obs_trace.set_exporter(self.span_exporter)
         self.registry = ModelRegistry(max_batch=max_batch, parity=parity,
                                       fast_threshold=fast_threshold,
                                       device=device, metrics=self.metrics,
@@ -274,6 +321,12 @@ class ServeApp:
             self.jobs.drain()
         for b in self.batchers.values():
             b.close(drain=drain)
+        if self.span_exporter is not None:
+            # after everything that records spans: the last spans land
+            # in a final rotated segment
+            if obs_trace.get_exporter() is self.span_exporter:
+                obs_trace.set_exporter(None)
+            self.span_exporter.close()
 
     def uptime_s(self) -> float:
         return time.monotonic() - self.started_mono
@@ -366,7 +419,10 @@ class ServeApp:
             state["gen"] = gen
             return None
         try:
-            result = self.reload_model(name, os.path.join(ckpt_dir, rel))
+            with obs_trace.span("serve.hot_swap", kernel=name,
+                                manifest_generation=gen):
+                result = self.reload_model(name,
+                                           os.path.join(ckpt_dir, rel))
         except Exception as exc:
             # the generation is not consumed: a transient failure on a
             # run's last bump would otherwise leave the server stale
@@ -430,7 +486,119 @@ class ServeApp:
             body["warming"] = warming
         return (200 if status == "ok" else 503), body
 
-    def handle_infer(self, name: str, body: bytes, headers=None) -> dict:
+    # --- observability ------------------------------------------------
+    def handle_debug_profile(self, body: bytes) -> dict:
+        """POST /v1/debug/profile: a ``torch.profiler`` capture of the
+        LIVE server for ``{"seconds": N}`` -- traffic keeps flowing; the
+        profiler observes from the side.  ``{"dir": PATH}`` overrides
+        ``--profile-dir``; with neither, a fresh temp directory is minted
+        and returned.  409 while another capture runs (the profiler is a
+        process singleton), 501 when it cannot start here."""
+        from ..obs import profiler
+
+        req = {}
+        if body.strip():
+            try:
+                req = json.loads(body.decode("utf-8"))
+            except (UnicodeDecodeError, json.JSONDecodeError) as exc:
+                raise _HTTPError(400, "bad_request", f"bad JSON: {exc}")
+            if not isinstance(req, dict):
+                raise _HTTPError(400, "bad_request",
+                                 "body must be an object")
+        try:
+            seconds = float(req.get("seconds", 1.0))
+        except (TypeError, ValueError):
+            raise _HTTPError(400, "bad_request", "bad 'seconds'")
+        if not 0.0 < seconds <= profiler.MAX_CAPTURE_S:
+            raise _HTTPError(
+                400, "bad_request",
+                f"'seconds' must be in (0, {profiler.MAX_CAPTURE_S:g}]")
+        out_dir = req.get("dir") or self.profile_dir
+        if out_dir is None:
+            import tempfile
+
+            out_dir = tempfile.mkdtemp(prefix="hpnn-profile-")
+        try:
+            rec = profiler.capture(seconds, out_dir)
+        except profiler.ProfilerBusy as exc:
+            raise _HTTPError(409, "profile_busy", str(exc))
+        except profiler.ProfilerUnavailable as exc:
+            raise _HTTPError(501, "profile_unavailable", str(exc))
+        rec["requested_seconds"] = seconds
+        return rec
+
+    def handle_trace_search(self, params: dict) -> dict:
+        """GET /v1/debug/trace/search: per-trace summaries from the trace
+        index (the ``--span-dir`` sidecars; the ring without a spool)."""
+        from ..obs import index as trace_index
+
+        try:
+            if self.span_exporter is not None:
+                # pending spans become searchable first (drain, not
+                # flush: a polling search must not force rotations)
+                self.span_exporter.drain()
+                return trace_index.search(self.span_exporter.span_dir,
+                                          params)
+            return trace_index.search_spans(obs_trace.snapshot(), params)
+        except (TypeError, ValueError) as exc:
+            raise _HTTPError(400, "bad_request", f"bad query: {exc}")
+
+    def handle_trace_critical(self, params: dict) -> dict:
+        """GET /v1/debug/trace/critical: per-phase p50/p99 critical-path
+        self-time over the sampled traces.  From the span spool when one
+        is configured (byte-identical to ``obs.tool critical`` over the
+        same directory), else from the ring."""
+        from ..obs import analyze
+
+        try:
+            kernel = params.get("kernel") or None
+            window_s = (float(params["window"])
+                        if params.get("window") not in (None, "")
+                        else None)
+            limit = (int(params["limit"])
+                     if params.get("limit") not in (None, "") else None)
+        except (TypeError, ValueError) as exc:
+            raise _HTTPError(400, "bad_request", f"bad query: {exc}")
+        if self.span_exporter is not None:
+            self.span_exporter.drain()
+            return analyze.critical_from_dir(
+                self.span_exporter.span_dir, kernel=kernel,
+                window_s=window_s, limit=limit)
+        return analyze.critical_from_spans(
+            obs_trace.snapshot(), kernel=kernel, window_s=window_s,
+            limit=limit)
+
+    def handle_trace_timeline(self, params: dict) -> str:
+        """GET /v1/debug/trace?timeline=1: the incident timeline as NDJSON
+        -- spans, structured events and job state transitions in one
+        time-ordered narrative; spool-backed when a span dir is
+        configured (so ``obs.tool timeline`` reproduces it)."""
+        from ..obs import analyze
+
+        try:
+            since = (float(params["since"])
+                     if params.get("since") not in (None, "") else None)
+            until = (float(params["until"])
+                     if params.get("until") not in (None, "") else None)
+            limit = (int(params["limit"])
+                     if params.get("limit") not in (None, "") else None)
+        except (TypeError, ValueError) as exc:
+            raise _HTTPError(400, "bad_request", f"bad query: {exc}")
+        if self.span_exporter is not None:
+            from ..obs.export import read_spool
+
+            self.span_exporter.drain()
+            spans = read_spool(self.span_exporter.span_dir)
+        else:
+            spans = obs_trace.snapshot()
+        return analyze.render_timeline(
+            analyze.build_timeline(spans, since=since, until=until,
+                                   limit=limit))
+
+    def handle_infer(self, name: str, body: bytes, headers=None,
+                     trace_ctx: tuple[str, str] | None = None) -> dict:
+        """One infer request; ``trace_ctx`` is the HTTP layer's
+        ``(trace_id, root_span_id)`` when this request is traced."""
         b = self.batchers.get(name)
         if b is None:
             raise _HTTPError(404, "not_found", f"unknown kernel '{name}'")
@@ -497,10 +665,16 @@ class ServeApp:
             except (TypeError, ValueError):
                 raise _HTTPError(400, "bad_request",
                                  "X-HPNN-Deadline-Ms must be a number")
-        self.metrics.observe_phase("parse", time.monotonic() - t_parse0)
+        t_parse1 = time.monotonic()
+        self.metrics.observe_phase("parse", t_parse1 - t_parse0)
+        if trace_ctx is not None:
+            obs_trace.record("parse", t_parse0, t_parse1,
+                             trace_id=trace_ctx[0], parent_id=trace_ctx[1],
+                             rows=int(xs.shape[0]))
         try:
             outs, served_gen = b.submit(xs, timeout_s, gen=gen,
-                                        return_gen=True, lane=lane)
+                                        return_gen=True, lane=lane,
+                                        trace=trace_ctx)
         except QueueFull as exc:
             raise _HTTPError(429, "queue_full", str(exc),
                              retry_after=getattr(exc, "retry_after_s",
@@ -515,10 +689,13 @@ class ServeApp:
         if served_gen is None:  # registry stand-ins without generations
             served_gen = gen if gen is not None else model.generation
         self.metrics.count_generation(name, served_gen)
-        return {"kernel": name,
-                "generation": int(served_gen),
-                "outputs": outs.tolist(),
-                "argmax": [int(i) for i in np.argmax(outs, axis=1)]}
+        out = {"kernel": name,
+               "generation": int(served_gen),
+               "outputs": outs.tolist(),
+               "argmax": [int(i) for i in np.argmax(outs, axis=1)]}
+        if trace_ctx is not None:
+            out["trace"] = trace_ctx[0]
+        return out
 
     def handle_reload(self, name: str, body: bytes) -> dict:
         """POST /v1/kernels/<name>/reload: optional JSON body
@@ -617,27 +794,28 @@ class ServeApp:
         else:
             params = {}
         try:
-            job = jobs.submit(name, params, corpus_files=corpus_files)
+            _job, record = jobs.admit(name, params,
+                                      corpus_files=corpus_files)
         except (JobQueueFull, JobError) as exc:
             raise self._submit_error(exc)
-        return job.to_dict()
+        return record
 
     def handle_train_chunked(self, name: str, spool: str | None,
                              content_type: str = "") -> dict:
         """POST /v1/kernels/<name>/train/chunked: submit a training job
         on its first corpus chunk (multipart: ``params`` and file parts).
         The job queues at once and holds training until the upload
-        closes; 202 with the job record and the chunk endpoint."""
+        closes; 202 with the job record as admitted (``queued``, even
+        when a worker already holds the job) and the chunk endpoint."""
         from ..jobs import JobError, JobQueueFull
 
         jobs = self._jobs_or_503()
         params, files = _parse_multipart(_read_spool(spool), content_type)
         try:
-            job = jobs.submit_chunked(name, params, files)
+            out = jobs.submit_chunked(name, params, files)
         except (JobQueueFull, JobError) as exc:
             raise self._submit_error(exc)
-        out = job.to_dict()
-        out["upload"] = {"endpoint": f"/v1/jobs/{job.job_id}/corpus",
+        out["upload"] = {"endpoint": f"/v1/jobs/{out['job_id']}/corpus",
                          "chunks": 1, "complete": False}
         return out
 
@@ -791,8 +969,101 @@ class _Handler(BaseHTTPRequestHandler):
                 self._reply(200, self.app.metrics.render_prometheus()
                             .encode("utf-8"),
                             content_type="text/plain; version=0.0.4")
+        elif path.startswith("/v1/debug/trace"):
+            self._do_get_trace(path, query)
         else:
             self._do_get_jobs(path, query)
+
+    def _do_get_trace(self, path: str, query: str) -> None:
+        """The flight recorder's read endpoints (see the module doc); the
+        JAX package's query grammar and status codes."""
+        params = dict(
+            kv.split("=", 1) for kv in query.split("&") if "=" in kv)
+        if path in ("/v1/debug/trace/search", "/v1/debug/trace/critical"):
+            # 404 only when there is nothing to answer from
+            if self.app.span_exporter is None \
+                    and not obs_trace.enabled():
+                self._reply(404, {"error": "tracing is disabled and no "
+                                  "span spool is configured (start "
+                                  "serve_nn with --trace and/or "
+                                  "--span-dir)",
+                                  "reason": "tracing_disabled"})
+                return
+            try:
+                if path.endswith("/search"):
+                    out = self.app.handle_trace_search(params)
+                else:
+                    out = self.app.handle_trace_critical(params)
+            except _HTTPError as exc:
+                self._reply(exc.status,
+                            {"error": str(exc), "reason": exc.outcome})
+                return
+            self._reply(200, out)
+            return
+        if path != "/v1/debug/trace":
+            self._reply(404, {"error": f"no route {path}"})
+            return
+        limit = since_seq = None
+        try:
+            if params.get("limit"):
+                limit = int(params["limit"])
+            if params.get("since_seq"):
+                since_seq = int(params["since_seq"])
+        except ValueError:
+            self._reply(400, {"error": "bad limit/since_seq",
+                              "reason": "bad_request"})
+            return
+        trace_id = params.get("trace") or None
+        if params.get("timeline") == "1":
+            if self.app.span_exporter is None and not obs_trace.enabled():
+                self._reply(404, {"error": "tracing is disabled and no "
+                                  "span spool is configured",
+                                  "reason": "tracing_disabled"})
+                return
+            try:
+                text = self.app.handle_trace_timeline(params)
+            except _HTTPError as exc:
+                self._reply(exc.status,
+                            {"error": str(exc), "reason": exc.outcome})
+                return
+            self._reply(200, text.encode("utf-8"),
+                        content_type="application/x-ndjson")
+            return
+        if params.get("spool") == "1":
+            # read back through the durable spool: the rotated segments
+            # and the open spool files, so a trace evicted from the ring
+            # (or recorded by an earlier process on the same --span-dir)
+            # is still answerable
+            exp = self.app.span_exporter
+            if exp is None:
+                self._reply(404, {"error": "no span spool (start "
+                                  "serve_nn with --span-dir)",
+                                  "reason": "spool_disabled"})
+                return
+            from ..obs.export import read_spool
+
+            exp.drain()   # pending spans readable; no forced rotation
+            spans = read_spool(exp.span_dir, trace_id=trace_id,
+                               limit=limit)
+            self._reply(200, obs_trace.render_ndjson(spans)
+                        .encode("utf-8"),
+                        content_type="application/x-ndjson")
+            return
+        if not obs_trace.enabled():
+            self._reply(404, {"error": "tracing is disabled (start "
+                              "serve_nn with --trace or HPNN_TRACE=1)",
+                              "reason": "tracing_disabled"})
+            return
+        text = obs_trace.dump_ndjson(trace_id=trace_id, limit=limit,
+                                     since_seq=since_seq)
+        # the scraper's cursor (newest recorded seq) and the ring's
+        # identity: a changed ring id invalidates any stored cursor
+        self._reply(200, text.encode("utf-8"),
+                    content_type="application/x-ndjson",
+                    extra_headers={"X-HPNN-Trace-Seq":
+                                   str(obs_trace.last_seq()),
+                                   "X-HPNN-Trace-Ring":
+                                   obs_trace.ring_id()})
 
     def _do_get_jobs(self, path: str, query: str) -> None:
         try:
@@ -952,7 +1223,8 @@ class _Handler(BaseHTTPRequestHandler):
                         tr) -> None:
         r = _RELOAD_RE.match(path)
         a = _JOB_ACTION_RE.match(path)
-        if (r or tr or a or ck or jc) \
+        prof = path == "/v1/debug/profile"
+        if (r or tr or a or ck or jc or prof) \
                 and not self.app.authorized(self.headers):
             # every mutating endpoint sits behind the token when one is
             # configured; infer, metrics and healthz stay open
@@ -980,6 +1252,8 @@ class _Handler(BaseHTTPRequestHandler):
             call, ok = (lambda: self.app.handle_job_action(a.group(1),
                                                            a.group(2)),
                         200)
+        elif prof:
+            call, ok = (lambda: self.app.handle_debug_profile(body), 200)
         else:
             self._do_infer(path, body)
             return
@@ -1000,24 +1274,59 @@ class _Handler(BaseHTTPRequestHandler):
             self.app.metrics.count_request("not_found")
             self._reply(404, {"error": f"no route {self.path}"})
             return
+        # the trace id: the client's X-HPNN-Trace-Id, or minted while
+        # tracing is on; echoed either way.  Keep/drop is decided here,
+        # once, at the trace's birth: a dropped trace mints no context,
+        # so everything downstream takes the tracing-off path.  An
+        # explicit id or a high-priority request forces capture.
+        trace_hdr = (self.headers.get("X-HPNN-Trace-Id") or "").strip()
+        trace_ctx = None
+        if obs_trace.enabled():
+            prio = (self.headers.get("X-HPNN-Priority") or "").strip()
+            force = bool(trace_hdr) or prio.lower() in ("high", "0")
+            if obs_trace.sample_trace(force=force):
+                trace_ctx = (trace_hdr or obs_trace.new_trace_id(),
+                             obs_trace.new_span_id())
+        echo = ({"X-HPNN-Trace-Id": trace_ctx[0]} if trace_ctx
+                else ({"X-HPNN-Trace-Id": trace_hdr} if trace_hdr
+                      else None))
+        t_req0 = time.monotonic()
         try:
             out = self.app.handle_infer(m.group(1), body,
-                                        headers=self.headers)
+                                        headers=self.headers,
+                                        trace_ctx=trace_ctx)
         except _HTTPError as exc:
             self.app.metrics.count_request(exc.outcome)
-            headers = None
+            headers = dict(echo or {})
             if exc.status == 429:
                 # Retry-After from the queue's measured drain rate
-                headers = {"Retry-After": str(
-                    max(1, math.ceil(exc.retry_after or 1.0)))}
+                headers["Retry-After"] = str(
+                    max(1, math.ceil(exc.retry_after or 1.0)))
+            if trace_ctx is not None:
+                obs_trace.record("serve.request", t_req0, time.monotonic(),
+                                 trace_id=trace_ctx[0],
+                                 span_id=trace_ctx[1], kernel=m.group(1),
+                                 outcome=exc.outcome, status=exc.status)
             self._reply(exc.status,
                         {"error": str(exc), "reason": exc.outcome},
-                        extra_headers=headers)
+                        extra_headers=headers or None)
             return
         self.app.metrics.count_request("ok")
+        if trace_ctx is not None:
+            # the root completes before the response bytes leave: once
+            # the client can query /v1/debug/trace, its tree is there
+            # (the respond span lands right after the write)
+            obs_trace.record("serve.request", t_req0, time.monotonic(),
+                             trace_id=trace_ctx[0], span_id=trace_ctx[1],
+                             kernel=m.group(1), outcome="ok",
+                             generation=out.get("generation"))
         t_resp0 = time.monotonic()
-        self._reply(200, out)
-        self.app.metrics.observe_phase("respond", time.monotonic() - t_resp0)
+        self._reply(200, out, extra_headers=echo)
+        t_resp1 = time.monotonic()
+        self.app.metrics.observe_phase("respond", t_resp1 - t_resp0)
+        if trace_ctx is not None:
+            obs_trace.record("respond", t_resp0, t_resp1,
+                             trace_id=trace_ctx[0], parent_id=trace_ctx[1])
 
 
 class _Server(ThreadingHTTPServer):

@@ -28,8 +28,9 @@ captured, and queues output behind epochs whose lines are not rendered yet.
 :func:`nn_event` is a structured operational event (a checkpoint bundle
 that failed verification, ``ckpt_fallback``): ``event: k=v ...`` through
 :func:`nn_warn` in text mode, one ungated JSON object under
-``HPNN_LOG_JSON=1``.  The JAX package also mirrors each event into its
-flight recorder; the port has no tracing yet.
+``HPNN_LOG_JSON=1``.  With tracing on it is also mirrored into the flight
+recorder as a zero-duration ``event.<name>`` span under the ``events``
+trace; what it prints is the same either way.
 """
 
 from __future__ import annotations
@@ -118,11 +119,18 @@ def replay(entries) -> None:
         fns[level](text)
 
 
-def nn_event(event: str, **fields) -> None:
+def nn_event(event: str, _record_span: bool = True, **fields) -> None:
     """A structured operational event.  ``HPNN_LOG_JSON=1`` emits one
     ungated JSON line (an event is data, not chatter); text mode renders
     ``event: k=v ...`` through :func:`nn_warn`, so the verbosity gate
-    applies."""
+    applies.
+
+    With tracing on, the event ALSO lands in the flight recorder (and so
+    the durable span spool) as a zero-duration ``event.<name>`` span
+    under the ``events`` trace id -- the incident timeline's feed.
+    ``_record_span=False`` is for emitters that record their own span."""
+    if _record_span:
+        _record_event_span(event, fields)
     if log_json_enabled():
         # the full record is rendered before the capture check, so a
         # captured event replays byte for byte (ts = emission time)
@@ -135,6 +143,41 @@ def nn_event(event: str, **fields) -> None:
         return
     body = " ".join(f"{k}={v}" for k, v in fields.items())
     nn_warn(f"{event}: {body}\n")
+
+
+# the well-known trace id structured events file under in the flight
+# recorder: `?trace=events` (or the timeline view) pulls every event out
+# of any recorder dump
+EVENTS_TRACE_ID = "events"
+
+
+def _record_event_span(event: str, fields: dict) -> None:
+    """Mirror one structured event into the flight recorder as a
+    zero-duration span (one attribute read while tracing is off; never
+    raises into the emitting path)."""
+    try:
+        from ..obs import trace as obs_trace
+
+        if not obs_trace.enabled():
+            return
+        now = time.monotonic()
+        attrs = {}
+        for k, v in fields.items():
+            if not (isinstance(v, (str, int, float, bool)) or v is None):
+                continue
+            if k in ("name", "trace_id", "parent_id", "span_id"):
+                continue  # record()'s own parameters
+            if k in ("trace", "span", "parent", "ts", "dur_s", "thread",
+                     "seq"):
+                # an event field named like a STRUCTURAL key of the span
+                # record would clobber it (a slow_request's trace=<id>
+                # must not move the event span out of the events trace)
+                k = f"event_{k}"
+            attrs[k] = v
+        obs_trace.record(f"event.{event}", now, now,
+                         trace_id=EVENTS_TRACE_ID, parent_id=None, **attrs)
+    except Exception:
+        pass  # observability must never break the log path
 
 
 def _captured(level: str, text: str) -> bool:

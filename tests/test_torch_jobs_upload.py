@@ -295,3 +295,50 @@ def test_auto_promote_skips_without_test_dir_and_is_off_by_default(
             assert "test dir" in got["port"][1]["reason"]
         else:
             assert got["port"] == ("done", None, None, None)
+
+
+def _held_until_dequeued(sched, fn):
+    """Wrap a scheduler submit so it returns only once a worker has taken
+    the job out of ``queued``: the reply is then rendered after the worker
+    won the race it describes."""
+    def wrapped(*args, **kw):
+        out = fn(*args, **kw)
+        jid = out[0].job_id if isinstance(out, tuple) else out["job_id"]
+        deadline = time.monotonic() + 60.0
+        while sched.store.get(jid).status == "queued":
+            assert time.monotonic() < deadline, "no worker took the job"
+            time.sleep(0.01)
+        return out
+    return wrapped
+
+
+def test_submit_reply_is_the_admitted_record(tmp_path):
+    """A worker idle on the queue dequeues the job (a chunked job enters
+    the upload hold as ``running``) before the handler renders its 202:
+    the reply still carries the record as admitted, ``queued``, while
+    /v1/jobs/<id> shows the worker's ``running`` and its lease."""
+    conf = serve_conf(tmp_path, kind="SNN")
+    files = _files(tmp_path)
+    app = make_app("port", conf, max_batch=8)
+    sched = enable_jobs("port", app, tmp_path / "jobs", capacity=2)
+    sched.submit_chunked = _held_until_dequeued(sched, sched.submit_chunked)
+    sched.admit = _held_until_dequeued(sched, sched.admit)
+    httpd, base = serve("port", app)
+    try:
+        st, job, _ = post_mp(base, "/v1/kernels/tiny/train/chunked",
+                             PARAMS, files[:6])
+        assert (st, job["status"], job["upload"]) == (
+            202, "queued", {"endpoint": "/v1/jobs/job-000001/corpus",
+                            "chunks": 1, "complete": False})
+        st, live, _ = http(base, "/v1/jobs/job-000001")
+        assert (st, live["status"]) == (200, "running")
+        assert live["lease_expires"] > time.time()
+        assert post_mp(base, "/v1/jobs/job-000001/corpus?final=1", None,
+                       files[6:])[0] == 200
+        assert wait_terminal(base, "job-000001")["status"] == "done"
+        st, job2, _ = post_mp(base, "/v1/kernels/tiny/train", PARAMS, files)
+        assert (st, job2["status"], job2["job_id"]) == (202, "queued",
+                                                        "job-000002")
+        assert wait_terminal(base, "job-000002")["status"] == "done"
+    finally:
+        stop(httpd, app)

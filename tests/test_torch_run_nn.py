@@ -154,8 +154,9 @@ def test_run_nn_subprocess_imports_no_jax(tmp_path):
     ``--epochs 2`` through the trainer and the resident pipeline with
     checkpoints and a replica) and run_nn on the CPU, then run_nn with
     ``--corpus-cache`` cold and warm (the warm load from the pack, through
-    the native loader), and then proves that neither jax nor any hpnn_tpu
-    module was imported."""
+    the native loader), then ``python -m hpnn_tpu_torch.obs.tool`` over a
+    span spool, and then proves that neither jax nor any hpnn_tpu module
+    was imported."""
     conf = _write_case(tmp_path, kind="SNN")
     train_conf = tmp_path / "train.conf"
     train_conf.write_text(
@@ -187,6 +188,19 @@ def test_run_nn_subprocess_imports_no_jax(tmp_path):
         f"'cc', {conf!r}])\n"
         "    assert rc == 0 and (again == outs).all(), rc\n"
         "assert len(os.listdir('cc')) == 2, os.listdir('cc')\n"
+        "import runpy\n"
+        "from hpnn_tpu_torch.obs.export import SpanExporter\n"
+        "exp = SpanExporter('sd')\n"
+        "exp.offer({'name': 'serve.request', 'trace': 't1', 'span': 's',\n"
+        "           'parent': None, 'ts': 1.0, 'dur_s': 0.5})\n"
+        "exp.close()\n"
+        "for cmd in ('index', 'search', 'critical', 'timeline'):\n"
+        "    sys.argv = ['tool', cmd, '--span-dir', 'sd']\n"
+        "    try:\n"
+        "        runpy.run_module('hpnn_tpu_torch.obs.tool',\n"
+        "                         run_name='__main__')\n"
+        "    except SystemExit as exc:\n"
+        "        assert exc.code == 0, (cmd, exc.code)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith('jax.') or m == 'hpnn_tpu'\n"
         "             or m.startswith('hpnn_tpu.'))\n"

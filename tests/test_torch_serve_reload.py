@@ -555,8 +555,9 @@ def test_port_ab_draw_uses_the_registry_generator(tmp_path):
 
 def test_serve_nn_new_options(tmp_path, capsys, monkeypatch):
     """--watch-ckpt / --watch-interval / --ab-fraction / --auth-token /
-    HPNN_SERVE_TOKEN / --no-warmup are taken with the JAX package's
-    stderr lines and exit codes; the mesh, jobs, tracing, shedding,
+    HPNN_SERVE_TOKEN / --no-warmup, and the tracing options (--trace,
+    --trace-sample in [0, 1], --span-dir, --profile-dir), are taken with
+    the JAX package's stderr lines and exit codes; the mesh, shedding,
     autoscale, quota and SLO options still exit non-zero as a later
     slice's; --compile-cache is refused for good."""
     from hpnn_tpu_torch.cli import serve_app, serve_nn_main
@@ -589,9 +590,27 @@ def test_serve_nn_new_options(tmp_path, capsys, monkeypatch):
                              *argv, conf])
         assert app is None and rc == -1
         assert msg in capsys.readouterr().err
-    for opt in ("--mesh", "--trace",
-                "--trace-sample", "--span-dir", "--shed-low",
-                "--profile-dir", "--mesh-role", "--router", "--standby",
+    from hpnn_tpu_torch.obs import trace as obs_trace
+
+    app, _ = serve_app(["--trace", "--trace-sample", "0.5", "--span-dir",
+                        str(tmp_path / "spans"), "--profile-dir",
+                        str(tmp_path / "prof"), "--device", "cpu",
+                        "--no-warmup", conf])
+    try:
+        assert app is not None and obs_trace.enabled()
+        assert obs_trace.sample_stats()["rate"] == 0.5
+        assert app.profile_dir == str(tmp_path / "prof")
+        assert app.span_exporter.span_dir == str(tmp_path / "spans")
+    finally:
+        app.close(drain=False)
+        obs_trace.disable()
+        obs_trace.set_sample_rate(None)
+    assert serve_app(["--trace-sample", "1.5", "--device", "cpu",
+                      conf]) == (None, -1)
+    assert "--trace-sample must be in [0, 1]: 1.5 (ABORTING)" in \
+        capsys.readouterr().err
+    for opt in ("--mesh", "--shed-low", "--mesh-role", "--router",
+                "--standby",
                 "--primary", "--takeover-after", "--router-token",
                 "--require-router", "--advertise", "--workers",
                 "--mesh-health-interval", "--autoscale",

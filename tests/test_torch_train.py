@@ -559,7 +559,7 @@ def test_train_nn_cuda_without_gpu_exits_nonzero(tmp_path, monkeypatch,
 # options too: test_train_nn_corpus_cache_option below; --model-parallel:
 # test_train_nn_model_parallel_option_takes_the_tp_route); a mesh router is
 # the one --replicate-to destination still refused
-UNPORTED_TRAIN_OPTIONS = {"--profile-dir": "2", "--compile-cache": "2",
+UNPORTED_TRAIN_OPTIONS = {"--compile-cache": "2",
                           "--replicate-to": "http://127.0.0.1:1"}
 
 
