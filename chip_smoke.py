@@ -226,14 +226,41 @@ fault; no phase catches its own failure.
    ``serve.request`` -> {parse, queue_wait, batch_assembly, pad_h2d,
    device_launch, d2h, respond}; the capture's ``fused_linear_act``
    device events equal the wrapper's launches between the profiler's
-   start and stop, 2 a batch (within one batch at each edge); the
-   search, critical and timeline endpoints' bodies equal ``obs.tool``'s
+   start and stop, 2 a batch (within one batch at each edge), and the
+   capture, started on the endpoint's handler thread, holds ``cpu_op``
+   rows of the batcher's thread (or its record says why the installed
+   torch cannot give them); the search, critical and timeline endpoints' bodies equal ``obs.tool``'s
    stdout over S.  A job of 2 epochs on 64 of the files: ``?trace=job:<id>``
    holds ``jobs.run`` -> 2 ``train.epoch`` with ``ckpt.snapshot_write``
    and ``serve.hot_swap`` under them, ``?trace=events`` its slice grant
    and ``?timeline=1`` its ``job.state`` transitions; 2 ``train_epoch``
    launches.  Last, 8 clients of 1 row for 3 s each with tracing off, on
    and sampled at 0.1 (seeded): their p50/p99 printed.
+24. The serve mesh (run right after phase 23): a generated MNIST
+   784-300-10 ANN f64 kernel at ``-b 64``.  8 closed-loop clients of 1
+   row against the plain server, then of 1 and 64 rows (the quota is a
+   third of the rows a second it served them).  Then ``serve_nn
+   --mesh-role router --workers 2`` with ``--slo-p99-ms``,
+   ``--slo-availability``, ``--quota-rows``/``--quota-burst`` (in
+   process) over worker A (in process, ``--require-router``: its
+   ``fused_linear_act`` launches are read off the wrapper) and, after the
+   one-worker window, worker B (``python -m hpnn_tpu_torch.cli serve_nn
+   --mesh-role worker``, a process of its own, its own kernel dir): 1-row
+   p50/p99 and requests a second for the plain server, the router with
+   one worker and with two; keep-alive RPCs to worker A with and without
+   TCP_NODELAY; a reload of a second kernel through the router under the
+   1-and-64-row load (every reply bit-identical to the strict forward of
+   the generation it names, every request sent after the reload served by
+   the new one); worker B SIGKILLed under load (no non-200 reply, B
+   ejected); worker C started in a dir holding only the first
+   generation's files (the second's source path gone) catches up from
+   the router's blob (one blob GET, sha-checked) and serves; a ninth
+   client key flooding the router alone gets 429 ``quota_exceeded`` with
+   Retry-After, the 8 load keys never; ``/healthz`` and ``/metrics``
+   carry the SLO, quota, autoscale and mesh keys; worker A's launches
+   exactly 2 a batch it served.  Prints the router's phases, worker B's
+   start-to-registered and worker C's catch-up time and the phase's
+   seconds (the swarm off and heartbeats at 0.3 s for the phase).
 15. One JSON line of every kernel (launches on its main path, the largest
    kernel-vs-plain error over every cell and dtype, times and bound;
    ``fused_linear_act`` adds its B=1 cell and its worst ratio to the
@@ -254,7 +281,8 @@ fault; no phase catches its own failure.
    launches and profiled durations (``obs_launches``,
    ``obs_profile_us``), ``fused_linear_act``'s profiled events and
    launches in the capture (``obs_profile_events``,
-   ``obs_profile_launches``)), then the result line.
+   ``obs_profile_launches``); ``fused_linear_act`` phase 24's worker A
+   launches and batches (``mesh_launches``)), then the result line.
 
 Main paths: ``fused_linear_act``'s is phases 4-5, ``train_epoch``'s phase 9
 and ``train_tile``'s phase 12 (train_nn, then run_nn of its kernel, which
@@ -262,8 +290,9 @@ launches ``fused_linear_act`` too), phase 16's two ``--epochs`` runs,
 phase 17's checkpointed, killed and resumed runs, phase 18's runs and
 phase 19's server (``serve_rest_launches``), phase 21's TP routes
 (``tp_launches``), phase 22's server and jobs (``jobs_launches``) and
-phase 23's traced run and capture (``obs_*``);
-every count is set to 0 just before a path and read
+phase 23's traced run and capture (``obs_*``) and phase 24's worker A
+(``mesh_launches``; the router launches nothing); every count is set to
+0 just before a path and read
 just after it.  ``fused_bpm_update`` has no caller on any
 path, as in the JAX package: its ``launches`` are the paths' (0), its
 ``phase_launches`` phase 13's.  ``--json PATH`` also writes every cell's
@@ -2533,9 +2562,9 @@ def phase_serve_rest(e2e, tmp, card):
         b = app.batchers["mnist"]
         lanes, real_dispatch = [], b.backend.dispatch
 
-        def dispatch(xs, gen=None, deadline=None, lane=None):
+        def dispatch(xs, lane=None, **kw):
             lanes.append(lane)
-            return real_dispatch(xs, gen=gen, deadline=deadline, lane=lane)
+            return real_dispatch(xs, lane=lane, **kw)
 
         b.backend.dispatch = dispatch
         b.pause()
@@ -4012,6 +4041,22 @@ def phase_observability(e2e, epochs_runs, tmp, card):
                 f"sums), the wrapper launched {launches} times over "
                 f"{batches} batches; kernel names "
                 f"{sorted({k[0] for k in kernels})[:8]}")
+        # the capture started on the endpoint's handler thread holds the
+        # batcher thread's host operators too (profile_all_threads), or
+        # its record says why the installed torch cannot give them
+        with open(capture[1]["trace_file"]) as fp:
+            events = json.load(fp)["traceEvents"]
+        batcher_tid = app.batchers["mnist"]._thread.native_id
+        batcher_ops = sum(1 for e in events if e.get("cat") == "cpu_op"
+                          and e.get("tid") == batcher_tid)
+        threads = capture[1].get("threads")
+        if threads == "all" and batcher_ops == 0:
+            raise AssertionError(
+                "POST /v1/debug/profile (phase 23): no cpu_op rows from "
+                f"the batcher's thread {batcher_tid}")
+        if threads != "all":
+            log(f"observability (phase 23): the capture is {threads}")
+        del events
         one = [s * 1e3 for s, r in lat if r == 1]
         res["serve"] = {
             "answers": len(answers),
@@ -4023,6 +4068,8 @@ def phase_observability(e2e, epochs_runs, tmp, card):
                         len(b2_sum), "launches": launches,
                         "batches": batches,
                         "b2_names": sorted({k[0] for k in b2}),
+                        "threads": threads,
+                        "batcher_cpu_ops": batcher_ops,
                         "b2_us_per_batch": sum(k[2] for k in b2)
                         / max(1, batches),
                         "kernel_events": len(kernels),
@@ -4161,7 +4208,9 @@ def phase_observability(e2e, epochs_runs, tmp, card):
         f"fused_linear_act events ({sv['profile']['stage_sum_events']} "
         f"stage sums) for {sv['profile']['launches']} launches over "
         f"{sv['profile']['batches']} batches, "
-        f"{sv['profile']['b2_us_per_batch']:.1f} us a batch; obs.tool "
+        f"{sv['profile']['b2_us_per_batch']:.1f} us a batch, "
+        f"{sv['profile']['batcher_cpu_ops']} cpu_op rows from the "
+        f"batcher's thread (threads: {sv['profile']['threads']}); obs.tool "
         "search/critical/timeline == the endpoints; critical top phase "
         f"{res['critical']['top_phase']}; job {res['job']['seconds']:.2f} s,"
         f" {res['job']['transitions']} transitions; tracing cost 1-row "
@@ -4170,6 +4219,457 @@ def phase_observability(e2e, epochs_runs, tmp, card):
             f"p50s " + "/".join(f"{v:.2f}" for v in c["windows_p50"]) + ")"
             for m, c in res["cost_one_row_ms"].items())
         + f"; phase {res['seconds']:.1f} s")
+    return res
+
+
+MESH_CLIENTS = 8            # phase 24: closed-loop client threads
+MESH_ROWS = (1, 64)         # phase 24: request sizes, alternated
+MESH_LAT_S = 3.0            # phase 24: each 1-row latency window
+MESH_LOAD_S = 3.0           # phase 24: each mixed window (reload, kill)
+MESH_QUOTA_SHARE = 3.0      # phase 24: --quota-rows = plain rows/s / this
+MESH_QUOTA_BURST = 256.0    # phase 24: --quota-burst
+MESH_NINTH = 32             # phase 24: the over-quota key's threads
+MESH_RPCS = 200             # phase 24: keep-alive RPCs a NODELAY turn
+MESH_HEARTBEAT_S = "0.3"    # phase 24: HPNN_MESH_HEARTBEAT_S
+
+
+def _mesh_load(base, pool, rows_cycle, seconds, during=None,
+               clients=MESH_CLIENTS, key="load"):
+    """``clients`` closed-loop clients for ``seconds``, each with its own
+    ``X-HPNN-Client`` (``<key>-<i>``); ``during()`` is called half a second
+    in, and the load goes on at least a second after it returns.  Returns (answers, latencies, failures, during's result); an
+    answer is (first row, rows, generation, outputs, request start)."""
+    answers, lat, failures = [], [], []
+    stop = threading.Event()
+
+    def client(i):
+        k = i
+        hdr = {"X-HPNN-Client": f"{key}-{i}"}
+        while not stop.is_set():
+            rows = rows_cycle[k % len(rows_cycle)]
+            lo = (97 * k + 31 * i) % (SERVE_POOL - rows)
+            k += 1
+            t0 = time.monotonic()
+            st, body = _http(base, "/v1/kernels/mnist/infer",
+                             {"inputs": pool[lo:lo + rows].tolist()}, hdr)
+            t1 = time.monotonic()
+            if st != 200:
+                failures.append((st, body))
+                continue
+            answers.append((lo, rows, body["generation"],
+                            np.asarray(body["outputs"], np.float64), t0))
+            lat.append((t1 - t0, rows))
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(clients)]
+    out = None
+    t_start = time.perf_counter()
+    for t in threads:
+        t.start()
+    try:
+        if during is not None:
+            time.sleep(0.5)
+            out = during()
+            seconds = max(seconds, time.perf_counter() - t_start + 1.0)
+        time.sleep(max(0.0, seconds - (time.perf_counter() - t_start)))
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=120)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("serve mesh (phase 24): a client hung")
+    return answers, lat, failures, out
+
+
+def _mesh_check(tag, answers, failures, refs):
+    """Every reply 200 and bit-identical to the strict forward of the
+    generation it names (a reply mixing two generations matches
+    neither)."""
+    if failures:
+        raise AssertionError(f"serve mesh (phase 24) {tag}: "
+                             f"{len(failures)} non-200 replies, e.g. "
+                             f"{failures[:2]}")
+    for lo, rows, gen, outs, _t in answers:
+        ref = refs.get(gen)
+        if ref is None or not np.array_equal(outs, ref[lo:lo + rows]):
+            raise AssertionError(f"serve mesh (phase 24) {tag}: rows "
+                                 f"{lo}:{lo + rows} of generation {gen} "
+                                 "not bit-identical to its strict forward")
+
+
+def _lat_stats(lat, seconds):
+    ms = [s * 1e3 for s, _ in lat]
+    return {"p50": _pctl(ms, 50), "p99": _pctl(ms, 99), "n": len(ms),
+            "rps": len(ms) / seconds}
+
+
+def _mesh_table(base):
+    st, tbl = _http(base, "/v1/mesh/workers", None, method="GET")
+    if st != 200:
+        raise AssertionError(f"GET /v1/mesh/workers (phase 24): {st}")
+    return tbl
+
+
+def _mesh_wait(base, pred, what, timeout_s=120.0):
+    """Poll the router's worker table until ``pred(table)``; returns the
+    seconds it took."""
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < timeout_s:
+        if pred(_mesh_table(base)):
+            return time.monotonic() - t0
+        time.sleep(0.05)
+    raise AssertionError(f"serve mesh (phase 24): {what} not within "
+                         f"{timeout_s:.0f} s: {_mesh_table(base)}")
+
+
+def _mesh_worker_proc(wdir, router, env, device):
+    """``serve_nn --mesh-role worker`` as a process of its own in
+    ``wdir`` (its conf and kernel there)."""
+    logf = open(os.path.join(wdir, "serve_nn.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "hpnn_tpu_torch.cli", "serve_nn", "-p", "0",
+         "--device", device, "--no-warmup", "-b", "64", "-q",
+         str(64 * MESH_CLIENTS), "--mesh-role", "worker", "--router",
+         router, "--require-router", "mnist.conf"],
+        cwd=wdir, stdout=logf, stderr=subprocess.STDOUT, env=env)
+    proc.log_file = logf
+    return proc
+
+
+def _mesh_nodelay(addr, body, token):
+    """Keep-alive RPCs straight to worker A, with and without
+    TCP_NODELAY on the client socket, in turns: p50/p99 ms each."""
+    from hpnn_tpu_torch.serve.mesh import transport
+
+    hdr = {"Content-Type": "application/json", "X-HPNN-Router": token}
+    out = {}
+    for nodelay in (False, True, False, True):
+        pool = transport.ConnectionPool(enabled=True, nodelay=nodelay)
+        ms = []
+        try:
+            for _ in range(MESH_RPCS):
+                t0 = time.perf_counter()
+                st, _raw, _ = transport.request(
+                    addr, "POST", "/v1/kernels/mnist/infer", body=body,
+                    headers=hdr, timeout_s=30.0, pool=pool)
+                ms.append((time.perf_counter() - t0) * 1e3)
+                if st != 200:
+                    raise AssertionError(f"keep-alive RPC (phase 24): {st}")
+        finally:
+            pool.close()
+        out.setdefault("nodelay" if nodelay else "default", []).extend(
+            ms[10:])
+    return {k: {"p50": _pctl(v, 50), "p99": _pctl(v, 99), "n": len(v)}
+            for k, v in out.items()}
+
+
+def phase_mesh(tmp, card, device="cuda"):
+    """Phase 24: the serve mesh on the card.  A router (in process) with
+    SLOs and quotas over worker A (in process: its ``fused_linear_act``
+    launches are read off the wrapper) and worker B (a process of its
+    own); 8 closed-loop clients of 1 and 64 rows with their own client
+    keys; a fleet-coherent reload under load, B killed under load, worker
+    C catching up from the router's blob, a ninth key over its quota."""
+    import torch
+
+    from hpnn_tpu_torch import cli
+    from hpnn_tpu_torch.obs import trace as obs_trace
+    from hpnn_tpu_torch.ops.kernels import fused_linear_act
+    from hpnn_tpu_torch.serve.server import serve_in_thread
+
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "mesh_phase")
+    router_only = os.path.join(root, "router_only")
+    os.makedirs(router_only)
+    gen1 = os.path.join(root, "mesh1.opt")
+    gen2 = os.path.join(router_only, "mesh2.opt")
+    _dump_generated(gen1, MNIST, 24)
+    _dump_generated(gen2, MNIST, 2424)
+    conf = os.path.join(root, "mnist.conf")
+    _serve_conf(conf, "mnist", gen1, MNIST, "f64")
+    wdirs = {}
+    for w in ("A", "B", "C"):
+        d = wdirs[w] = os.path.join(root, f"worker{w}")
+        os.makedirs(d)
+        shutil.copy(gen1, os.path.join(d, "mnist.opt"))
+        _serve_conf(os.path.join(d, "mnist.conf"), "mnist",
+                    os.path.join(d, "mnist.opt"), MNIST, "f64")
+    pool = _inputs(np.random.default_rng(24), SERVE_POOL, MNIST[0], "pixel")
+    refs = {1: _strict_pool(gen1, torch.float64, pool),
+            2: _strict_pool(gen2, torch.float64, pool)}
+    with open(gen2, "rb") as fp:
+        gen2_sha = hashlib.sha256(fp.read()).hexdigest()
+    env_keep = {k: os.environ.get(k) for k in ("HPNN_MESH_HEARTBEAT_S",
+                                               "HPNN_MESH_SWARM")}
+    # short heartbeats; the swarm off, so a catch-up reads the router's
+    # blob and no peer's
+    os.environ.update(HPNN_MESH_HEARTBEAT_S=MESH_HEARTBEAT_S,
+                      HPNN_MESH_SWARM="0")
+    wenv = dict(os.environ, PYTHONPATH=ROOT)
+    res, procs, servers = {}, {}, []
+    serve_args = ["-p", "0", "--device", device, "--no-warmup", "-b", "64",
+                  "-q", str(64 * MESH_CLIENTS)]
+    try:
+        # (a) the plain server on the same kernel: 8 clients of 1 row,
+        # then of 1 and 64 rows; the quota is a share of the rows a second
+        # it served those, so that one load key stays far under it and a
+        # ninth key flooding the router alone goes over
+        with contextlib.redirect_stdout(io.StringIO()):
+            plain, _ = cli.serve_app([*serve_args, conf])
+        httpd, th = serve_in_thread(plain, "127.0.0.1", 0)
+        pbase = "http://%s:%d" % httpd.server_address[:2]
+        try:
+            answers, lat, failures, _ = _mesh_load(pbase, pool, (1,),
+                                                   MESH_LAT_S)
+            _mesh_check("plain", answers, failures, refs)
+            res["plain_one_row"] = _lat_stats(lat, MESH_LAT_S)
+            answers, lat, failures, _ = _mesh_load(pbase, pool, MESH_ROWS,
+                                                   MESH_LAT_S / 2)
+            _mesh_check("plain", answers, failures, refs)
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            plain.close(drain=True)
+        res["plain_mixed_rows_per_s"] = sum(r for _, r in lat) \
+            / (MESH_LAT_S / 2)
+        res["quota_rows"] = max(64.0, res["plain_mixed_rows_per_s"]
+                                / MESH_QUOTA_SHARE)
+        # the router and worker A; fused_linear_act counts A's launches
+        # from here (the router launches nothing: its backend is remote)
+        fused_linear_act.launches = 0
+        with contextlib.redirect_stdout(io.StringIO()):
+            router, _ = cli.serve_app([
+                *serve_args, "--mesh-role", "router", "--workers", "2",
+                "--mesh-health-interval", "0.2", "--slo-p99-ms", "500",
+                "--slo-availability", "0.99",
+                "--quota-rows", f"{res['quota_rows']:.1f}",
+                "--quota-burst", str(MESH_QUOTA_BURST), conf])
+        rhttpd, _ = serve_in_thread(router, "127.0.0.1", 0)
+        servers.append((rhttpd, router))
+        raddr = "%s:%d" % rhttpd.server_address[:2]
+        base = f"http://{raddr}"
+        with contextlib.redirect_stdout(io.StringIO()):
+            wa, wa_args = cli.serve_app([
+                *serve_args, "--mesh-role", "worker", "--router", raddr,
+                "--require-router", os.path.join(wdirs["A"], "mnist.conf")])
+        ahttpd, _ = serve_in_thread(wa, "127.0.0.1", 0)
+        servers.append((ahttpd, wa))
+        aaddr = "%s:%d" % ahttpd.server_address[:2]
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.start_mesh_worker(wa, wa_args, ahttpd.server_address[1])
+        _mesh_wait(base, lambda t: t["live"] == 1, "worker A live")
+        # (b) the router with one worker
+        answers, lat, failures, _ = _mesh_load(base, pool, (1,),
+                                               MESH_LAT_S)
+        _mesh_check("one worker", answers, failures, refs)
+        res["router_one_worker_one_row"] = _lat_stats(lat, MESH_LAT_S)
+        # worker B joins, a process of its own
+        t0 = time.monotonic()
+        procs["B"] = _mesh_worker_proc(wdirs["B"], raddr, wenv, device)
+        _mesh_wait(base, lambda t: t["live"] == 2, "worker B live")
+        res["worker_b_start_to_registered_s"] = time.monotonic() - t0
+        baddr = next(a for a in _mesh_table(base)["workers"]
+                     if a != aaddr)
+        # (c) the router with two
+        answers, lat, failures, _ = _mesh_load(base, pool, (1,),
+                                               MESH_LAT_S)
+        _mesh_check("two workers", answers, failures, refs)
+        res["router_two_workers_one_row"] = _lat_stats(lat, MESH_LAT_S)
+        # a keep-alive RPC's latency with and without TCP_NODELAY
+        res["rpc_ms"] = _mesh_nodelay(
+            aaddr, json.dumps({"inputs": pool[:1].tolist()}).encode(),
+            router.mesh_router.router_token)
+        # a fleet-coherent reload of the second kernel under load
+        reload_res = {}
+
+        def do_reload():
+            t0 = time.perf_counter()
+            reload_res["reply"] = _http(base, "/v1/kernels/mnist/reload",
+                                        {"kernel": gen2})
+            reload_res["s"] = time.perf_counter() - t0
+            reload_res["done"] = time.monotonic()
+
+        answers, lat, failures, _ = _mesh_load(base, pool, MESH_ROWS,
+                                               MESH_LOAD_S, do_reload)
+        st, rb = reload_res["reply"]
+        if st != 200 or rb["generation"] != 2 \
+                or rb["mesh"]["workers_failed"] \
+                or len(rb["mesh"]["workers_reloaded"]) != 2:
+            raise AssertionError(f"mesh reload (phase 24): {st} {rb}")
+        _mesh_check("reload", answers, failures, refs)
+        late = [a for a in answers if a[4] > reload_res["done"]]
+        if not late or any(a[2] != 2 for a in late):
+            raise AssertionError("mesh reload (phase 24): a request sent "
+                                 "after the reload returned was not "
+                                 "served by generation 2")
+        res["reload"] = {"s": reload_res["s"], "answers": len(answers),
+                         "gen1": sum(1 for a in answers if a[2] == 1),
+                         "gen2": sum(1 for a in answers if a[2] == 2),
+                         "blob": rb["mesh"]["blob"]}
+        if rb["mesh"]["blob"]["sha256"] != gen2_sha:
+            raise AssertionError(f"mesh reload (phase 24): blob {rb}")
+        # the second kernel's file leaves the host's shared view: a later
+        # worker can only have it from the router's blob
+        os.rename(router_only, router_only + ".gone")
+        # worker B killed under load
+        kill = {}
+
+        def do_kill():
+            kill["t"] = time.monotonic()
+            procs["B"].kill()
+            procs["B"].wait(timeout=60)
+
+        answers, lat, failures, _ = _mesh_load(base, pool, MESH_ROWS,
+                                               MESH_LOAD_S, do_kill)
+        _mesh_check("kill", answers, failures, refs)
+        if any(a[2] != 2 for a in answers):
+            raise AssertionError("mesh kill (phase 24): a generation-1 "
+                                 "reply after the reload")
+        _mesh_wait(base, lambda t: t["workers"][baddr]["state"] == "dead",
+                   "worker B ejected", timeout_s=10.0)
+        res["kill"] = {"answers": len(answers),
+                       "failovers": router.mesh_router.pool.failovers_total}
+        # worker C: only the first generation's files in its dir; it
+        # registers and catches up from the router's blob
+        serves0 = router.mesh_router.blobs.stats()["serves_total"]
+        cblobs = os.path.join(wdirs["C"], "blobs")
+        t0 = time.monotonic()
+        procs["C"] = _mesh_worker_proc(
+            wdirs["C"], raddr, dict(wenv, HPNN_MESH_BLOB_DIR=cblobs), device)
+
+        def c_current(t):
+            rows = [w for a, w in t["workers"].items()
+                    if a not in (aaddr, baddr)]
+            return bool(rows) and rows[0]["state"] == "live" and \
+                rows[0]["kernels"].get("mnist", {}).get("generation") == 2
+
+        _mesh_wait(base, c_current, "worker C caught up")
+        res["worker_c_catch_up_s"] = time.monotonic() - t0
+        caddr = next(a for a in _mesh_table(base)["workers"]
+                     if a not in (aaddr, baddr))
+        landed = os.path.join(cblobs, f"{gen2_sha}.opt")
+        with open(landed, "rb") as fp:
+            if hashlib.sha256(fp.read()).hexdigest() != gen2_sha:
+                raise AssertionError("worker C (phase 24): its blob does "
+                                     "not hash to the broadcast sha")
+        if router.mesh_router.blobs.stats()["serves_total"] != serves0 + 1:
+            raise AssertionError("worker C (phase 24): not one blob GET "
+                                 "from the router")
+        routed0 = _mesh_table(base)["workers"][caddr]["routed"]
+        answers, lat, failures, _ = _mesh_load(base, pool, MESH_ROWS,
+                                               MESH_LOAD_S / 2)
+        _mesh_check("catch-up", answers, failures, refs)
+        if _mesh_table(base)["workers"][caddr]["routed"] <= routed0:
+            raise AssertionError("worker C (phase 24) served no batch")
+        # a ninth key over its quota
+        ninth = []
+        t_over = time.monotonic() + 10.0
+        body64 = json.dumps({"inputs": pool[:64].tolist()}).encode()
+
+        def over():
+            while time.monotonic() < t_over:
+                req = urllib.request.Request(
+                    base + "/v1/kernels/mnist/infer", data=body64,
+                    headers={"X-HPNN-Client": "ninth"})
+                try:
+                    with urllib.request.urlopen(req, timeout=120) as r:
+                        r.read()
+                        ninth.append((r.status, None, None))
+                except urllib.error.HTTPError as exc:
+                    reason = json.loads(exc.read()).get("reason")
+                    ninth.append((exc.code, reason,
+                                  exc.headers.get("Retry-After")))
+                    return
+
+        threads = [threading.Thread(target=over) for _ in range(MESH_NINTH)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        refused = [n for n in ninth if n[0] != 200]
+        if not refused or any(n[:2] != (429, "quota_exceeded") or not n[2]
+                              for n in refused):
+            raise AssertionError(f"quota (phase 24): the ninth key "
+                                 f"{refused[:3]} after "
+                                 f"{len(ninth) - len(refused)} 200s")
+        res["quota"] = {"ninth_ok": len(ninth) - len(refused),
+                        "ninth_429": len(refused),
+                        "retry_after": sorted({n[2] for n in refused})}
+        # the gauges
+        _st, hz = _http(base, "/healthz", None, method="GET")
+        snap = router.metrics.snapshot()
+        text = router.metrics.render_prometheus()
+        if not {"slo_burning", "shed_engaged", "mesh"} <= set(hz) \
+                or not {"slo", "quota", "autoscale", "mesh"} <= set(snap) \
+                or not all(f in text for f in (
+                    "hpnn_slo_burn_rate", "hpnn_serve_quota_clients",
+                    "hpnn_serve_desired_workers", "hpnn_mesh_workers")):
+            raise AssertionError(f"gauges (phase 24): {sorted(hz)} "
+                                 f"{sorted(snap)}")
+        res["router_phases_ms"] = {p: {"p50": h["p50_ms"], "p99": h["p99_ms"]}
+                                   for p, h in snap["phases"].items()}
+        res["autoscale"] = snap["autoscale"]
+        res["slo"] = snap["slo"]["kernels"]
+        res["routed"] = {w: r["routed"]
+                         for w, r in _mesh_table(base)["workers"].items()}
+        # worker A's launches: exactly 2 a batch it served
+        res["worker_a"] = {"launches": fused_linear_act.launches,
+                           "batches": wa.metrics.batches_total}
+        if res["worker_a"]["launches"] != 2 * res["worker_a"]["batches"] \
+                or res["worker_a"]["batches"] <= 0:
+            raise AssertionError(f"worker A (phase 24): {res['worker_a']}")
+        res["router_batches"] = router.metrics.batches_total
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.terminate()   # a graceful drain: the goodbye
+                try:
+                    proc.wait(timeout=60)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+            proc.log_file.close()
+        for httpd, app in reversed(servers):
+            httpd.shutdown()
+            httpd.server_close()
+            app.close(drain=True)
+        obs_trace.set_role(None)
+        for k, v in env_keep.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    res["seconds"] = time.perf_counter() - t_phase
+    one = ", ".join(
+        f"{tag} p50/p99 {r['p50']:.2f}/{r['p99']:.2f} ms, "
+        f"{r['rps']:.0f} req/s (n={r['n']})"
+        for tag, r in (("plain", res["plain_one_row"]),
+                       ("router+1", res["router_one_worker_one_row"]),
+                       ("router+2", res["router_two_workers_one_row"])))
+    log(f"serve mesh (phase 24) ({card}): 8 clients of 1 row: {one}")
+    log(f"serve mesh (phase 24) ({card}): router phases p50/p99 ms "
+        + ", ".join(f"{p} {v['p50']:.3f}/{v['p99']:.3f}"
+                    for p, v in sorted(res["router_phases_ms"].items()))
+        + "; keep-alive RPC to worker A p50/p99 ms "
+        + ", ".join(f"{k} {v['p50']:.3f}/{v['p99']:.3f}"
+                    for k, v in res["rpc_ms"].items()))
+    log(f"serve mesh (phase 24): worker B start-to-registered "
+        f"{res['worker_b_start_to_registered_s']:.2f} s; reload "
+        f"{res['reload']['s']:.3f} s under load ({res['reload']['gen1']} "
+        f"gen-1 + {res['reload']['gen2']} gen-2 replies, each "
+        "bit-identical to its generation's strict forward); B killed "
+        f"under load: {res['kill']['answers']} replies, 0 non-200, "
+        f"{res['kill']['failovers']} failover(s); worker C caught up from "
+        f"the router's blob in {res['worker_c_catch_up_s']:.2f} s; ninth "
+        f"key 429 quota_exceeded after {res['quota']['ninth_ok']} 200s "
+        f"(Retry-After {res['quota']['retry_after']}; --quota-rows "
+        f"{res['quota_rows']:.1f} = plain 1+64-row "
+        f"{res['plain_mixed_rows_per_s']:.0f} rows/s / {MESH_QUOTA_SHARE:g},"
+        f" --quota-burst {MESH_QUOTA_BURST:g}); routed "
+        f"{res['routed']}; worker A fused_linear_act "
+        f"{res['worker_a']['launches']} launches = 2 x "
+        f"{res['worker_a']['batches']} batches; phase "
+        f"{res['seconds']:.1f} s")
     return res
 
 
@@ -4262,6 +4762,7 @@ def main(argv=None) -> int:
         tp_res = phase_tp(e2e, tmp, runs, results, epochs_runs)  # from 0
         jobs_res = phase_jobs(e2e, epochs_runs, tmp, card)     # from 0
         obs_res = phase_observability(e2e, epochs_runs, tmp, card)  # from 0
+        mesh_res = phase_mesh(tmp, card)         # from 0 too
     cells = phase_times()
     bpm = phase_bpm()
     rep = next(c for c in cells if c["layer"] == "784->300"
@@ -4314,7 +4815,8 @@ def main(argv=None) -> int:
         "obs_profile_events": obs_res["serve"]["profile"]["b2_events"],
         "obs_profile_launches": obs_res["serve"]["profile"]["launches"],
         "obs_profile_us_per_batch":
-            obs_res["serve"]["profile"]["b2_us_per_batch"]}, {
+            obs_res["serve"]["profile"]["b2_us_per_batch"],
+        "mesh_launches": mesh_res["worker_a"]}, {
         "name": "train_epoch", "route": "cuda",
         "source": "hpnn_tpu_torch/csrc/train_epoch.cu",
         "replaces": "hpnn_tpu/ops/convergence_pallas.py:208",
@@ -4446,6 +4948,7 @@ def main(argv=None) -> int:
                        "tp": tp_res,
                        "jobs": jobs_res,
                        "observability": obs_res,
+                       "mesh": mesh_res,
                        "invariance_plans": invariance_plans,
                        "bpm": bpm,
                        "errors": [{"layer": k[0], "scale": k[1],

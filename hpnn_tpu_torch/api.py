@@ -1587,7 +1587,7 @@ def train_job(conf_path: str, *, epochs: int, ckpt_dir: str,
               ckpt_every: int = 1, ckpt_keep: int = 0,
               kernel_out: str | None = None, resume: str | None = None,
               stop=None, on_epoch=None, replicate_to: str | None = None,
-              devices=None) -> dict:
+              auth_token: str | None = None, devices=None) -> dict:
     """Reentrant in-process training (the jobs service's entry).
 
     ``train_nn``'s checkpoint path -- configure, ``ckpt.train_loop`` with
@@ -1601,7 +1601,8 @@ def train_job(conf_path: str, *, epochs: int, ckpt_dir: str,
 
     ``resume`` names a checkpoint dir or bundle to continue bit-exactly
     (``--resume``).  ``stop``/``on_epoch`` pass through to
-    :func:`ckpt.trainer.train_loop`.  ``devices`` pins the run to a device
+    :func:`ckpt.trainer.train_loop`.  ``auth_token`` is the serve token a
+    mesh-router ``replicate_to`` wants.  ``devices`` pins the run to a device
     slice (:func:`device_slice`) and trains on its first device; None
     trains on the runtime's device (the card unless ``init_all`` chose the
     CPU).
@@ -1622,14 +1623,15 @@ def train_job(conf_path: str, *, epochs: int, ckpt_dir: str,
             conf_path, epochs=epochs, ckpt_dir=ckpt_dir,
             ckpt_every=ckpt_every, ckpt_keep=ckpt_keep,
             kernel_out=kernel_out, resume=resume, stop=stop,
-            on_epoch=on_epoch, replicate_to=replicate_to, device=device)
+            on_epoch=on_epoch, replicate_to=replicate_to,
+            auth_token=auth_token, device=device)
 
 
 def _train_job_pinned(conf_path: str, *, epochs: int, ckpt_dir: str,
                       ckpt_every: int, ckpt_keep: int,
                       kernel_out: str | None, resume: str | None,
                       stop, on_epoch, replicate_to: str | None,
-                      device) -> dict:
+                      auth_token: str | None, device) -> dict:
     from .ckpt import CheckpointManager, load_snapshot, train_loop
     from .io.kernel_io import dump_kernel_to_path
 
@@ -1662,7 +1664,8 @@ def _train_job_pinned(conf_path: str, *, epochs: int, ckpt_dir: str,
         start_epoch = snap.epoch
     mgr = CheckpointManager(ckpt_dir, every=ckpt_every,
                             keep_last=ckpt_keep, target_epochs=epochs,
-                            replicate_to=replicate_to)
+                            replicate_to=replicate_to,
+                            auth_token=auth_token)
     if snap is not None:
         mgr.seed_errors(snap.errors)
     if start_epoch >= epochs:

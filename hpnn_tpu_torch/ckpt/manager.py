@@ -44,7 +44,8 @@ from . import snapshot as snap
 
 class CheckpointManager:
     def __init__(self, ckpt_dir: str, every: int = 1, keep_last: int = 0,
-                 target_epochs: int = 0, replicate_to: str | None = None):
+                 target_epochs: int = 0, replicate_to: str | None = None,
+                 auth_token: str | None = None):
         self.ckpt_dir = ckpt_dir
         self.every = max(0, int(every))
         self.keep_last = max(0, int(keep_last))
@@ -60,7 +61,8 @@ class CheckpointManager:
         if replicate_to:
             from .replicate import Replicator
 
-            self.replicator = Replicator(replicate_to, ckpt_dir)
+            self.replicator = Replicator(replicate_to, ckpt_dir,
+                                         auth_token=auth_token)
         self.errors: list[float | None] = []
         self.last_saved_epoch = 0
         self._future = None

@@ -1,6 +1,6 @@
-"""Checkpoint bundle replication to a directory: the port's copy of the
-JAX package's ``ckpt/replicate.py``, with the same container and spool
-format, so each package reads the other's replicas.
+"""Checkpoint bundle replication off the training host: the port's copy
+of the JAX package's ``ckpt/replicate.py``, with the same container and
+spool format, so each package reads the other's replicas.
 
 Snapshots that exist only on the training host die with its disk.  This
 module ships every VERIFIED bundle somewhere else, content-addressed, and
@@ -12,11 +12,14 @@ can restore the newest intact one:
   plus the bundle's kernel fingerprint, then the raw file bytes.  The
   blob's own sha256 is its address; :func:`unpack_bundle` re-verifies
   every file hash before a byte lands on disk.
-* **destination** -- ``--replicate-to DIR`` writes
+* **destinations** -- ``--replicate-to DIR`` writes
   ``<DIR>/<scope>/<sha256>.bundle`` (atomic, via ``io.atomic``) plus an
-  ``index.json``.  The JAX package's other destination,
-  ``http://HOST:PORT`` (a serve-mesh router), waits for the port's serve
-  mesh: it is refused here.
+  ``index.json``; ``--replicate-to http://HOST:PORT`` POSTs the blob to a
+  serve-mesh router's ``/v1/mesh/bundle`` (bounded retries with backoff;
+  the router's acked sha256 must equal ours), which keeps it in its
+  content-addressed blob store and a durable spool of the same format.
+  The router's bundle and blob endpoints sit behind its auth token
+  (``HPNN_SERVE_TOKEN`` by default).
 * **scope** -- one checkpoint stream's identity (:func:`scope_for`: the
   ckpt dir's basename + a stable hash of its absolute path), so one
   destination serves many runs without collisions.
@@ -176,27 +179,37 @@ def _is_http(dest: str) -> bool:
     return dest.startswith(("http://", "https://"))
 
 
-def http_refusal(dest: str) -> str:
-    """The message for a mesh-router destination, which the port does not
-    have yet."""
-    from ..api import LATER
+def _router_addr(dest: str) -> str:
+    return dest.split("://", 1)[1].rstrip("/")
 
-    return f"--replicate-to {dest}: replication to a mesh router {LATER}"
+
+def _auth_headers(auth_token: str | None) -> dict:
+    return {"Authorization": f"Bearer {auth_token}"} if auth_token else {}
 
 
 class Replicator:
-    """Ships verified bundles to one directory (see module doc).
+    """Ships verified bundles to one destination (see module doc).
 
-    ``replicate`` is synchronous -- the CheckpointManager submits it to
-    the io_pool so the training loop never waits on it; a failing
-    destination costs a warning per bundle, never the run.  A mesh-router
-    destination is refused when the Replicator is made."""
+    ``replicate`` is synchronous and bounded -- the CheckpointManager
+    submits it to the io_pool so the training loop never waits on the
+    network; a failing destination costs a warning per bundle, never the
+    run."""
 
-    def __init__(self, dest: str, ckpt_dir: str):
-        if _is_http(dest):
-            raise ReplicateError(http_refusal(dest))
+    def __init__(self, dest: str, ckpt_dir: str,
+                 auth_token: str | None = None,
+                 attempts: int | None = None,
+                 timeout_s: float | None = None):
+        from ..utils.env import env_float, env_int
+
         self.dest = dest
         self.scope = resolve_scope(ckpt_dir)
+        self.auth_token = auth_token \
+            or os.environ.get("HPNN_SERVE_TOKEN") or None
+        self.attempts = (attempts if attempts is not None
+                         else env_int("HPNN_REPLICATE_ATTEMPTS", 3, lo=1))
+        self.timeout_s = (timeout_s if timeout_s is not None
+                          else env_float("HPNN_REPLICATE_TIMEOUT_S", 20.0,
+                                         lo=0.1))
 
     # --- ship ------------------------------------------------------------
     def replicate(self, bundle_dir: str) -> dict | None:
@@ -206,7 +219,10 @@ class Replicator:
         t0 = time.monotonic()
         try:
             blob, meta = pack_bundle(bundle_dir)
-            self._ship_dir(blob, meta)
+            if _is_http(self.dest):
+                self._ship_http(blob, meta)
+            else:
+                self._ship_dir(blob, meta)
         except (ReplicateError, OSError) as exc:
             nn_warn(f"CKPT: replication of {bundle_dir} to {self.dest} "
                     f"failed: {type(exc).__name__}: {exc}\n")
@@ -231,12 +247,48 @@ class Replicator:
             # bounds what resume can want)
             keep=env_int("HPNN_REPLICATE_KEEP", 64, lo=1))
 
+    def _ship_http(self, blob: bytes, meta: dict) -> None:
+        from ..serve.mesh import transport
+
+        addr = _router_addr(self.dest)
+        backoff = transport.Backoff(base_s=0.2, cap_s=5.0)
+        headers = _auth_headers(self.auth_token)
+        headers["Content-Type"] = "application/octet-stream"
+        path = (f"/v1/mesh/bundle?scope={self.scope}"
+                f"&tag={meta['tag']}&epoch={meta['epoch']}")
+        last = "no attempt"
+        for i in range(self.attempts):
+            if i:
+                time.sleep(backoff.next_delay())
+            try:
+                status, raw, _ = transport.request(
+                    addr, "POST", path, body=blob, headers=headers,
+                    timeout_s=self.timeout_s)
+            except transport.TRANSPORT_ERRORS as exc:
+                last = f"{type(exc).__name__}: {exc}"
+                continue
+            if status != 200:
+                last = f"HTTP {status}: {raw[:120]!r}"
+                continue
+            try:
+                ack = json.loads(raw.decode("utf-8"))
+            except (ValueError, UnicodeDecodeError):
+                ack = {}
+            if ack.get("sha256") != meta["sha256"]:
+                # the router stored something, but not these bytes
+                last = f"router sha mismatch ({ack.get('sha256')})"
+                continue
+            return
+        raise ReplicateError(
+            f"router {addr} refused bundle after {self.attempts} "
+            f"attempt(s): {last}")
+
 
 # --- the shared directory-spool protocol ------------------------------------
-# The Replicator's DIR destination writes sha-addressed ``<sha>.bundle``
-# files plus one ``index.json`` per scope through these helpers (in the
-# JAX package a mesh router's bundle spool shares them), so the format
-# lives in exactly one place.
+# The Replicator's DIR destination and a mesh router's durable bundle
+# spool (serve/mesh/router.py) write sha-addressed ``<sha>.bundle`` files
+# plus one ``index.json`` per scope through these helpers, so the format
+# lives in exactly one place and each side reads the other's spool.
 
 def read_scope_index(root: str) -> list[dict]:
     """The scope dir's index entries (empty on absent/corrupt)."""
@@ -288,41 +340,77 @@ def update_scope_index(root: str, entry: dict, keep: int) -> list[dict]:
 # --- restore ----------------------------------------------------------------
 
 
-def list_replicated(dest: str, scope: str) -> list[dict]:
-    """The destination's replica index for one scope, oldest-first."""
+def list_replicated(dest: str, scope: str,
+                    auth_token: str | None = None) -> list[dict]:
+    """The destination's replica index for one scope, oldest-first (the
+    same order for both kinds of destination)."""
     if _is_http(dest):
-        raise ReplicateError(http_refusal(dest))
+        from ..serve.mesh import transport
+
+        try:
+            status, raw, _ = transport.request(
+                _router_addr(dest), "GET",
+                f"/v1/mesh/bundles?scope={scope}",
+                headers=_auth_headers(auth_token), timeout_s=10.0)
+        except transport.TRANSPORT_ERRORS as exc:
+            raise ReplicateError(f"cannot list replicas on {dest}: "
+                                 f"{type(exc).__name__}: {exc}")
+        if status != 200:
+            raise ReplicateError(f"cannot list replicas on {dest}: "
+                                 f"HTTP {status}")
+        try:
+            doc = json.loads(raw.decode("utf-8"))
+        except (ValueError, UnicodeDecodeError) as exc:
+            raise ReplicateError(f"bad replica index from {dest}: {exc}")
+        bundles = doc.get("bundles") if isinstance(doc, dict) else None
+        return [b for b in bundles or [] if isinstance(b, dict)]
     return read_scope_index(os.path.join(os.path.abspath(dest), scope))
 
 
-def _fetch_blob(dest: str, scope: str, entry: dict) -> bytes | None:
+def _fetch_blob(dest: str, scope: str, entry: dict,
+                auth_token: str | None) -> bytes | None:
     sha = str(entry.get("sha256") or "")
-    try:
-        with open(os.path.join(os.path.abspath(dest), scope,
-                               f"{sha}.bundle"), "rb") as fp:
-            raw = fp.read()
-    except OSError:
-        return None
+    if _is_http(dest):
+        from ..serve.mesh import transport
+
+        try:
+            status, raw, _ = transport.request(
+                _router_addr(dest), "GET", f"/v1/mesh/blob/{sha}",
+                headers=_auth_headers(auth_token), timeout_s=20.0)
+        except transport.TRANSPORT_ERRORS:
+            return None
+        if status != 200:
+            return None
+    else:
+        try:
+            with open(os.path.join(os.path.abspath(dest), scope,
+                                   f"{sha}.bundle"), "rb") as fp:
+                raw = fp.read()
+        except OSError:
+            return None
     if hashlib.sha256(raw).hexdigest() != sha:
         return None
     return raw
 
 
-def restore_bundle(dest: str, scope: str, into_dir: str) -> str | None:
+def restore_bundle(dest: str, scope: str, into_dir: str,
+                   auth_token: str | None = None) -> str | None:
     """Materialize the NEWEST intact replicated bundle of ``scope``
     into ``into_dir`` (a checkpoint dir): blob sha256 verified, files
     verified on unpack, and the landed bundle verified once more
     against its own recorded fingerprints.  Walks older replicas on
     any failure; returns the restored bundle path or None."""
     try:
-        index = list_replicated(dest, scope)
+        auth_token = auth_token or os.environ.get("HPNN_SERVE_TOKEN") \
+            or None
+        index = list_replicated(dest, scope, auth_token=auth_token)
     except ReplicateError as exc:
         nn_warn(f"CKPT: cannot restore from {dest}: {exc}\n")
         return None
     for entry in sorted(index, key=lambda e: (e.get("epoch", 0),
                                               e.get("tag", "")),
                         reverse=True):
-        raw = _fetch_blob(dest, scope, entry)
+        raw = _fetch_blob(dest, scope, entry, auth_token)
         if raw is None:
             nn_warn(f"CKPT: replica {entry.get('sha256', '?')[:12]}... "
                     f"of {scope} unreadable/corrupt on {dest}; trying "

@@ -40,8 +40,9 @@ publish.  Every file's sha256 is recorded (``snapshot.json``
 ``snapshot.json``); :func:`load_snapshot` walks the candidate bundles
 newest first and skips any whose bytes no longer match, with a
 ``ckpt_fallback`` event, so a resume starts from the newest intact state.
-The JAX package's chaos hook on durable writes (``io_fault_hook``) is not
-part of the port yet.
+Every durable write consults the chaos io domain (``io.atomic
+.io_fault_hook``): injected ENOSPC/EIO/torn/bitflip faults land below the
+verify-and-retry loop.
 """
 
 from __future__ import annotations
@@ -114,7 +115,11 @@ class SnapshotState:
 
 def _durable_write(path: str, data: bytes) -> None:
     """Plain write + fsync (used INSIDE a staged tmp bundle, where the
-    directory rename provides the atomicity)."""
+    directory rename provides the atomicity).  Injected io faults land
+    here, below the bundle writer's verify-and-retry loop."""
+    from ..io.atomic import io_fault_hook
+
+    data = io_fault_hook(path, data)
     with open(path, "wb") as fp:
         fp.write(data)
         fp.flush()

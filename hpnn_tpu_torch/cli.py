@@ -3,7 +3,7 @@
     python -m hpnn_tpu_torch.cli train_nn [-h] [-v]... [-x] [-O n] [-B n]
         [-S n] [--device {cuda,cpu}] [--lnn native] [--tile S|auto]
         [--model-parallel N] [--trainer {cg,bp,bpm}] [--epochs N] [--ckpt-every N] [--ckpt-dir DIR] [--ckpt-keep N]
-        [--resume [PATH]] [--replicate-to DIR] [--corpus-cache DIR]
+        [--resume [PATH]] [--replicate-to DEST] [--corpus-cache DIR]
         [--corpus-cache-max-mb N] [--profile-dir DIR] [conf]
     python -m hpnn_tpu_torch.cli run_nn [-h] [-v]... [-O n] [-B n] [-S n]
         [--device {cuda,cpu}] [--lnn native] [--ckpt-dir DIR]
@@ -14,8 +14,14 @@
         [--parity {strict,fast}] [--fast-threshold N]
         [--warmup-mode {background,sync,off}] [--device {cuda,cpu}]
         [--jobs N [--job-workers K] [--job-dir DIR] [--job-auto-resume]
-        [--replicate-to DIR] [--auto-promote]] [--trace]
-        [--trace-sample P] [--span-dir DIR] [--profile-dir DIR] [conf ...]
+        [--replicate-to DEST] [--auto-promote]] [--trace]
+        [--trace-sample P] [--span-dir DIR] [--profile-dir DIR]
+        [--quota-rows F [--quota-burst N]] [--slo-p99-ms F]
+        [--slo-availability F] [--shed-low]
+        [--mesh-role router [--workers N] [--router-token T]
+        [--mesh-health-interval S]]
+        [--mesh-role worker --router HOST:PORT [--advertise HOST:PORT]
+        [--require-router]] [conf ...]
 
 ``train_nn`` and ``run_nn`` keep the reference parser
 (``tests/train_nn.c:59-255``, ``tests/run_nn.c:66-234``): flags combine
@@ -41,8 +47,9 @@ the weights resident on the device).  ``--ckpt-every/--ckpt-dir/
 --ckpt-keep`` write crash-safe snapshot bundles at epoch boundaries
 (``ckpt/``, the JAX package's format), ``--resume [PATH]`` continues a
 killed run bit-exactly from the newest intact bundle, and
-``--replicate-to DIR`` ships each bundle to a second directory that a
-resume restores from when no local bundle survives.  ``run_nn`` warns when
+``--replicate-to DEST`` ships each bundle to a second directory, or to a
+serve-mesh router (``http://HOST:PORT``), that a resume restores from
+when no local bundle survives.  ``run_nn`` warns when
 a checkpoint manifest (``--ckpt-dir``, default ``./ckpt``) recorded a
 different fingerprint for the kernel it evaluates.  ``--corpus-cache DIR``
 puts the packed corpus cache (``io.corpus``) in DIR for this command and
@@ -149,11 +156,11 @@ def _help_text(name: str) -> str:
             "\tand epoch counter are restored.  Bundles are VERIFIED",
             "\tagainst their recorded sha256 fingerprints; a corrupt",
             "\tbundle falls back to the newest intact one.",
-            "--replicate-to DIR \tship each verified snapshot bundle,",
-            "\tcontent-addressed, to DIR; --resume restores from DIR",
-            "\twhen no local bundle survives.  Default:",
-            "\t$HPNN_REPLICATE_TO.  (A mesh router, http://HOST:PORT,",
-            "\tis not ported yet.)",
+            "--replicate-to DEST \tship each verified snapshot bundle,",
+            "\tcontent-addressed, to DEST (a directory, or",
+            "\thttp://HOST:PORT of a mesh router); --resume restores",
+            "\tfrom DEST when no local bundle survives.  Default:",
+            "\t$HPNN_REPLICATE_TO.",
         ]
     lines += [
         "***********************************",
@@ -279,12 +286,6 @@ def _parse_args(argv: list[str], name: str):
                 val = argv[i] if i < len(argv) else ""
             if not val:
                 _syntax_error(name, key)
-            if key == "--replicate-to" and val.startswith(("http://",
-                                                           "https://")):
-                from .ckpt.replicate import http_refusal
-
-                sys.stderr.write(f"{name}: {http_refusal(val)}\n")
-                raise SystemExit(-1)
             extras[_STR_OPTS[key][0]] = val
             i += 1
             continue
@@ -415,12 +416,6 @@ def train_nn_main(argv: list[str] | None = None) -> int:
         filename, extras = parsed
         replicate_to = extras["replicate_to"] \
             or os.environ.get("HPNN_REPLICATE_TO") or None
-        if replicate_to and replicate_to.startswith(("http://",
-                                                     "https://")):
-            from .ckpt.replicate import http_refusal
-
-            sys.stderr.write(f"train_nn: {http_refusal(replicate_to)}\n")
-            return -1
         with phase("init_all"):
             if _init(extras) != 0:
                 return -1
@@ -701,29 +696,103 @@ def _serve_parser():
                     "bundle, bounded by HPNN_JOB_MAX_RETRIES with "
                     "jittered backoff, then failed with a reason.  "
                     "Default: $HPNN_JOB_AUTO_RESUME=1")
-    ap.add_argument("--replicate-to", default=None, metavar="DIR",
+    ap.add_argument("--replicate-to", default=None, metavar="DEST",
                     help="(with --jobs) ship every verified snapshot "
-                    "bundle, content-addressed, to DIR; auto-resume "
-                    "restores from DIR when the local dir is lost.  "
-                    "Default: $HPNN_REPLICATE_TO.  (A mesh router, "
-                    "http://HOST:PORT, is not ported yet.)")
+                    "bundle, content-addressed, to DEST: a directory, or "
+                    "a mesh router as http://HOST:PORT (POST "
+                    "/v1/mesh/bundle); auto-resume restores from DEST "
+                    "when the local dir is lost.  Default: "
+                    "$HPNN_REPLICATE_TO")
     ap.add_argument("--auto-promote", action="store_true", default=False,
                     help="(with --jobs) when a training job finishes, "
                     "evaluate its candidate generation against the "
                     "pre-job baseline on a held-out test dir (the "
                     "submit's 'test_samples' or the conf's [test_dir]) "
                     "and promote if better, roll back on regression")
+    ap.add_argument("--shed-low", action="store_true", default=False,
+                    help="SLO-driven load shedding: while an --slo-* "
+                    "error budget is burning, refuse LOW-lane "
+                    "(X-HPNN-Priority: low) traffic at admission with "
+                    "429 + Retry-After; clears after HPNN_SHED_CLEAR_S "
+                    "of quiet (hysteresis).  Default: $HPNN_SHED=1")
+    ap.add_argument("--quota-rows", type=float, default=0.0, metavar="F",
+                    help="per-client token-bucket quota in rows/s (keyed "
+                    "by X-HPNN-Client, the auth token, or the peer "
+                    "address; over-quota requests get 429 with a "
+                    "refill-derived Retry-After; 0: no quota)")
+    ap.add_argument("--quota-burst", type=float, default=None,
+                    metavar="N",
+                    help="quota bucket burst capacity in rows (default: "
+                    "max(2 x rate, 64))")
+    ap.add_argument("--slo-p99-ms", type=float, default=None,
+                    metavar="F",
+                    help="latency SLO: at most 1%% of completed requests "
+                    "may exceed F ms.  Enables per-kernel error-budget "
+                    "burn-rate gauges in /metrics and an slo_burn event "
+                    "when the fast AND slow windows (HPNN_SLO_FAST_S/"
+                    "HPNN_SLO_SLOW_S) both burn past HPNN_SLO_BURN "
+                    "(default 14.4).  Unset: no SLO tracking")
+    ap.add_argument("--slo-availability", type=float, default=None,
+                    metavar="F",
+                    help="availability SLO target in [0, 1) (e.g. "
+                    "0.999): server-caused failures (HTTP >= 500) spend "
+                    "the 1-F error budget; same gauges and alerts as "
+                    "--slo-p99-ms")
+    ap.add_argument("--mesh-role", choices=("router", "worker", "standby"),
+                    default=None,
+                    help="serve mesh: 'router' fans infer requests over "
+                    "registered worker processes (no local launches; "
+                    "/healthz warms until --workers N are live); "
+                    "'worker' serves normally AND registers with "
+                    "--router (heartbeat, generation catch-up).  "
+                    "('standby' is not ported yet.)")
+    ap.add_argument("--router", default=None, metavar="HOST:PORT",
+                    help="the router to register with (required for "
+                    "--mesh-role worker)")
+    ap.add_argument("--router-token", default=None, metavar="TOKEN",
+                    help="spill-protection token the router stamps on "
+                    "its worker RPCs (X-HPNN-Router) and workers learn "
+                    "from the registration ack.  Default: "
+                    "$HPNN_MESH_ROUTER_TOKEN, else a random one")
+    ap.add_argument("--require-router", action="store_true",
+                    default=False,
+                    help="(worker) only serve infer traffic bearing the "
+                    "router's X-HPNN-Router token (403 otherwise), so "
+                    "router quotas cannot be bypassed.  Default: "
+                    "$HPNN_MESH_REQUIRE_ROUTER=1")
+    ap.add_argument("--advertise", default=None, metavar="HOST:PORT",
+                    help="(worker) the address the router reaches this "
+                    "worker at (default: 127.0.0.1:<bound port>)")
+    ap.add_argument("--workers", type=int, default=1, metavar="N",
+                    help="(router) quorum: /healthz reports 'warming' "
+                    "until N workers are live (default 1)")
+    ap.add_argument("--mesh-health-interval", type=float, default=1.0,
+                    metavar="S",
+                    help="(router) worker health-check period (default "
+                    "1.0 s; ejection after HPNN_MESH_EJECT_AFTER "
+                    "consecutive misses)")
     return ap
+
+
+# serve_nn options of the JAX package that the port refuses with a line of
+# their own: --mesh is prefix of two ported options, so without this line
+# argparse would call it an ambiguous abbreviation
+_SERVE_OWN_REFUSALS = {
+    "--compile-cache": "names the JAX package's XLA compilation cache; "
+                       "the port compiles no XLA programs (refused)",
+    "--mesh": "shards the JAX package's fast tier over a data mesh of "
+              "devices in one process; the port serves on one card and "
+              "has no such tier (refused)",
+}
 
 
 def _serve_refusal(rest: list[str]) -> str:
     """The stderr line for the first serve_nn option the port does not
-    take: ``--compile-cache`` names the JAX package's XLA compilation
-    cache and has no counterpart here; every other is a later slice's."""
+    take: a line of its own for those without a counterpart here
+    (:data:`_SERVE_OWN_REFUSALS`); every other is a later slice's."""
     key = rest[0].split("=")[0]
-    if key == "--compile-cache":
-        return (f"serve_nn: {key} names the JAX package's XLA compilation "
-                "cache; the port compiles no XLA programs (refused)\n")
+    if key in _SERVE_OWN_REFUSALS:
+        return f"serve_nn: {key} {_SERVE_OWN_REFUSALS[key]}\n"
     return f"serve_nn: {key} {LATER}\n"
 
 
@@ -731,20 +800,36 @@ def serve_app(argv: list[str]):
     """Parse serve_nn's arguments and build the app: ``(app, args)``, or
     ``(None, rc)`` when the command must exit with ``rc``.  The app's
     kernels are registered and the manifest watchers started; nothing is
-    bound yet."""
+    bound yet, so a worker's heartbeat starts in
+    :func:`start_mesh_worker`, after the bind."""
+    own = [a for a in argv if a.split("=")[0] in _SERVE_OWN_REFUSALS]
+    if own:
+        # before argparse: --mesh would otherwise be an ambiguous
+        # abbreviation of --mesh-role / --mesh-health-interval
+        sys.stderr.write(_serve_refusal(own))
+        return None, 2
     ap = _serve_parser()
     args, rest = ap.parse_known_intermixed_args(argv)
+    if args.mesh_role == "standby":
+        sys.stderr.write(f"serve_nn: --mesh-role standby {LATER}\n")
+        return None, 2
     if rest:
         sys.stderr.write(_serve_refusal(rest))
         return None, 2
     replicate_to = (args.replicate_to or os.environ.get("HPNN_REPLICATE_TO")
                     or None)
-    if (args.jobs > 0 or args.replicate_to) and replicate_to \
-            and replicate_to.startswith(("http://", "https://")):
-        from .ckpt.replicate import http_refusal
-
-        sys.stderr.write(f"serve_nn: {http_refusal(replicate_to)}\n")
-        return None, -1
+    for bad, msg in (
+            (args.mesh_role == "worker" and not args.router,
+             "--mesh-role worker requires --router HOST:PORT"),
+            (args.slo_availability is not None
+             and not 0.0 <= args.slo_availability < 1.0,
+             f"--slo-availability must be in [0, 1): "
+             f"{args.slo_availability}"),
+            (args.slo_p99_ms is not None and args.slo_p99_ms <= 0.0,
+             f"--slo-p99-ms must be > 0: {args.slo_p99_ms}")):
+        if bad:
+            sys.stderr.write(f"{msg} (ABORTING)\n")
+            return None, -1
     from .serve.server import ServeApp
 
     nn_log.set_verbosity(0)
@@ -769,9 +854,11 @@ def serve_app(argv: list[str]):
 
     # this process's role names its post-mortem dump files
     # (trace-<reason>-<role>-<pid>.ndjson)
-    obs_trace.set_role("local")
+    obs_trace.set_role(args.mesh_role or "local")
     auth_token = (args.auth_token or os.environ.get("HPNN_SERVE_TOKEN")
                   or None)
+    require_router = (args.require_router
+                      or os.environ.get("HPNN_MESH_REQUIRE_ROUTER") == "1")
     app = ServeApp(max_batch=args.max_batch, max_queue_rows=args.queue_rows,
                    linger_s=args.linger_ms / 1e3,
                    default_timeout_s=args.timeout_s, parity=args.parity,
@@ -779,7 +866,24 @@ def serve_app(argv: list[str]):
                    device=runtime.lib_runtime.device,
                    auth_token=auth_token, ab_fraction=args.ab_fraction,
                    trace=args.trace or None, trace_sample=args.trace_sample,
-                   span_dir=args.span_dir, profile_dir=args.profile_dir)
+                   span_dir=args.span_dir, profile_dir=args.profile_dir,
+                   quota_rows=args.quota_rows, quota_burst=args.quota_burst,
+                   slo_p99_ms=args.slo_p99_ms,
+                   slo_availability=args.slo_availability,
+                   require_router=require_router,
+                   shed_low=args.shed_low or None)
+    if args.mesh_role == "router":
+        # before add_model: batchers are wired to the worker pool at
+        # creation, and a router warms nothing on the card
+        app.enable_mesh_router(
+            required_workers=max(1, args.workers),
+            health_interval_s=args.mesh_health_interval,
+            router_token=(args.router_token
+                          or os.environ.get("HPNN_MESH_ROUTER_TOKEN")
+                          or None))
+        sys.stdout.write(f"SERVE: mesh router (quorum "
+                         f"{max(1, args.workers)} worker(s); workers "
+                         "register via POST /v1/mesh/register)\n")
     n_ok = 0
     for conf in args.confs:
         model = app.add_model(conf, warmup=warmup_mode != "off",
@@ -842,6 +946,19 @@ def serve_app(argv: list[str]):
     return app, args
 
 
+def start_mesh_worker(app, args, port: int) -> None:
+    """With ``--mesh-role worker``, start the heartbeat agent once the
+    socket is bound to ``port`` (the advertised default needs it); the
+    agent retries until the router is reachable.  A no-op for other
+    roles."""
+    if args.mesh_role != "worker":
+        return
+    advertise = args.advertise or f"127.0.0.1:{port}"
+    app.enable_mesh_worker(args.router, advertise)
+    sys.stdout.write(f"SERVE: mesh worker (router {args.router}, "
+                     f"advertising {advertise})\n")
+
+
 def serve_nn_main(argv: list[str] | None = None) -> int:
     """serve_nn: a long-lived inference server over the same ``.conf``
     files run_nn takes.  SIGTERM/SIGINT drain: admission stops, a running
@@ -861,6 +978,7 @@ def serve_nn_main(argv: list[str] | None = None) -> int:
         return args
     httpd = make_server(args.addr, args.port, app)
     host, port = httpd.server_address[:2]
+    start_mesh_worker(app, args, port)
     # unconditional: with -p 0 this line is how a launcher learns the port
     sys.stdout.write(f"SERVE: listening on http://{host}:{port}\n")
     sys.stdout.flush()

@@ -106,7 +106,7 @@ class JobScheduler:
         if auto_resume is None:
             auto_resume = os.environ.get("HPNN_JOB_AUTO_RESUME") == "1"
         self.auto_resume = bool(auto_resume)
-        # bundle replication (a directory): each job's CheckpointManager
+        # bundle replication (a directory or a mesh router): each job's CheckpointManager
         # ships verified bundles there, auto-resume restores from it
         self.replicate_to = replicate_to \
             or os.environ.get("HPNN_REPLICATE_TO") or None
@@ -659,8 +659,9 @@ class JobScheduler:
 
             with nn_log.capture():  # restore warnings belong to the
                 # event stream, not the serve console
-                restored = restore_bundle(self.replicate_to,
-                                          resolve_scope(ckpt_dir), ckpt_dir)
+                restored = restore_bundle(
+                    self.replicate_to, resolve_scope(ckpt_dir), ckpt_dir,
+                    auth_token=self.app.auth_token)
             if restored is not None:
                 bundle, epoch = self._newest_intact_bundle(ckpt_dir)
         resume_from = ckpt_dir if bundle is not None else None
@@ -748,7 +749,8 @@ class JobScheduler:
                 ckpt_keep=job.params.get("ckpt_keep", 0),
                 kernel_out=job.kernel_out, resume=resume,
                 stop=stop, on_epoch=on_epoch,
-                replicate_to=self.replicate_to, devices=devices)
+                replicate_to=self.replicate_to,
+                auth_token=self.app.auth_token, devices=devices)
         self._write_console(job, entries)
         # record_final bumped the manifest generation: swap the finished
         # kernel in (the last bundle's weights; the bump keeps an outside
@@ -982,6 +984,19 @@ class JobScheduler:
 
     def list(self) -> list[dict]:
         return self.store.list()
+
+    def active(self) -> dict:
+        """The running jobs (the first id and its trace id, which a mesh
+        worker's heartbeat advertises so ``?trace=job:<id>`` on the router
+        finds the right worker's spans) and the queued count;
+        ``running_jobs`` lists the whole pool."""
+        with self._mu:
+            ids = sorted(self._running)
+        cur = ids[0] if ids else None
+        return {"running": cur,
+                "trace": f"job:{cur}" if cur else None,
+                "running_jobs": ids,
+                "queued": self.queue.depth()}
 
     def running_count(self) -> int:
         with self._mu:

@@ -64,12 +64,34 @@ def _activities():
     return acts
 
 
+def _all_threads_config():
+    """``(experimental_config, threads)``: the profiler's experimental
+    config with ``profile_all_threads``, and what the capture covers.
+    Without it a capture started on one thread (a live server's HTTP
+    handler) records no host operators of any other (the batchers, the
+    mesh router's RPC threads).  A torch without the field gives the
+    default config, and the record says the capture is the calling
+    thread's only."""
+    import torch
+
+    cfg_cls = getattr(getattr(torch._C, "_profiler", None),
+                      "_ExperimentalConfig", None)
+    try:
+        return cfg_cls(profile_all_threads=True), "all"
+    except TypeError as exc:  # also a missing class (None is not callable)
+        return None, (f"calling thread only (torch {torch.__version__}: "
+                      f"no profile_all_threads: {exc})")
+
+
 def _start_trace():
+    cfg, threads = _all_threads_config()
     try:
         import torch.profiler
 
-        prof = torch.profiler.profile(activities=_activities())
+        prof = torch.profiler.profile(activities=_activities(),
+                                      experimental_config=cfg)
         prof.start()
+        prof.hpnn_threads = threads
     except Exception as exc:  # noqa: BLE001 -- anything here means "no
         # profile", and the caller chose between 501 and a warning
         raise ProfilerUnavailable(
@@ -124,6 +146,9 @@ def start(out_dir: str) -> dict:
         raise
     with _lock:
         _active["_prof"] = prof
+        # whose host operators the trace holds: "all", or why only the
+        # calling thread's
+        _active["threads"] = prof.hpnn_threads
         # what starting cost (the first start in a process initialises
         # CUPTI); the capture's window begins after it
         _active["start_s"] = round(time.monotonic() - t0, 3)

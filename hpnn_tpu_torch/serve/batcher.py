@@ -55,7 +55,6 @@ import numpy as np
 from ..obs import trace as obs_trace
 from ..utils.nn_log import nn_dbg, nn_event, nn_warn
 from .metrics import ServeMetrics
-from .qos import LANE_NAMES
 from .registry import ServedModel
 
 
@@ -73,7 +72,10 @@ class ServeClosed(Exception):
 
 class LocalBackend:
     """The in-process launch path: the registry's ``dispatch`` and
-    ``collect``."""
+    ``collect``.  A mesh router swaps in ``mesh.backend.RemoteBackend``,
+    the worker RPC."""
+
+    kind = "local"
 
     def __init__(self, model):
         self.model = model
@@ -81,7 +83,7 @@ class LocalBackend:
     def pipeline_depth(self) -> int:
         return 1  # one device: depth-1 double buffering
 
-    def dispatch(self, xs: np.ndarray, gen=None, deadline=None,
+    def dispatch(self, xs: np.ndarray, gen=None, trace=None, deadline=None,
                  lane=None):
         # unpinned batches keep the two-argument call, so registry
         # stand-ins need not know about generation pinning
@@ -159,6 +161,8 @@ class MicroBatcher:
 
     def lane_depths(self) -> dict[str, int]:
         """Queued rows per QoS lane (the /metrics per-lane gauge)."""
+        from .mesh.qos import LANE_NAMES
+
         with self._cv:
             return {LANE_NAMES[k]: v for k, v in
                     sorted(self._lane_rows.items())}
@@ -236,6 +240,11 @@ class MicroBatcher:
         lat = time.monotonic() - p.t_enq
         tid = trace[0] if trace else None
         self.metrics.latency.observe(lat, trace_id=tid)
+        # the latency SLO reads the whole-request wall of completed
+        # requests; off, it is one attribute read
+        slo = getattr(self.metrics, "slo", None)
+        if slo is not None:
+            slo.record_latency(self.model.name, lat)
         if p.bucket:
             # slow-request flag: against this kernel+bucket's p99 before
             # this observation joins it
@@ -350,7 +359,7 @@ class MicroBatcher:
             # the batch's most generous deadline rides along: a
             # near-expired member must not fail the whole batch
             handle = self.backend.dispatch(
-                xs, gen=live[0].gen,
+                xs, gen=live[0].gen, trace=live[0].trace,
                 deadline=max(p.deadline for p in live),
                 lane=live[0].lane)
         except Exception as exc:  # fail this batch, keep serving
@@ -393,6 +402,12 @@ class MicroBatcher:
                 p.event.set()
             return
         t_c1 = time.monotonic()
+        # a remote backend learns the generation that served from the
+        # worker's reply: the labels and A/B counters follow it
+        g2 = getattr(handle, "served_gen", None)
+        if g2 is not None:
+            for p in live:
+                p.served_gen = g2
         rows = sum(p.rows for p in live)
         with self._cv:  # drain-rate EWMA
             # under saturation the gap between completions is the honest
@@ -435,6 +450,19 @@ class MicroBatcher:
                 "generation": live[0].served_gen,
             }
             pad_s = getattr(handle, "pad_h2d_s", 0.0)
+            # a remote batch gives EVERY traced member a mesh.route span
+            # (not only the head whose trace id rode the RPC), naming the
+            # worker and linking the id the worker recorded under, so a
+            # coalesced batch still yields a route -> worker -> device
+            # tree for any member's trace id
+            route_attrs = None
+            if getattr(handle, "worker_id", None) is not None:
+                route_attrs = {"worker": handle.worker_id,
+                               "bucket": handle.bucket,
+                               "retried": getattr(handle, "retried", 0)}
+                rpc_trace = getattr(handle, "rpc_trace", None)
+                if rpc_trace is not None:
+                    route_attrs["remote_trace"] = rpc_trace
         off = 0
         for p in live:
             p.result = outs[off:off + p.rows]
@@ -460,6 +488,10 @@ class MicroBatcher:
                                  **batch_attrs)
                 obs_trace.record("d2h", t_c0, t_c1, trace_id=tid,
                                  parent_id=root, bucket=handle.bucket)
+                if route_attrs is not None:
+                    obs_trace.record("mesh.route", t_launched, t_c1,
+                                     trace_id=tid, parent_id=root,
+                                     **route_attrs)
             # spans recorded before the wakeup: once the submitter
             # returns, this request's tree is already in the recorder
             p.event.set()

@@ -1,6 +1,5 @@
 """Serving metrics: latency histograms, counters and gauges (the port's
-copy of ``hpnn_tpu/serve/metrics.py`` for the families single-host
-serving has).
+copy of ``hpnn_tpu/serve/metrics.py``).
 
 A small thread-safe registry that renders both the Prometheus text
 exposition format (``GET /metrics``) and a JSON snapshot
@@ -16,7 +15,11 @@ and device histograms; the request-path phases (:data:`PHASES`, plus
 bucket) with the ``slow_request`` event; per-bucket device accounting;
 model info and generation gauges, reload counters and per-generation
 request counters (capped at :data:`ServeMetrics.GEN_LABELS_KEPT` labels);
-per-lane queue depth.  The port adds the launch count of every
+per-lane queue depth; with admission and the serve mesh, the quota,
+shed, SLO burn-rate and autoscale (desired workers) families, a router's
+worker table and blob store, a worker's swarm counters, and a router's
+federated ``?fleet=1`` view (:meth:`ServeMetrics.render_fleet_prometheus`,
+:func:`fleet_rollup`).  The port adds the launch count of every
 hand-written kernel (``kernel_launches``).  Queue and lane depths are
 live gauges read through callbacks at render time, so they cannot go
 stale.
@@ -244,6 +247,18 @@ class ServeMetrics:
         # the job scheduler's gauges, read through a callback at render
         # time (like queue depth) so they can never go stale
         self._jobs_fn: Callable[[], dict] | None = None
+        # admission and the mesh, the same live-callback pattern: the
+        # router's worker table, the desired-workers signal, the quota
+        # table, the load shedder and a worker's swarm counters (None
+        # where the subsystem is off)
+        self._mesh_fn: Callable[[], dict] | None = None
+        self._autoscale_fn: Callable[[], dict] | None = None
+        self._quota_fn: Callable[[], dict] | None = None
+        self._shed_fn: Callable[[], dict] | None = None
+        self._swarm_fn: Callable[[], dict] | None = None
+        # the SLO tracker (obs.slo.SloTracker), None unless an --slo-*
+        # objective is set
+        self.slo = None
 
     # --- write side -----------------------------------------------------
     def count_request(self, outcome: str) -> None:
@@ -339,6 +354,39 @@ class ServeMetrics:
         with self._lock:
             self._jobs_fn = fn
 
+    def set_mesh_source(self, fn: Callable[[], dict] | None) -> None:
+        """Attach the mesh router's live worker-table callback."""
+        with self._lock:
+            self._mesh_fn = fn
+
+    def set_autoscale_source(self, fn: Callable[[], dict] | None) -> None:
+        """Attach the autoscaling-signal callback (queued rows, drain
+        rate, desired-worker count)."""
+        with self._lock:
+            self._autoscale_fn = fn
+
+    def set_quota_source(self, fn: Callable[[], dict] | None) -> None:
+        """Attach the quota table's live snapshot callback."""
+        with self._lock:
+            self._quota_fn = fn
+
+    def set_shed_source(self, fn: Callable[[], dict] | None) -> None:
+        """Attach the load shedder's live snapshot callback
+        (``mesh.qos.LoadShedder.snapshot``)."""
+        with self._lock:
+            self._shed_fn = fn
+
+    def set_swarm_source(self, fn: Callable[[], dict] | None) -> None:
+        """Attach a mesh worker's swarm-fetch snapshot callback
+        (``mesh.worker.WorkerAgent.swarm_snapshot``)."""
+        with self._lock:
+            self._swarm_fn = fn
+
+    def set_slo(self, tracker) -> None:
+        """Attach the SLO tracker (``obs.slo.SloTracker``); its burn-rate
+        gauges join both renderings."""
+        self.slo = tracker
+
     def count_reload(self, ok: bool) -> None:
         with self._lock:
             self.reloads["ok" if ok else "error"] += 1
@@ -392,6 +440,11 @@ class ServeMetrics:
         lanes = {name: fn() for name, fn in list(self._lane_fns.items())}
         jobs_fn = self._jobs_fn   # it takes the scheduler's locks too
         jobs = jobs_fn() if jobs_fn is not None else None
+        sources = {key: fn() for key, fn in (
+            ("mesh", self._mesh_fn), ("autoscale", self._autoscale_fn),
+            ("quota", self._quota_fn), ("shed", self._shed_fn),
+            ("swarm", self._swarm_fn)) if fn is not None}
+        slo = self.slo.snapshot() if self.slo is not None else None
         # trace sampling and the span spool: process-wide obs state,
         # absent when unconfigured (the series must not exist for a
         # keep-all or ring-only recorder)
@@ -420,6 +473,9 @@ class ServeMetrics:
         out["batch_fill_ratio"] = round(self.batch_fill_ratio(), 4)
         out["queue_depth"] = depths
         out["lanes"] = lanes
+        out.update(sources)
+        if slo is not None:
+            out["slo"] = slo
         if sampling is not None:
             out["trace_sampling"] = sampling
         if export is not None:
@@ -553,6 +609,7 @@ class ServeMetrics:
                         "hpnn_serve_lane_depth"
                         f'{{kernel="{_escape_label(name)}",'
                         f'lane="{_escape_label(lane)}"}} {rows}')
+        lines += _admission_prometheus(snap)
         lines += [
             "# HELP hpnn_serve_bucket_rows_per_sec Device rows/sec per "
             "batch bucket.",
@@ -634,6 +691,144 @@ class ServeMetrics:
         ]
         lines += [f'hpnn_kernel_launches_total{{kernel="{k}"}} {v}'
                   for k, v in snap["kernel_launches"].items()]
+        return "\n".join(lines) + "\n"
+
+
+    def render_fleet_prometheus(self, workers: dict) -> str:
+        """``GET /metrics?fleet=1`` on a mesh router: the router's own
+        exposition plus per-worker series and fleet rollups.  Fleet
+        families are all new names (``hpnn_fleet_*``) so the combined
+        text stays exposition-lint-clean; a worker that could not be
+        scraped (``None`` snapshot -- dead/unreachable) contributes
+        ONLY ``hpnn_fleet_worker_up 0``, an explicit gap rather than
+        stale series."""
+        lines = [self.render_prometheus().rstrip("\n")]
+        rollup = fleet_rollup(workers)
+        lines += [
+            "# HELP hpnn_fleet_worker_up Worker snapshot scraped this "
+            "federation pass (0 = dead/unreachable: the gap).",
+            "# TYPE hpnn_fleet_worker_up gauge",
+        ]
+        for addr in sorted(workers):
+            lines.append(
+                f'hpnn_fleet_worker_up'
+                f'{{worker="{_escape_label(addr)}"}} '
+                f"{1 if workers[addr] else 0}")
+        lines += [
+            "# HELP hpnn_fleet_worker_requests_total Per-worker "
+            "requests by outcome (federated).",
+            "# TYPE hpnn_fleet_worker_requests_total counter",
+        ]
+        for addr, snap in sorted(workers.items()):
+            if not snap:
+                continue
+            wlab = _escape_label(addr)
+            for outcome, n in sorted(snap.get("requests", {}).items()):
+                lines.append(
+                    f'hpnn_fleet_worker_requests_total'
+                    f'{{worker="{wlab}",'
+                    f'outcome="{_escape_label(outcome)}"}} {n}')
+        lines += [
+            "# HELP hpnn_fleet_worker_rows_total Per-worker device "
+            "rows (federated).",
+            "# TYPE hpnn_fleet_worker_rows_total counter",
+        ]
+        for addr, snap in sorted(workers.items()):
+            if not snap:
+                continue
+            lines.append(
+                f'hpnn_fleet_worker_rows_total'
+                f'{{worker="{_escape_label(addr)}"}} '
+                f"{snap.get('rows_total', 0)}")
+        lines += [
+            "# HELP hpnn_fleet_worker_latency_seconds Per-worker "
+            "request latency summary (federated).",
+            "# TYPE hpnn_fleet_worker_latency_seconds summary",
+        ]
+        for addr, snap in sorted(workers.items()):
+            if not snap or not snap.get("latency"):
+                continue
+            wlab = _escape_label(addr)
+            h = snap["latency"]
+            lines += [
+                f'hpnn_fleet_worker_latency_seconds{{worker="{wlab}",'
+                f'quantile="0.5"}} {h.get("p50_ms", 0.0) / 1e3}',
+                f'hpnn_fleet_worker_latency_seconds{{worker="{wlab}",'
+                f'quantile="0.99"}} {h.get("p99_ms", 0.0) / 1e3}',
+                f'hpnn_fleet_worker_latency_seconds_sum'
+                f'{{worker="{wlab}"}} {h.get("sum_seconds", 0.0)}',
+                f'hpnn_fleet_worker_latency_seconds_count'
+                f'{{worker="{wlab}"}} {h.get("count", 0)}',
+            ]
+        lines += [
+            "# HELP hpnn_fleet_worker_model_generation Per-worker "
+            "model weights generation (federated; min/max rollups "
+            "show reload coherence).",
+            "# TYPE hpnn_fleet_worker_model_generation gauge",
+        ]
+        for addr, snap in sorted(workers.items()):
+            if not snap:
+                continue
+            wlab = _escape_label(addr)
+            for kernel, info in sorted(snap.get("models", {}).items()):
+                lines.append(
+                    f'hpnn_fleet_worker_model_generation'
+                    f'{{worker="{wlab}",'
+                    f'kernel="{_escape_label(kernel)}"}} '
+                    f"{info.get('generation', 0)}")
+        # --- rollups -----------------------------------------------------
+        lines += [
+            "# HELP hpnn_fleet_workers Federation pass worker counts.",
+            "# TYPE hpnn_fleet_workers gauge",
+            f'hpnn_fleet_workers{{state="polled"}} '
+            f"{rollup['workers_polled']}",
+            f'hpnn_fleet_workers{{state="up"}} {rollup["workers_up"]}',
+            "# HELP hpnn_fleet_requests_total Fleet requests by "
+            "outcome (sum over scraped workers).",
+            "# TYPE hpnn_fleet_requests_total counter",
+        ]
+        for outcome, n in sorted(rollup["requests"].items()):
+            lines.append(
+                f'hpnn_fleet_requests_total'
+                f'{{outcome="{_escape_label(outcome)}"}} {n}')
+        h = rollup["latency"]
+        lines += [
+            "# HELP hpnn_fleet_rows_total Fleet device rows (sum).",
+            "# TYPE hpnn_fleet_rows_total counter",
+            f"hpnn_fleet_rows_total {rollup['rows_total']}",
+            "# HELP hpnn_fleet_batches_total Fleet device launches "
+            "(sum).",
+            "# TYPE hpnn_fleet_batches_total counter",
+            f"hpnn_fleet_batches_total {rollup['batches_total']}",
+            "# HELP hpnn_fleet_latency_seconds Fleet request latency "
+            "(bucket-merged across workers: real union quantiles).",
+            "# TYPE hpnn_fleet_latency_seconds summary",
+            f'hpnn_fleet_latency_seconds{{quantile="0.5"}} '
+            f"{h['p50_ms'] / 1e3}",
+            f'hpnn_fleet_latency_seconds{{quantile="0.99"}} '
+            f"{h['p99_ms'] / 1e3}",
+            f"hpnn_fleet_latency_seconds_sum {h['sum_seconds']}",
+            f"hpnn_fleet_latency_seconds_count {h['count']}",
+        ]
+        lines += [
+            "# HELP hpnn_fleet_model_generation_min Lowest worker "
+            "generation per kernel (== max when the fleet is "
+            "reload-coherent).",
+            "# TYPE hpnn_fleet_model_generation_min gauge",
+        ]
+        for kernel, mm in sorted(rollup["model_generation"].items()):
+            lines.append(
+                f'hpnn_fleet_model_generation_min'
+                f'{{kernel="{_escape_label(kernel)}"}} {mm["min"]}')
+        lines += [
+            "# HELP hpnn_fleet_model_generation_max Highest worker "
+            "generation per kernel.",
+            "# TYPE hpnn_fleet_model_generation_max gauge",
+        ]
+        for kernel, mm in sorted(rollup["model_generation"].items()):
+            lines.append(
+                f'hpnn_fleet_model_generation_max'
+                f'{{kernel="{_escape_label(kernel)}"}} {mm["max"]}')
         return "\n".join(lines) + "\n"
 
 
@@ -777,3 +972,220 @@ def _jobs_prometheus(j: dict) -> list[str]:
 
 
 __all__ = ["PHASES", "LatencyHistogram", "ServeMetrics"]
+
+
+def _admission_prometheus(snap: dict) -> list[str]:
+    """The admission and mesh families (autoscale signal, shedder, the
+    router's worker table and blob store, a worker's swarm counters, the
+    quota table, the SLO burn rates), each present only when its source
+    is."""
+    lines: list[str] = []
+    if snap.get("autoscale") is not None:
+        a = snap["autoscale"]
+        lines += [
+            "# HELP hpnn_serve_desired_workers Workers the current "
+            "backlog needs at the measured drain rate "
+            "(autoscaling signal).",
+            "# TYPE hpnn_serve_desired_workers gauge",
+            f"hpnn_serve_desired_workers {a['desired_workers']}",
+            "# HELP hpnn_serve_drain_rows_per_sec EWMA of completed "
+            "rows/sec across all batchers.",
+            "# TYPE hpnn_serve_drain_rows_per_sec gauge",
+            f"hpnn_serve_drain_rows_per_sec {a['drain_rows_per_s']}",
+        ]
+        sup = a.get("supervisor")
+        if sup is not None:
+            lines += [
+                "# HELP hpnn_autoscale_managed_workers Worker "
+                "subprocesses the router supervisor currently "
+                "manages.",
+                "# TYPE hpnn_autoscale_managed_workers gauge",
+                f"hpnn_autoscale_managed_workers {sup['managed']}",
+                "# HELP hpnn_autoscale_events_total Supervisor "
+                "scaling actions by kind.",
+                "# TYPE hpnn_autoscale_events_total counter",
+                'hpnn_autoscale_events_total{kind="spawn"} '
+                f"{sup['spawns_total']}",
+                'hpnn_autoscale_events_total{kind="retire"} '
+                f"{sup['retires_total']}",
+            ]
+    if snap.get("shed") is not None:
+        sh = snap["shed"]
+        lines += [
+            "# HELP hpnn_shed_active Low-lane load shedding "
+            "engaged (SLO error budget burning).",
+            "# TYPE hpnn_shed_active gauge",
+            f"hpnn_shed_active {1 if sh['active'] else 0}",
+            "# HELP hpnn_shed_requests_total Requests rejected "
+            "429 by the SLO-driven shedder.",
+            "# TYPE hpnn_shed_requests_total counter",
+            f"hpnn_shed_requests_total {sh['shed_total']}",
+            "# HELP hpnn_shed_engaged_total Shed engage "
+            "transitions (one per incident, hysteresis on clear).",
+            "# TYPE hpnn_shed_engaged_total counter",
+            f"hpnn_shed_engaged_total {sh['engaged_total']}",
+            "# HELP hpnn_shed_stale_served_total Low-lane requests "
+            "served from a retained prior generation instead of "
+            "shed (brownout tier).",
+            "# TYPE hpnn_shed_stale_served_total counter",
+            f"hpnn_shed_stale_served_total "
+            f"{sh.get('stale_served_total', 0)}",
+        ]
+    if snap.get("mesh") is not None:
+        msh = snap["mesh"]
+        lines += [
+            "# HELP hpnn_mesh_workers Mesh workers by state.",
+            "# TYPE hpnn_mesh_workers gauge",
+        ]
+        for state, n in sorted(
+                msh.get("workers_by_state", {}).items()):
+            lines.append(
+                f'hpnn_mesh_workers'
+                f'{{state="{_escape_label(state)}"}} {n}')
+        lines += [
+            "# HELP hpnn_mesh_failovers_total Worker dispatch "
+            "failures that triggered ejection/retry.",
+            "# TYPE hpnn_mesh_failovers_total counter",
+            f"hpnn_mesh_failovers_total "
+            f"{msh.get('failovers_total', 0)}",
+            "# HELP hpnn_mesh_worker_requests_total Batches routed "
+            "per worker.",
+            "# TYPE hpnn_mesh_worker_requests_total counter",
+        ]
+        for wid, w in sorted(msh.get("workers", {}).items()):
+            lines.append(
+                "hpnn_mesh_worker_requests_total"
+                f'{{worker="{_escape_label(wid)}"}} {w["routed"]}')
+        blobs = msh.get("blobs")
+        if blobs is not None:
+            lines += [
+                "# HELP hpnn_mesh_blob_evictions_total Blobs "
+                "dropped by the router blob store's LRU cap.",
+                "# TYPE hpnn_mesh_blob_evictions_total counter",
+                f"hpnn_mesh_blob_evictions_total "
+                f"{blobs.get('evictions_total', 0)}",
+                "# HELP hpnn_mesh_blob_egress_bytes_total Blob "
+                "bytes the router served over GET /v1/mesh/blob.",
+                "# TYPE hpnn_mesh_blob_egress_bytes_total counter",
+                f"hpnn_mesh_blob_egress_bytes_total "
+                f"{blobs.get('egress_bytes_total', 0)}",
+                "# HELP hpnn_mesh_blob_serves_total Blob GETs the "
+                "router answered with bytes.",
+                "# TYPE hpnn_mesh_blob_serves_total counter",
+                f"hpnn_mesh_blob_serves_total "
+                f"{blobs.get('serves_total', 0)}",
+            ]
+    if snap.get("swarm") is not None:
+        sw = snap["swarm"]
+        lines += [
+            "# HELP hpnn_mesh_swarm_enabled Peer-to-peer blob "
+            "fan-out active on this worker (HPNN_MESH_SWARM).",
+            "# TYPE hpnn_mesh_swarm_enabled gauge",
+            f"hpnn_mesh_swarm_enabled "
+            f"{1 if sw.get('enabled') else 0}",
+            "# HELP hpnn_mesh_swarm_fetches_total Blob fetch "
+            "attempts by outcome: hit = a hinted peer served, "
+            "miss = one failed peer try, fallback = peers hinted "
+            "but the router served.",
+            "# TYPE hpnn_mesh_swarm_fetches_total counter",
+            'hpnn_mesh_swarm_fetches_total{outcome="hit"} '
+            f"{sw.get('hits', 0)}",
+            'hpnn_mesh_swarm_fetches_total{outcome="miss"} '
+            f"{sw.get('misses', 0)}",
+            'hpnn_mesh_swarm_fetches_total{outcome="fallback"} '
+            f"{sw.get('fallbacks', 0)}",
+            "# HELP hpnn_mesh_swarm_blob_serves_total Blob GETs "
+            "this worker answered for peers.",
+            "# TYPE hpnn_mesh_swarm_blob_serves_total counter",
+            f"hpnn_mesh_swarm_blob_serves_total "
+            f"{sw.get('blob_serves', 0)}",
+            "# HELP hpnn_mesh_swarm_blob_egress_bytes_total Blob "
+            "bytes this worker seeded to peers.",
+            "# TYPE hpnn_mesh_swarm_blob_egress_bytes_total counter",
+            f"hpnn_mesh_swarm_blob_egress_bytes_total "
+            f"{sw.get('blob_egress_bytes', 0)}",
+        ]
+    if snap.get("quota") is not None:
+        q = snap["quota"]
+        lines += [
+            "# HELP hpnn_serve_quota_clients Distinct client quota "
+            "buckets tracked.",
+            "# TYPE hpnn_serve_quota_clients gauge",
+            f"hpnn_serve_quota_clients {q['clients']}",
+        ]
+    if snap.get("slo") is not None:
+        s = snap["slo"]
+        lines += [
+            "# HELP hpnn_slo_burn_rate Error-budget burn rate per "
+            "kernel/objective/window (1.0 = budget spent exactly "
+            "over the SLO period).",
+            "# TYPE hpnn_slo_burn_rate gauge",
+        ]
+        for kernel, objectives in sorted(s["kernels"].items()):
+            for obj, o in sorted(objectives.items()):
+                pre = (f'hpnn_slo_burn_rate'
+                       f'{{kernel="{_escape_label(kernel)}",'
+                       f'objective="{_escape_label(obj)}"')
+                lines += [
+                    f'{pre},window="fast"}} {o["fast_burn"]}',
+                    f'{pre},window="slow"}} {o["slow_burn"]}',
+                ]
+        lines += [
+            "# HELP hpnn_slo_burning Both burn windows past the "
+            "threshold (1 = page-worthy; an slo_burn event fired).",
+            "# TYPE hpnn_slo_burning gauge",
+        ]
+        for kernel, objectives in sorted(s["kernels"].items()):
+            for obj, o in sorted(objectives.items()):
+                lines.append(
+                    f'hpnn_slo_burning'
+                    f'{{kernel="{_escape_label(kernel)}",'
+                    f'objective="{_escape_label(obj)}"}} '
+                    f'{1 if o["burning"] else 0}')
+        lines += [
+            "# HELP hpnn_slo_alerts_total slo_burn events fired.",
+            "# TYPE hpnn_slo_alerts_total counter",
+            f"hpnn_slo_alerts_total {s['alerts_total']}",
+        ]
+    return lines
+
+
+def fleet_rollup(workers: dict) -> dict:
+    """Aggregate per-worker JSON snapshots (``None`` = unreachable)
+    into the fleet view: counters SUM, latency histograms bucket-merge,
+    per-kernel generations reduce to min/max.  Pure function -- the
+    rollup-equals-sum acceptance pin drives it directly."""
+    up = {addr: s for addr, s in workers.items() if s}
+    requests: dict[str, int] = {}
+    gen: dict[str, dict] = {}
+    rows = batches = 0
+    queue_depth = 0
+    reloads = {"ok": 0, "error": 0}
+    for snap in up.values():
+        for outcome, n in snap.get("requests", {}).items():
+            requests[outcome] = requests.get(outcome, 0) + int(n)
+        rows += int(snap.get("rows_total", 0))
+        batches += int(snap.get("batches_total", 0))
+        for r, n in snap.get("reloads", {}).items():
+            reloads[r] = reloads.get(r, 0) + int(n)
+        for depth in snap.get("queue_depth", {}).values():
+            queue_depth += int(depth)
+        for kernel, info in snap.get("models", {}).items():
+            g = int(info.get("generation", 0))
+            mm = gen.setdefault(kernel, {"min": g, "max": g})
+            mm["min"] = min(mm["min"], g)
+            mm["max"] = max(mm["max"], g)
+    return {
+        "workers_polled": len(workers),
+        "workers_up": len(up),
+        "requests": requests,
+        "rows_total": rows,
+        "batches_total": batches,
+        "reloads": reloads,
+        "queue_depth_total": queue_depth,
+        "latency": LatencyHistogram.merge_snapshots(
+            s.get("latency") for s in up.values()),
+        "device_time": LatencyHistogram.merge_snapshots(
+            s.get("device_time") for s in up.values()),
+        "model_generation": gen,
+    }

@@ -1,5 +1,5 @@
 """Stdlib HTTP front-end of the port's serving path (the port of
-``hpnn_tpu/serve/server.py`` for one host).
+``hpnn_tpu/serve/server.py``).
 
 Endpoints:
 
@@ -19,7 +19,9 @@ Endpoints:
   registered kernels, their head types and trainers, the parity, the
   uptime and the queued rows per kernel.
 * ``GET /metrics`` -- Prometheus text; ``?format=json`` for the JSON
-  snapshot (``serve/metrics.py``).
+  snapshot (``serve/metrics.py``).  On a mesh router ``?fleet=1``
+  federates every worker's snapshot: per-worker series and fleet rollups,
+  a dead worker an explicit ``hpnn_fleet_worker_up 0``.
 * ``GET /v1/debug/trace[?trace=ID&limit=N&since_seq=S&spool=1&timeline=1]``
   -- the flight recorder (``obs/``) as NDJSON, one completed span a line;
   404 until tracing is on (``--trace`` / ``HPNN_TRACE=1``).  An infer
@@ -30,7 +32,10 @@ Endpoints:
   ``spool=1`` reads the ``--span-dir`` spool back, ``timeline=1`` renders
   the incident timeline; ``GET /v1/debug/trace/search`` and
   ``/v1/debug/trace/critical`` answer from the spool's indexes (the ring
-  without one).  With ``--trace-sample P`` keep/drop is decided once at a
+  without one).  On a mesh router the trace and search are fleet-merged
+  (the router's spans and every worker's collected ones, host-tagged,
+  also of workers that have died); ``since_seq`` and ``local=1`` page
+  this process's ring only.  With ``--trace-sample P`` keep/drop is decided once at a
   trace's birth; an explicit trace id or a high-priority request always
   captures.
 * ``POST /v1/debug/profile`` -- ``{"seconds": N, "dir": PATH?}``: a
@@ -38,6 +43,25 @@ Endpoints:
   card's kernels by their ``__global__`` names), behind the auth token;
   409 while one runs, 501 when the profiler cannot start.  The default
   destination is ``--profile-dir``, else a fresh temp dir.
+
+The serve mesh (``serve/mesh/``): ``serve_nn --mesh-role router``
+(``ServeApp.enable_mesh_router``) fans its batches over registered
+workers through ``mesh.backend.RemoteBackend``; ``--mesh-role worker``
+(``enable_mesh_worker``) serves normally and heartbeats to its router.
+
+* ``POST /v1/mesh/register`` -- a worker's heartbeat (``{"addr",
+  "kernels", "jobs", "blobs"}``) or goodbye (``{"retiring": true}``); the
+  ack carries the fleet's generation and content-addressed blob per
+  kernel and the spill-protection token.  503 without a router role.
+* ``GET /v1/mesh/workers`` -- the worker table; ``GET /v1/mesh/state`` --
+  the table and per-kernel blobs (behind the token when one is set);
+  ``GET /v1/mesh/blob/<sha256>`` -- a blob's bytes (a worker serves the
+  blobs its cache holds to swarm peers); ``POST /v1/mesh/bundle`` and
+  ``GET /v1/mesh/bundles?scope=S`` -- replicated checkpoint bundles
+  (``--replicate-to http://router``).
+* A router's reload is fleet-coherent: the workers land the new weights
+  at one target generation (from the blob, sha256-checked), then the
+  router flips.
 
 With ``serve_nn --jobs N`` (``ServeApp.enable_jobs``, ``jobs/``), the
 training service:
@@ -62,7 +86,22 @@ Request headers:
 * ``X-HPNN-Priority: high|normal|low`` -- the queue lane; dequeue is
   lane-ordered, earliest-deadline-first within a lane.
 * ``X-HPNN-Deadline-Ms: N`` -- the request's own deadline (wins over the
-  body's ``timeout_ms``): an expired one is a 504 at admission.
+  body's ``timeout_ms``): an expired one is a 504 at admission; it rides
+  the mesh RPC, so workers hold the same budget.
+* ``X-HPNN-Client: ID`` -- the quota key of ``--quota-rows`` token buckets
+  (else the auth token, else the peer address).
+
+Admission (``serve/mesh/qos.py``, ``obs/slo.py``): ``--quota-rows``
+charges each client per row before the queue (429 ``quota_exceeded`` with
+the bucket's refill as Retry-After; refunded when the queue refuses);
+``--slo-p99-ms``/``--slo-availability`` track per-kernel burn rates (only
+server-caused failures spend the availability budget); with
+``--shed-low`` a burning budget serves the low lane from a retained older
+generation (``X-HPNN-Served-Stale: 1``) or sheds it (429 ``shed``), with
+hysteresis.  ``/healthz`` reports ``slo_burning`` and ``shed_engaged``,
+``/metrics`` the quota, shed, SLO and autoscale (desired workers)
+families.  ``HPNN_FAULT`` injects faults into this server's replies and
+the mesh's RPCs (``serve/mesh/chaos.py``).
 
 The mutating endpoints (reload, the train submits, corpus chunks, job
 actions, profile captures) honor ``--auth-token`` /
@@ -71,14 +110,19 @@ actions, profile captures) honor ``--auth-token`` /
 
 Status mapping: 200 result (202 for a train submit); 400 malformed body,
 wrong input width, too many rows, a bad header or bad job params; 401
-missing or invalid token on a mutating endpoint; 404 unknown kernel, job,
-path or pinned generation, tracing off or no spool on a debug read;
+missing or invalid token on a mutating endpoint; 403 infer traffic
+without the router's ``X-HPNN-Router`` token on a ``--require-router``
+worker; 404 unknown kernel, job, path, blob or pinned generation, tracing
+off or no spool on a debug read;
 409 reload failed (the old weights keep serving), a job action in a
 conflicting state, a closed upload or a profile already running; 413 a
-jobs body over its cap; 429 queue full (Retry-After from the queue's
-measured drain rate; 1 s for the job queue); 501 profiler unavailable;
-503 draining, or ``jobs_disabled`` without ``--jobs``; 504 deadline
-exceeded; 500 anything else.  An error body is ``{"error": <message>,
+jobs body over its cap; 429 queue full, quota exceeded or shed
+(Retry-After from the queue's measured drain rate, the quota bucket's
+refill or the shed gate's hysteresis; 1 s for the job queue); 501
+profiler unavailable; 503 draining, ``jobs_disabled`` without
+``--jobs``, ``mesh_disabled``, or no live mesh worker
+(``mesh_unavailable``); 504 deadline exceeded; 507 a bundle the router
+could not spool; 500 anything else.  An error body is ``{"error": <message>,
 "reason": <outcome>}``.
 
 ``ThreadingHTTPServer`` gives one thread per connection; they all block
@@ -94,6 +138,7 @@ import json
 import math
 import os
 import re
+import socket
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -102,8 +147,10 @@ import numpy as np
 
 from ..obs import trace as obs_trace
 from ..utils.nn_log import nn_dbg, nn_out, nn_warn
-from . import qos
 from .batcher import DeadlineExceeded, MicroBatcher, QueueFull, ServeClosed
+from .mesh import chaos
+from .mesh import qos
+from .mesh.backend import NoLiveWorker, RemoteHTTPError
 from .metrics import ServeMetrics
 from .registry import ModelRegistry
 
@@ -116,6 +163,7 @@ _JOB_RE = re.compile(r"^/v1/jobs/([^/]+)$")
 _JOB_EVENTS_RE = re.compile(r"^/v1/jobs/([^/]+)/events$")
 _JOB_ACTION_RE = re.compile(
     r"^/v1/jobs/([^/]+)/(cancel|promote|rollback)$")
+_BLOB_RE = re.compile(r"^/v1/mesh/blob/([0-9a-f]{64})$")
 
 
 class _HTTPError(Exception):
@@ -219,10 +267,44 @@ class ServeApp:
                  auth_token: str | None = None, ab_fraction: float = 0.0,
                  trace: bool | None = None, trace_sample: float | None = None,
                  span_dir: str | None = None,
-                 profile_dir: str | None = None):
+                 profile_dir: str | None = None,
+                 quota_rows: float = 0.0,
+                 quota_burst: float | None = None,
+                 slo_p99_ms: float | None = None,
+                 slo_availability: float | None = None,
+                 require_router: bool = False,
+                 shed_low: bool | None = None):
         self.metrics = metrics or ServeMetrics()
         self.auth_token = auth_token or None
         self.profile_dir = profile_dir  # /v1/debug/profile default dest
+        # spill protection (worker side): serve only infer traffic that
+        # carries the router's X-HPNN-Router token (learned from the
+        # registration ack), so router-side quotas cannot be bypassed by
+        # calling this worker directly
+        self.require_router = bool(require_router)
+        # SLO tracking, built only when an objective is set: the off path
+        # is `self.slo is None`
+        self.slo = None
+        self.shedder = None
+        if slo_p99_ms is not None or slo_availability is not None:
+            from ..obs.slo import SloTracker
+
+            self.slo = SloTracker(availability=slo_availability,
+                                  p99_ms=slo_p99_ms)
+            self.metrics.set_slo(self.slo)
+            # SLO-driven shedding: while an objective burns, the LOW lane
+            # is refused at admission (429 with the clear hysteresis as
+            # Retry-After).  Opt-in (--shed-low / HPNN_SHED=1)
+            if shed_low is None:
+                shed_low = os.environ.get("HPNN_SHED", "") == "1"
+            if shed_low:
+                self.shedder = qos.LoadShedder(self.slo)
+                self.metrics.set_shed_source(self.shedder.snapshot)
+        # per-client token-bucket quotas (rows/s; 0 = none)
+        self.quota = (qos.QuotaTable(quota_rows, quota_burst)
+                      if quota_rows and quota_rows > 0 else None)
+        self.mesh_router = None  # MeshRouter once enable_mesh_router()
+        self.mesh_worker = None  # WorkerAgent when serving as a worker
         # span tracing: an explicit flag wins -- True enables, False
         # disables (even when HPNN_TRACE was set at init_all), None
         # defers to the env
@@ -260,6 +342,11 @@ class ServeApp:
         self._closed = False
         self.jobs = None              # the JobScheduler (enable_jobs)
         self.started_mono = time.monotonic()  # /healthz uptime_s
+        # the autoscaling signal (queued rows and drain rate -> desired
+        # workers), read live at /metrics render time
+        self.metrics.set_autoscale_source(self.autoscale_snapshot)
+        if self.quota is not None:
+            self.metrics.set_quota_source(self.quota.snapshot)
 
     def _warm(self, model) -> None:
         try:
@@ -287,7 +374,9 @@ class ServeApp:
         model = self.registry.register_conf(conf_path, name=name)
         if model is None:
             return None
-        if warmup:
+        if warmup and self.mesh_router is None:
+            # a router launches nothing itself: warming its buckets on
+            # the card would only delay readiness
             if background:
                 with self._warming_lock:
                     self._warming.add(model.name)
@@ -296,9 +385,11 @@ class ServeApp:
                     name=f"hpnn-warmup-{model.name}", daemon=True).start()
             else:
                 self._warm(model)
+        backend = (self.mesh_router.backend_for(model)
+                   if self.mesh_router is not None else None)
         b = MicroBatcher(model, metrics=self.metrics,
                          max_queue_rows=self.max_queue_rows,
-                         linger_s=self.linger_s)
+                         linger_s=self.linger_s, backend=backend)
         self.batchers[model.name] = b
         self.metrics.register_queue(model.name, b.depth)
         self.metrics.register_lanes(model.name, b.lane_depths)
@@ -319,8 +410,16 @@ class ServeApp:
             # snapshots and lands `interrupted` (resumable) before the
             # eval batchers stop
             self.jobs.drain()
+        if self.mesh_worker is not None:
+            # the goodbye only on a graceful drain: drain=False stands
+            # for a crash and must look like one to the router
+            self.mesh_worker.close(goodbye=drain)
         for b in self.batchers.values():
             b.close(drain=drain)
+        if self.mesh_router is not None:
+            # after the batchers: draining batches still need the pool's
+            # RPC executor
+            self.mesh_router.close()
         if self.span_exporter is not None:
             # after everything that records spans: the last spans land
             # in a final rotated segment
@@ -384,13 +483,161 @@ class ServeApp:
         self.metrics.set_jobs_source(self.jobs.metrics_snapshot)
         return self.jobs
 
+    # --- the serve mesh ---------------------------------------------------
+    def enable_mesh_router(self, required_workers: int = 1,
+                           health_interval_s: float = 1.0,
+                           router_token: str | None = None):
+        """Make this app a mesh ROUTER (``serve_nn --mesh-role router``):
+        models registered after this call get a ``RemoteBackend`` that
+        fans their batches over the worker pool, /healthz reports
+        ``warming`` until ``required_workers`` are live, and reloads
+        become fleet-coherent broadcasts.  Must run before ``add_model``
+        (the backend is wired at batcher creation).  ``router_token`` pins
+        the spill-protection secret (default: a random one)."""
+        from .mesh.router import MeshRouter
+
+        if self.batchers:
+            raise RuntimeError("enable_mesh_router must run before any "
+                               "add_model (backends are wired at "
+                               "batcher creation)")
+        self.mesh_router = MeshRouter(
+            self, required=required_workers,
+            health_interval_s=health_interval_s,
+            router_token=router_token)
+        self.metrics.set_mesh_source(self.mesh_router.metrics_snapshot)
+        return self.mesh_router
+
+    def enable_mesh_worker(self, router_addr: str, advertise: str,
+                           interval_s: float | None = None):
+        """Make this app a mesh WORKER (``serve_nn --mesh-role worker``):
+        start the heartbeat agent that registers ``advertise`` with the
+        router at ``router_addr`` and catches this server's generations
+        up to the fleet's.  Call once the socket is bound (the advertised
+        address needs the real port)."""
+        from .mesh.worker import WorkerAgent
+
+        self.mesh_worker = WorkerAgent(self, router_addr, advertise,
+                                       interval_s=interval_s).start()
+        self.metrics.set_swarm_source(self.mesh_worker.swarm_snapshot)
+        return self.mesh_worker
+
+    def handle_mesh_register(self, body: bytes) -> dict:
+        """POST /v1/mesh/register: a worker's registration heartbeat, or
+        its goodbye (``{"retiring": true}``)."""
+        if self.mesh_router is None:
+            raise _HTTPError(503, "mesh_disabled",
+                             "this server is not a mesh router "
+                             "(start serve_nn with --mesh-role router)")
+        try:
+            req = json.loads(body.decode("utf-8"))
+        except (UnicodeDecodeError, json.JSONDecodeError) as exc:
+            raise _HTTPError(400, "bad_request", f"bad JSON: {exc}")
+        if not isinstance(req, dict) or not req.get("addr"):
+            raise _HTTPError(400, "bad_request",
+                             "body must be an object with 'addr'")
+        addr = str(req["addr"])
+        # every later RPC and health poll reaches the worker at addr: a
+        # port-less or junk addr is refused here, not found later as
+        # ValueErrors in the dispatch path
+        host, _, port = addr.rpartition(":")
+        if not (host and port.isdigit() and 0 < int(port) < 65536):
+            raise _HTTPError(400, "bad_request",
+                             f"'addr' must be HOST:PORT, got {addr!r}")
+        if req.get("retiring") is True:
+            # a worker saying goodbye (SIGTERM drain): out of routing
+            # now, not after health misses
+            known = self.mesh_router.pool.retire(addr, via="goodbye")
+            return {"ok": True, "retiring": True, "known": known}
+        kernels = req.get("kernels")
+        if kernels is not None and not isinstance(kernels, dict):
+            raise _HTTPError(400, "bad_request",
+                             "'kernels' must be an object")
+        jobs = req.get("jobs")
+        if jobs is not None and not isinstance(jobs, dict):
+            jobs = None  # advisory: junk is ignored, not refused
+        blobs = req.get("blobs")
+        if blobs is not None and not isinstance(blobs, list):
+            blobs = None  # advisory has-set: ignored when junk
+        return self.mesh_router.register_worker(addr, kernels,
+                                                jobs=jobs, blobs=blobs)
+
+    def handle_mesh_state(self, headers) -> dict:
+        """GET /v1/mesh/state: the worker table and per-kernel generation
+        and blob.  With an auth token configured the whole endpoint needs
+        it and the spill token rides along; with auth off it is open but
+        the token is left out (a public secret protects nothing)."""
+        if self.mesh_router is None:
+            raise _HTTPError(404, "mesh_disabled",
+                             "this server is not a mesh router")
+        if not self.authorized(headers):
+            raise _HTTPError(401, "unauthorized",
+                             "missing or invalid auth token")
+        return self.mesh_router.state_snapshot(bool(self.auth_token))
+
+    def handle_mesh_bundle(self, query: str, body: bytes) -> dict:
+        """POST /v1/mesh/bundle?scope=S&tag=T&epoch=N: a training host
+        replicating one packed checkpoint bundle.  The bytes land in the
+        router's content-addressed blob store and its durable spool; the
+        reply's sha256 is what the shipper checks against its own."""
+        from ..utils.env import env_int
+
+        if self.mesh_router is None:
+            raise _HTTPError(503, "mesh_disabled",
+                             "this server is not a mesh router "
+                             "(start serve_nn with --mesh-role router)")
+        params = dict(kv.split("=", 1)
+                      for kv in query.split("&") if "=" in kv)
+        scope = params.get("scope") or ""
+        if not scope:
+            raise _HTTPError(400, "bad_request",
+                             "missing 'scope' query parameter")
+        if not body:
+            raise _HTTPError(400, "bad_request", "empty bundle body")
+        max_mb = env_int("HPNN_MESH_BUNDLE_MAX_MB", 256, lo=1)
+        if len(body) > max_mb << 20:
+            raise _HTTPError(413, "too_large",
+                             f"bundle exceeds {max_mb} MB")
+        try:
+            epoch = int(params.get("epoch") or 0)
+        except ValueError:
+            raise _HTTPError(400, "bad_request", "bad 'epoch'")
+        try:
+            return self.mesh_router.store_bundle(
+                scope, body, params.get("tag") or "", epoch)
+        except OSError as exc:
+            # the durable spool write is part of the contract: the
+            # shipper retries instead of trusting a volatile copy
+            raise _HTTPError(507, "spool_failure",
+                             f"bundle spool write failed: {exc}")
+
+    def autoscale_snapshot(self) -> dict:
+        """The autoscaling signal /metrics renders: queued rows, the
+        measured drain rate and the desired-worker gauge derived from
+        them (``mesh.qos.desired_workers``)."""
+        queued = sum(b.depth() for b in self.batchers.values())
+        rate = sum(b.drain_rate() for b in self.batchers.values())
+        live = (self.mesh_router.pool.live_count()
+                if self.mesh_router is not None else 1)
+        return {"queued_rows": queued,
+                "drain_rows_per_s": round(rate, 2),
+                "live_workers": live,
+                "desired_workers": qos.desired_workers(queued, rate, live)}
+
     # --- model lifecycle (hot reload) -----------------------------------
     def reload_model(self, name: str, kernel_path: str | None = None,
-                     set_generation: int | None = None) -> dict:
+                     set_generation: int | None = None,
+                     broadcast: bool = True) -> dict:
         """Swap a model's weights from disk under traffic (the registry's
         ``reload``); raises KeyError for an unknown kernel, ValueError
         when the weights cannot be loaded or uploaded (the served weights
-        stay untouched).  Counted into the reload metrics either way."""
+        stay untouched).  Counted into the reload metrics either way.  On
+        a mesh router every reload is fleet-coherent: the weights go to
+        the live workers at one target generation first, then the router
+        flips its own (``broadcast=False`` is the coordinator's own
+        call)."""
+        if (broadcast and self.mesh_router is not None
+                and set_generation is None):
+            return self.mesh_router.coherent_reload(name, kernel_path)
         result, reason = self.registry.reload(
             name, kernel_path, set_generation=set_generation)
         if result is None:
@@ -462,8 +709,17 @@ class ServeApp:
     # --- handlers -------------------------------------------------------
     def healthz(self) -> tuple[int, dict]:
         warming = self.warming()
+        mesh = None
+        if self.mesh_router is not None:
+            mesh = self.mesh_router.readiness()
+        elif self.mesh_worker is not None:
+            mesh = self.mesh_worker.info()
+        # a mesh router is not ready until a quorum of workers is: its
+        # own state says nothing about whether a request could be served
         status = ("draining" if self._closed
-                  else "warming" if warming else "ok")
+                  else "warming" if warming
+                  or (mesh is not None and mesh.get("quorum") is False)
+                  else "ok")
         reg = self.registry
         body = {"status": status,
                 "kernels": reg.names(),
@@ -477,11 +733,19 @@ class ServeApp:
                 "queue_depth": {name: b.depth() for name, b in
                                 self.batchers.items()},
                 "active_jobs": 0 if self.jobs is None else
-                self.jobs.queue.depth() + self.jobs.running_count()}
+                self.jobs.queue.depth() + self.jobs.running_count(),
+                # a burning error budget and an engaged shed gate, for
+                # probes that do not parse /metrics
+                "slo_burning": (self.slo.burning_count
+                                if self.slo is not None else 0),
+                "shed_engaged": (bool(self.shedder.active)
+                                 if self.shedder is not None else False)}
         if self.jobs is not None:
             # which device slices the job workers hold, and how many
             # asks await placement
             body["job_slices"] = self.jobs.slices.occupancy()
+        if mesh is not None:
+            body["mesh"] = mesh
         if warming:
             body["warming"] = warming
         return (200 if status == "ok" else 503), body
@@ -527,9 +791,22 @@ class ServeApp:
         rec["requested_seconds"] = seconds
         return rec
 
-    def handle_trace_search(self, params: dict) -> dict:
+    def _analysis_spans(self) -> list[dict]:
+        """The in-memory spans analysis reads without a spool: this
+        process's ring, plus on a mesh router the fleet store's collected
+        worker spans."""
+        if self.mesh_router is not None:
+            return self.mesh_router.fleet.merged_spans(drain=True)
+        return obs_trace.snapshot()
+
+    def handle_trace_search(self, params: dict,
+                            federate: bool = True) -> dict:
         """GET /v1/debug/trace/search: per-trace summaries from the trace
-        index (the ``--span-dir`` sidecars; the ring without a spool)."""
+        index (the ``--span-dir`` sidecars; the ring without a spool).  On
+        a mesh router the query federates across the live workers, and
+        the fleet store keeps dead workers' collected spans queryable;
+        ``federate=False`` (``?local=1``) answers from this process
+        only."""
         from ..obs import index as trace_index
 
         try:
@@ -537,11 +814,32 @@ class ServeApp:
                 # pending spans become searchable first (drain, not
                 # flush: a polling search must not force rotations)
                 self.span_exporter.drain()
-                return trace_index.search(self.span_exporter.span_dir,
-                                          params)
-            return trace_index.search_spans(obs_trace.snapshot(), params)
+                payload = trace_index.search(self.span_exporter.span_dir,
+                                             params)
+            else:
+                payload = trace_index.search_spans(self._analysis_spans(),
+                                                   params)
         except (TypeError, ValueError) as exc:
             raise _HTTPError(400, "bad_request", f"bad query: {exc}")
+        if federate and self.mesh_router is not None:
+            have = {r["trace"] for r in payload["traces"]}
+            remote = self.mesh_router.fleet.federated_search(params)
+            merged = list(payload["traces"])
+            for addr in sorted(remote):
+                for row in remote[addr] or []:
+                    if row.get("trace") in have:
+                        continue  # the collector's or spool's copy wins
+                    have.add(row.get("trace"))
+                    row["host"] = addr
+                    merged.append(row)
+            merged.sort(key=lambda r: (-(r.get("start_ts") or 0.0),
+                                       r.get("trace") or ""))
+            limit = payload["query"].get("limit")
+            if limit is not None and limit >= 0:
+                merged = merged[:limit]
+            payload["traces"] = merged
+            payload["count"] = len(merged)
+        return payload
 
     def handle_trace_critical(self, params: dict) -> dict:
         """GET /v1/debug/trace/critical: per-phase p50/p99 critical-path
@@ -565,7 +863,7 @@ class ServeApp:
                 self.span_exporter.span_dir, kernel=kernel,
                 window_s=window_s, limit=limit)
         return analyze.critical_from_spans(
-            obs_trace.snapshot(), kernel=kernel, window_s=window_s,
+            self._analysis_spans(), kernel=kernel, window_s=window_s,
             limit=limit)
 
     def handle_trace_timeline(self, params: dict) -> str:
@@ -590,15 +888,33 @@ class ServeApp:
             self.span_exporter.drain()
             spans = read_spool(self.span_exporter.span_dir)
         else:
-            spans = obs_trace.snapshot()
+            spans = self._analysis_spans()
         return analyze.render_timeline(
             analyze.build_timeline(spans, since=since, until=until,
                                    limit=limit))
 
     def handle_infer(self, name: str, body: bytes, headers=None,
-                     trace_ctx: tuple[str, str] | None = None) -> dict:
+                     trace_ctx: tuple[str, str] | None = None,
+                     peer: str | None = None) -> dict:
         """One infer request; ``trace_ctx`` is the HTTP layer's
-        ``(trace_id, root_span_id)`` when this request is traced."""
+        ``(trace_id, root_span_id)`` when this request is traced, ``peer``
+        the client address (the last quota key).  Admission order: spill
+        protection, then the shed gate before the rows are parsed, then
+        the quota charged per row before the queue (refunded when the
+        queue refuses)."""
+        if self.require_router and self.mesh_worker is not None:
+            # spill protection: only the router's stamped traffic is
+            # served, so its quotas cannot be bypassed
+            want = self.mesh_worker.router_token
+            got = (headers.get("X-HPNN-Router") or "") if headers else ""
+            if not want or not hmac.compare_digest(
+                    got.encode("utf-8", "surrogateescape"),
+                    want.encode("utf-8")):
+                raise _HTTPError(
+                    403, "router_only",
+                    "this worker only serves traffic routed through "
+                    "the mesh router (missing or invalid "
+                    "X-HPNN-Router token)")
         b = self.batchers.get(name)
         if b is None:
             raise _HTTPError(404, "not_found", f"unknown kernel '{name}'")
@@ -619,19 +935,50 @@ class ServeApp:
             except (TypeError, ValueError):
                 raise _HTTPError(400, "bad_request",
                                  "X-HPNN-Generation must be an integer")
-        try:
-            gen = b.model.resolve_generation(requested)
-        except KeyError:
-            raise _HTTPError(
-                404, "unknown_generation",
-                f"kernel '{name}' has no pinned generation "
-                f"{requested} (retained: "
-                f"{b.model.generation_table()['retained']})")
+        if self.mesh_router is not None and requested is not None:
+            # the router retains no generations itself: the pin passes
+            # through and the worker checks it (its 404 comes back)
+            gen = requested
+        else:
+            try:
+                gen = b.model.resolve_generation(requested)
+            except KeyError:
+                raise _HTTPError(
+                    404, "unknown_generation",
+                    f"kernel '{name}' has no pinned generation "
+                    f"{requested} (retained: "
+                    f"{b.model.generation_table()['retained']})")
         try:
             lane = qos.parse_priority(
                 headers.get("X-HPNN-Priority") if headers else None)
         except ValueError as exc:
             raise _HTTPError(400, "bad_request", str(exc))
+        # SLO-driven shedding: while a budget burns the LOW lane is
+        # refused before its rows are parsed or its quota charged.  The
+        # 429 is a client-visible policy outcome and spends no budget
+        served_stale = False
+        if self.shedder is not None and self.shedder.gate_engaged(lane):
+            # brownout before shedding: a kernel that retains an older
+            # generation serves the low lane from it (flagged
+            # X-HPNN-Served-Stale), and only a kernel with nothing to
+            # fall back to sheds.  An explicit pin is never overridden
+            stale_gen = None
+            if requested is None:
+                table = b.model.generation_table()
+                prior = [g for g in table.get("retained", ())
+                         if g < table.get("current", 0)]
+                if prior:
+                    stale_gen = max(prior)
+            if stale_gen is None:
+                self.shedder.count_shed()
+                raise _HTTPError(
+                    429, "shed",
+                    "low-priority traffic shed: the availability budget "
+                    "is burning (retry later or raise X-HPNN-Priority)",
+                    retry_after=self.shedder.retry_after_s())
+            gen = stale_gen
+            served_stale = True
+            self.shedder.count_stale()
         raw = req.get("inputs")
         if raw is None:
             one = req.get("input")
@@ -665,6 +1012,18 @@ class ServeApp:
             except (TypeError, ValueError):
                 raise _HTTPError(400, "bad_request",
                                  "X-HPNN-Deadline-Ms must be a number")
+        # the per-client quota, charged per row before queue admission:
+        # an over-quota client never holds queue capacity
+        quota_key = None
+        if self.quota is not None:
+            quota_key = qos.client_key(headers, peer)
+            allowed, wait_s = self.quota.allow(quota_key,
+                                               float(xs.shape[0]))
+            if not allowed:
+                raise _HTTPError(
+                    429, "quota_exceeded",
+                    f"client quota exceeded ({self.quota.rate:g} rows/s"
+                    f"; retry in {wait_s:.2f}s)", retry_after=wait_s)
         t_parse1 = time.monotonic()
         self.metrics.observe_phase("parse", t_parse1 - t_parse0)
         if trace_ctx is not None:
@@ -676,6 +1035,10 @@ class ServeApp:
                                         return_gen=True, lane=lane,
                                         trace=trace_ctx)
         except QueueFull as exc:
+            if quota_key is not None:
+                # the charge bought no service: refunded, or obedient
+                # Retry-After clients burn their quota on backpressure
+                self.quota.refund(quota_key, float(xs.shape[0]))
             raise _HTTPError(429, "queue_full", str(exc),
                              retry_after=getattr(exc, "retry_after_s",
                                                  None)
@@ -684,6 +1047,12 @@ class ServeApp:
             raise _HTTPError(504, "deadline", str(exc))
         except ServeClosed as exc:
             raise _HTTPError(503, "error", str(exc))
+        except NoLiveWorker as exc:
+            raise _HTTPError(503, "mesh_unavailable", str(exc))
+        except RemoteHTTPError as exc:
+            # a worker's status the router passes through as it is (a
+            # 404 unknown_generation on a pin)
+            raise _HTTPError(exc.status, exc.reason, str(exc))
         except Exception as exc:
             raise _HTTPError(500, "error", f"{type(exc).__name__}: {exc}")
         if served_gen is None:  # registry stand-ins without generations
@@ -693,6 +1062,8 @@ class ServeApp:
                "generation": int(served_gen),
                "outputs": outs.tolist(),
                "argmax": [int(i) for i in np.argmax(outs, axis=1)]}
+        if served_stale:
+            out["served_stale"] = True
         if trace_ctx is not None:
             out["trace"] = trace_ctx[0]
         return out
@@ -701,10 +1072,13 @@ class ServeApp:
         """POST /v1/kernels/<name>/reload: optional JSON body
         ``{"kernel": "<path>"}`` picks the weights file (default: the
         model's last source); ``{"set_generation": G}`` pins the
-        post-swap generation.  A ``blob`` (a content-addressed weights
-        blob) needs a serve-mesh worker, which the port does not have:
-        409, as the JAX package answers without one.  409 when the
-        weights cannot be landed (the old weights keep serving)."""
+        post-swap generation (the mesh broadcast's form), and ``{"blob":
+        {"sha256", "size"}}`` names content-addressed weights instead of
+        a path: a mesh worker pulls the bytes from its router (or a
+        hinted peer), checks the hash, then loads them -- no shared
+        filesystem needed.  409 when the weights cannot be landed (the
+        old weights keep serving), or for a blob without a worker
+        agent."""
         kernel_path = None
         set_generation = None
         blob = None
@@ -736,10 +1110,7 @@ class ServeApp:
                                  "'blob' must be an object with "
                                  "'sha256'")
         if blob is not None and kernel_path is None:
-            raise _HTTPError(
-                409, "reload_failed",
-                "blob reload needs a mesh worker agent (no router to "
-                "fetch the bytes from)")
+            kernel_path = self._fetch_reload_blob(blob, req.get("peers"))
         try:
             return self.reload_model(name, kernel_path,
                                      set_generation=set_generation)
@@ -749,6 +1120,35 @@ class ServeApp:
             raise _HTTPError(409, "reload_failed", str(exc))
         except Exception as exc:
             raise _HTTPError(500, "error", f"{type(exc).__name__}: {exc}")
+
+    def _fetch_reload_blob(self, blob: dict, peers) -> str:
+        """A content-addressed reload: the announced bytes pulled from
+        the router this worker heartbeats to (or a hinted peer),
+        sha256-checked, into the local blob cache; returns the path."""
+        from .mesh import transport
+        from .mesh.worker import swarm_enabled
+
+        agent = self.mesh_worker
+        if agent is None:
+            raise _HTTPError(
+                409, "reload_failed",
+                "blob reload needs a mesh worker agent (no router to "
+                "fetch the bytes from)")
+        fetch_headers = None
+        if self.auth_token:
+            fetch_headers = {"Authorization": f"Bearer {self.auth_token}"}
+        if not (swarm_enabled() and isinstance(peers, list)):
+            peers = ()
+        try:
+            path, source, misses = transport.fetch_blob_from(
+                agent.current, str(blob["sha256"]), blob.get("size"),
+                agent.blob_dir, peers=peers, timeout_s=20.0,
+                headers=fetch_headers, rng=agent._rng)
+        except transport.BlobError as exc:
+            raise _HTTPError(409, "reload_failed",
+                             f"blob fetch failed: {exc}")
+        agent.count_fetch(source, misses, bool(peers))
+        return path
 
     # --- job endpoints --------------------------------------------------
     def _jobs_or_503(self):
@@ -944,6 +1344,43 @@ class _Handler(BaseHTTPRequestHandler):
     def log_message(self, fmt, *args):  # the console grammar stays clean
         nn_dbg("serve: " + (fmt % args) + "\n")
 
+    def _chaos_server(self) -> bool:
+        """Server-side ``HPNN_FAULT`` injection: this server's own reply
+        path produces the failure, so a client's recovery (the router's
+        retry elsewhere, the transport's stale retry, a blob re-fetch)
+        meets real half-written bytes.  Consulted before any handler:
+        ``http`` fabricates a ``code`` reply, ``latency`` sleeps ``ms``
+        and goes on, ``truncate`` sends headers for a full body and half
+        of it, and ``reset``/``reset-after``/``timeout`` sever the
+        connection without a reply.  True when the fault consumed the
+        request."""
+        rule = chaos.pick(self.path, side="server")
+        if rule is None:
+            return False
+        if rule.kind == "latency":
+            time.sleep(rule.ms / 1e3)
+            return False
+        if rule.kind == "http":
+            self._reply(rule.code, {"error": "injected fault",
+                                    "reason": "chaos"})
+            return True
+        if rule.kind == "truncate":
+            body = (json.dumps({"ok": True, "note": "chaos-truncate"})
+                    + "\n").encode("utf-8")
+            self.send_response(200)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body[:len(body) // 2])
+            self.wfile.flush()
+            self.close_connection = True
+            return True
+        # reset / reset-after / timeout: sever without a reply
+        with contextlib.suppress(OSError):
+            self.connection.shutdown(socket.SHUT_RDWR)
+        self.close_connection = True
+        return True
+
     def _reply(self, status: int, payload,
                content_type: str = "application/json",
                extra_headers: dict | None = None) -> None:
@@ -958,21 +1395,95 @@ class _Handler(BaseHTTPRequestHandler):
         self.wfile.write(body)
 
     def do_GET(self) -> None:
+        if self._chaos_server():
+            return
         path, _, query = self.path.partition("?")
         if path == "/healthz":
             status, body = self.app.healthz()
             self._reply(status, body)
         elif path == "/metrics":
-            if "format=json" in query:
-                self._reply(200, self.app.metrics.snapshot())
-            else:
-                self._reply(200, self.app.metrics.render_prometheus()
-                            .encode("utf-8"),
-                            content_type="text/plain; version=0.0.4")
+            self._do_get_metrics(query)
         elif path.startswith("/v1/debug/trace"):
             self._do_get_trace(path, query)
+        elif path.startswith("/v1/mesh/"):
+            self._do_get_mesh(path, query)
         else:
             self._do_get_jobs(path, query)
+
+    def _do_get_metrics(self, query: str) -> None:
+        """``/metrics``; on a mesh router ``?fleet=1`` federates every
+        worker's snapshot (per-worker series and fleet rollups; a dead
+        worker is an explicit ``hpnn_fleet_worker_up 0``)."""
+        router = self.app.mesh_router
+        fleet = "fleet=1" in query and router is not None
+        if "format=json" in query:
+            if fleet:
+                from .metrics import fleet_rollup
+
+                workers = router.fleet.federated_metrics()
+                self._reply(200, {"router": self.app.metrics.snapshot(),
+                                  "workers": workers,
+                                  "rollup": fleet_rollup(workers)})
+            else:
+                self._reply(200, self.app.metrics.snapshot())
+            return
+        text = (self.app.metrics.render_fleet_prometheus(
+            router.fleet.federated_metrics()) if fleet
+            else self.app.metrics.render_prometheus())
+        self._reply(200, text.encode("utf-8"),
+                    content_type="text/plain; version=0.0.4")
+
+    def _do_get_mesh(self, path: str, query: str) -> None:
+        """The router's mesh reads: the worker table, the state feed, the
+        replicated-bundle index and content-addressed blobs (a worker
+        serves the blobs its own cache holds to swarm peers)."""
+        router = self.app.mesh_router
+        if path == "/v1/mesh/state":
+            try:
+                self._reply(200, self.app.handle_mesh_state(self.headers))
+            except _HTTPError as exc:
+                self._reply(exc.status,
+                            {"error": str(exc), "reason": exc.outcome})
+            return
+        m = _BLOB_RE.match(path)
+        if path == "/v1/mesh/bundles" or m is not None:
+            # fleet internals and the weights themselves: behind the
+            # auth token whenever one is configured
+            if not self.app.authorized(self.headers):
+                self._reply(401, {"error": "missing or invalid auth "
+                                  "token", "reason": "unauthorized"})
+                return
+        if m is not None:
+            data = (router.blob_bytes(m.group(1))
+                    if router is not None else None)
+            if data is None and self.app.mesh_worker is not None:
+                # the swarm's fast path: peers re-check the sha, so a
+                # stale cache entry misleads nobody
+                data = self.app.mesh_worker.blob_bytes(m.group(1))
+            if data is None:
+                self._reply(404, {"error": f"unknown blob {m.group(1)}",
+                                  "reason": "not_found"})
+                return
+            self._reply(200, data, content_type="application/octet-stream")
+            return
+        if router is None:
+            self._reply(404, {"error": "not a mesh router",
+                              "reason": "mesh_disabled"})
+            return
+        if path not in ("/v1/mesh/workers", "/v1/mesh/bundles"):
+            self._reply(404, {"error": f"no route {path}",
+                              "reason": "not_found"})
+            return
+        if path == "/v1/mesh/workers":
+            self._reply(200, {"workers": router.pool.table(),
+                              "required": router.required,
+                              "live": router.pool.live_count()})
+            return
+        params = dict(kv.split("=", 1) for kv in query.split("&")
+                      if "=" in kv)
+        scope = params.get("scope") or ""
+        self._reply(200, {"scope": scope,
+                          "bundles": router.bundle_list(scope)})
 
     def _do_get_trace(self, path: str, query: str) -> None:
         """The flight recorder's read endpoints (see the module doc); the
@@ -991,7 +1502,8 @@ class _Handler(BaseHTTPRequestHandler):
                 return
             try:
                 if path.endswith("/search"):
-                    out = self.app.handle_trace_search(params)
+                    out = self.app.handle_trace_search(
+                        params, federate=params.get("local") != "1")
                 else:
                     out = self.app.handle_trace_critical(params)
             except _HTTPError as exc:
@@ -1054,8 +1566,16 @@ class _Handler(BaseHTTPRequestHandler):
                               "serve_nn with --trace or HPNN_TRACE=1)",
                               "reason": "tracing_disabled"})
             return
-        text = obs_trace.dump_ndjson(trace_id=trace_id, limit=limit,
-                                     since_seq=since_seq)
+        router = self.app.mesh_router
+        # ?since_seq and ?local=1 page this process's ring (the fleet
+        # collector's per-host protocol); otherwise a router serves the
+        # fleet-merged view: its spans (role=router) and every worker's
+        if (router is not None and since_seq is None
+                and params.get("local") != "1"):
+            text = router.fleet.merged_dump(trace_id=trace_id, limit=limit)
+        else:
+            text = obs_trace.dump_ndjson(trace_id=trace_id, limit=limit,
+                                         since_seq=since_seq)
         # the scraper's cursor (newest recorded seq) and the ring's
         # identity: a changed ring id invalidates any stored cursor
         self._reply(200, text.encode("utf-8"),
@@ -1221,10 +1741,14 @@ class _Handler(BaseHTTPRequestHandler):
 
     def _do_post_routed(self, path: str, body: bytes, spool, ck, jc,
                         tr) -> None:
+        if self._chaos_server():
+            return
         r = _RELOAD_RE.match(path)
         a = _JOB_ACTION_RE.match(path)
         prof = path == "/v1/debug/profile"
-        if (r or tr or a or ck or jc or prof) \
+        mesh_reg = path == "/v1/mesh/register"
+        bundle = path == "/v1/mesh/bundle"
+        if (r or tr or a or ck or jc or prof or mesh_reg or bundle) \
                 and not self.app.authorized(self.headers):
             # every mutating endpoint sits behind the token when one is
             # configured; infer, metrics and healthz stay open
@@ -1254,6 +1778,11 @@ class _Handler(BaseHTTPRequestHandler):
                         200)
         elif prof:
             call, ok = (lambda: self.app.handle_debug_profile(body), 200)
+        elif mesh_reg:
+            call, ok = (lambda: self.app.handle_mesh_register(body), 200)
+        elif bundle:
+            call, ok = (lambda: self.app.handle_mesh_bundle(
+                self.path.partition("?")[2], body), 200)
         else:
             self._do_infer(path, body)
             return
@@ -1294,9 +1823,17 @@ class _Handler(BaseHTTPRequestHandler):
         try:
             out = self.app.handle_infer(m.group(1), body,
                                         headers=self.headers,
-                                        trace_ctx=trace_ctx)
+                                        trace_ctx=trace_ctx,
+                                        peer=self.client_address[0])
         except _HTTPError as exc:
             self.app.metrics.count_request(exc.outcome)
+            if self.app.slo is not None and exc.outcome != "not_found":
+                # availability SLO: only server-caused failures (5xx)
+                # spend budget; a client's bad input or over-quota 429
+                # does not.  Unknown kernels stay out entirely: the name
+                # is client-supplied, and an objective per junk name
+                # would be an unauthenticated cardinality leak
+                self.app.slo.record_outcome(m.group(1), exc.status < 500)
             headers = dict(echo or {})
             if exc.status == 429:
                 # Retry-After from the queue's measured drain rate
@@ -1312,6 +1849,8 @@ class _Handler(BaseHTTPRequestHandler):
                         extra_headers=headers or None)
             return
         self.app.metrics.count_request("ok")
+        if self.app.slo is not None:
+            self.app.slo.record_outcome(m.group(1), True)
         if trace_ctx is not None:
             # the root completes before the response bytes leave: once
             # the client can query /v1/debug/trace, its tree is there
@@ -1321,6 +1860,10 @@ class _Handler(BaseHTTPRequestHandler):
                              kernel=m.group(1), outcome="ok",
                              generation=out.get("generation"))
         t_resp0 = time.monotonic()
+        if out.pop("served_stale", False):
+            # brownout: the body's generation names the retained weights
+            echo = dict(echo or {})
+            echo["X-HPNN-Served-Stale"] = "1"
         self._reply(200, out, extra_headers=echo)
         t_resp1 = time.monotonic()
         self.app.metrics.observe_phase("respond", t_resp1 - t_resp0)
@@ -1335,6 +1878,34 @@ class _Server(ThreadingHTTPServer):
     # clients would be reset by the kernel before admission control runs;
     # backpressure must come from the 429 path, not the accept queue
     request_queue_size = 128
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        # the live client sockets: with the mesh's keep-alive transport a
+        # server whose handler threads keep answering pooled connections
+        # is not dead, so an in-process stand-in for a kill must sever
+        # them (abort_connections)
+        self._conns: set = set()
+        self._conns_lock = threading.Lock()
+
+    def process_request(self, request, client_address):
+        with self._conns_lock:
+            self._conns.add(request)
+        super().process_request(request, client_address)
+
+    def shutdown_request(self, request):
+        with self._conns_lock:
+            self._conns.discard(request)
+        super().shutdown_request(request)
+
+    def abort_connections(self) -> None:
+        """Sever every live client connection: with ``shutdown()`` and
+        ``server_close()``, the in-process stand-in for a SIGKILL."""
+        with self._conns_lock:
+            conns = list(self._conns)
+        for sock in conns:
+            with contextlib.suppress(OSError):
+                sock.shutdown(socket.SHUT_RDWR)
 
 
 def make_server(addr: str, port: int, app: ServeApp) -> ThreadingHTTPServer:

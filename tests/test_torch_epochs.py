@@ -288,17 +288,20 @@ def test_bad_epochs_value_is_a_syntax_error(tmp_path, monkeypatch, capsys,
 @pytest.mark.parametrize("opt", ["--replicate-to"])
 def test_checkpoint_options_still_exit_later(tmp_path, monkeypatch, capsys,
                                              opt):
-    """Replication to a mesh router (``--replicate-to http://HOST:PORT``)
-    is the one checkpoint option still refused: nothing is written."""
+    """Replication to a mesh router (``--replicate-to http://HOST:PORT``),
+    once refused, is taken: with no router listening each bundle costs a
+    warning, never the run (tests/test_torch_mesh_transport.py ships to a
+    live one)."""
     from hpnn_tpu_torch.cli import train_nn_main
 
     _setup(tmp_path, monkeypatch)
-    with pytest.raises(SystemExit) as exc:
-        train_nn_main(["--epochs", "2", opt, "http://127.0.0.1:1",
-                       "--device", "cpu", "nn.conf"])
-    assert exc.value.code != 0
-    assert "later slice" in capsys.readouterr().err
-    assert not (tmp_path / "kernel.tmp").exists()
+    monkeypatch.setenv("HPNN_REPLICATE_ATTEMPTS", "1")
+    rc = train_nn_main(["-v", "--epochs", "2", "--ckpt-every", "1", opt,
+                        "http://127.0.0.1:1", "--device", "cpu", "nn.conf"])
+    io_ = capsys.readouterr()
+    assert rc == 0 and "later slice" not in io_.err
+    assert io_.out.count("CKPT: replication of ") == 2
+    assert (tmp_path / "kernel.opt").exists()
 
 
 def test_epochs_on_cuda_without_gpu_exits_nonzero(tmp_path, monkeypatch,

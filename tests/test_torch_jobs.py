@@ -772,15 +772,14 @@ def test_serve_nn_job_options(tmp_path, capsys, monkeypatch):
     assert capsys.readouterr().err == ("serve: --auto-promote is inert "
                                        "without --jobs N (ignored)\n")
     app.close()
-    # a mesh router destination is a later slice's: refused before bind
-    from hpnn_tpu_torch.ckpt.replicate import http_refusal
-
-    for argv, dest in ((["--jobs", "1", "--replicate-to", "http://h:1"],
-                        "http://h:1"),
-                       (["--replicate-to", "https://h:1"], "https://h:1")):
-        assert serve_app([*base, *argv, conf]) == (None, -1)
-        assert capsys.readouterr().err == \
-            f"serve_nn: {http_refusal(dest)}\n"
+    # a mesh router is a replica destination like a directory
+    app, _ = serve_app([*base, "--jobs", "1", "--replicate-to",
+                        "http://h:1", conf])
+    try:
+        assert app.jobs.replicate_to == "http://h:1"
+    finally:
+        app.close()
+    assert capsys.readouterr().err == ""
     # no card: --device cuda exits non-zero before it binds
     import torch
 

@@ -502,6 +502,41 @@ def test_profile_endpoint_on_cpu_torch_profiler(tmp_path):
         stop(httpd, app)
 
 
+def test_live_capture_holds_other_threads_host_operators(tmp_path):
+    """A capture started on one thread (the debug endpoint's handler)
+    records the host operators of every other thread (the batchers, the
+    router's RPC threads): cpu_op rows from a second thread's id."""
+    import threading
+
+    from hpnn_tpu_torch.obs import profiler
+
+    stop_ev = threading.Event()
+    tid = {}
+
+    def work():
+        tid["id"] = threading.get_native_id()
+        a = torch.randn(64, 64)
+        while not stop_ev.is_set():
+            a = a @ a
+            a = a / a.norm()
+
+    profiler.start(str(tmp_path / "prof"))
+    t = threading.Thread(target=work)
+    try:
+        t.start()
+        time.sleep(0.3)
+    finally:
+        stop_ev.set()
+        t.join()
+        rec = profiler.stop()
+    with open(rec["trace_file"]) as fp:
+        events = json.load(fp)["traceEvents"]
+    ops = [e for e in events
+           if e.get("cat") == "cpu_op" and e.get("tid") == tid["id"]]
+    assert {"aten::mm", "aten::div"} <= {e["name"] for e in ops}
+    assert rec["threads"] == "all"
+
+
 def test_metrics_families_with_sampler_and_spool(tmp_path):
     from test_torch_jobs import stop
 

@@ -155,7 +155,8 @@ def test_run_nn_subprocess_imports_no_jax(tmp_path):
     checkpoints and a replica) and run_nn on the CPU, then run_nn with
     ``--corpus-cache`` cold and warm (the warm load from the pack, through
     the native loader), then ``python -m hpnn_tpu_torch.obs.tool`` over a
-    span spool, and then proves that neither jax nor any hpnn_tpu module
+    span spool, imports the serve mesh and the SLO tracker, and then
+    proves that neither jax nor any hpnn_tpu module
     was imported."""
     conf = _write_case(tmp_path, kind="SNN")
     train_conf = tmp_path / "train.conf"
@@ -201,6 +202,9 @@ def test_run_nn_subprocess_imports_no_jax(tmp_path):
         "                         run_name='__main__')\n"
         "    except SystemExit as exc:\n"
         "        assert exc.code == 0, (cmd, exc.code)\n"
+        "import hpnn_tpu_torch.obs.slo\n"
+        "import hpnn_tpu_torch.serve.mesh\n"
+        "assert 'hpnn_tpu_torch.serve.mesh.router' in sys.modules\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith('jax.') or m == 'hpnn_tpu'\n"
         "             or m.startswith('hpnn_tpu.'))\n"

@@ -195,8 +195,13 @@ def test_serve_unported_flag_and_missing_gpu(tmp_path, capsys):
     from hpnn_tpu_torch.cli import serve_nn_main
 
     conf, _ = _write_conf(tmp_path)
-    assert serve_nn_main(["--mesh", "4", "--device", "cpu", conf]) != 0
+    assert serve_nn_main(["--autoscale", "1:2", "--device", "cpu",
+                          conf]) != 0
     assert "later slice" in capsys.readouterr().err
+    # the JAX data-mesh tier has no counterpart: a refusal of its own
+    assert serve_nn_main(["--mesh", "4", "--device", "cpu", conf]) != 0
+    err = capsys.readouterr().err
+    assert err.startswith("serve_nn: --mesh ") and "later slice" not in err
     assert serve_nn_main(["-p", "0", conf]) != 0  # cuda by default
     assert "no GPU is visible" in capsys.readouterr().err
 

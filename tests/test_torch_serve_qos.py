@@ -34,8 +34,8 @@ def _serve(pkg):
         from hpnn_tpu.serve.mesh import qos
     else:
         import hpnn_tpu_torch.serve as s
-        from hpnn_tpu_torch.serve import (batcher, metrics, qos, registry,
-                                          server)
+        from hpnn_tpu_torch.serve import batcher, metrics, registry, server
+        from hpnn_tpu_torch.serve.mesh import qos
     return s, batcher, metrics, registry, server, qos
 
 
@@ -136,7 +136,7 @@ def _batcher(pkg, model, **kw):
                                    "-1", "hi"])
 def test_parse_priority_matches_jax(value):
     from hpnn_tpu.serve.mesh import qos as jq
-    from hpnn_tpu_torch.serve import qos as pq
+    from hpnn_tpu_torch.serve.mesh import qos as pq
 
     def outcome(q):
         try:
@@ -152,7 +152,7 @@ def test_parse_priority_matches_jax(value):
                                    "soon", "nan", "inf", ""])
 def test_parse_deadline_ms_matches_jax(value):
     from hpnn_tpu.serve.mesh import qos as jq
-    from hpnn_tpu_torch.serve import qos as pq
+    from hpnn_tpu_torch.serve.mesh import qos as pq
 
     def outcome(q):
         try:
@@ -694,11 +694,10 @@ def test_metrics_after_traffic_match_jax(tmp_path):
                     if k != "last_reload_ts"}
     assert info == {"generation": 1, "kind": "ANN", "trainer": "bp",
                     "route": "strict"}
-    # the JAX package's autoscale and trace-sampling families wait for the
-    # serve mesh and tracing; the port adds its kernel launch count
-    jfam = _prom_families(pj) - {"hpnn_serve_desired_workers",
-                                 "hpnn_serve_drain_rows_per_sec"}
-    assert _prom_families(pp) == jfam | {"hpnn_kernel_launches_total"}
+    # the JAX package's families, the autoscale signal's among them; the
+    # port adds its kernel launch count
+    assert _prom_families(pp) == \
+        _prom_families(pj) | {"hpnn_kernel_launches_total"}
 
 
 def _http(base, path, payload=None, headers=None):

@@ -609,22 +609,33 @@ def test_serve_nn_new_options(tmp_path, capsys, monkeypatch):
                       conf]) == (None, -1)
     assert "--trace-sample must be in [0, 1]: 1.5 (ABORTING)" in \
         capsys.readouterr().err
-    for opt in ("--mesh", "--shed-low", "--mesh-role", "--router",
-                "--standby",
-                "--primary", "--takeover-after", "--router-token",
-                "--require-router", "--advertise", "--workers",
-                "--mesh-health-interval", "--autoscale",
-                "--autoscale-cooldown", "--quota-rows",
-                "--quota-burst", "--slo-p99-ms", "--slo-availability"):
+    # the standby router and the autoscaler wait for a later slice
+    for opt in ("--standby", "--primary", "--takeover-after", "--autoscale",
+                "--autoscale-cooldown"):
         assert serve_app([opt, "1", "--device", "cpu", conf]) == (None, 2)
         assert f"serve_nn: {opt} is not ported yet" in \
             capsys.readouterr().err
-    # the jobs options are ported; a mesh router as the replica
-    # destination is not (the refusal train_nn gives it)
-    assert serve_app(["--replicate-to", "http://h:1", "--device", "cpu",
-                      conf]) == (None, -1)
-    assert "serve_nn: --replicate-to http://h:1: replication to a mesh " \
-        "router is not ported yet" in capsys.readouterr().err
+    assert serve_app(["--mesh-role", "standby", "--device", "cpu",
+                      conf]) == (None, 2)
+    assert "serve_nn: --mesh-role standby is not ported yet" in \
+        capsys.readouterr().err
+    # the JAX data-mesh tier has a refusal of its own, never an
+    # ambiguous abbreviation of --mesh-role/--mesh-health-interval
+    assert serve_app(["--mesh", "1", "--device", "cpu", conf]) == (None, 2)
+    err = capsys.readouterr().err
+    assert err.startswith("serve_nn: --mesh shards") and "ambig" not in err
+    # admission, the mesh roles and a mesh router as the replica
+    # destination are ported
+    app, args = serve_app(["--shed-low", "--quota-rows", "5",
+                           "--quota-burst", "9", "--slo-p99-ms", "50",
+                           "--slo-availability", "0.99", "--replicate-to",
+                           "http://h:1", "--device", "cpu", conf])
+    try:
+        assert app.quota.rate == 5.0 and app.quota.burst == 9.0
+        assert app.slo.p99_ms == 50.0 and app.slo.availability == 0.99
+        assert app.shedder is not None and args.replicate_to == "http://h:1"
+    finally:
+        app.close(drain=False)
     assert serve_nn_main(["--compile-cache", "d", "--device", "cpu",
                           conf]) != 0
     err = capsys.readouterr().err

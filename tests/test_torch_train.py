@@ -554,13 +554,12 @@ def test_train_nn_cuda_without_gpu_exits_nonzero(tmp_path, monkeypatch,
     assert not (tmp_path / "kernel.opt").exists()
 
 
-# the JAX package's train_nn options the port does not have yet (the
-# checkpoint options are ported: tests/test_torch_ckpt.py; the corpus-cache
-# options too: test_train_nn_corpus_cache_option below; --model-parallel:
-# test_train_nn_model_parallel_option_takes_the_tp_route); a mesh router is
-# the one --replicate-to destination still refused
-UNPORTED_TRAIN_OPTIONS = {"--compile-cache": "2",
-                          "--replicate-to": "http://127.0.0.1:1"}
+# the JAX package's train_nn options the port does not have (the
+# checkpoint options are ported: tests/test_torch_ckpt.py, a mesh-router
+# --replicate-to destination included; the corpus-cache options too:
+# test_train_nn_corpus_cache_option below; --model-parallel:
+# test_train_nn_model_parallel_option_takes_the_tp_route)
+UNPORTED_TRAIN_OPTIONS = {"--compile-cache": "2"}
 
 
 def test_train_nn_model_parallel_option_takes_the_tp_route(tmp_path,
