@@ -234,7 +234,7 @@ fault; no phase catches its own failure.
    holds ``jobs.run`` -> 2 ``train.epoch`` with ``ckpt.snapshot_write``
    and ``serve.hot_swap`` under them, ``?trace=events`` its slice grant
    and ``?timeline=1`` its ``job.state`` transitions; 2 ``train_epoch``
-   launches.  Last, 8 clients of 1 row for 3 s each with tracing off, on
+   launches.  Last, 8 clients of 1 row for 2 s each with tracing off, on
    and sampled at 0.1 (seeded): their p50/p99 printed.
 24. The serve mesh (run right after phase 23): a generated MNIST
    784-300-10 ANN f64 kernel at ``-b 64``.  8 closed-loop clients of 1
@@ -261,6 +261,38 @@ fault; no phase catches its own failure.
    exactly 2 a batch it served.  Prints the router's phases, worker B's
    start-to-registered and worker C's catch-up time and the phase's
    seconds (the swarm off and heartbeats at 0.3 s for the phase).
+25. The standby router and the autoscaler (run right after phase 24):
+   phase 24's kernel at ``-b 64``; a primary router (``--standby``,
+   ``--autoscale 1:2 --autoscale-cooldown 2``), its standby
+   (``--mesh-role standby --takeover-after 2``, polls every 0.2 s) and
+   worker A, all in process.  8 closed-loop clients of 1 row make the
+   supervisor spawn worker D (``python -m hpnn_tpu_torch.cli serve_nn
+   --mesh-role worker --device cuda``; its spawn-to-registered time); the
+   load stops and D is retired by drain, then SIGTERM (exit 0), with no
+   non-200 reply; then the primary's listener is closed under the load,
+   the standby takes over, every request that failed succeeds on one
+   retry against it (the time from the primary's death to the standby's
+   first 200), worker A's heartbeat follows it.  Every reply bit-identical
+   to the strict forward; worker A's ``fused_linear_act`` exactly 2
+   launches a batch (the routers launch none).
+26. The host-streamed shard mode (run right after phase 25):
+   ``train_nn --epochs 3`` on phase 9's files and conf with
+   ``HPNN_EPOCH_SHARD_ROWS=128`` (4 ``train_epoch`` launches an epoch),
+   ``HPNN_EPOCH_DEVICE_BUDGET_MB=1`` (shards of 1 MiB / 6,352 bytes a row
+   / 2 = 82 rows: 7 launches an epoch) and ``--tile 32`` at 128 rows (4
+   ``train_tile`` launches an epoch): the stream, kernel.tmp and
+   kernel.opt of each byte-identical to phase 16's resident run, each
+   epoch's device time beside it.
+27. The C API (run right after phase 26): ``csrc/hpnn_shim.c`` built by
+   the host compiler with this interpreter's embedding flags, and the
+   unmodified ``native/train_nn.c`` and ``native/run_nn.c`` against it;
+   the C ``train_nn -v -v`` and ``run_nn -v -v`` on phase 9's directory
+   (``HPNN_DEVICE=cuda``) give the stdout, kernel.tmp and kernel.opt of
+   ``python -m hpnn_tpu_torch.cli`` there, byte for byte (the walls of
+   both printed); the port's ``apitest`` passes on the card; and
+   ``_NN(init,all)``, ``_NN(train,kernel)`` and ``_NN(run,kernel)``
+   through ``ctypes.PyDLL`` in this process launch ``train_epoch`` once
+   and ``fused_linear_act`` twice.
 15. One JSON line of every kernel (launches on its main path, the largest
    kernel-vs-plain error over every cell and dtype, times and bound;
    ``fused_linear_act`` adds its B=1 cell and its worst ratio to the
@@ -281,8 +313,14 @@ fault; no phase catches its own failure.
    launches and profiled durations (``obs_launches``,
    ``obs_profile_us``), ``fused_linear_act``'s profiled events and
    launches in the capture (``obs_profile_events``,
-   ``obs_profile_launches``); ``fused_linear_act`` phase 24's worker A
-   launches and batches (``mesh_launches``)), then the result line.
+   ``obs_profile_launches``); ``fused_linear_act`` phase 24's and phase
+   25's worker A launches and batches (``mesh_launches``,
+   ``standby_launches``); ``train_epoch`` and ``train_tile`` their
+   launches and epoch times in phase 26 (``shard_launches``,
+   ``shard_epochs_device_ms``); ``train_epoch`` and ``fused_linear_act``
+   their launches through phase 27's in-process C calls
+   (``c_api_launches``)), a line of each phase's seconds, then the result
+   line.
 
 Main paths: ``fused_linear_act``'s is phases 4-5, ``train_epoch``'s phase 9
 and ``train_tile``'s phase 12 (train_nn, then run_nn of its kernel, which
@@ -290,8 +328,10 @@ launches ``fused_linear_act`` too), phase 16's two ``--epochs`` runs,
 phase 17's checkpointed, killed and resumed runs, phase 18's runs and
 phase 19's server (``serve_rest_launches``), phase 21's TP routes
 (``tp_launches``), phase 22's server and jobs (``jobs_launches``) and
-phase 23's traced run and capture (``obs_*``) and phase 24's worker A
-(``mesh_launches``; the router launches nothing); every count is set to
+phase 23's traced run and capture (``obs_*``), phase 24's worker A
+(``mesh_launches``; the router launches nothing), phase 25's
+(``standby_launches``), phase 26's sharded runs (``shard_launches``) and
+phase 27's C calls (``c_api_launches``); every count is set to
 0 just before a path and read
 just after it.  ``fused_bpm_update`` has no caller on any
 path, as in the JAX package: its ``launches`` are the paths' (0), its
@@ -1785,6 +1825,8 @@ def _train_epochs(root, extra, env=None):
                     "fused_bpm_update": fused_bpm_update.launches}
         with open("kernel.opt") as fp:
             opt = fp.read()
+        with open("kernel.tmp") as fp:
+            tmp = fp.read()
     finally:
         os.chdir(cwd)
         for k, v in old.items():
@@ -1796,6 +1838,7 @@ def _train_epochs(root, extra, env=None):
         raise AssertionError(f"train_nn --epochs {EPOCHS} {extra}: rc={rc}"
                              f"\n{err.getvalue()[-2000:]}")
     return {"out": out.getvalue(), "err": err.getvalue(), "opt": opt,
+            "tmp": tmp,
             "wall_s": wall, "launches": launches,
             "metrics": dict(api.EPOCH_METRICS)}
 
@@ -1866,6 +1909,8 @@ def phase_train_epochs(e2e):
                          res["opt"].encode()).hexdigest(),
                      "out_sha256": hashlib.sha256(
                          res["out"].encode()).hexdigest(),
+                     "tmp_sha256": hashlib.sha256(
+                         res["tmp"].encode()).hexdigest(),
                      "restage_wall_s": restage["wall_s"],
                      "epoch_device_ms": met["device_ms"],
                      "epoch_iters": iters,
@@ -2658,6 +2703,14 @@ def phase_serve_rest(e2e, tmp, card):
 # --- phase 20: the batched trainers ----------------------------------------
 
 BATCH_FILES = 4096          # phase 20: the [batch] runs' corpora
+# phase 20's [batch] runs (corpus, dtype, batch, train): both batch sizes
+# and both trainers at f64, one batch size each for bf16 and the XRD f32
+# corpus (a cut of the full 3 x 2 x 2 grid, for the run's time limit)
+DP_CELLS = (("mnist", "f64", 32, "BP"), ("mnist", "f64", 32, "BPM"),
+            ("mnist", "f64", 128, "BP"), ("mnist", "f64", 128, "BPM"),
+            ("mnist", "bf16", 32, "BP"), ("mnist", "bf16", 32, "BPM"),
+            ("xrd", "f32", 128, "BP"), ("xrd", "f32", 128, "BPM"))
+DIST_FILES = 128            # phase 20: the HPNN_DISTRIBUTED runs' files
 CG_LIMIT = {"f64": 1e-9, "f32": 1e-2}   # batched search vs transcription
 DIST_LIMIT_S = 120          # phase 20: each gloo rank's time limit
 
@@ -2838,53 +2891,50 @@ def phase_batched(e2e, tmp):
         dirs[name] = os.path.join(root, f"{name}{BATCH_FILES}")
         _write_samples(dirs[name], bx, bt, bl)
     done("write_4096")
-    for corpus, topo, dtype in (("mnist", MNIST, "f64"),
-                                ("mnist", MNIST, "bf16"),
-                                ("xrd", XRD, "f32")):
-        for bsz in (32, 128):
-            for train in ("BP", "BPM"):
-                tag = f"{corpus} {dtype} batch {bsz} {train}"
-                cwd = _b_conf(os.path.join(root, "dp", tag.replace(" ", "_")),
-                              "ANN", train, topo, dirs[corpus],
-                              f"[batch] {bsz}\n[dtype] {dtype}\n")
-                run = _ckpt_train(cwd, ["--epochs", str(EPOCHS), "nn.conf"])
-                met = run["metrics"]
-                nb = -(-BATCH_FILES // bsz)
-                errs = [float(v) for v in
-                        re.findall(r"TRAINING BATCH\s+\d+\t err=\s*(\S+)",
-                                   run["out"])]
-                if met["mode"] != "dp-resident" \
-                        or met["h2d_bytes"] != EPOCHS * nb * bsz * 4 \
-                        or len(met["device_ms"]) != EPOCHS \
-                        or len(errs) != EPOCHS * nb \
-                        or not np.all(np.isfinite(errs)) \
-                        or sum(run["launches"].values()) != 0:
-                    raise AssertionError(f"[batch] {tag}: {met}, "
-                                         f"{len(errs)} batch lines, "
-                                         f"launches {run['launches']}")
-                dms = met["device_ms"]
-                res["dp"][tag] = {
-                    "epoch_device_ms": dms, "wall_s": run["wall_s"],
-                    "samples_per_s": BATCH_FILES * EPOCHS / sum(dms) * 1e3,
-                    "h2d_bytes": met["h2d_bytes"],
-                    "setup_h2d_bytes": met["setup_h2d_bytes"],
-                    "first_err": errs[0], "last_epoch_mean_err":
-                        float(np.mean(errs[-nb:]))}
-                log(f"[batch] {tag}: epochs' device time "
-                    + ", ".join(f"{m:.1f}" for m in dms) + " ms = "
-                    f"{res['dp'][tag]['samples_per_s']:.0f} samples/s; "
-                    f"H2D {met['h2d_bytes']} bytes over the epochs (the "
-                    f"slot maps) and {met['setup_h2d_bytes']} once; wall "
-                    f"{run['wall_s']:.2f} s")
-                if tag == "mnist f64 batch 32 BPM":
-                    re_run = _ckpt_train(cwd, ["--epochs", str(EPOCHS),
-                                               "nn.conf"],
-                                         {"HPNN_NO_EPOCH_PIPELINE": "1"})
-                    if (re_run["out"], re_run["sha"]) != (run["out"],
-                                                          run["sha"]):
-                        raise AssertionError(f"[batch] {tag}: the restaging "
-                                             "route differs")
-                    res["dp"][tag]["restage_wall_s"] = re_run["wall_s"]
+    for corpus, dtype, bsz, train in DP_CELLS:
+        topo = MNIST if corpus == "mnist" else XRD
+        tag = f"{corpus} {dtype} batch {bsz} {train}"
+        cwd = _b_conf(os.path.join(root, "dp", tag.replace(" ", "_")),
+                      "ANN", train, topo, dirs[corpus],
+                      f"[batch] {bsz}\n[dtype] {dtype}\n")
+        run = _ckpt_train(cwd, ["--epochs", str(EPOCHS), "nn.conf"])
+        met = run["metrics"]
+        nb = -(-BATCH_FILES // bsz)
+        errs = [float(v) for v in
+                re.findall(r"TRAINING BATCH\s+\d+\t err=\s*(\S+)",
+                           run["out"])]
+        if met["mode"] != "dp-resident" \
+                or met["h2d_bytes"] != EPOCHS * nb * bsz * 4 \
+                or len(met["device_ms"]) != EPOCHS \
+                or len(errs) != EPOCHS * nb \
+                or not np.all(np.isfinite(errs)) \
+                or sum(run["launches"].values()) != 0:
+            raise AssertionError(f"[batch] {tag}: {met}, "
+                                 f"{len(errs)} batch lines, "
+                                 f"launches {run['launches']}")
+        dms = met["device_ms"]
+        res["dp"][tag] = {
+            "epoch_device_ms": dms, "wall_s": run["wall_s"],
+            "samples_per_s": BATCH_FILES * EPOCHS / sum(dms) * 1e3,
+            "h2d_bytes": met["h2d_bytes"],
+            "setup_h2d_bytes": met["setup_h2d_bytes"],
+            "first_err": errs[0], "last_epoch_mean_err":
+                float(np.mean(errs[-nb:]))}
+        log(f"[batch] {tag}: epochs' device time "
+            + ", ".join(f"{m:.1f}" for m in dms) + " ms = "
+            f"{res['dp'][tag]['samples_per_s']:.0f} samples/s; "
+            f"H2D {met['h2d_bytes']} bytes over the epochs (the "
+            f"slot maps) and {met['setup_h2d_bytes']} once; wall "
+            f"{run['wall_s']:.2f} s")
+        if tag == "mnist f64 batch 32 BPM":
+            re_run = _ckpt_train(cwd, ["--epochs", str(EPOCHS),
+                                       "nn.conf"],
+                                 {"HPNN_NO_EPOCH_PIPELINE": "1"})
+            if (re_run["out"], re_run["sha"]) != (run["out"],
+                                                  run["sha"]):
+                raise AssertionError(f"[batch] {tag}: the restaging "
+                                     "route differs")
+            res["dp"][tag]["restage_wall_s"] = re_run["wall_s"]
     replay_ms, replay_host = _dp_replay(dirs["mnist"], 32)
     res["dp_replay"] = {"cell": "mnist f64 batch 32 BPM, one epoch",
                         "ms": replay_ms, "host_ms": replay_host}
@@ -2951,8 +3001,11 @@ def phase_batched(e2e, tmp):
         f"{'bit-identical' if bitwise else f'within {werr:.3e}'}")
     done("tile")
     # --- HPNN_DISTRIBUTED: world 1 on NCCL, 2 gloo ranks, the bailout
+    dist_files = os.path.join(root, f"mnist{DIST_FILES}")
+    _write_samples(dist_files, *_bar_corpus(DIST_FILES, MNIST,
+                                            tuple(range(10)), 5))
     dist_root = _b_conf(os.path.join(root, "dist"), "ANN", "BPM", MNIST,
-                        mnist512, "[batch] 32\n")
+                        dist_files, "[batch] 32\n")
     argv = ["-v", "-v", "-v", "--epochs", "2", "nn.conf"]
     one = _ckpt_train(dist_root, argv)
     with socket.socket() as so:
@@ -2983,7 +3036,7 @@ def phase_batched(e2e, tmp):
     with open(os.path.join(dist_root, "nn.conf")) as fp:
         text = fp.read()
     with open(bad, "w") as fp:
-        fp.write(text.replace(mnist512, mnist512 + "_missing"))
+        fp.write(text.replace(dist_files, dist_files + "_missing"))
     t0 = time.perf_counter()
     bail = _gloo_ranks(2, dist_root, ["-v", "-v"], confs=["nn.conf",
                                                           "bad.conf"])
@@ -3376,7 +3429,7 @@ def _gloo_ranks(world, cwd, argv, confs=None):
 
 JOB_CLIENTS = 8             # phase 22: closed-loop client threads
 JOB_ROWS = (1, 64)          # phase 22: request sizes, alternated
-JOB_QUIET_S = 3.0           # phase 22: traffic alone, before job A
+JOB_QUIET_S = 2.0           # phase 22: traffic alone, before job A
 JOB_B_FILES = 64            # phase 22: job B's uploaded files
 JOB_B_CHUNKS = 4            # phase 22: ... in this many chunks
 JOB_B_EPOCHS = 2
@@ -3744,8 +3797,8 @@ OBS_CLIENTS = 8             # phase 23: closed-loop client threads
 OBS_ROWS = (1, 64)          # phase 23: request sizes, alternated
 OBS_LOAD_S = 3.0            # phase 23: traced load, the capture inside it
 OBS_PROFILE_S = 2.0         # phase 23: POST /v1/debug/profile seconds
-OBS_COST_S = 1.5            # phase 23: a tracing mode's 1-row window
-# phase 23: the windows, in turns (each mode 3 s in all), after one
+OBS_COST_S = 1.0            # phase 23: a tracing mode's 1-row window
+# phase 23: the windows, in turns (each mode 2 s in all), after one
 # untraced window before any profile in the server's life
 OBS_COST_MODES = ("off", "on", "sample 0.1", "sample 0.1", "on", "off")
 OBS_JOB_FILES = 64          # phase 23: the traced job's files
@@ -4224,8 +4277,8 @@ def phase_observability(e2e, epochs_runs, tmp, card):
 
 MESH_CLIENTS = 8            # phase 24: closed-loop client threads
 MESH_ROWS = (1, 64)         # phase 24: request sizes, alternated
-MESH_LAT_S = 3.0            # phase 24: each 1-row latency window
-MESH_LOAD_S = 3.0           # phase 24: each mixed window (reload, kill)
+MESH_LAT_S = 2.0            # phase 24: each 1-row latency window
+MESH_LOAD_S = 2.0           # phase 24: each mixed window (reload, kill)
 MESH_QUOTA_SHARE = 3.0      # phase 24: --quota-rows = plain rows/s / this
 MESH_QUOTA_BURST = 256.0    # phase 24: --quota-burst
 MESH_NINTH = 32             # phase 24: the over-quota key's threads
@@ -4673,6 +4726,504 @@ def phase_mesh(tmp, card, device="cuda"):
     return res
 
 
+# --- phase 25: the standby router and the autoscaler -----------------------
+
+SBY_CLIENTS = 8             # phase 25: closed-loop clients of 1 row
+SBY_TAKEOVER_AFTER = 2      # phase 25: --takeover-after
+SBY_POLL_S = "0.2"          # phase 25: HPNN_MESH_STANDBY_POLL_S
+SBY_COOLDOWN_S = 2.0        # phase 25: --autoscale-cooldown
+SBY_LOAD_S = 2.0            # phase 25: the load after the takeover
+
+
+def _free_port() -> int:
+    with socket.socket() as so:
+        so.bind(("127.0.0.1", 0))
+        return so.getsockname()[1]
+
+
+def _failover_load(bases, pool, seconds, during, ready):
+    """``SBY_CLIENTS`` closed-loop clients of 1 row against ``bases[0]``;
+    ``during()`` is called half a second in (it kills the primary).  A
+    request that fails (no connection, or a 503) is retried ONCE against
+    ``bases[1]`` after ``ready()``, and the client stays there: the
+    documented client contract of a router pair.  Returns (answers,
+    failures, retries, the monotonic time of the first 200 from
+    ``bases[1]``)."""
+    import http.client
+
+    answers, failures, retries, first = [], [], [], []
+    stop = threading.Event()
+
+    def post(base, lo):
+        try:
+            return _http(base, "/v1/kernels/mnist/infer",
+                         {"inputs": pool[lo:lo + 1].tolist()})
+        except (OSError, http.client.HTTPException) as exc:
+            return -1, repr(exc)
+
+    def client(i):
+        base, k = bases[0], i
+        while not stop.is_set():
+            lo = (97 * k + 31 * i) % (SERVE_POOL - 1)
+            k += 1
+            st, body = post(base, lo)
+            if st != 200 and base == bases[0] and st in (-1, 503):
+                ready()
+                base = bases[1]
+                st, body = post(base, lo)
+                retries.append((i, st))
+            if st != 200:
+                failures.append((base, st, body))
+                continue
+            if base == bases[1] and not first:
+                first.append(time.monotonic())
+            answers.append((lo, 1, body["generation"],
+                            np.asarray(body["outputs"], np.float64), 0.0))
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(SBY_CLIENTS)]
+    for t in threads:
+        t.start()
+    try:
+        time.sleep(0.5)
+        during()
+        time.sleep(seconds)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=120)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("standby (phase 25): a client hung")
+    return answers, failures, retries, first[0] if first else None
+
+
+def phase_standby_autoscale(tmp, card, device="cuda"):
+    """Phase 25: a primary router (``--standby``, ``--autoscale 1:2``),
+    its passive standby and worker A in process on the card, serving the
+    generated MNIST 784-300-10 ANN f64 kernel at ``-b 64``.  A backlog of 8
+    closed-loop clients of 1 row makes the supervisor spawn worker D (a
+    ``hpnn_tpu_torch.cli`` process on the card); the load stops and D is
+    retired by drain, then SIGTERM; then the primary's listener is closed
+    under load, the standby takes over after ``--takeover-after`` missed
+    polls, every failed request succeeds on one retry against it, and
+    worker A's heartbeat follows.  Every reply bit-identical to the strict
+    forward; worker A's ``fused_linear_act`` 2 launches a batch, the
+    routers' none."""
+    import torch
+
+    from hpnn_tpu_torch import cli
+    from hpnn_tpu_torch.obs import trace as obs_trace
+    from hpnn_tpu_torch.ops.kernels import fused_linear_act
+    from hpnn_tpu_torch.serve.server import serve_in_thread
+
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "standby_phase")
+    os.makedirs(root)
+    gen1 = os.path.join(root, "mnist.opt")
+    _dump_generated(gen1, MNIST, 24)
+    conf = os.path.join(root, "mnist.conf")
+    _serve_conf(conf, "mnist", gen1, MNIST, "f64")
+    pool = _inputs(np.random.default_rng(25), SERVE_POOL, MNIST[0], "pixel")
+    refs = {1: _strict_pool(gen1, torch.float64, pool)}
+    env = {"HPNN_MESH_HEARTBEAT_S": MESH_HEARTBEAT_S, "HPNN_MESH_SWARM": "0",
+           "HPNN_MESH_STANDBY_POLL_S": SBY_POLL_S,
+           "HPNN_AUTOSCALE_POLL_S": "0.2",
+           # any backlog asks for the second worker: the card drains a
+           # queued row in far less than the default 1 s target
+           "HPNN_MESH_TARGET_DRAIN_S": "1e-6"}
+    env_keep = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    serve_args = ["-p", "0", "--device", device, "--no-warmup", "-b", "64",
+                  "-q", str(64 * MESH_CLIENTS)]
+    res, servers = {}, []
+    sport = _free_port()
+    saddr = f"127.0.0.1:{sport}"
+    spawned = {}
+    try:
+        fused_linear_act.launches = 0       # worker A's from here
+        with contextlib.redirect_stdout(io.StringIO()):
+            primary, pargs = cli.serve_app([
+                *serve_args, "--mesh-role", "router", "--workers", "1",
+                "--mesh-health-interval", "0.2", "--standby", saddr,
+                "--autoscale", "1:2", "--autoscale-cooldown",
+                str(SBY_COOLDOWN_S), conf])
+        phttpd, _ = serve_in_thread(primary, "127.0.0.1", 0)
+        servers.append((phttpd, primary))
+        pport = phttpd.server_address[1]
+        paddr, pbase = f"127.0.0.1:{pport}", f"http://127.0.0.1:{pport}"
+        with contextlib.redirect_stdout(io.StringIO()):
+            standby, sargs = cli.serve_app([
+                *serve_args, "--mesh-role", "standby", "--primary", paddr,
+                "--takeover-after", str(SBY_TAKEOVER_AFTER),
+                "--mesh-health-interval", "0.2", conf])
+        shttpd, _ = serve_in_thread(standby, "127.0.0.1", sport)
+        servers.append((shttpd, standby))
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.start_mesh(standby, sargs, sport)
+            wa, wa_args = cli.serve_app([*serve_args, "--mesh-role",
+                                         "worker", "--router", paddr, conf])
+        ahttpd, _ = serve_in_thread(wa, "127.0.0.1", 0)
+        servers.append((ahttpd, wa))
+        aaddr = "127.0.0.1:%d" % ahttpd.server_address[1]
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.start_mesh_worker(wa, wa_args, ahttpd.server_address[1])
+        _mesh_wait(pbase, lambda t: t["live"] == 1, "worker A live")
+        # the supervisor after A: at its floor of 1 it spawns nothing
+        # until a backlog asks for a second worker
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.start_mesh(primary, pargs, pport)
+        sup = primary.autoscaler
+        spawn = sup._spawn_subprocess
+
+        def timed_spawn():
+            spawned["t0"] = time.monotonic()
+            m = spawned["managed"] = spawn()
+            return m
+
+        sup._spawn_subprocess = timed_spawn
+
+        def d_live():
+            t_end = time.monotonic() + 180.0
+            while time.monotonic() < t_end:
+                tbl = _mesh_table(pbase)["workers"]
+                live = [a for a, w in tbl.items()
+                        if a != aaddr and w["state"] == "live"]
+                if live:
+                    spawned["live_t"] = time.monotonic()
+                    return live[0]
+                time.sleep(0.05)
+            raise AssertionError("autoscale (phase 25): worker D never "
+                                 f"registered: {sup.snapshot()}")
+
+        # (1) the backlog spawns worker D
+        answers, lat, failures, daddr = _mesh_load(pbase, pool, (1,),
+                                                   1.0, d_live)
+        _mesh_check("autoscale spawn", answers, failures, refs)
+        if sup.spawns_total != 1 or "managed" not in spawned:
+            raise AssertionError(f"autoscale (phase 25): {sup.snapshot()}")
+        proc = spawned["managed"].proc
+        cmd = proc.args
+        if cmd[1:5] != ["-u", "-m", "hpnn_tpu_torch.cli", "serve_nn"] \
+                or cmd[cmd.index("--device") + 1] != device:
+            raise AssertionError(f"autoscale (phase 25): spawned {cmd}")
+        res["spawn_to_registered_s"] = spawned["live_t"] - spawned["t0"]
+        res["d_routed"] = _mesh_table(pbase)["workers"][daddr]["routed"]
+        res["backlog_answers"] = len(answers)
+        # (2) the load stops: D retired by drain, then SIGTERM
+        t0 = time.monotonic()
+        _mesh_wait(pbase, lambda t: daddr not in t["workers"],
+                   "worker D retired")
+        res["retire_s"] = time.monotonic() - t0
+        if sup.retires_total != 1 or proc.wait(timeout=60) != 0:
+            raise AssertionError(f"autoscale (phase 25): retire "
+                                 f"{sup.snapshot()}, rc {proc.returncode}")
+        res["supervisor"] = sup.snapshot()
+        _mesh_wait(f"http://{saddr}", lambda t: aaddr in t["workers"],
+                   "the standby's mirror of worker A")
+
+        # (3) the primary's listener closed under load; (4) one retry
+        death = {}
+
+        def kill_primary():
+            death["t"] = time.monotonic()
+            phttpd.shutdown()
+            phttpd.abort_connections()
+            phttpd.server_close()
+            primary.close(drain=False)
+
+        def standby_ready():
+            t_end = time.monotonic() + 60.0
+            while time.monotonic() < t_end:
+                try:
+                    st, _ = _http(f"http://{saddr}", "/healthz", None,
+                                  method="GET")
+                except OSError:
+                    st = -1
+                if st == 200:
+                    return
+                time.sleep(0.02)
+            raise AssertionError("standby (phase 25): never ready")
+
+        answers, failures, retries, first = _failover_load(
+            (pbase, f"http://{saddr}"), pool, SBY_LOAD_S, kill_primary,
+            standby_ready)
+        servers.remove((phttpd, primary))
+        _mesh_check("takeover", answers, failures, refs)
+        mon = standby.mesh_standby
+        if mon.passive or mon.takeovers_total != 1 or first is None \
+                or any(st != 200 for _, st in retries):
+            raise AssertionError(f"standby (phase 25): {mon.info()}, "
+                                 f"retries {retries[:4]}")
+        agent = wa.mesh_worker
+        t_end = time.monotonic() + 30.0
+        while (agent.current != saddr or not agent.registered) \
+                and time.monotonic() < t_end:
+            time.sleep(0.05)
+        if agent.current != saddr or not agent.registered:
+            raise AssertionError("worker A (phase 25): its heartbeat did "
+                                 f"not follow the standby: {agent.info()}")
+        res["takeover"] = {"death_to_first_200_s": first - death["t"],
+                           "answers": len(answers),
+                           "retries": len(retries),
+                           "misses": mon.misses,
+                           "takeover_after": mon.takeover_after}
+        res["worker_a"] = {"launches": fused_linear_act.launches,
+                           "batches": wa.metrics.batches_total}
+        if res["worker_a"]["launches"] != 2 * res["worker_a"]["batches"] \
+                or res["worker_a"]["batches"] <= 0:
+            raise AssertionError(f"worker A (phase 25): {res['worker_a']}")
+        res["router_batches"] = {"primary": primary.metrics.batches_total,
+                                 "standby": standby.metrics.batches_total}
+    finally:
+        managed = spawned.get("managed")
+        if managed is not None and managed.proc.poll() is None:
+            managed.proc.kill()
+            managed.proc.wait()
+        for httpd, app in reversed(servers):
+            httpd.shutdown()
+            httpd.server_close()
+            app.close(drain=True)
+        obs_trace.set_role(None)
+        for k, v in env_keep.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    res["seconds"] = time.perf_counter() - t_phase
+    tk = res["takeover"]
+    log(f"standby + autoscale (phase 25) ({card}): worker D spawn-to-"
+        f"registered {res['spawn_to_registered_s']:.2f} s (routed "
+        f"{res['d_routed']} batches), retired by drain then SIGTERM "
+        f"{res['retire_s']:.2f} s after the load stopped, 0 non-200 in "
+        f"{res['backlog_answers']} replies; primary closed under load: "
+        f"standby's first 200 {tk['death_to_first_200_s']:.3f} s after, "
+        f"{tk['retries']} requests retried once, {tk['answers']} replies "
+        f"bit-identical to the strict forward; worker A fused_linear_act "
+        f"{res['worker_a']['launches']} launches = 2 x "
+        f"{res['worker_a']['batches']} batches; phase "
+        f"{res['seconds']:.1f} s")
+    return res
+
+
+# --- phase 26: the host-streamed shard mode ---------------------------------
+
+SHARD_ROW_BYTES = (MNIST[0] + MNIST[2]) * 8    # 6,352 bytes a f64 row
+# (tag, train_nn arguments, environment, kernel, launches an epoch, the
+# phase-16 run it equals)
+SHARD_RUNS = (
+    ("per sample, 128-row shards", (), {"HPNN_EPOCH_SHARD_ROWS": "128"},
+     "train_epoch", 4, "per-sample"),
+    ("per sample, 1 MiB budget", (), {"HPNN_EPOCH_DEVICE_BUDGET_MB": "1"},
+     "train_epoch", 7, "per-sample"),
+    (f"tile {TRAIN_TILE}, 128-row shards", ("--tile", str(TRAIN_TILE)),
+     {"HPNN_EPOCH_SHARD_ROWS": "128"}, "train_tile", 4,
+     f"tile {TRAIN_TILE}"))
+
+
+def phase_shard(e2e, epochs_runs):
+    """Phase 26: ``train_nn --epochs 3`` in the host-streamed shard mode on
+    phase 9's files and conf: each epoch's rows uploaded a shard at a time
+    on the io pool while the previous shard trains; one ``train_epoch``
+    (or ``train_tile``) launch a shard.  Stream, kernel.tmp and kernel.opt
+    byte-identical to phase 16's resident run; each epoch's device time
+    beside it."""
+    out = {}
+    for tag, extra, env, kernel, per_epoch, base in SHARD_RUNS:
+        res = _train_epochs(e2e["root"], extra, env)
+        met, ref = res["metrics"], epochs_runs[base]
+        other = "train_tile" if kernel == "train_epoch" else "train_epoch"
+        if met["mode"] != "sharded" or met["epochs"] != EPOCHS \
+                or res["launches"][kernel] != per_epoch * EPOCHS \
+                or res["launches"][other] != 0 \
+                or met["h2d_bytes"] != EPOCHS * TRAIN_FILES * SHARD_ROW_BYTES \
+                or len(met["device_ms"]) != EPOCHS:
+            raise AssertionError(f"shard mode (phase 26) {tag}: launches "
+                                 f"{res['launches']}, EPOCH_METRICS {met}")
+        for part, key in (("out", "out_sha256"), ("opt", "opt_sha256"),
+                          ("tmp", "tmp_sha256")):
+            if hashlib.sha256(res[part].encode()).hexdigest() != ref[key]:
+                raise AssertionError(f"shard mode (phase 26) {tag}: {part} "
+                                     f"differs from phase 16's {base} run")
+        out[tag] = {"launches": res["launches"][kernel],
+                    "epoch_device_ms": met["device_ms"],
+                    "resident_epoch_device_ms": ref["epoch_device_ms"],
+                    "wall_s": res["wall_s"], "resident_wall_s": ref["wall_s"],
+                    "h2d_bytes": met["h2d_bytes"], "stage_s": met["stage_s"]}
+        log(f"shard mode (phase 26) {tag}: {kernel} launched "
+            f"{res['launches'][kernel]} times in {EPOCHS} epochs; epochs' "
+            f"device time " + ", ".join(f"{m:.1f}" for m in met["device_ms"])
+            + " ms (resident " + ", ".join(
+                f"{m:.1f}" for m in ref["epoch_device_ms"])
+            + f" ms); H2D {met['h2d_bytes']} bytes; wall {res['wall_s']:.2f}"
+            f" s (resident {ref['wall_s']:.2f} s); stream, kernel.tmp and "
+            "kernel.opt byte-identical to phase 16's")
+    return out
+
+
+# --- phase 27: the C API -----------------------------------------------------
+
+def _c_run(cmd, cwd, env):
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=cwd, capture_output=True, text=True,
+                          env=env, timeout=300)
+    return proc, time.perf_counter() - t0
+
+
+def _apitest_corpus(root):
+    """apitest's corpus: one 6-input, 3-output sample at samples/s00."""
+    os.makedirs(os.path.join(root, "samples"))
+    os.makedirs(os.path.join(root, "tests"))
+    x = np.random.default_rng(4242).uniform(-1, 1, 6)
+    x[0] += 2.0
+    with open(os.path.join(root, "samples", "s00"), "w") as fp:
+        fp.write("[input] 6\n" + " ".join(f"{v:7.5f}" for v in x)
+                 + "\n[output] 3\n1.0 -1.0 -1.0\n")
+
+
+def phase_c_api(e2e, tmp, card, device="cuda"):
+    """Phase 27: the C API on the card.  ``csrc/hpnn_shim.c`` built into
+    ``libhpnn_tpu_torch-<sha16>.so`` and the unmodified
+    ``native/{train_nn,run_nn}.c`` against it; the C ``train_nn -v -v`` and
+    ``run_nn -v -v`` on phase 9's directory (its listing order) give the
+    stdout, kernel.tmp and kernel.opt of ``python -m hpnn_tpu_torch.cli``
+    there, byte for byte; the port's ``apitest`` passes; and
+    ``_NN(init,all)``, ``_NN(train,kernel)`` and ``_NN(run,kernel)`` driven
+    in process through ``ctypes.PyDLL`` launch ``train_epoch`` once and
+    ``fused_linear_act`` twice."""
+    import ctypes
+
+    from hpnn_tpu_torch import cli, runtime
+    from hpnn_tpu_torch.ops import build
+    from hpnn_tpu_torch.ops.convergence_kernel import train_epoch_kernel
+    from hpnn_tpu_torch.ops.kernels import fused_linear_act
+
+    t_phase = time.perf_counter()
+    res = {}
+    t0 = time.perf_counter()
+    lib = build.shim_library()
+    progs = {n: build.c_program(n) for n in build.C_PROGRAMS}
+    res["build_s"] = time.perf_counter() - t0
+    root = e2e["root"]
+    keep = {}
+    for f in ("kernel.tmp", "kernel.opt"):
+        with open(os.path.join(root, f), "rb") as fp:
+            keep[f] = fp.read()
+    env = dict(os.environ, PYTHONPATH=ROOT, HPNN_DEVICE=device)
+
+    def files():
+        got = {}
+        for f in ("kernel.tmp", "kernel.opt"):
+            with open(os.path.join(root, f), "rb") as fp:
+                got[f] = fp.read()
+        return got
+
+    try:
+        py, py_s = _c_run([sys.executable, "-m", "hpnn_tpu_torch.cli",
+                           "train_nn", "-v", "-v", "--device", device,
+                           "nn.conf"], root, env)
+        py_files = files()
+        c, c_s = _c_run([progs["train_nn"], "-v", "-v", "nn.conf"], root,
+                        env)
+        if py.returncode != 0 or c.returncode != 0:
+            raise AssertionError(f"C API (phase 27) train_nn: rc python "
+                                 f"{py.returncode}, C {c.returncode}\n"
+                                 f"{c.stderr[-2000:]}{py.stderr[-2000:]}")
+        if c.stdout != py.stdout or files() != py_files \
+                or c.stdout.count("N_ITER=") != TRAIN_FILES:
+            raise AssertionError("C API (phase 27): the C train_nn's stdout, "
+                                 "kernel.tmp or kernel.opt differ from "
+                                 "python -m hpnn_tpu_torch.cli's")
+        res["train_nn_wall_s"] = {"c": c_s, "python": py_s}
+        rc, rc_s = _c_run([progs["run_nn"], "-v", "-v", "run.conf"], root,
+                          env)
+        pr, pr_s = _c_run([sys.executable, "-m", "hpnn_tpu_torch.cli",
+                           "run_nn", "-v", "-v", "--device", device,
+                           "run.conf"], root, env)
+        n_pass = rc.stdout.count("[PASS]")
+        if rc.returncode != 0 or pr.returncode != 0 \
+                or rc.stdout != pr.stdout or n_pass < 0.8 * TRAIN_FILES:
+            raise AssertionError(f"C API (phase 27) run_nn: rc C "
+                                 f"{rc.returncode}, python {pr.returncode}, "
+                                 f"PASS {n_pass}, streams equal "
+                                 f"{rc.stdout == pr.stdout}")
+        res["run_nn_wall_s"] = {"c": rc_s, "python": pr_s}
+        res["pass"] = n_pass
+        # the port's apitest: the whole _NN surface on the card
+        api_dir = os.path.join(tmp, "apitest")
+        _apitest_corpus(api_dir)
+        at, at_s = _c_run([progs["apitest"]], api_dir, env)
+        if at.returncode != 0 or not at.stdout.endswith("APITEST PASS\n"):
+            raise AssertionError(f"C API (phase 27) apitest: rc "
+                                 f"{at.returncode}\n{at.stdout[-1000:]}"
+                                 f"{at.stderr[-1000:]}")
+        res["apitest_wall_s"] = at_s
+        # in process: the interpreter lock held across each call
+        cwd = os.getcwd()
+        os.chdir(root)
+        old_dev = os.environ.get("HPNN_DEVICE")
+        os.environ["HPNN_DEVICE"] = device
+        try:
+            pl = ctypes.PyDLL(lib)
+            pl.nn_load_conf.restype = ctypes.c_void_p
+            pl.nn_load_conf.argtypes = [ctypes.c_char_p]
+            for fn in ("nn_train_kernel", "nn_run_kernel", "nn_free_conf"):
+                getattr(pl, fn).argtypes = [ctypes.c_void_p]
+            cuda_bit = 1 << 2     # NN_CAP_CUDA: a GPU is visible
+            if pl.nn_init_all(0) != 0 or (device == "cuda") != bool(
+                    pl.nn_return_capabilities() & cuda_bit):
+                raise AssertionError("C API (phase 27): _NN(init,all) on "
+                                     "the card failed")
+            conf = pl.nn_load_conf(b"nn.conf")
+            train_epoch_kernel.launches = fused_linear_act.launches = 0
+            ok = pl.nn_train_kernel(conf)
+            b1 = train_epoch_kernel.launches
+            pl.nn_run_kernel(conf)
+            b2 = fused_linear_act.launches
+            pl.nn_free_conf(conf)
+            pl.nn_deinit_all()
+        finally:
+            os.chdir(cwd)
+            if old_dev is None:
+                os.environ.pop("HPNN_DEVICE", None)
+            else:
+                os.environ["HPNN_DEVICE"] = old_dev
+            runtime.pin_full_float32()
+        if ok != 1 or b1 != 1 or b2 != 2:
+            raise AssertionError(f"C API (phase 27) in process: train "
+                                 f"{ok}, train_epoch {b1} launches, "
+                                 f"fused_linear_act {b2}")
+        res["in_process"] = {"train_epoch": b1, "fused_linear_act": b2}
+    finally:
+        for f, data in keep.items():
+            with open(os.path.join(root, f), "wb") as fp:
+                fp.write(data)
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"C API (phase 27) ({card}): library and 3 programs built in "
+        f"{res['build_s']:.1f} s; C train_nn -v -v wall "
+        f"{res['train_nn_wall_s']['c']:.2f} s (python -m "
+        f"hpnn_tpu_torch.cli {res['train_nn_wall_s']['python']:.2f} s), "
+        f"C run_nn {res['run_nn_wall_s']['c']:.2f} s (python "
+        f"{res['run_nn_wall_s']['python']:.2f} s): stdout, kernel.tmp and "
+        f"kernel.opt byte-identical, run_nn PASS {res['pass']}/{TRAIN_FILES};"
+        f" apitest passed ({res['apitest_wall_s']:.2f} s); in process "
+        f"through ctypes.PyDLL: train_epoch {b1} launch, fused_linear_act "
+        f"{b2}; phase {res['seconds']:.1f} s")
+    return res
+
+
+PHASE_SECONDS: dict[str, float] = {}   # phase -> wall seconds, in run order
+
+
+def _phase(name, fn, *args):
+    """Run one phase, its wall seconds kept under ``name``."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        PHASE_SECONDS[name] = PHASE_SECONDS.get(name, 0.0) \
+            + time.perf_counter() - t0
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4707,23 +5258,24 @@ def main(argv=None) -> int:
 
     t_start = time.perf_counter()
     runtime.pin_full_float32()
-    card = phase_device()
-    built = phase_build()
-    errs = phase_kernel_vs_plain()
-    invariance_plans = phase_invariance()
-    train, first_launch = phase_train_vs_plain()
-    resume_launches = phase_resume()
-    tile_runs = phase_tile_vs_plain()
-    contracts = phase_tile_contracts()
+    card = _phase("1 device", phase_device)
+    built = _phase("2 build", phase_build)
+    errs = _phase("3 kernel vs plain", phase_kernel_vs_plain)
+    invariance_plans = _phase("14 invariance", phase_invariance)
+    train, first_launch = _phase("7 train_epoch vs plain",
+                                 phase_train_vs_plain)
+    resume_launches = _phase("8 resume contract", phase_resume)
+    tile_runs = _phase("10 train_tile vs plain", phase_tile_vs_plain)
+    contracts = _phase("11 tile contracts", phase_tile_contracts)
     with tempfile.TemporaryDirectory(prefix="hpnn_chip_smoke_") as tmp:
-        runs = _setup_runs(tmp)
+        runs = _phase("4 corpora", _setup_runs, tmp)
         reset_counts()                         # fused_linear_act's path
-        results = phase_run_nn(runs)
-        phase_serve(runs, results)
+        results = _phase("4 run_nn", phase_run_nn, runs)
+        _phase("5 serve_nn", phase_serve, runs, results)
         launches = fused_linear_act.launches
         bpm_path = fused_bpm_update.launches   # no path calls it
         reset_counts()                         # train_epoch's path
-        e2e = phase_train_nn(tmp)
+        e2e = _phase("9 train_nn", phase_train_nn, tmp)
         train_launches = train_epoch_kernel.launches
         train_path_fused = fused_linear_act.launches
         bpm_path += fused_bpm_update.launches
@@ -4734,9 +5286,9 @@ def main(argv=None) -> int:
                 f"{train_path_fused}")
         log(f"train path launches: train_epoch {train_launches}, "
             f"fused_linear_act {train_path_fused}")
-        epoch = phase_train_time(e2e)
+        epoch = _phase("9 epoch time", phase_train_time, e2e)
         reset_counts()                         # train_tile's path
-        tile_e2e = phase_train_nn_tile(e2e)
+        tile_e2e = _phase("12 train_nn --tile", phase_train_nn_tile, e2e)
         tile_launches = train_tile.launches
         tile_path = {"train_tile": tile_launches,
                      "train_epoch": train_epoch_kernel.launches,
@@ -4748,23 +5300,35 @@ def main(argv=None) -> int:
                                  f"{tile_path}")
         log("tile path launches: " + ", ".join(
             f"{k} {v}" for k, v in tile_path.items()))
-        epochs_runs = phase_train_epochs(e2e)   # each run counts from 0
+        # from here each path's run sets the counts to 0 itself
+        epochs_runs = _phase("16 --epochs", phase_train_epochs, e2e)
         bpm_path += sum(r["launches"]["fused_bpm_update"]
                         for r in epochs_runs.values())
-        ckpt_runs = phase_ckpt_resume(e2e, epochs_runs)   # each run too
+        ckpt_runs = _phase("17 --resume", phase_ckpt_resume, e2e,
+                           epochs_runs)
         bpm_path += sum(r["fused_bpm_update"] for r in ckpt_runs.values())
-        corpus_res = phase_corpus(e2e, tmp)      # each run counts from 0
-        serve_rest = phase_serve_rest(e2e, tmp, card)  # from 0 too
-        tile_epoch = phase_tile_time(e2e, tile_e2e, epoch)
-        tuned = phase_autotune(tmp)
-        tile_auto = phase_tile_auto(e2e, tuned, tile_epoch)
-        batched = phase_batched(e2e, tmp)       # each run counts from 0
-        tp_res = phase_tp(e2e, tmp, runs, results, epochs_runs)  # from 0
-        jobs_res = phase_jobs(e2e, epochs_runs, tmp, card)     # from 0
-        obs_res = phase_observability(e2e, epochs_runs, tmp, card)  # from 0
-        mesh_res = phase_mesh(tmp, card)         # from 0 too
-    cells = phase_times()
-    bpm = phase_bpm()
+        corpus_res = _phase("18 corpus", phase_corpus, e2e, tmp)
+        serve_rest = _phase("19 serve_nn rest", phase_serve_rest, e2e,
+                            tmp, card)
+        tile_epoch = _phase("12 tile time", phase_tile_time, e2e,
+                            tile_e2e, epoch)
+        tuned = _phase("12 autotune", phase_autotune, tmp)
+        tile_auto = _phase("12 tile auto", phase_tile_auto, e2e, tuned,
+                           tile_epoch)
+        batched = _phase("20 batched", phase_batched, e2e, tmp)
+        tp_res = _phase("21 [model]", phase_tp, e2e, tmp, runs, results,
+                        epochs_runs)
+        jobs_res = _phase("22 jobs", phase_jobs, e2e, epochs_runs, tmp,
+                          card)
+        obs_res = _phase("23 observability", phase_observability, e2e,
+                         epochs_runs, tmp, card)
+        mesh_res = _phase("24 mesh", phase_mesh, tmp, card)
+        sby_res = _phase("25 standby + autoscale",
+                         phase_standby_autoscale, tmp, card)
+        shard_res = _phase("26 shard mode", phase_shard, e2e, epochs_runs)
+        capi_res = _phase("27 C API", phase_c_api, e2e, tmp, card)
+    cells = _phase("6 device times", phase_times)
+    bpm = _phase("13 fused_bpm_update", phase_bpm)
     rep = next(c for c in cells if c["layer"] == "784->300"
                and c["dtype"] == "f32" and c["B"] == 4096)
     rep1 = next(c for c in cells if c["layer"] == "784->300"
@@ -4816,7 +5380,9 @@ def main(argv=None) -> int:
         "obs_profile_launches": obs_res["serve"]["profile"]["launches"],
         "obs_profile_us_per_batch":
             obs_res["serve"]["profile"]["b2_us_per_batch"],
-        "mesh_launches": mesh_res["worker_a"]}, {
+        "mesh_launches": mesh_res["worker_a"],
+        "standby_launches": sby_res["worker_a"],
+        "c_api_launches": capi_res["in_process"]["fused_linear_act"]}, {
         "name": "train_epoch", "route": "cuda",
         "source": "hpnn_tpu_torch/csrc/train_epoch.cu",
         "replaces": "hpnn_tpu/ops/convergence_pallas.py:208",
@@ -4857,7 +5423,13 @@ def main(argv=None) -> int:
         "jobs_launches": jobs_res["b1_launches"],
         "jobs_epochs_device_ms": jobs_res["epoch_device_ms"],
         "obs_launches": obs_res["train"]["launches"]["train_epoch"],
-        "obs_profile_us": obs_res["train"]["b1_profile_us"]}, {
+        "obs_profile_us": obs_res["train"]["b1_profile_us"],
+        "shard_launches": {t: r["launches"] for t, r in shard_res.items()
+                           if not t.startswith("tile")},
+        "shard_epochs_device_ms": {
+            t: r["epoch_device_ms"] for t, r in shard_res.items()
+            if not t.startswith("tile")},
+        "c_api_launches": capi_res["in_process"]["train_epoch"]}, {
         "name": "train_tile", "route": "cuda",
         "source": "hpnn_tpu_torch/csrc/train_tile.cu",
         "replaces": "hpnn_tpu/ops/convergence_tile.py:423",
@@ -4909,7 +5481,12 @@ def main(argv=None) -> int:
         "batch_tile_epoch_ms": batched["tile"]["epoch_ms"],
         "batch_tile_lane_iters_per_s": batched["tile"]["lane_iters_per_s"],
         "batch_tile_vs_plain_bitwise": batched["tile"]["bitwise"],
-        "batch_tile_max_abs_err": batched["tile"]["max_abs_err"]}, {
+        "batch_tile_max_abs_err": batched["tile"]["max_abs_err"],
+        "shard_launches": {t: r["launches"] for t, r in shard_res.items()
+                           if t.startswith("tile")},
+        "shard_epochs_device_ms": {
+            t: r["epoch_device_ms"] for t, r in shard_res.items()
+            if t.startswith("tile")}}, {
         "name": "fused_bpm_update", "route": "cuda",
         "source": "hpnn_tpu_torch/csrc/fused_bpm_update.cu",
         "replaces": "hpnn_tpu/ops/pallas_kernels.py:141",
@@ -4949,12 +5526,18 @@ def main(argv=None) -> int:
                        "jobs": jobs_res,
                        "observability": obs_res,
                        "mesh": mesh_res,
+                       "standby_autoscale": sby_res,
+                       "shard": shard_res,
+                       "c_api": capi_res,
+                       "phase_seconds": PHASE_SECONDS,
                        "invariance_plans": invariance_plans,
                        "bpm": bpm,
                        "errors": [{"layer": k[0], "scale": k[1],
                                    "dtype": k[2], "B": k[3],
                                    "max_abs_err": v}
                                   for k, v in errs.items()]}, fp, indent=1)
+    log("chip_smoke: phase seconds " + json.dumps(
+        {k: round(v, 3) for k, v in PHASE_SECONDS.items()}))
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     log(json.dumps(kernels))

@@ -66,8 +66,9 @@ around a restaged epoch (and so no resident pipeline under it); the
 pipeline's ``corpus_load``, ``corpus_gather``, ``device_launch`` and
 ``stats_drain`` spans.  The resident ``[batch]`` epoch gathers its batch
 rows on the card inside its ``device_launch`` span, where the JAX
-package's resident DP program gathers inside its launch; the JAX
-package's host-streamed shard mode has no counterpart here.  Spans and
+package's resident DP program gathers inside its launch; the host-streamed
+shard mode takes one ``device_launch`` span a shard (``mode="sharded"``,
+``shard_lo``).  Spans and
 phases are host intervals: a launch returns before the card finishes,
 and nothing here synchronizes for them.
 """
@@ -100,7 +101,6 @@ from .utils.nn_log import nn_cout, nn_dbg, nn_error, nn_out, nn_warn
 from .utils.trace import phase, trace_enabled, trace_weights
 
 DTYPES = {"f64": torch.float64, "f32": torch.float32, "bf16": torch.bfloat16}
-LATER = "is not ported yet: a later slice of hpnn_tpu_torch brings it"
 
 
 @dataclasses.dataclass
@@ -119,6 +119,26 @@ class NNDef:
     # the CG trainer's carry (cg_d, cg_g, cg_meta: unpadded float64), the
     # snapshot payload a resume restores
     trainer_state: dict | None = None
+
+    # _NN(get,n_inputs) and _NN(get,n_outputs) (libhpnn.c:1013-1066)
+    @property
+    def n_inputs(self) -> int:
+        return self.kernel.n_inputs if self.kernel else 0
+
+    @property
+    def n_outputs(self) -> int:
+        return self.kernel.n_outputs if self.kernel else 0
+
+
+def dump_kernel_def(nn: NNDef, fp) -> bool:
+    """_NN(dump,kernel) (libhpnn.c:996-1008): the kernel in the reference's
+    text format to ``fp``; False without a kernel."""
+    from .io.kernel_io import dump_kernel
+
+    if nn.kernel is None:
+        return False
+    dump_kernel(nn.kernel, fp)
+    return True
 
 
 def configure(path: str) -> NNDef | None:
@@ -927,6 +947,8 @@ class _EpochPipeline:
 
     Modes: ``resident`` (per sample, or the batched-tile engine under
     ``[tile]``: one ``train_epoch`` or ``train_tile`` launch an epoch),
+    ``sharded`` (the same engines on a corpus over the device budget: see
+    below),
     ``dp-resident`` (``[batch]``: the permutation scattered into batch
     slots, gathered and reshaped on the card, the minibatch epoch of
     ``parallel.dp`` on the flat weight carry; in a multi-process run each
@@ -940,6 +962,20 @@ class _EpochPipeline:
     join points (a snapshot, the end); a clamp warning is re-emitted each
     epoch after that epoch's banner, where the restaging route prints it.
 
+    A corpus larger than the device budget (``HPNN_EPOCH_DEVICE_BUDGET_MB``;
+    unset, half the card's free memory when the pipeline is built, or on
+    the CPU the JAX package's 4096 MB), or a forced
+    ``HPNN_EPOCH_SHARD_ROWS`` below the row count, takes the ``sharded``
+    mode: the corpus stays on the host, each epoch's shuffled selection is
+    cut into shards of ``shard_rows`` rows (two shards live at once, so
+    the budget's half a shard), each shard is gathered on the host from the
+    listing-order rows and uploaded on ``io.corpus.io_pool()`` (pinned
+    memory and a copy stream, ordered before the launch by an event) while
+    the previous shard trains, and the weights stay on the card from launch
+    to launch: one ``train_epoch`` (or ``train_tile``) launch a shard, the
+    stats concatenated.  Per sample this is the resident trajectory bit for
+    bit; a ``[batch]`` or ``[model]`` corpus over the budget restages.
+
     The trajectory is bit-identical to the restaging route (a cast then a
     gather equals a gather then a cast; the master weights round-trip
     through float64 losslessly; a masked slot contributes exactly zero
@@ -948,7 +984,7 @@ class _EpochPipeline:
 
     def __init__(self, rc, dtype: torch.dtype, device: torch.device,
                  dp: str | None = None, mesh=None, tp: bool = False,
-                 tp_warn: str | None = None):
+                 tp_warn: str | None = None, shard_rows: int = 0):
         self.rc = rc                      # ResidentCorpus (listing order)
         self.dtype = dtype
         self.wdtype = torch.float32 if dtype == torch.bfloat16 else dtype
@@ -958,7 +994,10 @@ class _EpochPipeline:
         self.tp = tp                      # pure [model], per sample
         self.tp_warn = tp_warn            # the clamp warning, each epoch
         hybrid = mesh is not None and mesh.n_model > 1
+        self.shard_rows = shard_rows      # > 0: the host-streamed mode
+        self._copy_stream = None          # its uploads' stream on a card
         self.mode = ("tp-resident" if tp else
+                     "sharded" if shard_rows else
                      {None: "resident",
                       "sgd": "dp-tp-resident" if hybrid else "dp-resident",
                       "tiled": "dp-tiled-resident"}[dp])
@@ -1019,18 +1058,29 @@ class _EpochPipeline:
                 tp_warn = (f"[model] {shards} > {world} visible "
                            f"device(s); using {world}\n")
             mesh = make_mesh(1, n_model, device=device)
-        pipe = cls(rc, dtype_of(conf), device, dp=dp, mesh=mesh, tp=tp,
-                   tp_warn=tp_warn)
-        # the one corpus upload of the run
-        pipe.x_dev = _upload_rows(rc, "x", pipe.dtype, device)
-        pipe.t_dev = _upload_rows(rc, "t", pipe.dtype, device)
-        EPOCH_METRICS["setup_h2d_bytes"] += (pipe.x_dev.nbytes
-                                             + pipe.t_dev.nbytes)
-        rc.release_rows()
+        dtype = dtype_of(conf)
+        row_bytes = ((rc.X.shape[1] + rc.T.shape[1])
+                     * torch.empty((), dtype=dtype).element_size())
+        shard_rows = _shard_rows(rc.n_rows, row_bytes, n_data, device)
+        if shard_rows and (dp or tp):
+            nn_dbg("epoch pipeline: [batch]/[model] corpus over the "
+                   "per-device budget (host-stream sharding is "
+                   "single-device machinery); restaging\n")
+            return None
+        pipe = cls(rc, dtype, device, dp=dp, mesh=mesh, tp=tp,
+                   tp_warn=tp_warn, shard_rows=shard_rows)
+        if not shard_rows:
+            # the one corpus upload of the run
+            pipe.x_dev = _upload_rows(rc, "x", pipe.dtype, device)
+            pipe.t_dev = _upload_rows(rc, "t", pipe.dtype, device)
+            EPOCH_METRICS["setup_h2d_bytes"] += (pipe.x_dev.nbytes
+                                                 + pipe.t_dev.nbytes)
+            rc.release_rows()
         EPOCH_METRICS["tp_devices"] = n_model
         if dp == "sgd" or tp:
             EPOCH_METRICS["dp_devices"] = n_data
         nn_dbg(f"epoch pipeline: {pipe.mode}, {rc.n_rows} row(s)"
+               + (f", shard={shard_rows}" if shard_rows else "")
                + (f", mesh={n_data}x{n_model}" if mesh is not None else "")
                + "\n")
         return pipe
@@ -1089,6 +1139,13 @@ class _EpochPipeline:
                         "the autotuner does not apply; default launch "
                         "sizing used\n")
             self.pending.append(("out", st["banner"]))
+        if self.shard_rows:
+            self.weights, stats, start, h2d = self._sharded_epoch(
+                sel, kind, momentum)
+            self.pending.append(_EpochLines(events, stats, self.dtype, kind,
+                                            momentum, nn_log.get_verbosity(),
+                                            start))
+            return h2d
         with obs_trace.span("corpus_gather", rows=int(sel.size)):
             sel_dev, start = self._upload_sel(sel)
             xs = self.x_dev.index_select(0, sel_dev)
@@ -1101,6 +1158,61 @@ class _EpochPipeline:
                                         momentum, nn_log.get_verbosity(),
                                         start))
         return sel.nbytes
+
+    def _sharded_epoch(self, sel, kind: str, momentum: bool):
+        """One shuffled epoch over a corpus kept on the host: shards of
+        ``shard_rows`` rows gathered from the listing-order rows and
+        uploaded on the io_pool while the previous shard trains, the
+        weights carried on the device from launch to launch.  Returns
+        (weights, the concatenated (S, 5) stats, the start event on a card,
+        the bytes uploaded)."""
+        X, T, k = self.rc.X, self.rc.T, self.shard_rows
+        n = int(sel.size)
+        dev, dtype = self.device, self.dtype
+        cuda = dev.type == "cuda"
+        compute = start = None
+        if cuda:
+            if self._copy_stream is None:
+                self._copy_stream = torch.cuda.Stream(dev)
+            compute = torch.cuda.current_stream(dev)
+            start = torch.cuda.Event(enable_timing=True)
+            start.record(compute)
+
+        def prep(lo):
+            # the host gather, then the same cast as the resident upload
+            idx = sel[lo:lo + k]
+            xs = torch.as_tensor(X[idx], dtype=torch.float64).to(dtype)
+            ts = torch.as_tensor(T[idx], dtype=torch.float64).to(dtype)
+            if not cuda:
+                return xs, ts, None
+            xs, ts = xs.pin_memory(), ts.pin_memory()
+            with torch.cuda.stream(self._copy_stream):
+                xs = xs.to(dev, non_blocking=True)
+                ts = ts.to(dev, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(self._copy_stream)
+            return xs, ts, done
+
+        pool = corpus_io.io_pool()
+        w, parts, h2d = self.weights, [], 0
+        nxt = pool.submit(prep, 0)
+        for lo in range(0, n, k):
+            xs, ts, done = nxt.result()
+            if lo + k < n:
+                nxt = pool.submit(prep, lo + k)
+            if done is not None:
+                # the launch waits for its shard's copy; the copy stream's
+                # memory is held until the launch has read it
+                compute.wait_event(done)
+                xs.record_stream(compute)
+                ts.record_stream(compute)
+            h2d += xs.nbytes + ts.nbytes
+            with obs_trace.span("device_launch", shard_lo=lo,
+                                rows=int(xs.shape[0]), mode=self.mode):
+                w, st = self.train_fn(w, xs, ts, kind, momentum, alpha=0.2)
+            parts.append(st)
+        stats = parts[0] if len(parts) == 1 else torch.cat(parts)
+        return w, stats, start, h2d
 
     def _run_epoch_tp(self, nn, events, sel, kind: str,
                       momentum: bool) -> int:
@@ -1259,6 +1371,35 @@ class _EpochPipeline:
             else:
                 nn.kernel.weights = weights_to_numpy(self.weights)
         return sums
+
+
+# the device budget of the epoch pipeline when HPNN_EPOCH_DEVICE_BUDGET_MB
+# is unset: this share of the card's free memory, or on the CPU the JAX
+# package's default, so the CPU tests decide as it does
+BUDGET_FREE_SHARE = 0.5
+CPU_BUDGET_MB = 4096
+
+
+def _shard_rows(n_rows: int, row_bytes: int, n_data: int, dev) -> int:
+    """The sharded mode's rows a shard, or 0 for the resident upload.  A
+    set ``HPNN_EPOCH_SHARD_ROWS`` decides alone (out of range or malformed,
+    it forces the resident upload; the budget is not checked); else a
+    corpus over the device budget (``n_data`` devices share it) gets
+    shards of half the budget each, since two are live at once."""
+    from .utils.env import env_int
+
+    if os.environ.get("HPNN_EPOCH_SHARD_ROWS"):
+        forced = env_int("HPNN_EPOCH_SHARD_ROWS", 0)
+        return forced if 0 < forced < n_rows else 0
+    if dev.type == "cuda":
+        free, _ = torch.cuda.mem_get_info(dev)
+        default_mb = int(free * BUDGET_FREE_SHARE) >> 20
+    else:
+        default_mb = CPU_BUDGET_MB
+    budget = env_int("HPNN_EPOCH_DEVICE_BUDGET_MB", default_mb, lo=0) << 20
+    if budget and n_rows * row_bytes // n_data > budget:
+        return max(1, budget // row_bytes // 2)
+    return 0
 
 
 def _upload_rows(rc, which: str, dtype: torch.dtype, dev) -> torch.Tensor:

@@ -19,9 +19,12 @@
         [--quota-rows F [--quota-burst N]] [--slo-p99-ms F]
         [--slo-availability F] [--shed-low]
         [--mesh-role router [--workers N] [--router-token T]
-        [--mesh-health-interval S]]
+        [--mesh-health-interval S] [--standby HOST:PORT]
+        [--autoscale MIN:MAX [--autoscale-cooldown S]]]
         [--mesh-role worker --router HOST:PORT [--advertise HOST:PORT]
-        [--require-router]] [conf ...]
+        [--require-router]]
+        [--mesh-role standby --primary HOST:PORT [--takeover-after N]
+        [--advertise HOST:PORT]] [conf ...]
 
 ``train_nn`` and ``run_nn`` keep the reference parser
 (``tests/train_nn.c:59-255``, ``tests/run_nn.c:66-234``): flags combine
@@ -68,10 +71,16 @@ and ``train_nn``/``run_nn --profile-dir DIR`` profile the whole run.
 A serve_nn that drains on SIGTERM, or dies of a fault, dumps its flight
 recorder into the job dir (or the cwd).  Every command runs on the GPU
 unless ``--device cpu`` is given; asking for the GPU on a host without
-one exits non-zero before anything is computed.  The JAX package's other
-options (its compilation cache, replication to a mesh router, mesh
-serving, SLO objectives) are refused with a message naming them: later
-slices of the port bring them.
+one exits non-zero before anything is computed.  ``serve_nn --mesh-role
+router|worker|standby`` runs the serve mesh (``serve/mesh/``): a router
+with ``--standby`` and its passive standby with ``--primary`` (takeover
+after ``--takeover-after`` missed polls), and ``--autoscale MIN:MAX`` for
+spawned and retired local workers.  Every option of the JAX package's
+commands is taken, except its XLA compilation cache (``--compile-cache``)
+and its in-process data mesh (``serve_nn --mesh``), which are refused with
+a line of their own; an option neither package knows gets the JAX
+package's answer (the reference's "unrecognized option" and the usage
+text for train_nn/run_nn, argparse's error for serve_nn).
 """
 
 from __future__ import annotations
@@ -80,7 +89,7 @@ import os
 import sys
 
 from . import runtime
-from .api import LATER, configure, run_kernel, train_kernel
+from .api import configure, run_kernel, train_kernel
 from .obs.profiler import profile_run
 from .utils import nn_log
 from .utils.trace import phase
@@ -191,8 +200,10 @@ def _syntax_error(name: str, key: str):
 
 # long options taking a value: option -> (extras key, commands); the
 # checkpoint directory parses for run_nn too (its staleness guard)
+# (--replicate-to parses for run_nn too, which reads nothing of it: the
+# JAX package's run_nn takes it the same way)
 _STR_OPTS = {"--ckpt-dir": ("ckpt_dir", ("train_nn", "run_nn")),
-             "--replicate-to": ("replicate_to", ("train_nn",)),
+             "--replicate-to": ("replicate_to", ("train_nn", "run_nn")),
              "--corpus-cache": ("corpus_cache", ("train_nn", "run_nn")),
              "--profile-dir": ("profile_dir", ("train_nn", "run_nn"))}
 # unsigned long options: option -> (extras key, least value, commands)
@@ -202,6 +213,8 @@ _UINT_OPTS = {"--epochs": ("epochs", 1, ("train_nn",)),
               "--ckpt-keep": ("ckpt_keep", 0, ("train_nn",)),
               "--corpus-cache-max-mb": ("corpus_cache_max_mb", 0,
                                         ("train_nn", "run_nn"))}
+_COMPILE_CACHE_REFUSAL = ("names the JAX package's XLA compilation cache; "
+                          "the port compiles no XLA programs (refused)")
 
 
 def _parse_args(argv: list[str], name: str):
@@ -289,10 +302,15 @@ def _parse_args(argv: list[str], name: str):
             extras[_STR_OPTS[key][0]] = val
             i += 1
             continue
-        if arg.startswith("--"):
-            sys.stderr.write(f"{name}: {key} {LATER}\n")
+        if key == "--compile-cache":
+            # the one option of the JAX package's train_nn/run_nn with no
+            # counterpart here: a line of its own, not a syntax error
+            sys.stderr.write(f"{name}: {key} {_COMPILE_CACHE_REFUSAL}\n")
             raise SystemExit(-1)
         if arg.startswith("-"):
+            # any other option neither package knows falls to the
+            # reference's "unrecognized option" below, as in the JAX
+            # package (its '-' switch character matches no flag)
             j = 1
             while j < len(arg):
                 c = arg[j]
@@ -744,11 +762,24 @@ def _serve_parser():
                     "registered worker processes (no local launches; "
                     "/healthz warms until --workers N are live); "
                     "'worker' serves normally AND registers with "
-                    "--router (heartbeat, generation catch-up).  "
-                    "('standby' is not ported yet.)")
+                    "--router (heartbeat, generation catch-up); "
+                    "'standby' passively mirrors --primary and takes "
+                    "over routing when the primary stops answering")
     ap.add_argument("--router", default=None, metavar="HOST:PORT",
                     help="the router to register with (required for "
                     "--mesh-role worker)")
+    ap.add_argument("--standby", default=None, metavar="HOST:PORT",
+                    help="(router) advertise this standby address in "
+                    "every registration ack, so worker heartbeats fail "
+                    "over to it when this router dies")
+    ap.add_argument("--primary", default=None, metavar="HOST:PORT",
+                    help="(standby) the primary router to mirror and "
+                    "take over from (required for --mesh-role standby)")
+    ap.add_argument("--takeover-after", type=int, default=None,
+                    metavar="N",
+                    help="(standby) consecutive unreachable mirror polls "
+                    "before takeover (default $HPNN_MESH_TAKEOVER_AFTER "
+                    "or 3)")
     ap.add_argument("--router-token", default=None, metavar="TOKEN",
                     help="spill-protection token the router stamps on "
                     "its worker RPCs (X-HPNN-Router) and workers learn "
@@ -771,6 +802,18 @@ def _serve_parser():
                     help="(router) worker health-check period (default "
                     "1.0 s; ejection after HPNN_MESH_EJECT_AFTER "
                     "consecutive misses)")
+    ap.add_argument("--autoscale", default=None, metavar="MIN:MAX",
+                    help="(router) elastic worker lifecycle: a supervisor "
+                    "drives the hpnn_serve_desired_workers gauge by "
+                    "spawning and retiring local worker processes "
+                    "(python -m hpnn_tpu_torch.cli serve_nn --mesh-role "
+                    "worker, on this router's --device) within [MIN, MAX] "
+                    "(drain, then SIGTERM, on retire; HPNN_AUTOSCALE_EXEC "
+                    "replaces the process actions for real fleets)")
+    ap.add_argument("--autoscale-cooldown", type=float, default=None,
+                    metavar="S",
+                    help="least seconds between autoscale actions "
+                    "(default $HPNN_AUTOSCALE_COOLDOWN_S or 30)")
     return ap
 
 
@@ -778,22 +821,11 @@ def _serve_parser():
 # their own: --mesh is prefix of two ported options, so without this line
 # argparse would call it an ambiguous abbreviation
 _SERVE_OWN_REFUSALS = {
-    "--compile-cache": "names the JAX package's XLA compilation cache; "
-                       "the port compiles no XLA programs (refused)",
+    "--compile-cache": _COMPILE_CACHE_REFUSAL,
     "--mesh": "shards the JAX package's fast tier over a data mesh of "
               "devices in one process; the port serves on one card and "
               "has no such tier (refused)",
 }
-
-
-def _serve_refusal(rest: list[str]) -> str:
-    """The stderr line for the first serve_nn option the port does not
-    take: a line of its own for those without a counterpart here
-    (:data:`_SERVE_OWN_REFUSALS`); every other is a later slice's."""
-    key = rest[0].split("=")[0]
-    if key in _SERVE_OWN_REFUSALS:
-        return f"serve_nn: {key} {_SERVE_OWN_REFUSALS[key]}\n"
-    return f"serve_nn: {key} {LATER}\n"
 
 
 def serve_app(argv: list[str]):
@@ -806,27 +838,41 @@ def serve_app(argv: list[str]):
     if own:
         # before argparse: --mesh would otherwise be an ambiguous
         # abbreviation of --mesh-role / --mesh-health-interval
-        sys.stderr.write(_serve_refusal(own))
+        key = own[0].split("=")[0]
+        sys.stderr.write(f"serve_nn: {key} {_SERVE_OWN_REFUSALS[key]}\n")
         return None, 2
     ap = _serve_parser()
     args, rest = ap.parse_known_intermixed_args(argv)
-    if args.mesh_role == "standby":
-        sys.stderr.write(f"serve_nn: --mesh-role standby {LATER}\n")
-        return None, 2
     if rest:
-        sys.stderr.write(_serve_refusal(rest))
+        # an option neither package knows: argparse's own usage and error
+        # lines and exit code 2, as the JAX package's parse_args gives them
+        sys.stderr.write(ap.format_usage() + f"{ap.prog}: error: "
+                         f"unrecognized arguments: {' '.join(rest)}\n")
         return None, 2
     replicate_to = (args.replicate_to or os.environ.get("HPNN_REPLICATE_TO")
                     or None)
+    autoscale = None
+    if args.autoscale is not None:
+        lo, sep, hi = args.autoscale.partition(":")
+        if sep and lo.isdigit() and hi.isdigit() and int(lo) <= int(hi) \
+                and int(hi) >= 1:
+            autoscale = (int(lo), int(hi))
     for bad, msg in (
             (args.mesh_role == "worker" and not args.router,
              "--mesh-role worker requires --router HOST:PORT"),
+            (args.mesh_role == "standby" and not args.primary,
+             "--mesh-role standby requires --primary HOST:PORT"),
             (args.slo_availability is not None
              and not 0.0 <= args.slo_availability < 1.0,
              f"--slo-availability must be in [0, 1): "
              f"{args.slo_availability}"),
             (args.slo_p99_ms is not None and args.slo_p99_ms <= 0.0,
-             f"--slo-p99-ms must be > 0: {args.slo_p99_ms}")):
+             f"--slo-p99-ms must be > 0: {args.slo_p99_ms}"),
+            (args.autoscale is not None and args.mesh_role != "router",
+             "--autoscale requires --mesh-role router"),
+            (args.autoscale is not None and autoscale is None,
+             f"--autoscale must be MIN:MAX with 0 <= MIN <= MAX, MAX >= 1: "
+             f"{args.autoscale!r}")):
         if bad:
             sys.stderr.write(f"{msg} (ABORTING)\n")
             return None, -1
@@ -872,18 +918,30 @@ def serve_app(argv: list[str]):
                    slo_availability=args.slo_availability,
                    require_router=require_router,
                    shed_low=args.shed_low or None)
+    router_token = (args.router_token
+                    or os.environ.get("HPNN_MESH_ROUTER_TOKEN") or None)
     if args.mesh_role == "router":
         # before add_model: batchers are wired to the worker pool at
         # creation, and a router warms nothing on the card
         app.enable_mesh_router(
             required_workers=max(1, args.workers),
             health_interval_s=args.mesh_health_interval,
-            router_token=(args.router_token
-                          or os.environ.get("HPNN_MESH_ROUTER_TOKEN")
-                          or None))
+            standby_addr=args.standby, router_token=router_token)
+        sby = f", standby {args.standby}" if args.standby else ""
         sys.stdout.write(f"SERVE: mesh router (quorum "
                          f"{max(1, args.workers)} worker(s); workers "
-                         "register via POST /v1/mesh/register)\n")
+                         f"register via POST /v1/mesh/register{sby})\n")
+    elif args.mesh_role == "standby":
+        # a full mesh router held passive: it mirrors --primary and takes
+        # over when the primary stops answering its polls
+        app.enable_mesh_standby(
+            args.primary, required_workers=max(1, args.workers),
+            health_interval_s=args.mesh_health_interval,
+            router_token=router_token, takeover_after=args.takeover_after)
+        sys.stdout.write(f"SERVE: mesh standby (mirroring {args.primary}; "
+                         f"takeover after "
+                         f"{app.mesh_standby.takeover_after} missed "
+                         "polls)\n")
     n_ok = 0
     for conf in args.confs:
         model = app.add_model(conf, warmup=warmup_mode != "off",
@@ -943,7 +1001,36 @@ def serve_app(argv: list[str]):
     elif args.auto_promote:
         sys.stderr.write("serve: --auto-promote is inert without "
                          "--jobs N (ignored)\n")
+    args.autoscale_bounds = autoscale
     return app, args
+
+
+def start_mesh(app, args, port: int) -> None:
+    """What serve_nn starts once the socket is bound to ``port``: a
+    standby's advertised address (its mirror polls announce it, so a
+    surviving active router adopts it), the autoscale supervisor (its
+    workers register against this router's real port) and a worker's
+    heartbeat (:func:`start_mesh_worker`)."""
+    if app.mesh_standby is not None:
+        app.mesh_standby.advertise = args.advertise or f"127.0.0.1:{port}"
+    if args.autoscale_bounds is not None:
+        lo, hi = args.autoscale_bounds
+        worker_args = ["--parity", args.parity,
+                       "--fast-threshold", str(args.fast_threshold),
+                       "-b", str(args.max_batch),
+                       "-q", str(args.queue_rows)]
+        if args.trace:
+            worker_args.append("--trace")
+        if args.trace_sample is not None:
+            worker_args += ["--trace-sample", str(args.trace_sample)]
+        app.enable_autoscale(f"127.0.0.1:{port}", list(args.confs),
+                             min_workers=lo, max_workers=hi,
+                             cooldown_s=args.autoscale_cooldown,
+                             worker_args=tuple(worker_args))
+        sys.stdout.write(f"SERVE: autoscale supervisor on [{lo}, {hi}] "
+                         f"workers (cooldown "
+                         f"{app.autoscaler.cooldown_s:g}s)\n")
+    start_mesh_worker(app, args, port)
 
 
 def start_mesh_worker(app, args, port: int) -> None:
@@ -978,7 +1065,7 @@ def serve_nn_main(argv: list[str] | None = None) -> int:
         return args
     httpd = make_server(args.addr, args.port, app)
     host, port = httpd.server_address[:2]
-    start_mesh_worker(app, args, port)
+    start_mesh(app, args, port)
     # unconditional: with -p 0 this line is how a launcher learns the port
     sys.stdout.write(f"SERVE: listening on http://{host}:{port}\n")
     sys.stdout.flush()

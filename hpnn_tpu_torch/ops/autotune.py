@@ -25,8 +25,8 @@ Knobs:
 * ``HPNN_AUTOTUNE=1`` -- measure on the CPU too (tests; by default only a
   CUDA device measures).
 
-The JAX package's other half, the per-sample budgeted-vs-plain decision, is
-not ported: the port's per-sample epoch is always one launch.
+The JAX package's other half, the per-sample budgeted-vs-plain decision,
+has no counterpart here: the port's per-sample epoch is always one launch.
 """
 
 from __future__ import annotations

@@ -12,16 +12,26 @@ kernel builds it, and :func:`build_all` builds every kernel at once (one
 The native sample loader (``csrc/sample_loader.c``, plain C for the host)
 is built the same way by the host C compiler (:func:`host_cc`) at its
 first use; :func:`build_all` builds the CUDA kernels only.
+
+The C API (:func:`shim_library`): ``csrc/hpnn_shim.c`` is built by the
+host C compiler with the embedding flags of the interpreter that builds it
+(``sysconfig``, what ``python3-config --embed`` gives) into
+``libhpnn_tpu_torch-<sha16>.so``, and :func:`c_program` compiles a C program
+of the public API (``native/train_nn.c`` and ``native/run_nn.c``
+unmodified, and the port's ``csrc/apitest.c``) against the port's headers
+(``csrc/include``) and that library, into the same build directory.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import json
 import os
 import shlex
 import shutil
 import subprocess
+import sys
 import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -40,6 +50,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # host library name -> source file under csrc/, built by the C compiler
 HOST_SOURCES = {"sample_loader": "sample_loader.c"}
 CC_FLAGS = ("-O2", "-Wall", "-fPIC", "-shared")
+
+# the C API: its embedding library and the C programs built against it
+SHIM_SOURCE = "hpnn_shim.c"
+INCLUDE = os.path.join(CSRC, "include")
+NATIVE = os.path.join(os.path.dirname(_PKG), "native")
+C_PROGRAMS = {"train_nn": os.path.join(NATIVE, "train_nn.c"),
+              "run_nn": os.path.join(NATIVE, "run_nn.c"),
+              "apitest": os.path.join(CSRC, "apitest.c")}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -151,3 +169,110 @@ def load(name: str) -> ctypes.CDLL:
             if lib is None:
                 lib = _libs[name] = ctypes.CDLL(path)
     return lib
+
+
+def _c_string(value: str) -> str:
+    """``value`` as a C string literal (a -D macro's value)."""
+    return json.dumps(value)
+
+
+def embed_flags() -> tuple[list[str], list[str]]:
+    """(compile flags, link flags) that embed the running interpreter, as
+    ``python3-config --includes`` and ``--ldflags --embed`` give them, plus
+    the paths the library bakes in: the checkout (``HPNN_PYROOT``), this
+    interpreter (``HPNN_PYEXE``; a venv's python makes the embedded one
+    find the venv) and its site-packages (``HPNN_PYSITE``).  Raises when
+    the interpreter has no shared libpython to link."""
+    import site
+    import sysconfig
+
+    var = sysconfig.get_config_var
+    if not var("Py_ENABLE_SHARED"):
+        raise RuntimeError(
+            f"{sys.executable} has no shared libpython (Py_ENABLE_SHARED "
+            "is 0): the C API's library embeds the interpreter and needs "
+            "one")
+    paths = sysconfig.get_paths()
+    sites = [p for p in [*site.getsitepackages(), paths["purelib"],
+                         paths["platlib"]] if os.path.isdir(p)]
+    sites = list(dict.fromkeys(sites))
+    cflags = [f"-I{INCLUDE}", f"-I{paths['include']}",
+              f"-I{paths['platinclude']}",
+              f"-DHPNN_PYROOT={_c_string(os.path.dirname(_PKG))}",
+              f"-DHPNN_PYEXE={_c_string(sys.executable)}",
+              f"-DHPNN_PYSITE={_c_string(':'.join(sites))}"]
+    libdir = var("LIBDIR")
+    ldflags = [f"-L{libdir}", f"-lpython{var('LDVERSION')}",
+               *shlex.split(var("LIBS") or ""),
+               *shlex.split(var("SYSLIBS") or ""), f"-Wl,-rpath,{libdir}"]
+    return cflags, ldflags
+
+
+def _digest(paths, flags) -> str:
+    h = hashlib.sha256()
+    for p in paths:
+        with open(p, "rb") as fp:
+            h.update(fp.read())
+    h.update(" ".join(flags).encode())
+    return h.hexdigest()[:16]
+
+
+def _headers() -> list[str]:
+    return sorted(os.path.join(d, f) for d, _, fs in os.walk(INCLUDE)
+                  for f in fs if f.endswith(".h"))
+
+
+def _compile(cmd: list[str], out: str) -> str:
+    """Run one host-compiler command whose ``-o`` target is ``out``: it
+    writes a temporary name that then replaces ``out``, and its log goes
+    beside ``out``."""
+    tmp = f"{out}.tmp-{os.getpid()}"
+    cmd = [tmp if c == out else c for c in cmd]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with open(out + ".log", "w") as fp:
+        fp.write(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise RuntimeError(f"{os.path.basename(cmd[0])} failed for "
+                           f"{os.path.basename(out)} (exit "
+                           f"{proc.returncode}):\n{proc.stdout}"
+                           f"{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def shim_library() -> str:
+    """Path of the C API's library (``libhpnn_tpu_torch-<sha16>.so``), built
+    first if needed: ``csrc/hpnn_shim.c`` and the headers, hashed with the
+    flags (so another interpreter or checkout builds its own)."""
+    cflags, ldflags = embed_flags()
+    src = os.path.join(CSRC, SHIM_SOURCE)
+    flags = [*CC_FLAGS, *cflags, *ldflags]
+    name = f"libhpnn_tpu_torch-{_digest([src, *_headers()], flags)}.so"
+    out = os.path.join(BUILD_DIR, name)
+    with _lock:
+        if not os.path.isfile(out):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            _compile([*host_cc(), *CC_FLAGS, f"-Wl,-soname,{name}",
+                      *cflags, "-o", out, src, *ldflags], out)
+    return out
+
+
+def c_program(name: str) -> str:
+    """Path of the C program ``name`` (:data:`C_PROGRAMS`) built against
+    the port's headers and :func:`shim_library`, first if needed.  Its
+    source is compiled from an unmodified copy in the build directory, so
+    its ``#include "libhpnn_tpu.h"`` finds the port's header."""
+    lib = shim_library()
+    src = C_PROGRAMS[name]
+    flags = ["-O2", "-Wall", f"-I{INCLUDE}", "-Wl,-rpath,$ORIGIN", lib]
+    out = os.path.join(BUILD_DIR,
+                       f"{name}-{_digest([src, *_headers()], flags)}")
+    with _lock:
+        if not os.path.isfile(out):
+            copy = f"{out}.c"
+            shutil.copyfile(src, copy)
+            _compile([*host_cc(), "-O2", "-Wall", f"-I{INCLUDE}", "-o", out,
+                      copy, lib, "-Wl,-rpath,$ORIGIN"], out)
+    return out

@@ -28,10 +28,15 @@ worker RPC.
 * :mod:`transport` -- the keep-alive RPC layer (pooled connections,
   stale-socket retry, backoff, verified blob fetches).
 * :mod:`chaos`     -- seeded fault injection (``HPNN_FAULT``).
+* :mod:`standby`   -- ``StandbyMonitor``: the passive router mirror
+  (worker table, kernel generations and blobs, spill token) that takes
+  over when the primary stops answering its polls.
+* :mod:`autoscale` -- ``WorkerSupervisor``: the desired-workers gauge as
+  an actuator that spawns and retires local port workers (drain, then
+  SIGTERM), or drives the ``HPNN_AUTOSCALE_EXEC`` hook.
 
 Everything here is stdlib and numpy; torch is touched only by the
-workers' own registries.  The standby router and the autoscaling
-supervisor are not ported yet.
+workers' own registries.
 """
 
 from .backend import NoLiveWorker, RemoteBackend, RemoteHTTPError
@@ -39,11 +44,12 @@ from .events import MESH_TRACE_ID, mesh_event
 from .fleet import FleetObserver
 from .qos import LANE_NAMES, LANES, QuotaTable, desired_workers
 from .router import BlobStore, MeshRouter, WorkerPool
+from .standby import StandbyMonitor
 from .worker import WorkerAgent
 
 __all__ = [
     "NoLiveWorker", "RemoteBackend", "RemoteHTTPError",
     "LANES", "LANE_NAMES", "QuotaTable", "desired_workers",
     "MeshRouter", "WorkerPool", "WorkerAgent", "BlobStore",
-    "FleetObserver", "MESH_TRACE_ID", "mesh_event",
+    "StandbyMonitor", "FleetObserver", "MESH_TRACE_ID", "mesh_event",
 ]

@@ -48,11 +48,19 @@ The serve mesh (``serve/mesh/``): ``serve_nn --mesh-role router``
 (``ServeApp.enable_mesh_router``) fans its batches over registered
 workers through ``mesh.backend.RemoteBackend``; ``--mesh-role worker``
 (``enable_mesh_worker``) serves normally and heartbeats to its router.
+``--mesh-role standby --primary HOST:PORT`` (``enable_mesh_standby``) is a
+router held passive that mirrors the primary's ``GET /v1/mesh/state`` and
+takes over after ``--takeover-after`` missed polls; a primary started with
+``--standby HOST:PORT`` advertises it in every ack, so worker heartbeats
+alternate to it when the primary dies.  ``--autoscale MIN:MAX``
+(``enable_autoscale``) turns the desired-workers gauge into spawned and
+retired local workers (``mesh.autoscale.WorkerSupervisor``).
 
 * ``POST /v1/mesh/register`` -- a worker's heartbeat (``{"addr",
   "kernels", "jobs", "blobs"}``) or goodbye (``{"retiring": true}``); the
   ack carries the fleet's generation and content-addressed blob per
-  kernel and the spill-protection token.  503 without a router role.
+  kernel, the standby's address and the spill-protection token.  503
+  without a router role, or on a passive standby.
 * ``GET /v1/mesh/workers`` -- the worker table; ``GET /v1/mesh/state`` --
   the table and per-kernel blobs (behind the token when one is set);
   ``GET /v1/mesh/blob/<sha256>`` -- a blob's bytes (a worker serves the
@@ -121,8 +129,10 @@ jobs body over its cap; 429 queue full, quota exceeded or shed
 refill or the shed gate's hysteresis; 1 s for the job queue); 501
 profiler unavailable; 503 draining, ``jobs_disabled`` without
 ``--jobs``, ``mesh_disabled``, or no live mesh worker
-(``mesh_unavailable``); 504 deadline exceeded; 507 a bundle the router
-could not spool; 500 anything else.  An error body is ``{"error": <message>,
+(``mesh_unavailable``), or a passive standby (``standby_passive``: the
+client's move is one retry against the other router of the pair); 504
+deadline exceeded; 507 a bundle the router could not spool; 500 anything
+else.  An error body is ``{"error": <message>,
 "reason": <outcome>}``.
 
 ``ThreadingHTTPServer`` gives one thread per connection; they all block
@@ -305,6 +315,8 @@ class ServeApp:
                       if quota_rows and quota_rows > 0 else None)
         self.mesh_router = None  # MeshRouter once enable_mesh_router()
         self.mesh_worker = None  # WorkerAgent when serving as a worker
+        self.mesh_standby = None  # StandbyMonitor on a standby router
+        self.autoscaler = None   # WorkerSupervisor once enable_autoscale()
         # span tracing: an explicit flag wins -- True enables, False
         # disables (even when HPNN_TRACE was set at init_all), None
         # defers to the env
@@ -405,6 +417,11 @@ class ServeApp:
 
     def close(self, drain: bool = True) -> None:
         self._closed = True  # also stops the manifest watchers
+        if self.autoscaler is not None:
+            # first: a supervisor spawning or retiring mid-shutdown would
+            # fight the drain below; its managed workers get the same
+            # drain-then-SIGTERM they get at scale-down
+            self.autoscaler.close()
         if self.jobs is not None:
             # the jobs first: a running job finishes its in-flight epoch,
             # snapshots and lands `interrupted` (resumable) before the
@@ -414,6 +431,8 @@ class ServeApp:
             # the goodbye only on a graceful drain: drain=False stands
             # for a crash and must look like one to the router
             self.mesh_worker.close(goodbye=drain)
+        if self.mesh_standby is not None:
+            self.mesh_standby.close()
         for b in self.batchers.values():
             b.close(drain=drain)
         if self.mesh_router is not None:
@@ -486,13 +505,15 @@ class ServeApp:
     # --- the serve mesh ---------------------------------------------------
     def enable_mesh_router(self, required_workers: int = 1,
                            health_interval_s: float = 1.0,
+                           standby_addr: str | None = None,
                            router_token: str | None = None):
         """Make this app a mesh ROUTER (``serve_nn --mesh-role router``):
         models registered after this call get a ``RemoteBackend`` that
         fans their batches over the worker pool, /healthz reports
         ``warming`` until ``required_workers`` are live, and reloads
         become fleet-coherent broadcasts.  Must run before ``add_model``
-        (the backend is wired at batcher creation).  ``router_token`` pins
+        (the backend is wired at batcher creation).  ``standby_addr``
+        advertises this router's standby to workers; ``router_token`` pins
         the spill-protection secret (default: a random one)."""
         from .mesh.router import MeshRouter
 
@@ -503,9 +524,49 @@ class ServeApp:
         self.mesh_router = MeshRouter(
             self, required=required_workers,
             health_interval_s=health_interval_s,
+            standby_addr=standby_addr,
             router_token=router_token)
         self.metrics.set_mesh_source(self.mesh_router.metrics_snapshot)
         return self.mesh_router
+
+    def enable_mesh_standby(self, primary_addr: str,
+                            required_workers: int = 1,
+                            health_interval_s: float = 1.0,
+                            router_token: str | None = None,
+                            takeover_after: int | None = None,
+                            poll_interval_s: float | None = None):
+        """Make this app the PASSIVE STANDBY of ``primary_addr``
+        (``serve_nn --mesh-role standby --primary HOST:PORT``): a full
+        mesh router whose admission answers 503 ``standby_passive`` while
+        a monitor mirrors the primary (worker table, kernel generations
+        through content-addressed blobs, spill token) and takes over after
+        ``takeover_after`` consecutive unreachable polls.  Must run before
+        ``add_model``, like :meth:`enable_mesh_router`."""
+        from .mesh.standby import StandbyMonitor
+
+        self.enable_mesh_router(required_workers=required_workers,
+                                health_interval_s=health_interval_s,
+                                router_token=router_token)
+        self.mesh_standby = StandbyMonitor(
+            self, primary_addr, takeover_after=takeover_after,
+            poll_interval_s=poll_interval_s).start()
+        return self.mesh_standby
+
+    def standby_passive(self) -> bool:
+        """True while this server is a standby that has not taken over
+        (infer, reload, registration and bundles answer 503)."""
+        return self.mesh_standby is not None and self.mesh_standby.passive
+
+    def _refuse_if_passive(self, reload: bool = False) -> None:
+        """503 ``standby_passive`` on a passive standby: the primary still
+        owns the fleet, and the client's move is one retry against it."""
+        if not self.standby_passive():
+            return
+        primary = self.mesh_standby.primary
+        raise _HTTPError(503, "standby_passive", (
+            "this router is a passive standby; reload through the "
+            f"primary ({primary})") if reload else
+            f"this router is a passive standby of {primary}")
 
     def enable_mesh_worker(self, router_addr: str, advertise: str,
                            interval_s: float | None = None):
@@ -528,6 +589,9 @@ class ServeApp:
             raise _HTTPError(503, "mesh_disabled",
                              "this server is not a mesh router "
                              "(start serve_nn with --mesh-role router)")
+        # a worker's heartbeat loop alternates straight back to the
+        # primary on this 503
+        self._refuse_if_passive()
         try:
             req = json.loads(body.decode("utf-8"))
         except (UnicodeDecodeError, json.JSONDecodeError) as exc:
@@ -572,6 +636,24 @@ class ServeApp:
         if not self.authorized(headers):
             raise _HTTPError(401, "unauthorized",
                              "missing or invalid auth token")
+        # standby re-pairing: a freshly started standby announces itself
+        # on every mirror poll; an ACTIVE router adopts it at run time, so
+        # its registration acks advertise the new pair to workers without
+        # a restart (behind the auth token whenever one is configured)
+        standby = (headers.get("X-HPNN-Standby") or "").strip()
+        if standby and not self.standby_passive():
+            host, _, port = standby.rpartition(":")
+            if (host and port.isdigit() and 0 < int(port) < 65536
+                    and self.mesh_router.standby_addr != standby):
+                from .mesh.events import mesh_event
+
+                prev = self.mesh_router.standby_addr
+                self.mesh_router.standby_addr = standby
+                mesh_event("standby_attached",
+                           f"mesh: standby {standby} attached "
+                           f"(replacing {prev or 'none'}); workers "
+                           "learn it from the next heartbeat ack\n",
+                           standby=standby, previous=prev)
         return self.mesh_router.state_snapshot(bool(self.auth_token))
 
     def handle_mesh_bundle(self, query: str, body: bytes) -> dict:
@@ -585,6 +667,7 @@ class ServeApp:
             raise _HTTPError(503, "mesh_disabled",
                              "this server is not a mesh router "
                              "(start serve_nn with --mesh-role router)")
+        self._refuse_if_passive()
         params = dict(kv.split("=", 1)
                       for kv in query.split("&") if "=" in kv)
         scope = params.get("scope") or ""
@@ -610,18 +693,48 @@ class ServeApp:
             raise _HTTPError(507, "spool_failure",
                              f"bundle spool write failed: {exc}")
 
+    def enable_autoscale(self, router_addr: str, confs: list[str],
+                         min_workers: int = 1, max_workers: int = 4,
+                         cooldown_s: float | None = None,
+                         worker_args: tuple = (),
+                         poll_s: float | None = None,
+                         start: bool = True):
+        """Attach the elastic worker supervisor (``serve_nn --autoscale
+        MIN:MAX`` on a router): the desired-workers gauge becomes an
+        actuator that spawns and retires local port workers on this
+        server's device (or drives the ``HPNN_AUTOSCALE_EXEC`` hook); see
+        ``serve/mesh/autoscale.py``."""
+        from .mesh.autoscale import WorkerSupervisor
+
+        # an auth-enabled router's spawned workers send the token with
+        # their registration heartbeats; env, not argv (ps never shows it)
+        extra_env = ({"HPNN_SERVE_TOKEN": self.auth_token}
+                     if self.auth_token else None)
+        self.autoscaler = WorkerSupervisor(
+            self, router_addr, confs, min_workers=min_workers,
+            max_workers=max_workers, cooldown_s=cooldown_s,
+            poll_s=poll_s, worker_args=worker_args,
+            extra_env=extra_env)
+        if start:
+            self.autoscaler.start()
+        return self.autoscaler
+
     def autoscale_snapshot(self) -> dict:
         """The autoscaling signal /metrics renders: queued rows, the
         measured drain rate and the desired-worker gauge derived from
-        them (``mesh.qos.desired_workers``)."""
+        them (``mesh.qos.desired_workers``); with a supervisor attached,
+        its actuator counters under ``supervisor``."""
         queued = sum(b.depth() for b in self.batchers.values())
         rate = sum(b.drain_rate() for b in self.batchers.values())
         live = (self.mesh_router.pool.live_count()
                 if self.mesh_router is not None else 1)
-        return {"queued_rows": queued,
-                "drain_rows_per_s": round(rate, 2),
-                "live_workers": live,
-                "desired_workers": qos.desired_workers(queued, rate, live)}
+        out = {"queued_rows": queued,
+               "drain_rows_per_s": round(rate, 2),
+               "live_workers": live,
+               "desired_workers": qos.desired_workers(queued, rate, live)}
+        if self.autoscaler is not None:
+            out["supervisor"] = self.autoscaler.snapshot()
+        return out
 
     # --- model lifecycle (hot reload) -----------------------------------
     def reload_model(self, name: str, kernel_path: str | None = None,
@@ -714,9 +827,15 @@ class ServeApp:
             mesh = self.mesh_router.readiness()
         elif self.mesh_worker is not None:
             mesh = self.mesh_worker.info()
+        if self.mesh_standby is not None:
+            # a standby reports its own readiness axis: "passive" (do not
+            # route here) until takeover, then the router quorum contract
+            mesh = dict(mesh or {})
+            mesh.update(self.mesh_standby.info())
         # a mesh router is not ready until a quorum of workers is: its
         # own state says nothing about whether a request could be served
         status = ("draining" if self._closed
+                  else "passive" if self.standby_passive()
                   else "warming" if warming
                   or (mesh is not None and mesh.get("quorum") is False)
                   else "ok")
@@ -902,6 +1021,9 @@ class ServeApp:
         protection, then the shed gate before the rows are parsed, then
         the quota charged per row before the queue (refunded when the
         queue refuses)."""
+        # a passive standby: the documented client move is one retry
+        # against the other router of the pair (the primary)
+        self._refuse_if_passive()
         if self.require_router and self.mesh_worker is not None:
             # spill protection: only the router's stamped traffic is
             # served, so its quotas cannot be bypassed
@@ -1079,6 +1201,7 @@ class ServeApp:
         filesystem needed.  409 when the weights cannot be landed (the
         old weights keep serving), or for a blob without a worker
         agent."""
+        self._refuse_if_passive(reload=True)
         kernel_path = None
         set_generation = None
         blob = None

@@ -146,7 +146,10 @@ def test_run_nn_unported_option_exits_nonzero(tmp_path, capsys):
     with pytest.raises(SystemExit) as exc:
         run_nn_main(["--compile-cache", str(tmp_path), "nn.conf"])
     assert exc.value.code != 0
-    assert "later slice" in capsys.readouterr().err
+    # the JAX package's XLA cache has no counterpart: a line of its own
+    assert capsys.readouterr().err == (
+        "run_nn: --compile-cache names the JAX package's XLA compilation "
+        "cache; the port compiles no XLA programs (refused)\n")
 
 
 def test_run_nn_subprocess_imports_no_jax(tmp_path):
@@ -155,9 +158,9 @@ def test_run_nn_subprocess_imports_no_jax(tmp_path):
     checkpoints and a replica) and run_nn on the CPU, then run_nn with
     ``--corpus-cache`` cold and warm (the warm load from the pack, through
     the native loader), then ``python -m hpnn_tpu_torch.obs.tool`` over a
-    span spool, imports the serve mesh and the SLO tracker, and then
-    proves that neither jax nor any hpnn_tpu module
-    was imported."""
+    span spool, imports the serve mesh (its standby and autoscaler too),
+    the SLO tracker, the C API's shim and the data tools, and then proves
+    that neither jax nor any hpnn_tpu module was imported."""
     conf = _write_case(tmp_path, kind="SNN")
     train_conf = tmp_path / "train.conf"
     train_conf.write_text(
@@ -204,6 +207,11 @@ def test_run_nn_subprocess_imports_no_jax(tmp_path):
         "        assert exc.code == 0, (cmd, exc.code)\n"
         "import hpnn_tpu_torch.obs.slo\n"
         "import hpnn_tpu_torch.serve.mesh\n"
+        "import hpnn_tpu_torch.serve.mesh.standby\n"
+        "import hpnn_tpu_torch.serve.mesh.autoscale\n"
+        "import hpnn_tpu_torch.shim\n"
+        "import hpnn_tpu_torch.tools.pmnist, hpnn_tpu_torch.tools.pdif\n"
+        "import hpnn_tpu_torch.tools.sg_table\n"
         "assert 'hpnn_tpu_torch.serve.mesh.router' in sys.modules\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith('jax.') or m == 'hpnn_tpu'\n"

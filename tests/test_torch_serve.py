@@ -195,9 +195,11 @@ def test_serve_unported_flag_and_missing_gpu(tmp_path, capsys):
     from hpnn_tpu_torch.cli import serve_nn_main
 
     conf, _ = _write_conf(tmp_path)
+    # --autoscale is a router's: without the role, the JAX package's line
     assert serve_nn_main(["--autoscale", "1:2", "--device", "cpu",
                           conf]) != 0
-    assert "later slice" in capsys.readouterr().err
+    assert "--autoscale requires --mesh-role router (ABORTING)" in \
+        capsys.readouterr().err
     # the JAX data-mesh tier has no counterpart: a refusal of its own
     assert serve_nn_main(["--mesh", "4", "--device", "cpu", conf]) != 0
     err = capsys.readouterr().err

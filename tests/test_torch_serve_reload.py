@@ -557,9 +557,9 @@ def test_serve_nn_new_options(tmp_path, capsys, monkeypatch):
     """--watch-ckpt / --watch-interval / --ab-fraction / --auth-token /
     HPNN_SERVE_TOKEN / --no-warmup, and the tracing options (--trace,
     --trace-sample in [0, 1], --span-dir, --profile-dir), are taken with
-    the JAX package's stderr lines and exit codes; the mesh, shedding,
-    autoscale, quota and SLO options still exit non-zero as a later
-    slice's; --compile-cache is refused for good."""
+    the JAX package's stderr lines and exit codes; so are the mesh,
+    standby, autoscale, shedding, quota and SLO options; --compile-cache
+    is refused for good."""
     from hpnn_tpu_torch.cli import serve_app, serve_nn_main
 
     conf, _, _ = _setup(tmp_path)
@@ -609,16 +609,21 @@ def test_serve_nn_new_options(tmp_path, capsys, monkeypatch):
                       conf]) == (None, -1)
     assert "--trace-sample must be in [0, 1]: 1.5 (ABORTING)" in \
         capsys.readouterr().err
-    # the standby router and the autoscaler wait for a later slice
-    for opt in ("--standby", "--primary", "--takeover-after", "--autoscale",
+    # the standby router's and the autoscaler's options are taken, with
+    # the JAX package's checks
+    for opt in ("--standby", "--primary", "--takeover-after",
                 "--autoscale-cooldown"):
-        assert serve_app([opt, "1", "--device", "cpu", conf]) == (None, 2)
-        assert f"serve_nn: {opt} is not ported yet" in \
-            capsys.readouterr().err
-    assert serve_app(["--mesh-role", "standby", "--device", "cpu",
-                      conf]) == (None, 2)
-    assert "serve_nn: --mesh-role standby is not ported yet" in \
+        app, args = serve_app([opt, "1", "--device", "cpu", conf])
+        assert app is not None and args.mesh_role is None
+        app.close(drain=False)
+    assert serve_app(["--autoscale", "1", "--device", "cpu",
+                      conf]) == (None, -1)
+    assert "--autoscale requires --mesh-role router (ABORTING)" in \
         capsys.readouterr().err
+    assert serve_app(["--mesh-role", "standby", "--device", "cpu",
+                      conf]) == (None, -1)
+    assert "--mesh-role standby requires --primary HOST:PORT (ABORTING)" \
+        in capsys.readouterr().err
     # the JAX data-mesh tier has a refusal of its own, never an
     # ambiguous abbreviation of --mesh-role/--mesh-health-interval
     assert serve_app(["--mesh", "1", "--device", "cpu", conf]) == (None, 2)
