@@ -293,6 +293,28 @@ fault; no phase catches its own failure.
    ``_NN(init,all)``, ``_NN(train,kernel)`` and ``_NN(run,kernel)``
    through ``ctypes.PyDLL`` in this process launch ``train_epoch`` once
    and ``fused_linear_act`` twice.
+28. The ``fast@meshN`` tier (``serve_nn --parity fast --mesh N``; run
+   right after phase 27): a generated MNIST 784-300-10 ANN kernel at
+   ``-b 256 --fast-threshold 64``, at float32, bfloat16 and float64, in
+   a registry on a data mesh of 2 and of 4 shards (distinct cards where
+   the host has them, else the one card repeated; the phase prints which)
+   beside a single-device ``fast`` registry: requests of 64, 200 and 256
+   rows, every float32/bfloat16 reply bit-identical to the ``fast``
+   tier's and exactly 2N ``fused_linear_act`` launches a sharded batch
+   (float64, a ``torch.matmul`` chain: 0 launches, the bits reported,
+   held to 1e-12); the 256-row p50 of a synchronous registry call and its
+   ``device`` phase beside the ``fast`` tier's, and B2's device time for
+   one shard's block beside the whole bucket's.  Ten reloads under a
+   client's 256-row load on the 4-shard float32 mesh: every reply
+   bit-identical to the ``fast`` reply of the kernel file its generation
+   loaded, 2N launches a batch.  ``python -m hpnn_tpu_torch.cli serve_nn
+   --parity fast --mesh 4`` as a process: the JAX package's lines for the
+   host (one card: no mesh, no warning), the 256-row bucket on the tier
+   ``data_mesh(4)`` gives, a bit-identical 256-row answer, exit 0 on
+   SIGTERM; ``--parity strict --mesh 2`` warns "inert".  Then
+   ``fused_bpm_update`` at bfloat16 bit for bit against its plain version
+   at phase 13's shapes, timed (warm, cold, floor, bound) at 300x784 and
+   4096x4096.
 15. One JSON line of every kernel (launches on its main path, the largest
    kernel-vs-plain error over every cell and dtype, times and bound;
    ``fused_linear_act`` adds its B=1 cell and its worst ratio to the
@@ -319,8 +341,11 @@ fault; no phase catches its own failure.
    launches and epoch times in phase 26 (``shard_launches``,
    ``shard_epochs_device_ms``); ``train_epoch`` and ``fused_linear_act``
    their launches through phase 27's in-process C calls
-   (``c_api_launches``)), a line of each phase's seconds, then the result
-   line.
+   (``c_api_launches``); ``fused_linear_act`` its launches a sharded batch
+   and under the reloads in phase 28 (``data_mesh_launches``,
+   ``data_mesh_swap_launches``) and that phase's times
+   (``data_mesh_ms``); ``fused_bpm_update`` its bfloat16 cells), a line
+   of each phase's seconds, then the result line.
 
 Main paths: ``fused_linear_act``'s is phases 4-5, ``train_epoch``'s phase 9
 and ``train_tile``'s phase 12 (train_nn, then run_nn of its kernel, which
@@ -330,8 +355,9 @@ phase 19's server (``serve_rest_launches``), phase 21's TP routes
 (``tp_launches``), phase 22's server and jobs (``jobs_launches``) and
 phase 23's traced run and capture (``obs_*``), phase 24's worker A
 (``mesh_launches``; the router launches nothing), phase 25's
-(``standby_launches``), phase 26's sharded runs (``shard_launches``) and
-phase 27's C calls (``c_api_launches``); every count is set to
+(``standby_launches``), phase 26's sharded runs (``shard_launches``),
+phase 27's C calls (``c_api_launches``) and phase 28's sharded batches
+(``data_mesh_launches``, ``data_mesh_swap_launches``); every count is set to
 0 just before a path and read
 just after it.  ``fused_bpm_update`` has no caller on any
 path, as in the JAX package: its ``launches`` are the paths' (0), its
@@ -436,6 +462,7 @@ TRAIN_TILE = 32            # phase 12: train_nn --tile
 BPM_SHAPES = ((300, 784), (10, 300), (230, 851), (230, 230), (4096, 4096))
 BPM_COLD_BYTES = 100 << 20   # phase 13: the inputs a cold run rotates over
 BPM_COLD_RUN = 256           # phase 13: the most launches a timed cold run
+BPM_LR, BPM_ALPHA = 0.0005, 0.2   # phases 13 and 28: the update's scalars
 SPIN_PER_LAUNCH = 100_000    # GPU cycles of spin per queued launch (~50 us)
 EPOCHS = 3                   # phase 16: train_nn --epochs
 KILL_AT = 1                  # phase 17: HPNN_CKPT_KILL_AT_EPOCH
@@ -1738,57 +1765,72 @@ def _bpm_bound_ms(n, m, item):
     return (4 * n * m + n + m) * item / HBM_BYTES_PER_S * 1e3
 
 
-def phase_bpm():
-    """``fused_bpm_update`` against its plain version, bit for bit, at every
-    shape and dtype; its warm time (back-to-back calls on the same
-    buffers), cold time (calls rotating over inputs twice the L2), the
-    empty kernel's floor in the same loop, and the byte bound."""
+def _bpm_cell(n, m, dname, arrays, lr, alpha, floor_ms, timed=True):
+    """One ``fused_bpm_update`` cell: bit for bit against the plain version
+    on the card (inputs untouched), then, when ``timed``, its warm time
+    (back-to-back calls on the same buffers), cold time (calls rotating
+    over inputs twice the L2) and the plain version's, beside the empty
+    kernel's floor and the byte bound."""
     import torch
 
-    from hpnn_tpu_torch.ops.kernels import (empty_launch, fused_bpm_update,
+    from hpnn_tpu_torch.ops.kernels import (fused_bpm_update,
                                             fused_bpm_update_plain)
 
+    dt = _dtypes()[dname]
+    item = {"f64": 8, "f32": 4, "bf16": 2}[dname]
+    first = tuple(_to_card(a, dt) for a in arrays)
+    before = tuple(v.clone() for v in first)
+    got = fused_bpm_update(*first, lr, alpha)
+    plan = fused_bpm_update.plan
+    want = fused_bpm_update_plain(*first, lr, alpha)
+    torch.cuda.synchronize()
+    if not (_bitwise(got, want) and _bitwise(first, before)):
+        err = max(float((a.double() - b.double()).abs().max())
+                  for a, b in zip(got, want))
+        raise AssertionError(f"fused_bpm_update {n}x{m} {dname}: "
+                             f"not bit-identical to the plain "
+                             f"version (max diff {err:.3e}), or "
+                             "an input changed")
+    del got, want, before
+    cell = {"shape": f"{n}x{m}", "dtype": dname, "max_abs_err": 0.0,
+            "plan": plan._asdict()}
+    if not timed:
+        log(f"fused_bpm_update {n}x{m} {dname}: bit-identical to plain; "
+            f"plan {tuple(plan)}")
+        return cell
+    ms = _device_ms(lambda: fused_bpm_update(*first, lr, alpha))
+    plain_ms = _device_ms(lambda: fused_bpm_update_plain(*first, lr, alpha))
+    sets = _bpm_sets(first, n, m, item)
+    cold_ms = _rotating_ms(
+        [lambda v=v: fused_bpm_update(*v, lr, alpha) for v in sets])
+    del sets
+    bound_ms = _bpm_bound_ms(n, m, item)
+    cell.update({"ms": ms, "cold_ms": cold_ms, "floor_ms": floor_ms,
+                 "plain_ms": plain_ms, "bound_ms": bound_ms,
+                 "bound_by": "bytes"})
+    log(f"fused_bpm_update {n}x{m} {dname}: bit-identical to plain; "
+        f"warm ms={ms:.5f} cold ms={cold_ms:.5f} "
+        f"floor ms={floor_ms:.5f} plain_ms={plain_ms:.5f} "
+        f"bound_ms={bound_ms:.5f} (bytes, {bound_ms / cold_ms:.0%} "
+        f"of it cold); plan {tuple(plan)}")
+    return cell
+
+
+def phase_bpm():
+    """``fused_bpm_update`` against its plain version, bit for bit, at every
+    shape in float64 and float32 (phase 28 adds bfloat16); its warm time,
+    cold time, the empty kernel's floor in the same loop, and the byte
+    bound."""
+    from hpnn_tpu_torch.ops.kernels import empty_launch
+
     rng = np.random.default_rng(13)
-    lr, alpha = 0.0005, 0.2
     floor_ms = _device_ms(lambda: empty_launch("cuda"))
     cells = []
     for n, m in BPM_SHAPES:
         arrays = _bpm_arrays(rng, n, m)
         for dname in ("f64", "f32"):
-            dt = _dtypes()[dname]
-            item = 8 if dname == "f64" else 4
-            first = tuple(_to_card(a, dt) for a in arrays)
-            before = tuple(v.clone() for v in first)
-            got = fused_bpm_update(*first, lr, alpha)
-            plan = fused_bpm_update.plan
-            want = fused_bpm_update_plain(*first, lr, alpha)
-            torch.cuda.synchronize()
-            if not (_bitwise(got, want) and _bitwise(first, before)):
-                err = max(float((a.double() - b.double()).abs().max())
-                          for a, b in zip(got, want))
-                raise AssertionError(f"fused_bpm_update {n}x{m} {dname}: "
-                                     f"not bit-identical to the plain "
-                                     f"version (max diff {err:.3e}), or "
-                                     "an input changed")
-            del got, want, before
-            ms = _device_ms(lambda: fused_bpm_update(*first, lr, alpha))
-            plain_ms = _device_ms(
-                lambda: fused_bpm_update_plain(*first, lr, alpha))
-            sets = _bpm_sets(first, n, m, item)
-            cold_ms = _rotating_ms(
-                [lambda v=v: fused_bpm_update(*v, lr, alpha) for v in sets])
-            del sets
-            bound_ms = _bpm_bound_ms(n, m, item)
-            cells.append({"shape": f"{n}x{m}", "dtype": dname,
-                          "max_abs_err": 0.0, "ms": ms, "cold_ms": cold_ms,
-                          "floor_ms": floor_ms, "plain_ms": plain_ms,
-                          "bound_ms": bound_ms, "bound_by": "bytes",
-                          "plan": plan._asdict()})
-            log(f"fused_bpm_update {n}x{m} {dname}: bit-identical to plain; "
-                f"warm ms={ms:.5f} cold ms={cold_ms:.5f} "
-                f"floor ms={floor_ms:.5f} plain_ms={plain_ms:.5f} "
-                f"bound_ms={bound_ms:.5f} (bytes, {bound_ms / cold_ms:.0%} "
-                f"of it cold); plan {tuple(plan)}")
+            cells.append(_bpm_cell(n, m, dname, arrays, BPM_LR, BPM_ALPHA,
+                                   floor_ms))
     return cells
 
 
@@ -5214,6 +5256,295 @@ def phase_c_api(e2e, tmp, card, device="cuda"):
 PHASE_SECONDS: dict[str, float] = {}   # phase -> wall seconds, in run order
 
 
+# --- phase 28: the data-mesh fast tier (serve_nn --mesh N) ------------------
+
+DMESH_SIZES = (2, 4)            # phase 28: shards of the data mesh
+DMESH_ROWS = (64, 200, 256)     # phase 28: requests (buckets 64 and 256)
+DMESH_CALLS = 200               # phase 28: timed 256-row registry calls
+DMESH_SWAPS = 10                # phase 28: reloads under load
+# phase 28: fused_bpm_update at bfloat16, timed at the MNIST input layer
+# and past the L2; the other shapes are checked bit for bit only
+DMESH_BPM_TIMED = ((300, 784), (4096, 4096))
+
+
+def _dmesh_timing(reg, model, xs):
+    """Median wall ms of one synchronous 256-row registry call (pad, copy
+    in, the forward, copy out) and median ms of its ``device`` phase."""
+    for _ in range(20):
+        reg.forward(model, xs)
+    walls, dev = [], []
+    for _ in range(DMESH_CALLS):
+        t0 = time.perf_counter()
+        h = reg.dispatch(model, xs)
+        reg.collect(h)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        dev.append(h.device_s * 1e3)
+    return statistics.median(walls), statistics.median(dev)
+
+
+def _dmesh_swap_load(root, k1, k2, mesh, pool):
+    """A client thread sends 256-row batches through a ``fast@meshN``
+    registry while the main thread reloads k2, k1, ... DMESH_SWAPS times
+    (one client: the wrapper's count is not a lock-protected counter):
+    every reply bit-identical to the single-device fast tier's reply of
+    the kernel file its generation loaded; ``fused_linear_act`` 2N
+    launches a batch."""
+    from hpnn_tpu_torch.ops.kernels import fused_linear_act
+    from hpnn_tpu_torch.serve.registry import ModelRegistry
+
+    refs = {}
+    for tag, kf in (("k1", k1), ("k2", k2)):
+        conf = os.path.join(root, f"swap_{tag}.conf")
+        _serve_conf(conf, "mnist", kf, MNIST, "f32")
+        fast = ModelRegistry(max_batch=256, parity="fast",
+                             fast_threshold=64, device="cuda")
+        refs[kf] = fast.forward(fast.register_conf(conf), pool)
+    reg = ModelRegistry(max_batch=256, parity="fast", fast_threshold=64,
+                        device="cuda", mesh=mesh)
+    model = reg.register_conf(os.path.join(root, "swap_k1.conf"))
+    reg.forward(model, pool)                       # places the copies
+    gens = {1: k1}
+    seen, errors = [], []
+    stop = threading.Event()
+
+    def client():
+        try:
+            while not stop.is_set():
+                h = reg.dispatch(model, pool)
+                seen.append((h.served_gen, h.tier, reg.collect(h)))
+        except Exception as exc:  # re-raised below, on this thread
+            errors.append(exc)
+
+    fused_linear_act.launches = 0              # the swap path
+    loader = threading.Thread(target=client)
+    loader.start()
+    walls = []
+    try:
+        for i in range(DMESH_SWAPS):
+            time.sleep(0.05)
+            path = (k2, k1)[i % 2]
+            t0 = time.perf_counter()
+            res, why = reg.reload("mnist", path)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            if res is None:
+                raise AssertionError(f"data mesh swap (phase 28): {why}")
+            gens[res["generation"]] = path
+        time.sleep(0.05)
+    finally:
+        stop.set()
+        loader.join(timeout=120)
+    launches = fused_linear_act.launches
+    if loader.is_alive():
+        raise AssertionError("data mesh swap (phase 28): the client hung")
+    if errors:
+        raise errors[0]
+    n = mesh.n_data
+    bad = [g for g, tier, out in seen
+           if tier != f"fast@mesh{n}" or not np.array_equal(out,
+                                                            refs[gens[g]])]
+    served = sorted({g for g, _, _ in seen})
+    if bad or len(served) < 3 or launches != 2 * n * len(seen):
+        raise AssertionError(
+            f"data mesh swap (phase 28): {len(bad)} of {len(seen)} replies "
+            f"not the fast tier's reply of their generation's kernel, "
+            f"generations served {served}, fused_linear_act {launches} "
+            f"launches for {len(seen)} batches")
+    return {"batches": len(seen), "generations_served": len(served),
+            "swaps": DMESH_SWAPS, "launches": launches,
+            "swap_wall_ms": statistics.median(walls)}
+
+
+def _dmesh_cli(root, conf, pool, want):
+    """``python -m hpnn_tpu_torch.cli serve_nn --parity fast --mesh 4`` as a
+    process of its own: it starts with the JAX package's lines for this
+    host (on one card no mesh and no warning; a power-of-two floor warns),
+    its warmup's 256-row bucket takes the tier ``data_mesh(4)`` gives, and
+    a 256-row request answers bit-identically to ``want``.  Then
+    ``serve_nn --parity strict --mesh 2`` in process warns "inert"."""
+    import signal
+
+    import torch
+
+    from hpnn_tpu_torch import cli
+    from hpnn_tpu_torch.parallel.mesh import data_mesh
+    from hpnn_tpu_torch.utils import nn_log
+
+    mesh = data_mesh(4, "cuda")
+    tier = f"fast@mesh{mesh.n_data}" if mesh is not None else "fast"
+    n = min(4, torch.cuda.device_count())
+    floored = n >= 2 and n & (n - 1) != 0
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "hpnn_tpu_torch.cli", "serve_nn", "-v", "-v",
+         "-v", "-p", "0", "--device", "cuda", "--parity", "fast", "--mesh",
+         "4", "-b", "256", "--fast-threshold", "64", "--warmup-mode", "sync",
+         conf], cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, env=dict(os.environ, PYTHONPATH=ROOT))
+    lines = []
+    reader = threading.Thread(target=lambda: lines.extend(proc.stdout))
+    reader.start()
+    base = None
+    try:
+        while base is None and time.perf_counter() - t0 < 300:
+            if proc.poll() is not None:
+                break
+            for line in list(lines):
+                if line.startswith("SERVE: listening on http://"):
+                    base = "http://" + line.split("http://", 1)[1].strip()
+            time.sleep(0.05)
+        if base is None:
+            raise AssertionError("serve_nn --mesh 4 (phase 28) did not "
+                                 "start:\n" + "".join(lines[-20:]))
+        start_s = time.perf_counter() - t0
+        status, body = _post(base + "/v1/kernels/mnist/infer", pool)
+        got = np.asarray(body["outputs"], np.float64)
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        reader.join(timeout=60)
+    out = "".join(lines)
+    miss = f"bucket=256 tier={tier} path=fused"
+    if status != 200 or not np.array_equal(got, want) or rc != 0 \
+            or miss not in out or "inert" in out \
+            or ("data mesh floored" in out) != floored:
+        raise AssertionError(f"serve_nn --mesh 4 (phase 28): status "
+                             f"{status}, rc {rc}, bit-identical "
+                             f"{np.array_equal(got, want)}, '{miss}' "
+                             f"{miss in out}:\n{out[-3000:]}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        app, args = cli.serve_app(["-v", "--parity", "strict", "--mesh",
+                                   "2", "--device", "cuda", "--no-warmup",
+                                   conf])
+    try:
+        inert = [ln for ln in buf.getvalue().splitlines() if "inert" in ln]
+        if app is None or app.registry.mesh is not None or inert != [
+                "NN(WARN): serve: --mesh is inert under parity=strict (the "
+                "bit-parity GEMV scan never shards); pass --parity fast to "
+                "enable sharded serving"]:
+            raise AssertionError(f"serve_nn --parity strict --mesh 2 "
+                                 f"(phase 28): {buf.getvalue()[-2000:]}")
+    finally:
+        if app is not None:
+            app.close(drain=False)
+        nn_log.set_verbosity(0)
+    log(f"data mesh (phase 28): serve_nn --parity fast --mesh 4 started in "
+        f"{start_s:.1f} s on {torch.cuda.device_count()} card(s): the "
+        f"256-row bucket on {tier}"
+        + (", floored with the JAX package's warning" if floored else
+           ", no mesh warning") + ", a 256-row answer bit-identical; "
+        "--parity strict --mesh 2 warns inert")
+    return {"tier": tier, "start_s": start_s, "floored": floored}
+
+
+def phase_data_mesh(tmp, card):
+    """Phase 28: the ``fast@meshN`` tier.  A generated MNIST 784-300-10 ANN
+    kernel (``-b 256 --fast-threshold 64``) at float32, bfloat16 and
+    float64 on a data mesh of 2 and 4 shards (distinct cards when the host
+    has them, else the one card repeated): requests of 64, 200 and 256
+    rows, each reply against the single-device fast tier's (float32 and
+    bfloat16 bit for bit, float64 reported and held to 1e-12), and
+    ``fused_linear_act`` exactly 2N launches a sharded batch (0 at float64,
+    a ``torch.matmul`` chain); the 256-row p50 of both tiers, their
+    ``device`` phase and B2's device time per shard.  Then reloads under
+    load, the CLI, and ``fused_bpm_update`` at bfloat16."""
+    import torch
+
+    from hpnn_tpu_torch.ops.kernels import (batched_forward_fused,
+                                            empty_launch, fused_linear_act)
+    from hpnn_tpu_torch.parallel.mesh import DataMesh
+    from hpnn_tpu_torch.serve.registry import ModelRegistry
+
+    root = os.path.join(tmp, "dmesh")
+    os.makedirs(root)
+    k1, k2 = os.path.join(root, "k1.opt"), os.path.join(root, "k2.opt")
+    _dump_generated(k1, MNIST, 10958)
+    _dump_generated(k2, MNIST, 10959)
+    cards = torch.cuda.device_count()
+    pool = _inputs(np.random.default_rng(28), 256, MNIST[0], "pixel")
+    res = {"cards": cards, "cells": {}}
+    launches = {}
+    meshes = {k: DataMesh([torch.device("cuda", i if cards >= k else 0)
+                           for i in range(k)]) for k in DMESH_SIZES}
+    for dname in ("f32", "bf16", "f64"):
+        conf = os.path.join(root, f"mnist_{dname}.conf")
+        _serve_conf(conf, "mnist", k1, MNIST, dname)
+        fast = ModelRegistry(max_batch=256, parity="fast", fast_threshold=64,
+                             device="cuda")
+        fm = fast.register_conf(conf)
+        fast_p50, fast_dev = _dmesh_timing(fast, fm, pool)
+        x = torch.as_tensor(pool, dtype=torch.float64).cuda().to(fm.dtype)
+        whole_ms = (_device_ms(lambda: batched_forward_fused(
+            fm.mlp.weights, x, "ANN")) if dname != "f64" else None)
+        for k, mesh in meshes.items():
+            reg = ModelRegistry(max_batch=256, parity="fast",
+                                fast_threshold=64, device="cuda", mesh=mesh)
+            m = reg.register_conf(conf)
+            tag = f"{dname} fast@mesh{k}"
+            cell = {"devices": [str(d) for d in mesh.devices],
+                    "distinct_cards": len(mesh.distinct()),
+                    "launches_per_batch": {}, "bitwise": {},
+                    "max_abs_err": 0.0}
+            for rows in DMESH_ROWS:
+                xs = pool[:rows]
+                want = fast.forward(fm, xs)
+                fused_linear_act.launches = 0   # the sharded batch's path
+                h = reg.dispatch(m, xs)
+                got = reg.collect(h)
+                n_l = fused_linear_act.launches
+                launches[f"{tag} {rows} rows"] = n_l
+                err = float(np.abs(got - want).max())
+                same = bool(np.array_equal(got, want))
+                if h.tier != f"fast@mesh{k}" or h.served_gen != 1 \
+                        or n_l != (0 if dname == "f64" else 2 * k) \
+                        or not err <= LIMIT["f64"] \
+                        or not (same or dname == "f64"):
+                    raise AssertionError(
+                        f"{tag} {rows} rows (phase 28): tier {h.tier}, "
+                        f"generation {h.served_gen}, {n_l} launches, "
+                        f"bit-identical {same}, {err:.3e} from fast")
+                cell["launches_per_batch"][rows] = n_l
+                cell["bitwise"][rows] = same
+                cell["max_abs_err"] = max(cell["max_abs_err"], err)
+            cell["p50_ms"], cell["device_ms"] = _dmesh_timing(reg, m, pool)
+            cell["fast_p50_ms"], cell["fast_device_ms"] = fast_p50, fast_dev
+            if dname != "f64":
+                copies, _ = m.mesh_weights(mesh)
+                blk = x[:256 // k].to(mesh.devices[0])
+                with torch.cuda.device(mesh.devices[0]):
+                    cell["shard_ms"] = _device_ms(
+                        lambda: batched_forward_fused(copies[0], blk, "ANN"))
+                cell["whole_ms"] = whole_ms
+            res["cells"][tag] = cell
+            log(f"data mesh {tag} on {cell['devices']}: replies "
+                + ("bit-identical to" if all(cell["bitwise"].values())
+                   else f"within {cell['max_abs_err']:.3e} of")
+                + f" the fast tier's; fused_linear_act a batch "
+                f"{cell['launches_per_batch']}; 256 rows p50 "
+                f"{cell['p50_ms']:.4f} ms (fast {fast_p50:.4f}), device "
+                f"phase {cell['device_ms']:.4f} ms (fast {fast_dev:.4f})"
+                + (f"; B2 a shard {cell['shard_ms']:.4f} ms (the whole "
+                   f"bucket {whole_ms:.4f})" if dname != "f64" else ""))
+    res["launches"] = launches
+    res["swap"] = _dmesh_swap_load(root, k1, k2, meshes[4], pool)
+    log(f"data mesh swaps under load (phase 28): {res['swap']}")
+    conf = os.path.join(root, "mnist_f32.conf")
+    fast = ModelRegistry(max_batch=256, parity="fast", fast_threshold=64,
+                         device="cuda")
+    res["cli"] = _dmesh_cli(root, conf, pool,
+                            fast.forward(fast.register_conf(conf), pool))
+    rng = np.random.default_rng(2813)
+    floor_ms = _device_ms(lambda: empty_launch("cuda"))
+    res["bpm_bf16"] = [
+        _bpm_cell(n, m, "bf16", _bpm_arrays(rng, n, m), BPM_LR, BPM_ALPHA,
+                  floor_ms, timed=(n, m) in DMESH_BPM_TIMED)
+        for n, m in BPM_SHAPES]
+    return res
+
+
 def _phase(name, fn, *args):
     """Run one phase, its wall seconds kept under ``name``."""
     t0 = time.perf_counter()
@@ -5327,6 +5658,7 @@ def main(argv=None) -> int:
                          phase_standby_autoscale, tmp, card)
         shard_res = _phase("26 shard mode", phase_shard, e2e, epochs_runs)
         capi_res = _phase("27 C API", phase_c_api, e2e, tmp, card)
+        dmesh_res = _phase("28 data mesh", phase_data_mesh, tmp, card)
     cells = _phase("6 device times", phase_times)
     bpm = _phase("13 fused_bpm_update", phase_bpm)
     rep = next(c for c in cells if c["layer"] == "784->300"
@@ -5340,6 +5672,7 @@ def main(argv=None) -> int:
                  if r["run"].startswith("mnist ANN BP f64 tile 8"))
     bcell = next(c for c in bpm if c["shape"] == "300x784"
                  and c["dtype"] == "f32")
+    bpm_bf16 = dmesh_res["bpm_bf16"]
     ep_b1 = epochs_runs["per-sample"]
     ep_b4 = epochs_runs[f"tile {TRAIN_TILE}"]
     ck_b1 = ckpt_runs["per-sample"]
@@ -5382,7 +5715,15 @@ def main(argv=None) -> int:
             obs_res["serve"]["profile"]["b2_us_per_batch"],
         "mesh_launches": mesh_res["worker_a"],
         "standby_launches": sby_res["worker_a"],
-        "c_api_launches": capi_res["in_process"]["fused_linear_act"]}, {
+        "c_api_launches": capi_res["in_process"]["fused_linear_act"],
+        "data_mesh_launches": dmesh_res["launches"],
+        "data_mesh_swap_launches": dmesh_res["swap"]["launches"],
+        "data_mesh_swap_batches": dmesh_res["swap"]["batches"],
+        "data_mesh_ms": {
+            tag: {k: c.get(k) for k in ("p50_ms", "fast_p50_ms",
+                                        "device_ms", "fast_device_ms",
+                                        "shard_ms", "whole_ms")}
+            for tag, c in dmesh_res["cells"].items()}}, {
         "name": "train_epoch", "route": "cuda",
         "source": "hpnn_tpu_torch/csrc/train_epoch.cu",
         "replaces": "hpnn_tpu/ops/convergence_pallas.py:208",
@@ -5492,10 +5833,11 @@ def main(argv=None) -> int:
         "replaces": "hpnn_tpu/ops/pallas_kernels.py:141",
         "launches": bpm_path,
         "phase_launches": fused_bpm_update.launches,
-        "max_abs_err": max(c["max_abs_err"] for c in bpm),
-        "max_abs_err_by_dtype": {d: max(c["max_abs_err"] for c in bpm
+        "max_abs_err": max(c["max_abs_err"] for c in bpm + bpm_bf16),
+        "max_abs_err_by_dtype": {d: max(c["max_abs_err"]
+                                        for c in bpm + bpm_bf16
                                         if c["dtype"] == d)
-                                 for d in ("f64", "f32")},
+                                 for d in ("f64", "f32", "bf16")},
         "ms": bcell["ms"], "plain_ms": bcell["plain_ms"],
         "bound_ms": bcell["bound_ms"], "bound_by": bcell["bound_by"],
         "library_ms": None,
@@ -5504,7 +5846,7 @@ def main(argv=None) -> int:
         "floor_ms": bcell["floor_ms"],
         "by_shape": {f"{c['shape']} {c['dtype']}": {
             k: c[k] for k in ("ms", "cold_ms", "bound_ms")}
-            for c in bpm}}]}
+            for c in bpm + bpm_bf16 if "ms" in c}}]}
     if json_path:
         os.makedirs(os.path.dirname(os.path.abspath(json_path)),
                     exist_ok=True)
@@ -5529,6 +5871,7 @@ def main(argv=None) -> int:
                        "standby_autoscale": sby_res,
                        "shard": shard_res,
                        "c_api": capi_res,
+                       "data_mesh": dmesh_res,
                        "phase_seconds": PHASE_SECONDS,
                        "invariance_plans": invariance_plans,
                        "bpm": bpm,

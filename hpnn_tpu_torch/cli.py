@@ -11,7 +11,7 @@
         [conf]
     python -m hpnn_tpu_torch.cli serve_nn [-v]... [-a ADDR] [-p PORT]
         [-b MAX_BATCH] [-q QUEUE_ROWS] [--linger-ms MS] [--timeout-s S]
-        [--parity {strict,fast}] [--fast-threshold N]
+        [--parity {strict,fast}] [--fast-threshold N] [--mesh N]
         [--warmup-mode {background,sync,off}] [--device {cuda,cpu}]
         [--jobs N [--job-workers K] [--job-dir DIR] [--job-auto-resume]
         [--replicate-to DEST] [--auto-promote]] [--trace]
@@ -76,9 +76,11 @@ router|worker|standby`` runs the serve mesh (``serve/mesh/``): a router
 with ``--standby`` and its passive standby with ``--primary`` (takeover
 after ``--takeover-after`` missed polls), and ``--autoscale MIN:MAX`` for
 spawned and retired local workers.  Every option of the JAX package's
-commands is taken, except its XLA compilation cache (``--compile-cache``)
-and its in-process data mesh (``serve_nn --mesh``), which are refused with
-a line of their own; an option neither package knows gets the JAX
+commands is taken, except its XLA compilation cache (``--compile-cache``),
+which is refused with a line of its own; ``serve_nn --parity fast --mesh
+N`` shards the fast buckets over a data mesh of N cards (capped to the
+visible cards, floored to a power of two; inert under strict parity, no
+mesh on the CPU).  An option neither package knows gets the JAX
 package's answer (the reference's "unrecognized option" and the usage
 text for train_nn/run_nn, argparse's error for serve_nn).
 """
@@ -636,6 +638,10 @@ def _serve_parser():
     ap.add_argument("--fast-threshold", type=int, default=256,
                     help="smallest batch bucket the 'fast' tier applies "
                     "to (default 256)")
+    ap.add_argument("--mesh", type=int, default=0, metavar="N",
+                    help="shard 'fast' buckets over N devices on a data "
+                    "mesh (0: single device; -1: all local devices; "
+                    "capped to what is available)")
     ap.add_argument("--warmup-mode", choices=("background", "sync", "off"),
                     default="background",
                     help="run every batch bucket once before serving: "
@@ -818,13 +824,10 @@ def _serve_parser():
 
 
 # serve_nn options of the JAX package that the port refuses with a line of
-# their own: --mesh is prefix of two ported options, so without this line
-# argparse would call it an ambiguous abbreviation
+# their own (argparse would call an unknown option an unrecognized
+# argument)
 _SERVE_OWN_REFUSALS = {
     "--compile-cache": _COMPILE_CACHE_REFUSAL,
-    "--mesh": "shards the JAX package's fast tier over a data mesh of "
-              "devices in one process; the port serves on one card and "
-              "has no such tier (refused)",
 }
 
 
@@ -836,8 +839,6 @@ def serve_app(argv: list[str]):
     :func:`start_mesh_worker`, after the bind."""
     own = [a for a in argv if a.split("=")[0] in _SERVE_OWN_REFUSALS]
     if own:
-        # before argparse: --mesh would otherwise be an ambiguous
-        # abbreviation of --mesh-role / --mesh-health-interval
         key = own[0].split("=")[0]
         sys.stderr.write(f"serve_nn: {key} {_SERVE_OWN_REFUSALS[key]}\n")
         return None, 2
@@ -909,6 +910,7 @@ def serve_app(argv: list[str]):
                    linger_s=args.linger_ms / 1e3,
                    default_timeout_s=args.timeout_s, parity=args.parity,
                    fast_threshold=args.fast_threshold,
+                   mesh_devices=(None if args.mesh < 0 else args.mesh),
                    device=runtime.lib_runtime.device,
                    auth_token=auth_token, ab_fraction=args.ab_fraction,
                    trace=args.trace or None, trace_sample=args.trace_sample,

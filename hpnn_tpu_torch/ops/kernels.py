@@ -300,15 +300,18 @@ def batched_forward_plain(weights, xs: torch.Tensor,
 # ``hpnn_tpu/ops/pallas_kernels.py`` ``fused_bpm_update`` (body
 # ``_fused_bpm_kernel``), the reference's one-layer momentum step.  It
 # computes step = dw + (lr*d[i])*h[j]; W' = W + step; dw' = alpha*step in
-# the Pallas body's association, at float64 and float32.  Bound on the H100
-# by device memory (4 flops against 4 values moved a weight).  A thread owns
-# a vector of consecutive columns of one row, 16-byte loads and streaming
-# stores where the row pitch allows, on the grid :func:`fused_bpm_plan`
-# picks (``csrc/fused_bpm_update.cu``).  Like the JAX package, no training
-# route calls it: the epoch kernels fuse this step.
+# the Pallas body's association, at float64, float32 and bfloat16 (each
+# operation rounded to bfloat16, as the Pallas body in interpret mode and
+# PyTorch's bfloat16 operations round).  Bound on the H100 by device memory
+# (4 flops against 4 values moved a weight).  A thread owns a vector of
+# consecutive columns of one row, 16-byte loads and streaming stores where
+# the row pitch allows, on the grid :func:`fused_bpm_plan` picks
+# (``csrc/fused_bpm_update.cu``).  Like the JAX package, no training route
+# calls it: the epoch kernels fuse this step.
 
 _BPM_ENTRY = {torch.float64: "hpnn_fused_bpm_update_f64",
-              torch.float32: "hpnn_fused_bpm_update_f32"}
+              torch.float32: "hpnn_fused_bpm_update_f32",
+              torch.bfloat16: "hpnn_fused_bpm_update_bf16"}
 _bpm_fns: dict[torch.dtype, object] = {}
 BPM_THREADS = 256       # threads a block
 
@@ -324,9 +327,9 @@ def fused_bpm_plan(n: int, m: int, itemsize: int,
     """The launch plan for an (n, m) update at ``itemsize`` bytes a value:
     a pure function of its arguments.
 
-    * 16-byte vectors (4 float32, 2 float64) when every pointer is 16-byte
-      aligned (``aligned``) and the row pitch ``m * itemsize`` is a multiple
-      of 16, else one column a thread.
+    * 16-byte vectors (8 bfloat16, 4 float32, 2 float64) when every
+      pointer is 16-byte aligned (``aligned``) and the row pitch
+      ``m * itemsize`` is a multiple of 16, else one column a thread.
     * A block spans up to 256 threads of column vectors (a multiple of 32,
       the columns shared evenly over the fewest such blocks) and as many
       rows as fill its 256 threads.
@@ -365,8 +368,8 @@ def _check_bpm(w, dw, d, h) -> None:
     if w.dtype not in _BPM_ENTRY or any(v.dtype != w.dtype
                                         for v in (dw, d, h)):
         raise TypeError(f"fused_bpm_update: w, dw, d and h must share one "
-                        f"dtype of float64 or float32; got {w.dtype}, "
-                        f"{dw.dtype}, {d.dtype}, {h.dtype}")
+                        f"dtype of float64, float32 or bfloat16; got "
+                        f"{w.dtype}, {dw.dtype}, {d.dtype}, {h.dtype}")
     if any(v.device != w.device for v in (dw, d, h)):
         raise ValueError("fused_bpm_update: all tensors on one device")
     if w.dim() != 2 or dw.shape != w.shape or d.shape != (w.shape[0],) \
@@ -380,9 +383,20 @@ def _check_bpm(w, dw, d, h) -> None:
         raise ValueError("fused_bpm_update: dimensions must fit in int32")
 
 
+def _bf16_scalar(x) -> torch.Tensor:
+    """A Python scalar rounded to bfloat16 (through float32), as a 0-d
+    tensor: the JAX package's weak-typed scalar meets a bfloat16 array as
+    a bfloat16 constant, where PyTorch would compute with it in float32."""
+    return torch.tensor(float(x), dtype=torch.float32).to(torch.bfloat16)
+
+
 def fused_bpm_update_plain(w, dw, d, h, lr, alpha):
     """The plain torch version: step = dw + (lr*d)[:, None] * h; returns
-    (w + step, alpha * step)."""
+    (w + step, alpha * step).  At bfloat16 lr and alpha are rounded to
+    bfloat16 first and every operation rounds its result to bfloat16 (the
+    Pallas body in interpret mode rounds at the same points)."""
+    if w.dtype == torch.bfloat16:
+        lr, alpha = (_bf16_scalar(v).to(w.device) for v in (lr, alpha))
     step = dw + (lr * d)[:, None] * h[None, :]
     return w + step, alpha * step
 
@@ -408,6 +422,8 @@ def fused_bpm_update(w, dw, d, h, lr, alpha):
     n, m = w.shape
     plan = fused_bpm_plan(n, m, w.element_size(),
                           aligned=all(p % 16 == 0 for p in ptrs))
+    if w.dtype == torch.bfloat16:
+        lr, alpha = (float(_bf16_scalar(v)) for v in (lr, alpha))
     rc = fn(w.data_ptr(), dw.data_ptr(), d.data_ptr(), h.data_ptr(),
             w_out.data_ptr(), dw_out.data_ptr(), n, m, float(lr),
             float(alpha), *plan, w.device.index,

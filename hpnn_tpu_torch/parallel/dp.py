@@ -204,6 +204,49 @@ def dp_tiled_epoch(weights, xs, ts, kind: str, momentum: bool, group: int,
                              defer_stats=defer_stats)
 
 
-__all__ = ["batched_grads", "dp_epoch", "dp_export_weights",
-           "dp_resident_carry", "dp_tiled_epoch", "dp_train_step",
-           "dp_train_step_momentum"]
+def dp_eval_batch(copies, xs: torch.Tensor, kind: str, mesh,
+                  forward) -> torch.Tensor:
+    """Sharded batched inference, the ``fast@meshN`` tier: xs (B, n_in)
+    -> (B, n_out) on xs's device, B a multiple of the mesh's N.
+
+    The rows split into N contiguous blocks; block i goes to
+    ``mesh.devices[i]`` and runs the single-device fast forward there on
+    ``copies[i]``, that device's replicated weights: ``forward``, the
+    caller's ``ops.select_run_batch(..., parity="fast")`` choice (the
+    hand-written ``fused_linear_act`` a layer at float32/bfloat16, the
+    ``torch.matmul`` chain at float64; every device of a mesh has one
+    type).  The outputs come back in shard order.  No collective: the
+    weights are replicated.
+
+    Nothing waits on the host.  Every block's copy is enqueued before any
+    shard's forward, so that no shard's input queues behind another
+    shard's work on xs's stream, and each forward runs on its device's
+    current stream.  PyTorch orders a copy between two cards after both
+    cards' streams and orders the destination's stream after the copy, so
+    work enqueued on xs's stream after this call (the registry's timing
+    event, the copy out) waits for every shard.  On four distinct H100s
+    the gathered rows are bit-identical to one card's; whether the cards'
+    work overlaps is not measured: there the launches, one Python thread
+    for every shard, take longer than each shard's kernels."""
+    n = mesh.n_data
+    if xs.shape[0] % n:
+        raise ValueError(f"dp_eval_batch: {xs.shape[0]} rows do not split "
+                         f"over {n} shards")
+    rows = xs.shape[0] // n
+    blocks = [xs[i * rows:(i + 1) * rows].to(dev, non_blocking=True)
+              for i, dev in enumerate(mesh.devices)]
+    outs = []
+    for dev, w, block in zip(mesh.devices, copies, blocks):
+        if dev.type == "cuda":
+            # the kernel's launch selects the shard's card; the guard
+            # restores this thread's device after it
+            with torch.cuda.device(dev):
+                outs.append(forward(w, block, kind))
+        else:
+            outs.append(forward(w, block, kind))
+    return torch.cat([o.to(xs.device, non_blocking=True) for o in outs])
+
+
+__all__ = ["batched_grads", "dp_epoch", "dp_eval_batch",
+           "dp_export_weights", "dp_resident_carry", "dp_tiled_epoch",
+           "dp_train_step", "dp_train_step_momentum"]

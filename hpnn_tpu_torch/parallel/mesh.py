@@ -24,6 +24,12 @@ K devices of one process (the serving tier's row blocks; a device may
 repeat).  Both answer the same few collectives over the model axis
 (``gather``, ``psum``, ``shift``), each taking and returning one tensor
 for every shard the process holds: one on a rank, K in a LocalMesh.
+
+The serving data axis (``serve_nn --parity fast --mesh N``):
+:func:`data_mesh` builds a :class:`DataMesh`, N devices of one process
+over which the ``fast@meshN`` tier splits a padded bucket's rows
+(``parallel.dp.dp_eval_batch``); the weights are replicated, so it needs
+no collective.
 """
 
 from __future__ import annotations
@@ -185,6 +191,49 @@ class LocalMesh:
         return torch.cat([p.to("cpu") for p in parts])
 
 
+class DataMesh:
+    """An N x 1 data axis of one process: shard i's rows run on
+    ``devices[i]`` (repeats allowed, so N shards can share one card, as
+    the shards of a :class:`LocalMesh` may).  Weights are replicated on
+    every shard's device; nothing is exchanged but the rows."""
+
+    def __init__(self, devices):
+        self.devices = tuple(torch.device(d) for d in devices)
+        if not self.devices:
+            raise ValueError("DataMesh needs at least one device")
+        self.n_data = len(self.devices)
+
+    def distinct(self) -> tuple[torch.device, ...]:
+        """The shards' devices, each once, in shard order."""
+        return tuple(dict.fromkeys(self.devices))
+
+
+def data_mesh(n_devices: int | None = -1, device="cuda") -> DataMesh | None:
+    """The serving data mesh, or None when the request cannot shard.
+
+    ``None`` or a negative count takes every visible card; an explicit
+    count is capped to them (``torch.cuda.device_count()``, one device on
+    the CPU), and 0 or fewer than two devices after the cap is no mesh.
+    The count is then floored to a power of two, with the JAX package's
+    warning: buckets are powers of two and shard only when the count
+    divides them, so a 6-device mesh would never be used."""
+    dev = torch.device(device)
+    avail = torch.cuda.device_count() if dev.type == "cuda" else 1
+    n = (avail if n_devices is None or int(n_devices) < 0
+         else min(int(n_devices), avail))
+    if n < 2:
+        return None
+    pow2 = 1 << (n.bit_length() - 1)
+    if pow2 != n:
+        from ..utils.nn_log import nn_warn
+
+        nn_warn(f"serve: data mesh floored from {n} to {pow2} devices "
+                "(power-of-two batch buckets only shard over "
+                "power-of-two device counts)\n")
+        n = pow2
+    return DataMesh([torch.device("cuda", i) for i in range(n)])
+
+
 class RankMesh:
     """The (data x model) grid over the ``torch.distributed`` world, one
     rank a device: rank r is data shard ``r // n_model`` and model shard
@@ -317,7 +366,7 @@ def forget_meshes() -> None:
     _MESHES.clear()
 
 
-__all__ = ["LocalMesh", "RankMesh",
+__all__ = ["DataMesh", "LocalMesh", "RankMesh", "data_mesh",
            "flatten_state", "unflatten_state", "shard_bounds",
            "per_device_bytes", "pad_topology", "unpad_topology",
            "layer_sharding", "make_mesh", "forget_meshes",

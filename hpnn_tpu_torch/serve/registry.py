@@ -21,6 +21,12 @@ Two serving tiers (``ops.select_run_batch``'s two axes):
 * ``parity="fast"`` -- buckets at or above ``fast_threshold`` rows take
   the throughput forward (the GEMM chain for float64); answers are
   dtype-accurate but may differ from the strict tier at the ULP level.
+  With a data ``mesh`` (a ``parallel.DataMesh`` of N devices) such a
+  bucket that N divides is served ``fast@meshN``: its rows split into N
+  blocks, each run by the same fast forward on its shard's device with
+  replicated weights (``parallel.dp.dp_eval_batch``), so its answers
+  are the ``fast`` tier's.  The copies are placed once a mesh and
+  rebuilt on a swap; a pinned dispatch never shards.
 
 A third tier, ``tp@K``, serves a kernel too big for one device: with a
 model axis (``tp_mesh``, a ``parallel.LocalMesh`` of K devices) every
@@ -150,6 +156,16 @@ class _InFlight:
         self._bufs, self._pools = [], []
 
 
+def _replicate(weights, mesh) -> tuple:
+    """``weights`` copied to every distinct device of a data ``mesh``, one
+    tuple a shard (shards of one device share a copy; the weights' own
+    device uses them as they are)."""
+    home = weights[0].device
+    per_dev = {d: (weights if d == home else tuple(w.to(d) for w in weights))
+               for d in mesh.distinct()}
+    return tuple(per_dev[d] for d in mesh.devices)
+
+
 class ServedModel:
     """One registered kernel: its conf, the device-resident weights in
     the conf dtype (cast once, at registration and at every reload),
@@ -182,8 +198,11 @@ class ServedModel:
         self._gen_weights: dict[int, MLP] = {}
         self._gen_kernels: dict[int, object] = {}
         # mesh -> (row-sharded TPCarry, generation) for the tp@K tier,
-        # built at its first dispatch and rebuilt by every swap
+        # and mesh -> (a weights tuple a shard, generation) for the
+        # fast@meshN tier, each built at its first dispatch and rebuilt
+        # by every swap
         self._tp_weights: dict = {}
+        self._mesh_weights: dict = {}
         self.ab_window: dict | None = None
         self._pools: tuple[_ScratchPool, _ScratchPool] | None = None
         self._lock = threading.Lock()
@@ -230,6 +249,18 @@ class ServedModel:
                     tp_engine_carry(mlp.weights, mesh), gen)
             return cached
 
+    def mesh_weights(self, mesh):
+        """The live generation replicated over a data ``mesh`` (the
+        fast@meshN tier): ``(copies, generation)``, one weights tuple a
+        shard, copied once a distinct device and kept resident."""
+        with self._lock:
+            cached = self._mesh_weights.get(mesh)
+            if cached is None:
+                mlp, gen = self._holder[0]
+                cached = self._mesh_weights[mesh] = (
+                    _replicate(mlp.weights, mesh), gen)
+            return cached
+
     def scratch_pools(self) -> tuple[_ScratchPool, _ScratchPool]:
         """The (input, output) host buffer pools at the current widths."""
         with self._lock:
@@ -264,11 +295,13 @@ class ServedModel:
                                 self.kind)
         with self._lock:
             meshes = list(self._tp_weights)
+            data_meshes = list(self._mesh_weights)
         new_tp = {}
         if meshes:
             from ..parallel.tp import tp_engine_carry
 
             new_tp = {m: tp_engine_carry(new_w.weights, m) for m in meshes}
+        new_mesh = {m: _replicate(new_w.weights, m) for m in data_meshes}
         with self._lock:
             old_kernel = self.nn.kernel
             self.nn.kernel = kernel
@@ -280,6 +313,8 @@ class ServedModel:
                 # old-shape carries are dropped
                 self._holder = [(new_w, gen)]
                 self._tp_weights = {m: (c, gen) for m, c in new_tp.items()}
+                self._mesh_weights = {m: (c, gen)
+                                      for m, c in new_mesh.items()}
                 self._gen_weights.clear()
                 self._gen_kernels.clear()
                 self.ab_window = None
@@ -308,6 +343,11 @@ class ServedModel:
                     del self._tp_weights[m]
                 for m, c in new_tp.items():
                     self._tp_weights[m] = (c, gen)
+                for m in [m for m in self._mesh_weights
+                          if m not in new_mesh]:
+                    del self._mesh_weights[m]
+                for m, c in new_mesh.items():
+                    self._mesh_weights[m] = (c, gen)
             if changed:
                 if (kernel.n_inputs != self.n_inputs
                         or kernel.n_outputs != self.n_outputs):
@@ -425,7 +465,7 @@ class ModelRegistry:
                  fast_threshold: int = 256, device="cuda",
                  metrics: ServeMetrics | None = None,
                  ab_fraction: float = 0.0, gen_keep: int = 2,
-                 tp_mesh=None):
+                 tp_mesh=None, mesh=None):
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1: {max_batch}")
         if not 0.0 <= float(ab_fraction) <= 1.0:
@@ -450,6 +490,8 @@ class ModelRegistry:
                     f"bucket {self.max_batch}; every bucket will serve "
                     "strict (raise -b/--max-batch or lower "
                     "--fast-threshold)\n")
+        # the fast@meshN tier's data axis (a DataMesh), or None
+        self.mesh = mesh
         # the tp@K tier's model axis (a LocalMesh), or None
         self.tp_mesh = tp_mesh
         # A/B policy: during a hot swap this fraction of unpinned traffic
@@ -592,38 +634,63 @@ class ModelRegistry:
         return f"tp@{k}" if k else self.parity
 
     def tier_for(self, bucket: int) -> str:
+        """The tier a bucket takes under the parity policy: ``strict``,
+        ``fast``, or ``fast@meshN`` where the data mesh's N > 1 divides
+        it."""
         if self.parity != "fast" or bucket < self.fast_threshold:
             return "strict"
+        n = self.mesh.n_data if self.mesh is not None else 1
+        if n > 1 and bucket % n == 0:
+            return f"fast@mesh{n}"
         return "fast"
 
     # --- the forward path -----------------------------------------------
     def _callable_for(self, model: ServedModel, bucket: int,
                       pinned: bool = False):
         """The forward entry for one (model, topology, dtype, bucket,
-        kind, tier, variant) key; creating it is the cache miss.  The entry takes the (bucket, n_inputs) float64 rows on the
+        kind, tier, variant) key; creating it is the cache miss.  The
+        entry takes the (bucket, n_inputs) float64 rows on the
         registry's device and returns the device-side (bucket, n_outputs)
         result without synchronising.  The live variant reads the
         holder's (weights, generation) at each call and returns ``(out,
         generation)``; the pinned variant takes the weights as its second
-        argument."""
+        argument.  Returns ``(entry, tier)``."""
         tpk = self.tp_shards(model)
         # the tp@K tier is per model (weights too big for one device), so
         # every bucket of such a kernel takes it, pinned dispatch too
         tier = f"tp@{tpk}" if tpk else self.tier_for(bucket)
+        if pinned and tier.startswith("fast@mesh"):
+            # retained generations keep no replicated copies, and a pin
+            # asks for a generation, not for throughput
+            tier = "fast"
         key = (model.name, model.topology, model.dtype_name, bucket,
                model.kind, tier, "pinned" if pinned else "live")
         with self._lock:
             fn = self._cache.get(key)
             if fn is not None:
                 self.metrics.count_cache(hit=True)
-                return fn
+                return fn, tier
             from .. import ops
 
+            sharded = tier.startswith("fast@mesh")
             run_batch_fn, path = ops.select_run_batch(
-                model.dtype, parity="strict" if tpk else tier,
+                model.dtype, parity=("strict" if tpk
+                                     else "fast" if sharded else tier),
                 kind=model.kind, device=self.device,
                 model_mesh=self.tp_mesh if tpk else None)
-            if tpk and not pinned:
+            if sharded:
+                from ..parallel.dp import dp_eval_batch
+
+                path += "+" + tier.split("@")[1]
+                mesh_dict = model._mesh_weights  # captured: see swap_kernel
+
+                def fn(x, _fn=run_batch_fn, _m=self.mesh, _mo=model,
+                       _md=mesh_dict, _k=model.kind, _dt=model.dtype):
+                    # one read: every shard's copy and their generation
+                    copies, gen = _md.get(_m) or _mo.mesh_weights(_m)
+                    return dp_eval_batch(copies, x.to(_dt), _k, _m,
+                                         _fn), gen
+            elif tpk and not pinned:
                 tp_dict = model._tp_weights   # captured: see swap_kernel
 
                 def fn(x, _fn=run_batch_fn, _m=self.tp_mesh, _mo=model,
@@ -650,7 +717,11 @@ class ModelRegistry:
             self.metrics.count_cache(hit=False)
             nn_dbg(f"serve: compile-cache miss (model={model.name} "
                    f"bucket={bucket} tier={tier} path={path})\n")
-            return fn
+        if sharded:
+            # the copies are placed now, not in a batch, and outside the
+            # registry's lock, so that the other models' dispatch goes on
+            model.mesh_weights(self.mesh)
+        return fn, tier
 
     def dispatch(self, model: ServedModel, xs: np.ndarray,
                  gen: int | None = None) -> _InFlight:
@@ -663,7 +734,7 @@ class ModelRegistry:
             raise ValueError(f"rows {rows} outside [1, {self.max_batch}]")
         bucket = bucket_rows(rows, self.max_batch)
         pinned = gen is not None
-        fn = self._callable_for(model, bucket, pinned=pinned)
+        fn, tier = self._callable_for(model, bucket, pinned=pinned)
         args = ()
         served_gen = None
         if pinned:
@@ -676,9 +747,7 @@ class ModelRegistry:
         host[:rows] = xs
         if rows < bucket:
             host[rows:] = 0.0  # a reused buffer may carry a stale tail
-        tpk = self.tp_shards(model)
-        h = _InFlight(None, rows, bucket, served_gen=served_gen,
-                      tier=f"tp@{tpk}" if tpk else self.tier_for(bucket))
+        h = _InFlight(None, rows, bucket, served_gen=served_gen, tier=tier)
         if self.device.type != "cuda":
             t1 = time.monotonic()
             try:

@@ -273,6 +273,7 @@ class ServeApp:
     def __init__(self, max_batch: int = 64, max_queue_rows: int = 256,
                  linger_s: float = 0.0, default_timeout_s: float = 30.0,
                  parity: str = "strict", fast_threshold: int = 256,
+                 mesh_devices: int | None = 0,
                  device="cuda", metrics: ServeMetrics | None = None,
                  auth_token: str | None = None, ab_fraction: float = 0.0,
                  trace: bool | None = None, trace_sample: float | None = None,
@@ -339,11 +340,24 @@ class ServeApp:
 
             self.span_exporter = SpanExporter(span_dir)
             obs_trace.set_exporter(self.span_exporter)
+        mesh = None
+        if parity == "fast" and mesh_devices != 0:  # 0: explicitly off
+            from ..parallel.mesh import data_mesh
+
+            # None or -1: every visible card; None below two
+            mesh = data_mesh(mesh_devices, device)
+        elif mesh_devices != 0:
+            # an explicit mesh that strict parity can never use gets the
+            # same loud inert-config line as an unreachable fast_threshold
+            nn_warn("serve: --mesh is inert under parity=strict (the "
+                    "bit-parity GEMV scan never shards); pass "
+                    "--parity fast to enable sharded serving\n")
         self.registry = ModelRegistry(max_batch=max_batch, parity=parity,
                                       fast_threshold=fast_threshold,
                                       device=device, metrics=self.metrics,
                                       ab_fraction=ab_fraction,
-                                      tp_mesh=_tp_mesh_from_env(device))
+                                      tp_mesh=_tp_mesh_from_env(device),
+                                      mesh=mesh)
         self.batchers: dict[str, MicroBatcher] = {}
         self.max_queue_rows = int(max_queue_rows)
         self.linger_s = float(linger_s)

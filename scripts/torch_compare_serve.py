@@ -3,6 +3,7 @@
 
     python3 scripts/torch_compare_serve.py [--json PATH] [--previous DIR]
         [--seconds 10] [--reps 3] [--clients 1,8,32] [--rows 1,64]
+        [--mesh 4] [--parity-only]
 
 Starts ``python -m hpnn_tpu_torch.cli serve_nn`` as its own process on the
 card (``-b 64``, strict tier, every bucket warmed first) with a generated
@@ -25,6 +26,17 @@ Each repetition also times the registry alone in a fresh process of
 each tree: the median wall of 2000 synchronous ``ModelRegistry.forward``
 calls of 1 and 64 rows (pad, copy in, the two launches, copy out, no
 HTTP, no batcher): the host cost of one batch.
+
+The tier table (this tree only, in this process; the counterpart of the
+JAX package's ``scripts/serve_bench.py`` ``compare_parity``): the same
+kernel at f64, f32 and bf16 in a ``strict`` registry, a ``fast`` one
+and a ``fast@meshN`` one (``--mesh N`` shards: distinct cards where the
+host has N, else the one card repeated N times), each bucket of 64 and
+256 rows timed as one synchronous registry call (pad, copy in, the
+forward, copy out) after a warm pass, the median of 50 calls, with
+rows a second, the speedup over ``strict``, the
+largest difference from the strict answer and whether the sharded answer
+is bit-identical to the ``fast`` one.  ``--parity-only`` runs just it.
 
 ``--previous DIR`` (repeatable) runs the same table against another
 checkout's ``hpnn_tpu_torch`` (for example ``git archive`` of an earlier
@@ -56,6 +68,9 @@ MNIST = (784, [300], 10)
 POOL = 1024              # distinct input rows
 BODIES = 16              # pre-encoded request bodies per row count
 TOKEN = "T"
+PARITY_BUCKETS = (64, 256)          # the tier table's buckets
+PARITY_DTYPES = ("f64", "f32", "bf16")
+PARITY_REPS = 50                    # synchronous calls a cell
 
 
 def log(msg: str) -> None:
@@ -330,6 +345,65 @@ def _registry_loop(tree: str, conf: str, device: str) -> dict:
     raise RuntimeError(f"registry loop in {tree}: {res.stderr[-2000:]}")
 
 
+def compare_parity(conf: str, mesh_n: int, device: str,
+                   seed: int = 42) -> list[dict]:
+    """The strict / fast / fast@meshN tier table of this tree (see the
+    module docstring).  Every registry serves the same kernel file."""
+    sys.path.insert(0, ROOT)
+    from hpnn_tpu_torch.parallel.mesh import DataMesh, data_mesh
+    from hpnn_tpu_torch.runtime import resolve_device
+    from hpnn_tpu_torch.serve.registry import ModelRegistry
+
+    dev = resolve_device(device)
+    mesh = data_mesh(mesh_n, dev) if dev.type == "cuda" else None
+    if mesh is None or mesh.n_data != mesh_n:
+        mesh = DataMesh([dev] * mesh_n)
+    buckets, cap = PARITY_BUCKETS, max(PARITY_BUCKETS)
+    text = open(conf).read()
+    rows = []
+    rng = np.random.default_rng(seed)
+    for dname in PARITY_DTYPES:
+        dconf = conf.replace(".conf", f"_{dname}.conf")
+        with open(dconf, "w") as fp:
+            fp.write(text.replace("[dtype] f64", f"[dtype] {dname}"))
+        tiers = {
+            "strict": ModelRegistry(max_batch=cap, device=device),
+            "fast": ModelRegistry(max_batch=cap, parity="fast",
+                                  fast_threshold=min(buckets),
+                                  device=device),
+            f"fast@mesh{mesh_n}": ModelRegistry(
+                max_batch=cap, parity="fast", fast_threshold=min(buckets),
+                device=device, mesh=mesh)}
+        models = {t: reg.register_conf(dconf) for t, reg in tiers.items()}
+        for bucket in buckets:
+            xs = rng.integers(0, 256, (bucket, MNIST[0])).astype(np.float64)
+            row = {"dtype": dname, "bucket": bucket,
+                   "mesh_devices": [str(d) for d in mesh.devices]}
+            outs = {}
+            for tier, model in models.items():
+                outs[tier] = model.infer(xs)            # the warm pass
+                walls = []
+                for _ in range(PARITY_REPS):
+                    t0 = time.perf_counter()
+                    model.infer(xs)
+                    walls.append(time.perf_counter() - t0)
+                dt = statistics.median(walls)
+                row[tier] = {"tier": tiers[tier].tier_for(bucket),
+                             "ms_per_batch": dt * 1e3,
+                             "rows_per_s": bucket / dt}
+            base = row["strict"]["rows_per_s"]
+            for tier in models:
+                if tier != "strict":
+                    row[tier]["speedup_vs_strict"] = \
+                        row[tier]["rows_per_s"] / base
+                    row[tier]["max_abs_diff_vs_strict"] = float(
+                        np.abs(outs[tier] - outs["strict"]).max())
+            row[f"fast@mesh{mesh_n}"]["bitwise_vs_fast"] = bool(
+                np.array_equal(outs[f"fast@mesh{mesh_n}"], outs["fast"]))
+            rows.append(row)
+    return rows
+
+
 def _has_reload(tree: str) -> bool:
     path = os.path.join(tree, "hpnn_tpu_torch", "serve", "server.py")
     with open(path) as fp:
@@ -351,11 +425,39 @@ def main(argv=None) -> int:
     ap.add_argument("--clients", default="1,8,32")
     ap.add_argument("--rows", default="1,64")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", type=int, default=4, metavar="N",
+                    help="shards of the fast@meshN row (default 4)")
+    ap.add_argument("--parity-only", action="store_true",
+                    help="run the tier table alone")
     args = ap.parse_args(argv)
     args.clients = [int(c) for c in args.clients.split(",")]
     args.rows = [int(r) for r in args.rows.split(",")]
     card = _card()
     log(card)
+    with tempfile.TemporaryDirectory(prefix="hpnn_serve_tiers_") as tmp:
+        parity = compare_parity(_setup(tmp), args.mesh, args.device)
+    mesh_tier = f"fast@mesh{args.mesh}"
+    log(f"tier table ({card}; median ms of {PARITY_REPS} synchronous "
+        f"registry calls; {mesh_tier} on {parity[0]['mesh_devices']})")
+    log("dtype bucket  strict ms   fast ms (x strict, max diff)   "
+        f"{mesh_tier} ms (x strict, max diff, bits = fast)")
+    for r in parity:
+        f, m = r["fast"], r[mesh_tier]
+        log(f"{r['dtype']:5} {r['bucket']:6}  "
+            f"{r['strict']['ms_per_batch']:9.4f} {f['ms_per_batch']:9.4f} "
+            f"({f['speedup_vs_strict']:.2f}x, "
+            f"{f['max_abs_diff_vs_strict']:.2e})   "
+            f"{m['ms_per_batch']:9.4f} ({m['speedup_vs_strict']:.2f}x, "
+            f"{m['max_abs_diff_vs_strict']:.2e}, {m['bitwise_vs_fast']}) "
+            f"[{f['tier']}, {m['tier']}]")
+    if args.parity_only:
+        if args.json:
+            os.makedirs(os.path.dirname(os.path.abspath(args.json)),
+                        exist_ok=True)
+            with open(args.json, "w") as fp:
+                json.dump({"card": card, "args": vars(args),
+                           "parity": parity}, fp, indent=1)
+        return 0
     trees = {"this": ROOT}
     for i, prev in enumerate(args.previous):
         trees["previous" + (str(i + 1) if i else "")] = os.path.abspath(prev)
@@ -402,7 +504,8 @@ def main(argv=None) -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
                     exist_ok=True)
         with open(args.json, "w") as fp:
-            json.dump({"card": card, "args": vars(args), "medians": table,
+            json.dump({"card": card, "args": vars(args), "parity": parity,
+                       "medians": table,
                        "registry_ms": reg_table, "runs": runs,
                        "registry_runs": registry, "trees": trees}, fp,
                       indent=1)

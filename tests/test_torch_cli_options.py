@@ -125,7 +125,7 @@ def test_every_jax_serve_option_is_taken_or_refused(monkeypatch, tmp_path,
     jax_opts = {o for a in jax_ap._actions for o in a.option_strings}
     port_opts = {o for a in port_ap._actions for o in a.option_strings}
     refused = set(port_cli._SERVE_OWN_REFUSALS)
-    assert refused == {"--compile-cache", "--mesh"}
+    assert refused == {"--compile-cache"}
     missing = jax_opts - port_opts - refused
     assert not missing, sorted(missing)
     assert not refused & port_opts

@@ -258,7 +258,7 @@ def _bpm_cover(plan, n, m):
 
 @pytest.mark.parametrize("aligned", [True, False], ids=["aligned",
                                                          "unaligned"])
-@pytest.mark.parametrize("itemsize", [8, 4], ids=["f64", "f32"])
+@pytest.mark.parametrize("itemsize", [8, 4, 2], ids=["f64", "f32", "bf16"])
 @pytest.mark.parametrize("n,m", BPM_SHAPES)
 def test_fused_bpm_plan_covers_every_weight_once(n, m, itemsize, aligned):
     from hpnn_tpu_torch.ops.kernels import BPM_THREADS, fused_bpm_plan
@@ -277,11 +277,13 @@ def test_fused_bpm_plan_covers_every_weight_once(n, m, itemsize, aligned):
 @pytest.mark.parametrize("n,m,itemsize,vec", [
     (300, 784, 4, 4), (300, 784, 8, 2), (10, 300, 4, 4), (10, 300, 8, 2),
     (230, 851, 4, 1), (230, 851, 8, 1), (230, 230, 4, 1), (230, 230, 8, 2),
-    (4096, 4096, 4, 4), (4096, 4096, 8, 2)])
+    (4096, 4096, 4, 4), (4096, 4096, 8, 2), (300, 784, 2, 8),
+    (10, 300, 2, 1), (230, 851, 2, 1), (230, 230, 2, 1), (4096, 4096, 2, 8)])
 def test_fused_bpm_plan_vectors_where_the_pitch_allows(n, m, itemsize, vec):
-    """16-byte rows take 16-byte vectors; 851 columns at both dtypes and
-    230 at float32 are not 16-byte rows and take one column a thread, as
-    does any shape whose pointers are not 16-byte aligned."""
+    """16-byte rows take 16-byte vectors (8 bfloat16 values); 851 columns
+    at every dtype, 230 at float32 and bfloat16 and 300 at bfloat16 are
+    not 16-byte rows and take one column a thread, as does any shape whose
+    pointers are not 16-byte aligned."""
     from hpnn_tpu_torch.ops.kernels import fused_bpm_plan
 
     assert fused_bpm_plan(n, m, itemsize).vec == vec

@@ -104,6 +104,19 @@ def _wait_quorum(port, timeout_s=15.0):
     raise AssertionError(f"router on :{port} never reached quorum")
 
 
+def _wait_worker(port, pred, what, timeout_s=15.0):
+    """Poll the router's ``/v1/mesh/workers`` until its one worker meets
+    ``pred``."""
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        status, body = _get(f"http://127.0.0.1:{port}/v1/mesh/workers")
+        if status == 200 and body["workers"] and all(
+                pred(w) for w in body["workers"].values()):
+            return body
+        time.sleep(0.05)
+    raise AssertionError(f"router on :{port}: worker never {what}")
+
+
 def _kill(httpd, app):
     """The in-process stand-in for a SIGKILL: no new connections, the
     established keep-alive ones severed, no goodbye."""
@@ -551,8 +564,12 @@ def test_deadline_header_end_to_end(tmp_path):
                            {"X-HPNN-Deadline-Ms": "300"})
         assert st == 504 and time.monotonic() - t0 < 10
         wapp.batchers["tiny"].resume()
-        # the router's RPC timed out on the held worker and ejected it;
-        # the health loop readmits it
+        # the router answered 504 at its own deadline, while its RPC to
+        # the held worker may still be in flight: wait for that RPC to
+        # end (a timed-out one ejects the worker before it ends), then
+        # for the health loop to have the worker live again
+        _wait_worker(rport, lambda w: w["inflight"] == 0, "RPC ended")
+        _wait_worker(rport, lambda w: w["state"] == "live", "readmitted")
         _wait_quorum(rport)
         assert _post(base, "/v1/kernels/tiny/infer", xs,
                      {"X-HPNN-Deadline-Ms": "soon"})[0] == 400

@@ -192,7 +192,7 @@ def test_bucket_rows_matches_jax():
 
 
 def test_serve_unported_flag_and_missing_gpu(tmp_path, capsys):
-    from hpnn_tpu_torch.cli import serve_nn_main
+    from hpnn_tpu_torch.cli import serve_app, serve_nn_main
 
     conf, _ = _write_conf(tmp_path)
     # --autoscale is a router's: without the role, the JAX package's line
@@ -200,10 +200,18 @@ def test_serve_unported_flag_and_missing_gpu(tmp_path, capsys):
                           conf]) != 0
     assert "--autoscale requires --mesh-role router (ABORTING)" in \
         capsys.readouterr().err
-    # the JAX data-mesh tier has no counterpart: a refusal of its own
-    assert serve_nn_main(["--mesh", "4", "--device", "cpu", conf]) != 0
-    err = capsys.readouterr().err
-    assert err.startswith("serve_nn: --mesh ") and "later slice" not in err
+    # --mesh is taken as the JAX package takes it: capped to the devices
+    # (one on the CPU), so no data mesh and the plain fast tier
+    app, args = serve_app(["--mesh", "4", "--parity", "fast", "-b", "256",
+                           "--fast-threshold", "64", "--device", "cpu",
+                           "--no-warmup", conf])
+    try:
+        assert app is not None and args.mesh == 4
+        assert app.registry.mesh is None
+        assert app.registry.tier_for(256) == "fast"
+    finally:
+        app.close(drain=False)
+    assert "--mesh" not in capsys.readouterr().err
     assert serve_nn_main(["-p", "0", conf]) != 0  # cuda by default
     assert "no GPU is visible" in capsys.readouterr().err
 

@@ -624,11 +624,18 @@ def test_serve_nn_new_options(tmp_path, capsys, monkeypatch):
                       conf]) == (None, -1)
     assert "--mesh-role standby requires --primary HOST:PORT (ABORTING)" \
         in capsys.readouterr().err
-    # the JAX data-mesh tier has a refusal of its own, never an
-    # ambiguous abbreviation of --mesh-role/--mesh-health-interval
-    assert serve_app(["--mesh", "1", "--device", "cpu", conf]) == (None, 2)
-    err = capsys.readouterr().err
-    assert err.startswith("serve_nn: --mesh shards") and "ambig" not in err
+    # --mesh is an option of its own, never an ambiguous abbreviation of
+    # --mesh-role/--mesh-health-interval; under the default strict parity
+    # it is inert and says so, as in the JAX package
+    app, args = serve_app(["-v", "--mesh", "1", "--device", "cpu", conf])
+    try:
+        assert app is not None and args.mesh == 1
+        assert app.registry.mesh is None and args.mesh_role is None
+    finally:
+        app.close(drain=False)
+    out, err = capsys.readouterr()
+    assert "serve: --mesh is inert under parity=strict" in out
+    assert "ambig" not in err
     # admission, the mesh roles and a mesh router as the replica
     # destination are ported
     app, args = serve_app(["--shed-low", "--quota-rows", "5",
