@@ -5,7 +5,11 @@
 
 Run from the root of a checkout.  It drives the port's main path on the
 card at full width and fails (non-zero exit, no result line) on any
-fault; no phase catches its own failure.
+fault; no phase catches its own failure.  On a host of several cards
+phases 1-28 hold the one-card routes on the first card: the process's
+training decisions are pinned there (``api.device_slice``) and the child
+processes of phases 1-27 see that card alone; phase 28's mesh and
+phase 29's grid span the cards.
 
 1. Device: the ``nvidia-smi`` name and power limit, torch's CUDA version.
 2. Build: every hand-written kernel from ``hpnn_tpu_torch/csrc`` (one
@@ -315,6 +319,28 @@ fault; no phase catches its own failure.
    ``fused_bpm_update`` at bfloat16 bit for bit against its plain version
    at phase 13's shapes, timed (warm, cold, floor, bound) at 300x784 and
    4096x4096.
+29. Training on an in-process grid (run right after phase 28): MNIST
+   784-300-10 at the tutorial conf on phase 9's 512 files, each run pinned
+   to its devices with ``api.device_slice`` (distinct cards where the host
+   has them, else the one card repeated; the phase prints which) and held
+   to the one-shard run on the card: ``[batch] 32`` BP and BPM, ``--epochs
+   2``, at 2 and 4 shards, resident and restaging (the ``TRAINING BATCH``
+   lines equal, kernel.opt within 1e-11); the 2x2 ``[batch] 32`` x
+   ``[model] 2`` grid against phase 21's four gloo ranks the same way;
+   ``[model] 2`` per sample on phase 21's 64 files from its kernel (lines
+   equal, 1e-12; B2 its kernel); ``[batch] 32`` + ``[tile] 4`` at 4
+   shards against the one-card ``train_tile`` route (lines equal, any
+   other iteration count printed, 1e-11); ``[batch] 32`` CG on phase 20's
+   [0, 1] bars at 4 shards (1e-9); ``run_nn`` of phase 21's ``[model] 2``
+   conf over 2 shards (phase 4's lines and outputs, 4 B2 launches); a
+   jobs server over the 4-shard grid's devices whose ``dp_devices: 2``
+   job gives the offline 2-shard run's kernel.opt; on a host of several
+   cards ``python -m hpnn_tpu_torch.cli train_nn`` as a process over every
+   card.  B1 and B4 launch 0 times on the sharded routes.  Each run's
+   epochs' device time, wall, launches and bytes a shard, then the
+   ``[batch] 32`` BPM epoch of phase 20's 4096 files alone at 1, 2 and 4
+   shards: device and host ms, kernel launches (``torch.profiler``) and
+   momentum bytes a shard.
 15. One JSON line of every kernel (launches on its main path, the largest
    kernel-vs-plain error over every cell and dtype, times and bound;
    ``fused_linear_act`` adds its B=1 cell and its worst ratio to the
@@ -3400,7 +3426,8 @@ def phase_tp(e2e, tmp, runs, results, epochs_runs):
                                                 ranks[0][1]))
         res["gloo"][tag] = {"world": world, "max_abs_err": err,
                             "wall_s": wall, "iters": n_iter,
-                            "card_wall_s": card["wall_s"]}
+                            "card_wall_s": card["wall_s"], "cwd": cwd,
+                            "lines": lines(ranks[0][1])}
         log(f"{world} gloo CPU ranks, {tag}: {key} lines equal to the "
             f"card's one process, kernel.opt within {err:.3e} (limit "
             f"{limit:g}); wall {wall:.1f} s from the ranks' start, "
@@ -5545,6 +5572,455 @@ def phase_data_mesh(tmp, card):
     return res
 
 
+GRID_SHARDS = (2, 4)            # phase 29: data shards of the grid runs
+GRID_LIMIT = {"batch": 1e-11, "sample": 1e-12, "cg": 1e-9}
+
+
+def _grid_devices(k):
+    """k shards: distinct cards where the host has them, else cuda:0
+    repeated (the shards then run in turn)."""
+    import torch
+
+    cards = torch.cuda.device_count()
+    return [torch.device("cuda", i if cards >= k else 0) for i in range(k)]
+
+
+def _grid_train(cwd, argv, k, env=None):
+    """``_ckpt_train`` with the thread pinned to a k-shard grid (the
+    counts set to 0 just before the run)."""
+    from hpnn_tpu_torch import api
+
+    with api.device_slice(_grid_devices(k)):
+        return _ckpt_train(cwd, argv, env)
+
+
+def _train_lines(out, key):
+    return re.findall(key + r"[^\n]*", out)
+
+
+def _grid_opt(cwd):
+    with open(os.path.join(cwd, "kernel.opt")) as fp:
+        return fp.read()
+
+
+def _grid_held(tag, run, ref, key, limit, cwd, ref_cwd, grid, kernels=()):
+    """A grid run held to its one-shard reference: the ``key`` lines
+    equal, kernel.opt within ``limit``, no hand-written kernel launched
+    but ``kernels``, and the ``EPOCH_METRICS`` entries ``grid`` names.
+    Returns the run's record."""
+    met = run["metrics"]
+    err = _kernel_diff(_grid_opt(ref_cwd), _grid_opt(cwd))
+    got, want = _train_lines(run["out"], key), _train_lines(ref["out"], key)
+    stray = {n: v for n, v in run["launches"].items()
+             if v and n not in kernels}
+    if got != want or not want or err > limit or stray \
+            or any(met[k] != v for k, v in grid.items()):
+        raise AssertionError(
+            f"{tag} (phase 29): {key} lines equal {got == want} "
+            f"({len(got)}), kernel.opt {err:.3e} from the one-shard run "
+            f"(limit {limit:g}), launches {run['launches']}, metrics "
+            f"{ {k: met[k] for k in grid} } (want {grid})")
+    rec = {"wall_s": run["wall_s"], "ref_wall_s": ref["wall_s"],
+           "max_abs_err": err, "launches": run["launches"],
+           "mode": met["mode"], "epoch_device_ms": met["device_ms"],
+           "ref_epoch_device_ms": ref["metrics"]["device_ms"],
+           "opt_state_bytes_per_device":
+               met["opt_state_bytes_per_device"],
+           "weight_bytes_per_device": met["weight_bytes_per_device"]}
+    log(f"grid {tag}: {len(got)} {key} lines equal to the one-shard run's, "
+        f"kernel.opt within {err:.3e}; {met['mode']}; wall "
+        f"{run['wall_s']:.2f} s (one shard {ref['wall_s']:.2f}); epochs' "
+        f"device ms {[round(m, 2) for m in met['device_ms']]} (one shard "
+        f"{[round(m, 2) for m in ref['metrics']['device_ms']]}); update "
+        f"state {met['opt_state_bytes_per_device']} bytes a shard; "
+        f"launches {run['launches']}")
+    return rec
+
+
+def _grid_replay(x, t, k):
+    """The [batch] 32 BPM f64 epoch of phase 20's 4096 MNIST files (``x``,
+    ``t``: (batches, 32, n) float64) on a k-shard grid alone
+    (``dp_epoch``, no CLI): device ms between events on the first shard's
+    card and host ms of the launches (median of 3), the kernel launches
+    of one epoch (``torch.profiler``) and the update state's bytes a
+    shard."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from hpnn_tpu_torch.models.kernel import generate_kernel
+    from hpnn_tpu_torch.parallel import DataMesh, dp
+    from hpnn_tpu_torch.parallel.mesh import shard_bounds
+
+    devs = _grid_devices(k)
+    kern, _ = generate_kernel(10958, 784, [300], 10)
+    shapes = tuple(tuple(w.shape) for w in kern.weights)
+    nb, bsz = x.shape[:2]
+    cuts = [shard_bounds(bsz, k, d) for d in range(k)]
+    xb = [_to_card(np.ascontiguousarray(x[:, lo:hi]),
+                   torch.float64).to(dev) for (lo, hi), dev in zip(cuts, devs)]
+    tb = [_to_card(np.ascontiguousarray(t[:, lo:hi]),
+                   torch.float64).to(dev) for (lo, hi), dev in zip(cuts, devs)]
+    mb = [torch.ones(nb, hi - lo, dtype=torch.float64, device=dev)
+          for (lo, hi), dev in zip(cuts, devs)]
+    w = dp.dp_resident_carry([_to_card(v, torch.float64).to(devs[0])
+                              for v in kern.weights], k)
+    mesh = DataMesh(devs) if k > 1 else None
+
+    def epoch():
+        if mesh is None:
+            return dp.dp_epoch(w, xb[0], tb[0], mb[0], "ANN", True, 0.0005,
+                               0.2, shapes)
+        return dp.dp_epoch(w, xb, tb, mb, "ANN", True, 0.0005, 0.2, shapes,
+                           mesh=mesh)
+
+    got = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = epoch()
+        end.record()
+        host = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        got.append((start.elapsed_time(end), host))
+    ms, host = sorted(got[1:])[1]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        epoch()
+        torch.cuda.synchronize()
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.key.startswith("cu") and "Launch" in e.key)
+    dw = out[1] if isinstance(out[1], list) else [out[1]]
+    return {"shards": k, "devices": [str(d) for d in devs], "ms": ms,
+            "host_ms": host, "launches": launches, "batches": nb,
+            "opt_state_bytes_per_device": max(v.numel() * v.element_size()
+                                              for v in dw)}
+
+
+def _grid_launches(grid_res, name):
+    """A kernel's launches in each of phase 29's sharded training runs."""
+    out = {tag: r["launches"][name] for tag, r in grid_res["batch"].items()}
+    for part in ("hybrid", "model", "tile", "cg"):
+        out[part] = grid_res[part]["launches"][name]
+    return out
+
+
+def phase_grid(e2e, tmp, runs, results, tp_res, card):
+    """Phase 29: training on an in-process grid.  MNIST 784-300-10 at the
+    tutorial conf on phase 9's 512 bar files, each grid run pinned to its
+    devices with ``api.device_slice`` (distinct cards where the host has
+    them, else the one card repeated) and held to the one-shard run on the
+    card: ``[batch] 32`` BP and BPM at 2 and 4 shards, resident and
+    restage; the 2x2 ``[batch] 32`` x ``[model] 2`` grid against phase
+    21's four gloo ranks; ``[model] 2`` per sample on phase 21's 64 files;
+    ``[batch] 32`` + ``[tile] 4`` at 4 shards against the one-card
+    ``train_tile`` route; ``[batch] 32`` CG on phase 20's [0, 1] bars at 4
+    shards; ``run_nn`` of phase 21's ``[model] 2`` conf over 2 shards; a
+    jobs server over the 4-shard grid's devices running a ``dp_devices:
+    2`` job; on a host of several cards ``python -m hpnn_tpu_torch.cli
+    train_nn`` as a process over every card.  Then the [batch] 32 BPM
+    epoch alone at 1, 2 and 4 shards: device and host time, kernel
+    launches, update-state bytes a shard."""
+    import torch
+
+    from hpnn_tpu_torch import api, cli
+    from hpnn_tpu_torch.io.corpus import load_resident
+    from hpnn_tpu_torch.io.samples import list_sample_dir
+    from hpnn_tpu_torch.ops.kernels import fused_linear_act
+    from hpnn_tpu_torch.serve.server import ServeApp, serve_in_thread
+    from hpnn_tpu_torch.train import cg
+
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "grid")
+    mnist512 = os.path.join(e2e["root"], "samples")
+    cards = torch.cuda.device_count()
+    res = {"cards": cards, "devices": {k: [str(d) for d in _grid_devices(k)]
+                                       for k in GRID_SHARDS},
+           "batch": {}, "part_wall_s": {}}
+    log(f"grid (phase 29), {cards} x {card}: "
+        + ", ".join(f"{k} shards on {res['devices'][k]}"
+                    for k in GRID_SHARDS)
+        + (" (distinct cards)" if cards >= max(GRID_SHARDS)
+           else " (the card repeated)"))
+    t_part = [time.perf_counter()]
+
+    def done(name):
+        now = time.perf_counter()
+        res["part_wall_s"][name] = now - t_part[0]
+        t_part[0] = now
+
+    one = [torch.device("cuda", 0)]
+    # --- [batch] 32 BP/BPM at 2 and 4 shards, resident and restage
+    batch_dirs = {}
+    for train in ("BP", "BPM"):
+        ref_cwd = _b_conf(os.path.join(root, f"b32_{train}_1"), "ANN", train,
+                          MNIST, mnist512, "[batch] 32\n")
+        with api.device_slice(one):
+            ref = _ckpt_train(ref_cwd, ["--epochs", "2", "nn.conf"])
+        for k in GRID_SHARDS:
+            for route, env in (("resident", None),
+                               ("restage", {"HPNN_NO_EPOCH_PIPELINE": "1"})):
+                tag = f"[batch] 32 {train} {k} shards {route}"
+                cwd = _b_conf(os.path.join(root, tag.replace(" ", "_")),
+                              "ANN", train, MNIST, mnist512, "[batch] 32\n")
+                run = _grid_train(cwd, ["--epochs", "2", "nn.conf"], k, env)
+                res["batch"][tag] = _grid_held(
+                    tag, run, ref, "TRAINING BATCH", GRID_LIMIT["batch"],
+                    cwd, ref_cwd, {"dp_devices": k, "tp_devices": 1})
+                batch_dirs[(train, k, route)] = cwd
+    done("batch")
+    # --- the 2x2 grid against phase 21's four gloo ranks
+    gtag = "[batch] 32 x [model] 2"
+    gloo = tp_res["gloo"][gtag]
+    cwd = _b_conf(os.path.join(root, "hybrid"), "ANN", "BP", MNIST, mnist512,
+                  "[batch] 32\n[model] 2\n")
+    run = _grid_train(cwd, ["--epochs", "2", "nn.conf"], 4)
+    err = _kernel_diff(_grid_opt(gloo["cwd"]), _grid_opt(cwd))
+    lines = _train_lines(run["out"], "TRAINING BATCH")
+    met = run["metrics"]
+    b2 = run["launches"]["fused_linear_act"]
+    if lines != gloo["lines"] or err > GRID_LIMIT["batch"] \
+            or "DP: hybrid mesh 2x2" not in run["out"] or b2 <= 0 \
+            or any(v for n, v in run["launches"].items()
+                   if n != "fused_linear_act") \
+            or (met["dp_devices"], met["tp_devices"]) != (2, 2):
+        raise AssertionError(f"{gtag} on the 2x2 grid (phase 29): lines "
+                             f"equal {lines == gloo['lines']}, kernel.opt "
+                             f"{err:.3e} from 4 gloo ranks, launches "
+                             f"{run['launches']}, metrics {met}")
+    res["hybrid"] = {"wall_s": run["wall_s"], "gloo_wall_s": gloo["wall_s"],
+                     "max_abs_err": err, "mode": met["mode"],
+                     "launches": run["launches"],
+                     "epoch_device_ms": met["device_ms"],
+                     "weight_bytes_per_device":
+                         met["weight_bytes_per_device"],
+                     "opt_state_bytes_per_device":
+                         met["opt_state_bytes_per_device"]}
+    log(f"grid {gtag} on 2x2: TRAINING BATCH lines equal to phase 21's 4 "
+        f"gloo ranks', kernel.opt within {err:.3e}; wall "
+        f"{run['wall_s']:.2f} s (gloo {gloo['wall_s']:.1f}); epochs' device "
+        f"ms {[round(m, 2) for m in met['device_ms']]}; weights "
+        f"{met['weight_bytes_per_device']} bytes a shard; fused_linear_act "
+        f"{b2} launches ({b2 // 32} a batch: the ring's products)")
+    done("hybrid")
+    # --- [model] 2 per sample on phase 21's 64 files, from its kernel
+    s64 = os.path.join(tmp, "tp", "samples64")
+    pre = os.path.join(tmp, "tp", "pre.opt")
+    tp_dirs = []
+    for side in ("one", "grid"):
+        d = _b_conf(os.path.join(root, f"model2_{side}"), "ANN", "BP", MNIST,
+                    s64, "[model] 2\n")
+        path = os.path.join(d, "nn.conf")
+        with open(path) as fp:
+            text = fp.read()
+        with open(path, "w") as fp:
+            fp.write(text.replace("[init] generate", f"[init] {pre}"))
+        tp_dirs.append(d)
+    with api.device_slice(one):
+        ref = _ckpt_train(tp_dirs[0], ["nn.conf"])
+    run = _grid_train(tp_dirs[1], ["nn.conf"], 2)
+    b2 = run["launches"]["fused_linear_act"]
+    res["model"] = _grid_held("[model] 2 per sample 2 shards", run, ref,
+                              "TRAINING FILE", GRID_LIMIT["sample"],
+                              tp_dirs[1], tp_dirs[0], {"tp_devices": 2},
+                              kernels=("fused_linear_act",))
+    iters = sum(int(v) for v in re.findall(r"N_ITER=\s*(\d+)", run["out"]))
+    res["model"].update(b2_launches=b2, iters=iters)
+    if b2 <= 0 or ref["launches"]["train_epoch"] != 1:
+        raise AssertionError(f"[model] 2 per sample (phase 29): B2 {b2}, "
+                             f"the one-shard run {ref['launches']}")
+    log(f"grid [model] 2 per sample: {iters} iterations, fused_linear_act "
+        f"launched {b2} times ({b2 / max(1, iters):.1f} an iteration)")
+    done("model")
+    # --- [batch] 32 + [tile] 4 at 4 shards against the one-card route
+    tile_dirs = []
+    for side in ("one", "grid"):
+        tile_dirs.append(_b_conf(os.path.join(root, f"tile_{side}"), "ANN",
+                                 "BP", MNIST, mnist512,
+                                 "[batch] 32\n[tile] 4\n"))
+    with api.device_slice(one):
+        ref = _ckpt_train(tile_dirs[0], ["--epochs", "2", "nn.conf"])
+    run = _grid_train(tile_dirs[1], ["--epochs", "2", "nn.conf"], 4)
+    want = re.findall(r"N_ITER=\s*(\d+)", ref["out"])
+    got = re.findall(r"N_ITER=\s*(\d+)", run["out"])
+    diff = [(i, int(a), int(b)) for i, (a, b) in enumerate(zip(want, got))
+            if a != b]
+    log(f"grid [batch] 32 + [tile] 4 at 4 shards: {len(diff)} sample(s) of "
+        f"{len(want)} with another iteration count than the one-card "
+        f"train_tile route" + (f": {diff[:8]}" if diff else ""))
+    if "mesh=4)" not in run["out"] or ref["launches"]["train_tile"] != 8:
+        raise AssertionError(f"[batch] 32 + [tile] 4 (phase 29): banner "
+                             f"{'mesh=4)' in run['out']}, one-card "
+                             f"train_tile launches {ref['launches']}")
+    res["tile"] = _grid_held("[batch] 32 + [tile] 4 4 shards", run, ref,
+                             "TRAINING FILE", GRID_LIMIT["batch"],
+                             tile_dirs[1], tile_dirs[0],
+                             {"dp_devices": 4, "mode": "dp-tiled-resident"})
+    res["tile"]["iter_diffs"] = len(diff)
+    res["tile"]["lane_iters"] = sum(int(v) for v in got)
+    done("tile")
+    # --- [batch] 32 CG on phase 20's [0, 1] bars at 4 shards
+    cg_dir = os.path.join(tmp, "batched", "cg_pm1")
+    cg_dirs = [_b_conf(os.path.join(root, f"cg_{side}"), "ANN", "CG", MNIST,
+                       cg_dir, "[batch] 32\n") for side in ("one", "grid")]
+    argv = ["--trainer", "cg", "--epochs", "2", "nn.conf"]
+    cg_ms = []
+    for d, k in zip(cg_dirs, (1, 4)):
+        cg.CG_METRICS.update(epochs=0, iters=0, device_ms=[])
+        with api.device_slice(_grid_devices(k)):
+            runs_cg = _ckpt_train(d, argv)
+        cg_ms.append(list(cg.CG_METRICS["device_ms"]))
+        if k == 1:
+            ref = runs_cg
+    res["cg"] = _grid_held("[batch] 32 CG 4 shards", runs_cg, ref,
+                           "TRAINING CG", GRID_LIMIT["cg"], cg_dirs[1],
+                           cg_dirs[0], {"mode": "restage-cg"})
+    res["cg"].update(epoch_device_ms=cg_ms[1], ref_epoch_device_ms=cg_ms[0])
+    log(f"grid [batch] 32 CG: epochs' device ms "
+        f"{[round(m, 2) for m in cg_ms[1]]} at 4 shards, "
+        f"{[round(m, 2) for m in cg_ms[0]]} at one")
+    done("cg")
+    # --- run_nn of phase 21's [model] 2 conf over 2 shards
+    name = "mnist_ann_f64"
+    conf_path = next(c for n, c, *_ in runs if n == name)
+    tp_conf = conf_path.replace(".conf", "_model2.conf")
+    texts = {}
+    for tag, path, k in (("plain", conf_path, 1), ("[model] 2", tp_conf, 2)):
+        fused_linear_act.launches = 0
+        out = io.StringIO()
+        with api.device_slice(_grid_devices(k)), \
+                contextlib.redirect_stdout(out):
+            rc, outs = cli.run_nn(["-v", "-v", "--device", "cuda", path])
+        texts[tag] = (rc, outs, out.getvalue(), fused_linear_act.launches)
+    rc, outs, text, launched = texts["[model] 2"]
+    err = float(np.abs(outs - results[name][0]).max())
+    if rc != 0 or launched != 4 or "visible device" in text \
+            or text != texts["plain"][2] or err > LIMIT["f64"]:
+        raise AssertionError(f"run_nn [model] 2 over 2 shards (phase 29): "
+                             f"rc={rc}, launches {launched}, lines equal "
+                             f"{text == texts['plain'][2]}, {err:.3e} from "
+                             "phase 4's outputs")
+    res["run_nn"] = {"launches": launched, "max_abs_err": err}
+    log(f"grid run_nn [model] 2 over 2 shards: the ring engine, "
+        f"fused_linear_act launched {launched} times for the {N_FILES}-row "
+        f"batch, verdict lines equal to phase 4's, outputs within {err:.3e}")
+    done("run_nn")
+    # --- a jobs server over the 4-shard grid's devices: a dp_devices 2 job
+    jroot = os.path.join(root, "jobs")
+    os.makedirs(jroot)
+    served = os.path.join(jroot, "mnist0.opt")
+    _dump_generated(served, MNIST, 10958)
+    conf = os.path.join(jroot, "mnist.conf")
+    _serve_conf(conf, "mnist", served, MNIST, "f64")
+    app = ServeApp(max_batch=64, device="cuda")
+    if app.add_model(conf, warmup=False) is None:
+        raise AssertionError("phase 29's jobs server: add_model failed")
+    app.enable_jobs(os.path.join(jroot, "jobs"), capacity=2,
+                    devices=_grid_devices(4))
+    httpd, _ = serve_in_thread(app, "127.0.0.1", 0)
+    base = "http://%s:%d" % httpd.server_address[:2]
+    try:
+        st, job = _http(base, "/v1/kernels/mnist/train", {
+            "epochs": 2, "seed": 10958, "train": "BP", "dtype": "f64",
+            "hidden": MNIST[1], "samples": mnist512, "ckpt_every": 1,
+            "batch": 32, "dp_devices": 2})
+        if st != 202:
+            raise AssertionError(f"job submit (phase 29): {st} {job}")
+        snap = _job_wait(base, job["job_id"])
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        app.close(drain=True)
+    with open(os.path.join(snap["path"], "kernel.opt"), "rb") as fp:
+        job_sha = hashlib.sha256(fp.read()).hexdigest()
+    with open(os.path.join(batch_dirs[("BP", 2, "resident")], "kernel.opt"),
+              "rb") as fp:
+        want_sha = hashlib.sha256(fp.read()).hexdigest()
+    if snap["status"] != "done" or snap["slice"]["size"] != 2 \
+            or job_sha != want_sha:
+        raise AssertionError(f"dp_devices 2 job (phase 29): {snap['status']}"
+                             f", slice {snap['slice']}, kernel.opt equal to "
+                             f"the offline 2-shard run's {job_sha == want_sha}")
+    res["job"] = {"slice": snap["slice"],
+                  "wall_s": snap["finished"] - snap["started"]}
+    log(f"grid job over {res['devices'][4]}: a [batch] 32 job with "
+        f"dp_devices 2 on slice {snap['slice']['devices']}, done in "
+        f"{res['job']['wall_s']:.2f} s, kernel.opt byte-identical to the "
+        "offline 2-shard run's")
+    done("job")
+    # --- a train_nn process takes every card of its host
+    if cards >= 2:
+        cwd = _b_conf(os.path.join(root, "process"), "ANN", "BP", MNIST,
+                      mnist512, "[batch] 32\n")
+        env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        p = subprocess.run([sys.executable, "-m", "hpnn_tpu_torch.cli",
+                            "train_nn", "-v", "-v", "-v", "--epochs", "2",
+                            "--device", "cuda", "nn.conf"], cwd=cwd, env=env,
+                           text=True, capture_output=True, timeout=300)
+        mark = f"mesh={cards}x1"
+        ok = p.returncode == 0 and mark in p.stdout
+        if ok and cards in GRID_SHARDS:
+            ref = batch_dirs[("BP", cards, "resident")]
+            ok = _kernel_diff(_grid_opt(ref), _grid_opt(cwd)) == 0.0
+        if not ok:
+            raise AssertionError(f"train_nn as a process on {cards} cards "
+                                 f"(phase 29): rc={p.returncode}, "
+                                 f"'{mark}' in its stream {mark in p.stdout}"
+                                 f"\n{p.stderr[-1500:]}")
+        res["process"] = {"cards": cards}
+        log(f"grid: python -m hpnn_tpu_torch.cli train_nn took all {cards} "
+            f"cards ({mark})")
+    else:
+        res["process"] = None
+        log("grid: one card, so the train_nn process over every card is "
+            "not run")
+    done("process")
+    # --- the [batch] 32 BPM epoch alone at 1, 2 and 4 shards
+    samples = os.path.join(tmp, "batched", f"mnist{BATCH_FILES}")
+    rc = load_resident(samples, list_sample_dir(samples), 784, 10)
+    nb = rc.n_rows // 32
+    x = np.asarray(rc.X[:nb * 32]).reshape(nb, 32, -1)
+    t = np.asarray(rc.T[:nb * 32]).reshape(nb, 32, -1)
+    res["replay"] = [_grid_replay(x, t, k) for k in (1, *GRID_SHARDS)]
+    for r in res["replay"]:
+        log(f"grid replay, [batch] 32 BPM f64 epoch of {r['batches']} "
+            f"batches at {r['shards']} shard(s): {r['ms']:.2f} ms between "
+            f"events, {r['host_ms']:.2f} ms of host launches, "
+            f"{r['launches']} kernel launches, "
+            f"{r['opt_state_bytes_per_device']} bytes of momentum a shard")
+    done("replay")
+    res["wall_s"] = time.perf_counter() - t_phase
+    log("phase 29 wall by part: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in res["part_wall_s"].items()))
+    return res
+
+
+@contextlib.contextmanager
+def _children_on_first_card():
+    """The child processes started inside see the first visible card alone
+    (``CUDA_VISIBLE_DEVICES``), as on a one-card host; a no-op on one
+    card.  This process's CUDA context, made first, keeps every card."""
+    import torch
+
+    torch.cuda.init()
+    if torch.cuda.device_count() < 2:
+        yield
+        return
+    old = os.environ.get("CUDA_VISIBLE_DEVICES")
+    first = (old or "0").split(",")[0].strip()
+    os.environ["CUDA_VISIBLE_DEVICES"] = first
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("CUDA_VISIBLE_DEVICES", None)
+        else:
+            os.environ["CUDA_VISIBLE_DEVICES"] = old
+
+
 def _phase(name, fn, *args):
     """Run one phase, its wall seconds kept under ``name``."""
     t0 = time.perf_counter()
@@ -5576,7 +6052,7 @@ def main(argv=None) -> int:
                          "(hpnn_tpu_torch/ is missing)\n")
         return 1
     sys.path.insert(0, ROOT)
-    from hpnn_tpu_torch import runtime
+    from hpnn_tpu_torch import api, runtime
     from hpnn_tpu_torch.ops.convergence_kernel import train_epoch_kernel
     from hpnn_tpu_torch.ops.convergence_tile_kernel import train_tile
     from hpnn_tpu_torch.ops.kernels import fused_bpm_update, fused_linear_act
@@ -5589,16 +6065,24 @@ def main(argv=None) -> int:
 
     t_start = time.perf_counter()
     runtime.pin_full_float32()
-    card = _phase("1 device", phase_device)
-    built = _phase("2 build", phase_build)
-    errs = _phase("3 kernel vs plain", phase_kernel_vs_plain)
-    invariance_plans = _phase("14 invariance", phase_invariance)
-    train, first_launch = _phase("7 train_epoch vs plain",
-                                 phase_train_vs_plain)
-    resume_launches = _phase("8 resume contract", phase_resume)
-    tile_runs = _phase("10 train_tile vs plain", phase_tile_vs_plain)
-    contracts = _phase("11 tile contracts", phase_tile_contracts)
-    with tempfile.TemporaryDirectory(prefix="hpnn_chip_smoke_") as tmp:
+    # phases 1-28 hold the one-card routes: on a host of several cards
+    # this process's training decisions stay on cuda:0, and the child
+    # processes of phases 1-27 see that card alone (phase 28's CLI
+    # process spans the cards, phase 29 pins each run to its grid)
+    with tempfile.TemporaryDirectory(prefix="hpnn_chip_smoke_") as tmp, \
+            contextlib.ExitStack() as pin, \
+            contextlib.ExitStack() as children:
+        pin.enter_context(api.device_slice([torch.device("cuda", 0)]))
+        children.enter_context(_children_on_first_card())
+        card = _phase("1 device", phase_device)
+        built = _phase("2 build", phase_build)
+        errs = _phase("3 kernel vs plain", phase_kernel_vs_plain)
+        invariance_plans = _phase("14 invariance", phase_invariance)
+        train, first_launch = _phase("7 train_epoch vs plain",
+                                     phase_train_vs_plain)
+        resume_launches = _phase("8 resume contract", phase_resume)
+        tile_runs = _phase("10 train_tile vs plain", phase_tile_vs_plain)
+        contracts = _phase("11 tile contracts", phase_tile_contracts)
         runs = _phase("4 corpora", _setup_runs, tmp)
         reset_counts()                         # fused_linear_act's path
         results = _phase("4 run_nn", phase_run_nn, runs)
@@ -5658,7 +6142,11 @@ def main(argv=None) -> int:
                          phase_standby_autoscale, tmp, card)
         shard_res = _phase("26 shard mode", phase_shard, e2e, epochs_runs)
         capi_res = _phase("27 C API", phase_c_api, e2e, tmp, card)
+        children.close()
         dmesh_res = _phase("28 data mesh", phase_data_mesh, tmp, card)
+        pin.close()
+        grid_res = _phase("29 grid", phase_grid, e2e, tmp, runs, results,
+                          tp_res, card)
     cells = _phase("6 device times", phase_times)
     bpm = _phase("13 fused_bpm_update", phase_bpm)
     rep = next(c for c in cells if c["layer"] == "784->300"
@@ -5723,7 +6211,13 @@ def main(argv=None) -> int:
             tag: {k: c.get(k) for k in ("p50_ms", "fast_p50_ms",
                                         "device_ms", "fast_device_ms",
                                         "shard_ms", "whole_ms")}
-            for tag, c in dmesh_res["cells"].items()}}, {
+            for tag, c in dmesh_res["cells"].items()},
+        "grid_launches": {
+            "run_nn [model] 2 over 2 shards": grid_res["run_nn"]["launches"],
+            "train_nn [model] 2 per sample over 2 shards":
+                grid_res["model"]["b2_launches"],
+            "train_nn [batch] 32 x [model] 2 on 2x2":
+                grid_res["hybrid"]["launches"]["fused_linear_act"]}}, {
         "name": "train_epoch", "route": "cuda",
         "source": "hpnn_tpu_torch/csrc/train_epoch.cu",
         "replaces": "hpnn_tpu/ops/convergence_pallas.py:208",
@@ -5770,7 +6264,8 @@ def main(argv=None) -> int:
         "shard_epochs_device_ms": {
             t: r["epoch_device_ms"] for t, r in shard_res.items()
             if not t.startswith("tile")},
-        "c_api_launches": capi_res["in_process"]["train_epoch"]}, {
+        "c_api_launches": capi_res["in_process"]["train_epoch"],
+        "grid_launches": _grid_launches(grid_res, "train_epoch")}, {
         "name": "train_tile", "route": "cuda",
         "source": "hpnn_tpu_torch/csrc/train_tile.cu",
         "replaces": "hpnn_tpu/ops/convergence_tile.py:423",
@@ -5827,7 +6322,8 @@ def main(argv=None) -> int:
                            if t.startswith("tile")},
         "shard_epochs_device_ms": {
             t: r["epoch_device_ms"] for t, r in shard_res.items()
-            if t.startswith("tile")}}, {
+            if t.startswith("tile")},
+        "grid_launches": _grid_launches(grid_res, "train_tile")}, {
         "name": "fused_bpm_update", "route": "cuda",
         "source": "hpnn_tpu_torch/csrc/fused_bpm_update.cu",
         "replaces": "hpnn_tpu/ops/pallas_kernels.py:141",
@@ -5872,6 +6368,7 @@ def main(argv=None) -> int:
                        "shard": shard_res,
                        "c_api": capi_res,
                        "data_mesh": dmesh_res,
+                       "grid": grid_res,
                        "phase_seconds": PHASE_SECONDS,
                        "invariance_plans": invariance_plans,
                        "bpm": bpm,

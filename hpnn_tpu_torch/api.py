@@ -45,17 +45,20 @@ Two more training routes, the JAX package's batched trainers:
   ``--trainer cg`` or ``HPNN_TRAINER=cg`` on a ``[train] CG`` conf) takes
   the whole epoch (``train.cg``), one ``TRAINING CG`` line an epoch;
 * ``[batch] B`` trains minibatch data-parallel (``parallel.dp``), one
-  ``TRAINING BATCH`` line a batch, over the ``torch.distributed`` world
-  under ``HPNN_DISTRIBUTED``; with ``[tile]`` every batch-sized group
-  trains to convergence in the ``train_tile`` kernel instead, with the
-  per-sample grammar;
+  ``TRAINING BATCH`` line a batch; with ``[tile]`` every batch-sized group
+  trains to convergence in the ``train_tile`` kernel instead (over its
+  devices' data mesh in torch code), with the per-sample grammar;
 * ``[model] N`` (or ``--model-parallel N``, or ``-S N``) trains with the
-  weights' rows sharded over N ranks of the world (``parallel.tp``): per
-  sample, or beside ``[batch]`` on a (data x model) grid.  ``run_nn``
-  evaluates such a conf through the row-sharded ring engine.  The world
-  is the model axis's "visible devices": a one-process run clamps to one
-  shard with the JAX package's warning and trains and evaluates on the
-  unsharded route.
+  weights' rows sharded over N devices (``parallel.tp``): per sample, or
+  beside ``[batch]`` on a (data x model) grid.  ``run_nn`` evaluates such
+  a conf through the row-sharded ring engine.
+
+The devices, as the JAX package takes them: in one process the thread's
+:func:`device_slice`, else every visible card of a ``cuda`` run, else the
+one CPU device (a ``parallel.mesh.LocalGrid``); across processes
+(``HPNN_DISTRIBUTED``) the ranks of the ``torch.distributed`` world, one
+a card.  A request above them clamps with the JAX package's warning; on
+one device the unsharded routes run.
 
 Tracing (``utils/trace.py``, ``obs/``) at the JAX package's places and
 names: the ``#PROF`` phases ``warmup``, ``load_samples``/``load_tests``,
@@ -276,24 +279,54 @@ def _model_shards(conf: NNConf) -> int:
     return runtime.lib_runtime.n_streams
 
 
-def _clamped_model_mesh(shards: int, device):
-    """``(mesh, k)``: the 1 x k model axis of the TP train and eval routes,
-    ``shards`` clamped to the world (the port's visible devices, one rank
-    a device) with the JAX package's warning.  A request below the world
-    would leave ranks with no rows, which the port cannot express: refused
-    (:class:`DPRefused`)."""
+def _local_devices(device) -> list:
+    """The devices one process trains over at world 1, in order: the
+    thread's pinned slice (:func:`device_slice`; repeats allowed), else
+    every visible card of a ``cuda`` run, else ``device`` alone (the
+    CPU)."""
+    sl = slice_devices()
+    if sl is not None:
+        return [torch.device(d) for d in sl]
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [dev]
+
+
+def _model_axis(shards: int, device):
+    """``(mesh, k, warning or None)``: the 1 x k model axis of the TP
+    train and eval routes, ``shards`` clamped to the visible devices with
+    the JAX package's warning text.  At world 1 a request of k > 1 takes
+    the first k of this process's devices (a ``LocalMesh``); across
+    processes every rank is a model shard, so a request below the world
+    cannot be expressed and is refused (:class:`DPRefused`)."""
     from .parallel.mesh import make_mesh
 
     world = coord.world_size()
-    if shards > world:
-        nn_warn(f"[model] {shards} > {world} visible device(s); "
-                f"using {world}\n")
-        shards = world
-    if shards < world:
-        raise DPRefused(f"[model] {shards} < {world} processes: every rank "
-                        "of the world is a model shard, so the request "
-                        "cannot be honoured (refused)")
-    return make_mesh(n_data=1, n_model=shards, device=device), shards
+    ndev = world if world > 1 else len(_local_devices(device))
+    warn = None
+    if shards > ndev:
+        warn = f"[model] {shards} > {ndev} visible device(s); using {ndev}\n"
+        shards = ndev
+    if world > 1:
+        if shards < world:
+            raise DPRefused(f"[model] {shards} < {world} processes: every "
+                            "rank of the world is a model shard, so the "
+                            "request cannot be honoured (refused)")
+        return make_mesh(n_data=1, n_model=shards, device=device), shards, \
+            warn
+    devs = _local_devices(device)[:shards] if shards > 1 else None
+    return (make_mesh(n_data=1, n_model=shards, device=device, devices=devs),
+            shards, warn)
+
+
+def _clamped_model_mesh(shards: int, device):
+    """``(mesh, k)`` of :func:`_model_axis`, its clamp warning printed."""
+    mesh, k, warn = _model_axis(shards, device)
+    if warn:
+        nn_warn(warn)
+    return mesh, k
 
 
 def _hybrid_banner(n_data: int, n_model: int) -> str:
@@ -325,22 +358,48 @@ class DPRefused(RuntimeError):
     """A data-parallel request this process layout cannot honour."""
 
 
-def _dp_device_count() -> int:
-    """The data axis of the [batch] routes: the world size (one rank a
-    device), capped by ``HPNN_DP_DEVICES`` where the cap can be honoured.
-    A cap above the world warns and uses the world (as the JAX package
-    does over its visible devices); a cap below it would need ranks to sit
-    out of the run, which the port cannot express, so it is refused
-    (:class:`DPRefused`)."""
+def _dp_device_count(device) -> int:
+    """The devices of the [batch] routes (the whole grid beside [model]).
+
+    At world 1, as in the JAX package: a thread's pinned slice wins
+    outright (its length is the grid); else this process's devices
+    (:func:`_local_devices`) capped by ``HPNN_DP_DEVICES``, with the
+    JAX package's warning for a cap above them.  Across processes the
+    world (one rank a device): a cap above it warns and uses the world,
+    and a cap below it would need ranks to sit out of the run, which the
+    port cannot express, so it is refused (:class:`DPRefused`)."""
     from .utils.env import env_device_cap, env_int
 
     world = coord.world_size()
-    cap = env_int("HPNN_DP_DEVICES", 0)
-    if 0 < cap < world:
-        raise DPRefused(f"HPNN_DP_DEVICES={cap} < {world} processes: every "
-                        "rank of the world is a data shard, so the cap "
-                        "cannot be honoured (refused)")
-    return env_device_cap("HPNN_DP_DEVICES", world)
+    if world > 1:
+        cap = env_int("HPNN_DP_DEVICES", 0)
+        if 0 < cap < world:
+            raise DPRefused(f"HPNN_DP_DEVICES={cap} < {world} processes: "
+                            "every rank of the world is a data shard, so "
+                            "the cap cannot be honoured (refused)")
+        return env_device_cap("HPNN_DP_DEVICES", world)
+    sl = slice_devices()
+    if sl is not None:
+        return len(sl)
+    return env_device_cap("HPNN_DP_DEVICES", len(_local_devices(device)))
+
+
+def _dp_mesh(n_data: int, n_model: int, device):
+    """The [batch] routes' grid: across processes the world's RankMesh
+    beside [model] (pure data parallelism needs none: ``dp_epoch``
+    all-reduces over the world); at world 1 a LocalGrid over the first
+    ``n_data * n_model`` of this process's devices, or None on one
+    device."""
+    from .parallel.mesh import make_mesh
+
+    if coord.world_size() > 1:
+        return (make_mesh(n_data, n_model, device=device) if n_model > 1
+                else None)
+    n = n_data * n_model
+    if n == 1:
+        return None
+    return make_mesh(n_data, n_model, device=device,
+                     devices=_local_devices(device)[:n])
 
 
 def _dp_slot_map(s: int, bsz: int, n_batches: int, bsz_pad: int):
@@ -383,10 +442,10 @@ def _dp_tiled_banner(group: int, pad_to: int, meshed: bool,
             + (f", storage={storage}" if storage else "") + ")\n")
 
 
-def _dp_layout(conf: NNConf):
+def _dp_layout(conf: NNConf, device):
     """``(ndev, n_data, n_model, warning or None)`` of a [batch] run: the
     data axis's devices and, with [model] beside it, the grid's split."""
-    ndev = _dp_device_count()
+    ndev = _dp_device_count(device)
     n_model, warn = _hybrid_model_axis(_model_shards(conf), ndev)
     return ndev, ndev // n_model, n_model, warn
 
@@ -401,9 +460,10 @@ def _dp_geometry(conf: NNConf, s: int, n_data: int):
 
 
 def _dp_tiled_route(conf: NNConf) -> bool:
-    """[batch] + [tile] takes the batched-tile engine in one process; a
-    multi-process run keeps minibatch DP (the engine is single-card), and
-    so does [model] beside them (with the JAX package's warning)."""
+    """[batch] + [tile] takes the batched-tile engine in one process (over
+    its devices' data mesh when it has several); a multi-process run keeps
+    minibatch DP (the engine is single-process), and so does [model]
+    beside them (with the JAX package's warning)."""
     return (bool(_tile_request(conf)) and coord.world_size() == 1
             and _model_shards(conf) <= 1)
 
@@ -509,8 +569,9 @@ def run_kernel(nn: NNDef, device="cuda", parity: str = "strict"):
     """_NN(run,kernel) (``libhpnn.c:1306-1536``): one batched forward over
     the whole test dir on ``device``, then the reference's per-file
     grammar.  ``[model] N`` (or ``-S N``) evaluates through the
-    row-sharded ring engine over N ranks (``parallel.tp.tp_eval_batch``);
-    a world of one clamps to one shard with the JAX package's warning.
+    row-sharded ring engine over N devices (``parallel.tp.tp_eval_batch``:
+    this process's, or the world's ranks); one device clamps to one shard
+    with the JAX package's warning.
     Returns the (rows, n_out) float64 outputs in shuffle order (None when
     nothing was evaluated)."""
     from . import ops
@@ -753,21 +814,19 @@ def _dp_stage_batches(xs, ts, s: int, bsz: int, n_batches: int,
 
 
 def _note_opt_state(dw, shapes, wdtype) -> None:
-    """The update state's measured bytes on this rank's device (the BPM
-    momentum slice) beside the bytes a replicated layout would hold."""
+    """The update state's measured bytes a shard (the BPM momentum slice)
+    beside the bytes a replicated layout would hold."""
     from .parallel.mesh import per_device_bytes
 
     params = sum(int(np.prod(sh)) for sh in shapes)
     itemsize = torch.empty((), dtype=wdtype).element_size()
-    flat = []
-    stack = [dw] if dw is not None else []
-    while stack:   # a flat slice, or the hybrid's per-shard row blocks
-        v = stack.pop()
-        if isinstance(v, (tuple, list)):
-            stack.extend(v)
-        else:
-            flat.append(v)
-    EPOCH_METRICS["opt_state_bytes_per_device"] = per_device_bytes(flat)
+    # a flat slice, the local grid's slices (one a data shard) or the
+    # hybrid's row blocks (one tuple a shard): the largest shard's bytes
+    shards = ([] if dw is None else
+              list(dw) if isinstance(dw, (tuple, list)) else [dw])
+    EPOCH_METRICS["opt_state_bytes_per_device"] = max(
+        (per_device_bytes(v if isinstance(v, (tuple, list)) else [v])
+         for v in shards), default=0)
     EPOCH_METRICS["opt_state_replicated_bytes"] = \
         params * itemsize * (dw is not None)
 
@@ -775,7 +834,8 @@ def _note_opt_state(dw, shapes, wdtype) -> None:
 def _train_kernel_tp(nn: NNDef, weights, xs, ts, kind: str, momentum: bool,
                      finish, events, dev) -> bool:
     """Row-sharded per-sample epoch (``[model] N``, ``-S N``), restaged
-    from the host: the model axis clamped to the world, the epoch of
+    from the host: the model axis clamped to the visible devices (this
+    process's, or the world's ranks), the epoch of
     ``parallel.tp.tp_train_epoch_resident`` (at one shard the per-sample
     route itself: the ``train_epoch`` kernel on a card), every sample in
     the reference's order and grammar."""
@@ -811,15 +871,17 @@ def _train_kernel_dp(nn: NNDef, weights, xs, ts, kind: str, momentum: bool,
     The reference's per-family learning rates and BPM update order, one
     minibatch step a batch of B shuffled samples.  Every sample trains:
     batches are padded to a multiple of the data shards with masked rows
-    (numerically the unpadded batch).  Each rank stages its share of every
-    batch's slots (``parallel.mesh.shard_bounds``); a multi-process run
-    all-reduces the gradient sums.  With [model] beside [batch] the world
-    is a (data x model) grid (``parallel.tp.tp_dp_train_epoch``).  With a
-    tile request in one process the route swaps its engine for the
+    (numerically the unpadded batch).  Each data shard's share of every
+    batch's slots (``parallel.mesh.shard_bounds``) is uploaded to its own
+    device: the shards are this process's devices at world 1 (a
+    ``LocalGrid``), the ranks across processes, and the gradient sums are
+    added over them.  With [model] beside [batch] the devices form a
+    (data x model) grid (``parallel.tp.tp_dp_train_epoch``).  With a tile
+    request in one process the route swaps its engine for the
     batched-tile one (:func:`_train_kernel_dp_tiled`)."""
     from . import ops
     from .parallel.dp import dp_epoch, dp_export_weights, dp_resident_carry
-    from .parallel.mesh import make_mesh, shard_bounds
+    from .parallel.mesh import shard_bounds
 
     conf = nn.conf
     world, rank = coord.world_size(), coord.process_index()
@@ -840,7 +902,7 @@ def _train_kernel_dp(nn: NNDef, weights, xs, ts, kind: str, momentum: bool,
     lr = ops.bpm_learn_rate(kind) if momentum else ops.bp_learn_rate(kind)
     s = xs.shape[0]
     dtype = dtype_of(conf)
-    ndev, n_data, n_model, clamp_warn = _dp_layout(conf)
+    ndev, n_data, n_model, clamp_warn = _dp_layout(conf, dev)
     if clamp_warn:
         nn_warn(clamp_warn)
     if n_model > 1:
@@ -850,21 +912,29 @@ def _train_kernel_dp(nn: NNDef, weights, xs, ts, kind: str, momentum: bool,
                                  unsharded=ndev == 1):
         nn_out(line)
     xb, tb, mb = _dp_stage_batches(xs, ts, s, bsz, n_batches, bsz_pad)
-    mesh = make_mesh(n_data, n_model, device=dev) if n_model > 1 else None
-    lo, hi = shard_bounds(bsz_pad, n_data,
-                          mesh.data_index if mesh is not None else rank)
-    jxb = _upload(np.ascontiguousarray(xb[:, lo:hi]), dtype, dev)
-    jtb = _upload(np.ascontiguousarray(tb[:, lo:hi]), dtype, dev)
-    jmb = _upload(np.ascontiguousarray(mb[:, lo:hi]), dtype, dev)
+    mesh = _dp_mesh(n_data, n_model, dev)
+    hybrid = mesh is not None and n_model > 1
+    # one block a local data shard: a rank's own, or each of this
+    # process's data shards, uploaded to its device
+    if mesh is not None and world == 1:
+        blocks = [(d, mesh.data_devices()[d]) for d in range(n_data)]
+    else:
+        blocks = [(mesh.data_index if mesh is not None else rank, dev)]
+    jxb, jtb, jmb = [], [], []
+    for d, bdev in blocks:
+        lo, hi = shard_bounds(bsz_pad, n_data, d)
+        jxb.append(_upload(np.ascontiguousarray(xb[:, lo:hi]), dtype, bdev))
+        jtb.append(_upload(np.ascontiguousarray(tb[:, lo:hi]), dtype, bdev))
+        jmb.append(_upload(np.ascontiguousarray(mb[:, lo:hi]), dtype, bdev))
     shapes = tuple(tuple(int(d) for d in w.shape) for w in weights)
     EPOCH_METRICS["stage_s"] += time.perf_counter() - t_stage
-    EPOCH_METRICS["h2d_bytes"] += (jxb.nbytes + jtb.nbytes + jmb.nbytes
+    EPOCH_METRICS["h2d_bytes"] += (sum(a.nbytes for a in jxb + jtb + jmb)
                                    + sum(w.nbytes for w in weights))
     EPOCH_METRICS["epochs"] += 1
     EPOCH_METRICS["mode"] = "dp-restage"
     EPOCH_METRICS["dp_devices"] = n_data
     EPOCH_METRICS["tp_devices"] = n_model
-    if mesh is not None:
+    if hybrid:
         from .parallel.tp import (carry_bytes, tp_dp_resident_carry,
                                   tp_dp_train_epoch, tp_export_weights)
 
@@ -875,9 +945,11 @@ def _train_kernel_dp(nn: NNDef, weights, xs, ts, kind: str, momentum: bool,
         _note_opt_state(dw, shapes, weights[0].dtype)
         new_weights = list(tp_export_weights(carry, mesh))
     else:
-        w_flat = dp_resident_carry(weights, world)
+        w_flat = dp_resident_carry(weights, n_data)
+        if mesh is None:
+            jxb, jtb, jmb = jxb[0], jtb[0], jmb[0]
         w_flat, dw, errs = dp_epoch(w_flat, jxb, jtb, jmb, kind, momentum,
-                                    lr, 0.2, shapes, world, rank)
+                                    lr, 0.2, shapes, world, rank, mesh=mesh)
         _note_opt_state(dw, shapes, w_flat.dtype)
         new_weights = dp_export_weights(w_flat, shapes)
     errs = errs.to(device="cpu", dtype=torch.float64).numpy()
@@ -896,7 +968,9 @@ def _train_kernel_dp_tiled(nn: NNDef, weights, xs, ts, kind: str,
     route.  The [batch] value is the convergence group (the S lanes of
     each lockstep step); a positive [tile] value sets how many groups ride
     one ``train_tile`` launch -- execution granularity only, the stats and
-    weights identical for any value."""
+    weights identical for any value.  Over several devices of this
+    process each group's lanes shard over their data mesh (torch code,
+    no kernel), the group padded to a multiple of the shards."""
     from .parallel.dp import dp_tiled_epoch
 
     conf = nn.conf
@@ -910,7 +984,10 @@ def _train_kernel_dp_tiled(nn: NNDef, weights, xs, ts, kind: str,
                 "(results identical for any value) -- the autotuner "
                 "does not apply; default launch sizing used\n")
     storage = _tile_storage_env()
-    nn_out(_dp_tiled_banner(group, 1, meshed=False, storage=storage))
+    ndev = _dp_device_count(dev)
+    mesh = _dp_mesh(ndev, 1, dev)
+    nn_out(_dp_tiled_banner(group, ndev, meshed=mesh is not None,
+                            storage=storage))
     t_stage = time.perf_counter()
     xs_dev, ts_dev = _upload(xs, dtype, dev), _upload(ts, dtype, dev)
     EPOCH_METRICS["stage_s"] += time.perf_counter() - t_stage
@@ -918,10 +995,11 @@ def _train_kernel_dp_tiled(nn: NNDef, weights, xs, ts, kind: str,
                                    + sum(w.nbytes for w in weights))
     EPOCH_METRICS["epochs"] += 1
     EPOCH_METRICS["mode"] = "dp-tiled-restage"
-    EPOCH_METRICS["dp_devices"] = 1
+    EPOCH_METRICS["dp_devices"] = ndev
     new_w, stats = dp_tiled_epoch(weights, xs_dev, ts_dev, kind, momentum,
                                   group, alpha=0.2,
-                                  launch_groups=max(0, req), storage=storage)
+                                  launch_groups=max(0, req), storage=storage,
+                                  mesh=mesh)
     # the per-sample grammar again: load order == stats order
     nn.last_epoch_stats = _emit_training_lines(events, stats, kind, momentum)
     nn.kernel.weights = weights_to_numpy(new_w)
@@ -990,10 +1068,11 @@ class _EpochPipeline:
         self.wdtype = torch.float32 if dtype == torch.bfloat16 else dtype
         self.device = device
         self.dp = dp                      # None | "sgd" | "tiled"
-        self.mesh = mesh                  # the [model] routes' RankMesh
+        self.mesh = mesh                  # the run's grid, or None
         self.tp = tp                      # pure [model], per sample
         self.tp_warn = tp_warn            # the clamp warning, each epoch
-        hybrid = mesh is not None and mesh.n_model > 1
+        self.hybrid = hybrid = (dp == "sgd" and mesh is not None
+                                and mesh.n_model > 1)
         self.shard_rows = shard_rows      # > 0: the host-streamed mode
         self._copy_stream = None          # its uploads' stream on a card
         self.mode = ("tp-resident" if tp else
@@ -1003,8 +1082,9 @@ class _EpochPipeline:
                       "tiled": "dp-tiled-resident"}[dp])
         self.weights = None               # device carry across epochs
         self.shapes = None                # weight shapes ([batch] carry)
-        self.x_dev = None
+        self.x_dev = None                 # the resident rows on ``device``
         self.t_dev = None
+        self.rows = {}                    # device -> its resident (x, t)
         self.train_fn = None
         self._dp_state = None             # per-run [batch] geometry
         # console segments in order: ("out", text) literals, ("entries",
@@ -1029,8 +1109,6 @@ class _EpochPipeline:
                                nn.kernel.n_outputs, prefer_mmap=multi)
         if rc is None or rc.n_rows == 0:
             return None
-        from .parallel.mesh import make_mesh
-
         dp, mesh, tp, tp_warn = None, None, False, None
         n_data = n_model = 1
         shards = _model_shards(conf)
@@ -1041,23 +1119,18 @@ class _EpochPipeline:
                 # trains minibatch DP
                 return None
             dp = "tiled" if _dp_tiled_route(conf) else "sgd"
-            if dp == "sgd":
-                ndev, n_data, n_model, tp_warn = _dp_layout(conf)
-                if n_model > 1:
-                    mesh = make_mesh(n_data, n_model, device=device)
+            ndev, n_data, n_model, tp_warn = _dp_layout(conf, device)
+            mesh = _dp_mesh(n_data, n_model, device)
         elif shards > 1:
             # pure [model]: the per-sample TP epoch on the model axis (at
             # one shard after the clamp too: the same route, so kill and
-            # --resume stay byte-exact)
-            world = coord.world_size()
-            if shards < world:
+            # --resume stay byte-exact); the clamp warning is re-emitted
+            # every epoch
+            try:
+                mesh, n_model, tp_warn = _model_axis(shards, device)
+            except DPRefused:
                 return None   # the restaging route refuses it
-            tp, n_model = True, min(shards, world)
-            if shards > world:
-                # _clamped_model_mesh's warning, re-emitted every epoch
-                tp_warn = (f"[model] {shards} > {world} visible "
-                           f"device(s); using {world}\n")
-            mesh = make_mesh(1, n_model, device=device)
+            tp = True
         dtype = dtype_of(conf)
         row_bytes = ((rc.X.shape[1] + rc.T.shape[1])
                      * torch.empty((), dtype=dtype).element_size())
@@ -1070,20 +1143,31 @@ class _EpochPipeline:
         pipe = cls(rc, dtype, device, dp=dp, mesh=mesh, tp=tp,
                    tp_warn=tp_warn, shard_rows=shard_rows)
         if not shard_rows:
-            # the one corpus upload of the run
-            pipe.x_dev = _upload_rows(rc, "x", pipe.dtype, device)
-            pipe.t_dev = _upload_rows(rc, "t", pipe.dtype, device)
-            EPOCH_METRICS["setup_h2d_bytes"] += (pipe.x_dev.nbytes
-                                                 + pipe.t_dev.nbytes)
+            # the one corpus upload of the run: to each distinct device of
+            # a local grid's data shards, whose slots are gathered there
+            for dev in pipe.row_devices():
+                x = _upload_rows(rc, "x", pipe.dtype, dev)
+                t = _upload_rows(rc, "t", pipe.dtype, dev)
+                pipe.rows[dev] = (x, t)
+                EPOCH_METRICS["setup_h2d_bytes"] += x.nbytes + t.nbytes
+            pipe.x_dev, pipe.t_dev = next(iter(pipe.rows.values()))
             rc.release_rows()
         EPOCH_METRICS["tp_devices"] = n_model
-        if dp == "sgd" or tp:
+        if dp or tp:
             EPOCH_METRICS["dp_devices"] = n_data
         nn_dbg(f"epoch pipeline: {pipe.mode}, {rc.n_rows} row(s)"
                + (f", shard={shard_rows}" if shard_rows else "")
                + (f", mesh={n_data}x{n_model}" if mesh is not None else "")
                + "\n")
         return pipe
+
+    def row_devices(self) -> list:
+        """Where the resident corpus is uploaded: each distinct data
+        device of a [batch] grid of this process, else ``device``."""
+        if self.dp == "sgd" and self.mesh is not None \
+                and coord.world_size() == 1:
+            return list(dict.fromkeys(self.mesh.data_devices()))
+        return [self.device]
 
     def _stage_weights(self, nn) -> None:
         """The first epoch stages the float64 host weights; afterwards the
@@ -1096,17 +1180,19 @@ class _EpochPipeline:
             self.shapes = tuple(tuple(int(d) for d in w.shape)
                                 for w in self.weights)
 
-    def _upload_sel(self, sel: np.ndarray):
-        """The epoch's one upload (an int32 index vector) and, on a card, a
-        timing event recorded before it."""
+    def _upload_sel(self, sel: np.ndarray, dev=None):
+        """The epoch's one upload (an int32 index vector) to ``dev``
+        (``device`` by default) and, on a card, a timing event recorded
+        before it."""
+        dev = self.device if dev is None else dev
         perm, start = torch.from_numpy(np.ascontiguousarray(sel)), None
-        if self.device.type == "cuda":
+        if dev.type == "cuda":
             # pinned, so the upload queues behind the previous epoch's
             # launch instead of waiting for it
             perm = perm.pin_memory()
             start = torch.cuda.Event(enable_timing=True)
-            start.record(torch.cuda.current_stream(self.device))
-        return perm.to(self.device, non_blocking=True), start
+            start.record(torch.cuda.current_stream(dev))
+        return perm.to(dev, non_blocking=True), start
 
     def run_epoch(self, nn, events, sel, kind: str, momentum: bool) -> int:
         """Queue one epoch's device work on the resident corpus and its
@@ -1252,38 +1338,48 @@ class _EpochPipeline:
         group = min(conf.batch, self.rc.n_rows)
         req = _tile_request(conf)
         storage = _tile_storage_env()
+        n_data = self.mesh.n_data if self.mesh is not None else 1
         self._dp_state = {
             "auto_warn": req < 0,
-            "banner": _dp_tiled_banner(group, 1, meshed=False,
+            "banner": _dp_tiled_banner(group, n_data,
+                                       meshed=self.mesh is not None,
                                        storage=storage)}
-        EPOCH_METRICS["dp_devices"] = 1
         return functools.partial(dp_tiled_epoch, group=group,
                                  launch_groups=max(0, req), storage=storage,
-                                 defer_stats=True)
+                                 defer_stats=True, mesh=self.mesh)
 
     def _run_epoch_dp(self, nn, sel, kind: str, momentum: bool) -> int:
         """One minibatch epoch on the resident corpus: the host scatters
-        the permutation into this rank's batch slots (its only upload),
-        the card gathers and reshapes the batches and runs the epoch on
-        the flat weight carry (on the hybrid grid, on the row-block
-        carry of ``parallel.tp.tp_dp_train_epoch``)."""
+        the permutation into each local data shard's batch slots (the
+        epoch's only uploads, each to its shard's device), the shards'
+        devices gather and reshape their batches and the epoch runs on the
+        flat weight carry (on the hybrid grid, on the row-block carry of
+        ``parallel.tp.tp_dp_train_epoch``)."""
         from . import ops
         from .parallel.dp import dp_epoch, dp_resident_carry
         from .parallel.mesh import shard_bounds
 
         world, rank = coord.world_size(), coord.process_index()
-        hybrid = self.mesh is not None
+        grid = self.mesh is not None and world == 1
         if self._dp_state is None:
             s = self.rc.n_rows
-            ndev, n_data, n_model, _ = _dp_layout(nn.conf)
+            ndev, n_data, n_model, _ = _dp_layout(nn.conf, self.device)
             bsz, n_batches, bsz_pad = _dp_geometry(nn.conf, s, n_data)
             pos, mask = _dp_slot_map(s, bsz, n_batches, bsz_pad)
-            lo, hi = shard_bounds(bsz_pad, n_data, self.mesh.data_index
-                                  if hybrid else rank)
+            if grid:
+                owners = list(enumerate(self.mesh.data_devices()))
+            else:
+                owners = [(self.mesh.data_index if self.hybrid else rank,
+                           self.device)]
+            blocks = []
+            for d, dev in owners:
+                lo, hi = shard_bounds(bsz_pad, n_data, d)
+                blocks.append((lo, hi, dev, _upload(
+                    np.ascontiguousarray(mask[:, lo:hi]), self.dtype, dev)))
             self._stage_weights(nn)
             banners = _dp_banner_lines(s, bsz, n_batches, bsz_pad, n_data,
                                        unsharded=ndev == 1)
-            if hybrid:
+            if self.hybrid:
                 from .parallel.tp import carry_bytes, tp_dp_resident_carry
 
                 banners = [_hybrid_banner(n_data, n_model)] + banners
@@ -1291,12 +1387,10 @@ class _EpochPipeline:
                 EPOCH_METRICS["weight_bytes_per_device"] = carry_bytes(
                     self.weights)
             else:
-                self.weights = dp_resident_carry(self.weights, world)
+                self.weights = dp_resident_carry(self.weights, n_data)
             self._dp_state = {
-                "s": s, "pos": pos, "lo": lo, "hi": hi, "n_data": n_data,
+                "s": s, "pos": pos, "blocks": blocks, "n_data": n_data,
                 "n_batches": n_batches, "bsz_pad": bsz_pad,
-                "mb": _upload(np.ascontiguousarray(mask[:, lo:hi]),
-                              self.dtype, self.device),
                 "lr": (ops.bpm_learn_rate(kind) if momentum
                        else ops.bp_learn_rate(kind)),
                 "banners": banners}
@@ -1310,30 +1404,42 @@ class _EpochPipeline:
         # padded slots read row 0: their mask is 0, so they add nothing
         slots = np.zeros(st["n_batches"] * st["bsz_pad"], np.int32)
         slots[st["pos"]] = sel
-        mine = np.ascontiguousarray(
-            slots.reshape(st["n_batches"], -1)[:, st["lo"]:st["hi"]])
-        sel_dev, start = self._upload_sel(mine.reshape(-1))
-        nb, width = mine.shape
+        slots = slots.reshape(st["n_batches"], -1)
+        sels, start, h2d = [], None, 0
+        for lo, hi, dev, _ in st["blocks"]:
+            mine = np.ascontiguousarray(slots[:, lo:hi])
+            sel_dev, ev = self._upload_sel(mine.reshape(-1), dev)
+            start = ev if start is None else start
+            sels.append((sel_dev, mine.shape, dev))
+            h2d += mine.nbytes
         # the gather on the card belongs to the epoch's launches, as the
         # JAX package's resident DP epoch gathers inside its program
         with obs_trace.span("device_launch", rows=int(sel.size),
                             mode=self.mode, n_data=st["n_data"]):
-            xb = self.x_dev.index_select(0, sel_dev).view(nb, width, -1)
-            tb = self.t_dev.index_select(0, sel_dev).view(nb, width, -1)
-            if hybrid:
+            xb, tb = [], []
+            for sel_dev, (nb, width), dev in sels:
+                x, t = self.rows[dev]
+                xb.append(x.index_select(0, sel_dev).view(nb, width, -1))
+                tb.append(t.index_select(0, sel_dev).view(nb, width, -1))
+            mb = [b[3] for b in st["blocks"]]
+            if self.hybrid:
                 from .parallel.tp import tp_dp_train_epoch
 
                 self.weights, dw, errs = tp_dp_train_epoch(
-                    self.weights, xb, tb, st["mb"], kind, momentum,
-                    st["lr"], 0.2, mesh=self.mesh)
+                    self.weights, xb, tb, mb, kind, momentum, st["lr"], 0.2,
+                    mesh=self.mesh)
+            elif grid:
+                self.weights, dw, errs = dp_epoch(
+                    self.weights, xb, tb, mb, kind, momentum, st["lr"], 0.2,
+                    self.shapes, mesh=self.mesh)
             else:
                 self.weights, dw, errs = dp_epoch(
-                    self.weights, xb, tb, st["mb"], kind, momentum,
+                    self.weights, xb[0], tb[0], mb[0], kind, momentum,
                     st["lr"], 0.2, self.shapes, world, rank)
         _note_opt_state(dw, self.shapes, self.wdtype)
         self.pending.append(_DPLines(errs, st["s"], nn_log.get_verbosity(),
                                      start))
-        return mine.nbytes
+        return h2d
 
     def join(self, nn) -> list[dict]:
         """Emit the pending console segments in order and copy the weight
@@ -1358,7 +1464,7 @@ class _EpochPipeline:
                 nn_log.replay(item[1])
         self.pending = []
         if self.weights is not None:
-            if self.mesh is not None:
+            if self.tp or self.hybrid:
                 from .parallel.tp import tp_export_weights
 
                 # the row blocks gathered (a collective across ranks:
@@ -1694,8 +1800,10 @@ def _print_verdicts(events, outs, ts, kind: str, n_out: int) -> None:
 # a disjoint slice of the serve process's device list.  The slice is
 # thread-local: a worker wraps its ``train_job`` in ``device_slice``, which
 # also makes the slice's first card this thread's current CUDA device.
-# The port's data and model axes are the ``torch.distributed`` world, so a
-# slice decides where a job trains (its first device), not how it shards.
+# Every device decision above (``_local_devices``: the [batch] data axis,
+# the [model] axis, their grid, CG's flat state) reads the slice first, so
+# the slice a job gets is its training grid, as in the JAX package; an
+# explicit slice wins over ``HPNN_DP_DEVICES``.
 
 _DEVICE_SLICE = threading.local()
 
@@ -1707,9 +1815,11 @@ def slice_devices() -> list | None:
 
 @contextlib.contextmanager
 def device_slice(devices):
-    """Pin this thread to ``devices`` (nest-safe; a no-op for a falsy
-    list).  On a card, ``devices[0]`` is the thread's current CUDA device
-    for the duration, so nothing of a job lands on another card."""
+    """Pin this thread's device decisions to ``devices`` (nest-safe; a
+    no-op for a falsy list; repeats allowed, so ``["cpu"] * 4`` is a
+    four-device grid on the CPU).  On a card, ``devices[0]`` is the
+    thread's current CUDA device for the duration, so nothing unsharded
+    lands on another card."""
     if not devices:
         yield
         return
@@ -1744,9 +1854,10 @@ def train_job(conf_path: str, *, epochs: int, ckpt_dir: str,
     (``--resume``).  ``stop``/``on_epoch`` pass through to
     :func:`ckpt.trainer.train_loop`.  ``auth_token`` is the serve token a
     mesh-router ``replicate_to`` wants.  ``devices`` pins the run to a device
-    slice (:func:`device_slice`) and trains on its first device; None
-    trains on the runtime's device (the card unless ``init_all`` chose the
-    CPU).
+    slice (:func:`device_slice`): its devices are the run's grid
+    (``[batch]``, ``[model]``), its first device the home of everything
+    unsharded; None trains on the runtime's device (the card unless
+    ``init_all`` chose the CPU).
 
     Returns ``{"ok", "interrupted", "epoch", "errors", "error"}``, the JAX
     package's keys; it does not raise for conf or corpus problems (the

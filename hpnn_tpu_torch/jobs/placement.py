@@ -16,11 +16,12 @@ contiguous slice of that list:
   terminal path, by ``reclaim`` (the scheduler tick's sweep that frees a
   slice whose owner is no longer running) and by ``close`` (drain).
 
-A job trains on the first device of its slice (``api.train_job(...,
-devices=slice.devices)``).  The port's data and model axes are the
-``torch.distributed`` world, not the devices one process sees, so a job
-granted k > 1 devices trains at world 1 there: ``dp``/``tp`` on a
-placement are bookkeeping for operators (/v1/jobs, /metrics).
+The slice a job gets determines its training mesh, as in the JAX
+package: ``api.train_job(..., devices=slice.devices)`` pins the job's
+thread to it, and its conf's ``[batch]``/``[model]`` shard over the
+slice's devices (a k-device grid; its first device holds everything
+unsharded).  ``dp``/``tp`` on a placement are bookkeeping for operators
+(/v1/jobs, /metrics): the conf, not the ask, splits the grid.
 """
 
 from __future__ import annotations

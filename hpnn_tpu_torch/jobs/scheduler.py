@@ -10,7 +10,8 @@ ask, an undeclared job gets the fair default share) and drives its job
 through the reentrant training entry pinned to that slice
 (``api.train_job(..., devices=slice)``: the configure/train_loop/
 checkpoint path ``train_nn`` runs, so a job's ``kernel.opt`` is the bytes
-of the offline CLI run of its conf).  The slice is released on every
+of the offline CLI run of its conf on as many devices; the slice is the
+job's training grid).  The slice is released on every
 terminal path, and a per-tick ``reclaim`` sweep frees any slice whose owner
 is no longer installed.
 

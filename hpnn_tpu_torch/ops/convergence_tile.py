@@ -35,6 +35,11 @@ kernel (``ops/convergence_tile_kernel.py``, ``csrc/train_tile.cu``) is
 held against on the card.  :func:`train_epoch_tiled` is the public epoch:
 call-compatible with ``ops.convergence.train_epoch``, it launches the
 kernel wrapper for ``launch_groups`` groups at a time.
+:func:`train_epoch_tiled_mesh` is the engine's route over a data mesh of
+one process's devices (``[batch]`` + ``[tile]`` on several devices), the
+counterpart of the JAX package's meshed XLA route: torch code, each
+group's lanes split over the shards, as the JAX package's mesh demotes the
+engine from its Pallas kernel to XLA.
 """
 
 from __future__ import annotations
@@ -260,6 +265,143 @@ def train_epoch_tiled_plain(weights, xs, ts, kind: str, momentum: bool,
         stats[lo:hi] = _group_plain(w, dw, xs[lo:hi], ts[lo:hi], kind,
                                     momentum, lr, alpha, min_iter, max_iter,
                                     delta, add_dt)
+    return tuple(w), stats
+
+
+def _group_mesh(w, dw, blocks, home, kind, momentum, lr, alpha, min_iter,
+                max_iter, delta, add_dt):
+    """One group trained to convergence in lockstep with its lanes split
+    over data shards: ``blocks`` holds each shard's real lanes as (x, t)
+    on its device (masked lanes are absent: they never train).  Every
+    shard forms the forward and the deltas of its lanes against its copy
+    of the weights; the per-layer ``d^T h`` partials are added in shard
+    order on ``home``, where ``w`` (and ``dw``) update in place, then the
+    copies are refreshed; the group runs while a lane of any shard lives.
+    A shard whose lanes are all dead drops out (its partials would be
+    zero).  Returns the (S, 5) float64 stats rows of the real lanes, in
+    lane order, on ``home``."""
+    x0 = blocks[0][0]
+    edt = torch.float64 if x0.dtype == torch.float64 else torch.float32
+    devs = [x.device for x, _ in blocks]
+    copies = {d: list(w) if d == home else [v.to(d) for v in w]
+              for d in dict.fromkeys(devs)}
+    st = []
+    for x, t in blocks:
+        s, n_out = t.shape
+        col = torch.arange(n_out, device=x.device)
+        acts = _forward(copies[x.device], x, kind, edt)
+        ep = _err(acts[-1], t, kind, edt)
+        z = torch.zeros(s, dtype=torch.bool, device=x.device)
+        st.append({"p_trg": torch.where(t.to(edt) == 1.0, col,
+                                        torch.zeros_like(col)).amax(1),
+                   "acts": acts, "ep": ep, "init": ep, "live": ~z,
+                   "n_it": torch.zeros(s, dtype=torch.int64,
+                                       device=x.device),
+                   "dep": torch.zeros(s, dtype=edt, device=x.device),
+                   "ok_raw": z, "first_ok": z.clone()})
+    it, n = 0, len(w)
+    alive = list(range(len(blocks)))      # shards with a live lane
+    while alive:
+        it += 1
+        parts = []
+        for i in alive:
+            (x, t), b = blocks[i], st[i]
+            wb, acts = copies[x.device], b["acts"]
+            o = acts[-1]
+            d = t - o if kind in (SNN, LNN) else (t - o) * ann_dact(o)
+            ds = [d]
+            for l in range(n - 1, 0, -1):
+                ds.insert(0, _mv_t(ds[0], wb[l]) * ann_dact(acts[l - 1]))
+            hs = (x, *acts[:-1])
+            live = b["live"][:, None]
+            parts.append([_upd(torch.where(live, ds[l],
+                                           torch.zeros_like(ds[l])), hs[l])
+                          for l in range(n)])
+        for l in range(n):
+            g = parts[0][l].to(home)
+            for p in parts[1:]:
+                g = g + p[l].to(home)
+            step = lr * g
+            if momentum:
+                if add_dt is not None:
+                    step = dw[l] + step.to(add_dt)
+                    w[l] = (w[l].to(add_dt) + step).to(w[l].dtype)
+                else:
+                    step = dw[l] + step
+                    w[l] = w[l] + step
+                dw[l] = alpha * step
+            elif add_dt is not None:
+                w[l] = (w[l].to(add_dt) + step.to(add_dt)).to(w[l].dtype)
+            else:
+                w[l] = w[l] + step
+        copies = {d: list(w) if d == home else [v.to(d) for v in w]
+                  for d in dict.fromkeys(blocks[i][0].device for i in alive)}
+        flags = []
+        for i in alive:
+            (x, t), b = blocks[i], st[i]
+            acts = _forward(copies[x.device], x, kind, edt)
+            epr = _err(acts[-1], t, kind, edt)
+            dep_new = b["ep"] - epr
+            live = b["live"]
+            if kind == LNN:
+                okr = torch.ones_like(live)
+            else:
+                okr = torch.argmax(acts[-1].to(edt), dim=1) == b["p_trg"]
+            b["n_it"] = torch.where(live, it, b["n_it"])
+            b["dep"] = torch.where(live, dep_new, b["dep"])
+            b["ok_raw"] = torch.where(live, okr, b["ok_raw"])
+            if it == 1:
+                b["first_ok"] = torch.where(live, okr, b["first_ok"])
+            b["live"] = live & (it <= max_iter) & (
+                (dep_new > delta) | ~(okr & (it > min_iter)))
+            b["acts"], b["ep"] = acts, epr
+            flags.append(b["live"].any().to(home))
+        # the stop test spans every lane: one host read an iteration
+        alive = [i for i, f in zip(alive, torch.stack(flags).tolist())
+                 if f]
+    rows = [torch.stack([b["init"].double(), b["first_ok"].double(),
+                         b["n_it"].double(), b["dep"].double(),
+                         (b["ok_raw"] & (b["n_it"] > min_iter)).double()],
+                        dim=1).to(home) for b in st]
+    return torch.cat(rows)
+
+
+@torch.inference_mode()
+def train_epoch_tiled_mesh(weights, xs, ts, kind: str, momentum: bool, mesh,
+                           alpha=0.2, delta=-1.0, lr=None, tile: int = 8,
+                           storage: str | None = None, max_iter=None):
+    """The batched-tile epoch over the N data shards of ``mesh`` (an N x 1
+    ``parallel.mesh.LocalGrid``): groups of ``tile`` samples, each padded
+    to ``lane_tile = ceil(tile / N) * N`` lanes with masked lanes that
+    never train, shard d owning lanes ``[d * lane_tile / N, (d + 1) *
+    lane_tile / N)`` (the JAX package's ``dp_tiled_epoch`` under a mesh).
+    Each lockstep iteration: every shard the forward and deltas of its own
+    lanes against replicated weights, ``d^T h`` summed over the shards,
+    the stop test over every lane.  Returns (weights in the resident dtype
+    on the first shard's device, stats (S, 5) float64 there)."""
+    lr, delta, min_iter, max_iter = resolve_hyper(kind, momentum, lr, delta,
+                                                  max_iter)
+    devs = mesh.data_devices()
+    home = devs[0]
+    w = [v.to(home) for v in resident_weights(weights, xs.dtype, storage)]
+    add_dt = _accum_dtype(storage)
+    s = xs.shape[0]
+    rows = {d: (xs.to(d), ts.to(d)) for d in dict.fromkeys(devs)}
+    stats = _stats_init(None, s, home)
+    lane = -(-tile // len(devs))          # lanes a shard: lane_tile / N
+    for g in range(n_groups(s, tile)):
+        base, end = g * tile, min((g + 1) * tile, s)
+        blocks = []
+        for d, dev in enumerate(devs):
+            lo, hi = base + d * lane, min(base + (d + 1) * lane, end)
+            if lo < hi:
+                x, t = rows[dev]
+                blocks.append((x[lo:hi], t[lo:hi]))
+        dw = ([torch.zeros(v.shape, dtype=add_dt or v.dtype, device=home)
+               for v in w] if momentum else None)
+        stats[base:end] = _group_mesh(w, dw, blocks, home, kind, momentum,
+                                      lr, alpha, min_iter, max_iter, delta,
+                                      add_dt)
     return tuple(w), stats
 
 

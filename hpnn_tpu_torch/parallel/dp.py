@@ -15,14 +15,18 @@ the ANN dact output factor, the SNN t-o shortcut), batched as one
 matmul.  Products here are plain torch: the JAX package computes them
 with XLA, outside any Pallas kernel.
 
-Across processes (``HPNN_DISTRIBUTED``, one rank a device) each rank
-takes its contiguous share of every batch's slots, sums d^T h over its
-rows together with its error sum and its real row count, and ONE
-all-reduce carries all three.  The update state -- the weights and the
-BPM momentum -- is a flat vector padded to the world (``parallel.mesh``),
-of which each rank updates its 1/N slice; an all-gather of the slices
-re-forms the weights the next batch's products read.  A multi-rank run
-equals the one-process run up to the summation order of the all-reduce.
+Over N data shards -- the devices of one process (a
+``parallel.mesh.LocalGrid``, the JAX package's single-process mesh) or
+the ranks of a ``torch.distributed`` world (``HPNN_DISTRIBUTED``, one rank
+a device) -- each shard takes its contiguous share of every batch's
+slots, sums d^T h over its rows together with its error sum and its real
+row count in one buffer, and the buffers are summed over the shards: ONE
+all-reduce across ranks, copies added in shard order in one process.  The
+update state -- the weights and the BPM momentum -- is a flat vector
+padded to N (``parallel.mesh``), of which each shard updates its 1/N
+slice; the slices are gathered to re-form the weights the next batch's
+products read.  A sharded run equals the one-device run up to the
+summation order of the sum over shards.
 
 ``[dtype] bf16`` follows the JAX package's promotion: the f32 master
 weights times the bf16 samples compute in f32 (XLA promotes a mixed
@@ -127,18 +131,42 @@ def dp_export_weights(w_flat: torch.Tensor, shapes) -> list[np.ndarray]:
     return out
 
 
+def _partial_sums(ws, x, t, m, kind: str, n: int):
+    """One data shard's share of a batch as one buffer in the accumulation
+    dtype, ``[sum_l d^T h | pad | error sum, real rows]`` (``n`` is the
+    padded flat length), with the error's and the deltas' dtypes."""
+    ds, hs, e = _deltas_and_inputs(ws, x, t, kind, m)
+    acc = _acc(e.dtype)
+    mf = m.to(acc)
+    buf = torch.zeros(n + 2, dtype=acc, device=x.device)
+    off = 0
+    for d, h in zip(ds, hs):
+        k = d.shape[1] * h.shape[1]
+        buf[off:off + k] = (d.T @ h).to(acc).reshape(-1)
+        off += k
+    buf[n] = torch.sum(e.to(acc) * mf)
+    buf[n + 1] = torch.sum(mf)
+    return buf, e.dtype, ds[0].dtype
+
+
 def dp_epoch(w_flat, xb, tb, mb, kind: str, momentum: bool, lr, alpha,
-             shapes, world: int = 1, rank: int = 0):
-    """One minibatch epoch over this rank's slots of pre-batched tensors:
-    xb (n_batches, slots, n_in), tb (n_batches, slots, n_out), mb
+             shapes, world: int = 1, rank: int = 0, mesh=None):
+    """One minibatch epoch over this process's slots of pre-batched
+    tensors: xb (n_batches, slots, n_in), tb (n_batches, slots, n_out), mb
     (n_batches, slots) 0/1, where ``slots`` is the rank's share of each
-    batch (all of it in one process).  ``w_flat`` is
-    :func:`dp_resident_carry`'s vector; the BPM momentum starts at zero
-    each epoch, as the JAX package's scan starts it, and lives as this
-    rank's 1/N slice only.
+    batch (all of it in one process on one device).  With ``mesh``, an
+    N x 1 :class:`~.mesh.LocalGrid` of this process, xb, tb and mb are
+    lists of N such tensors, data shard d's slots on its device.
+    ``w_flat`` is :func:`dp_resident_carry`'s vector; the BPM momentum
+    starts at zero each epoch, as the JAX package's scan starts it, and
+    lives as each shard's 1/N slice only.
 
     No host read happens inside: the per-batch mean errors stay on the
-    device.  Returns (w_flat, dw_slice or None, errs (n_batches,))."""
+    device.  Returns (w_flat, dw_slice or None, errs (n_batches,)); on a
+    grid dw is the list of the shards' slices, each on its device."""
+    if mesh is not None and mesh.n_data > 1:
+        return _dp_epoch_grid(w_flat, xb, tb, mb, kind, momentum, lr, alpha,
+                              shapes, mesh)
     n = w_flat.shape[0]
     lo, hi = shard_bounds(n, world, rank)
     dist = coord._dist() if world > 1 else None
@@ -153,22 +181,12 @@ def dp_epoch(w_flat, xb, tb, mb, kind: str, momentum: bool, lr, alpha,
             grads, err = batched_grads(ws, xb[i], tb[i], kind, mb[i])
             g_flat = flatten_state(grads, world)
         else:
-            ds, hs, e = _deltas_and_inputs(ws, xb[i], tb[i], kind, mb[i])
-            acc = _acc(e.dtype)
-            m = mb[i].to(acc)
             # one all-reduce: [sum_l d^T h | pad | error sum, real rows]
-            buf = torch.zeros(n + 2, dtype=acc, device=w_flat.device)
-            off = 0
-            for d, h in zip(ds, hs):
-                k = d.shape[1] * h.shape[1]
-                buf[off:off + k] = (d.T @ h).to(acc).reshape(-1)
-                off += k
-            buf[n] = torch.sum(e.to(acc) * m)
-            buf[n + 1] = torch.sum(m)
+            buf, edt, gdt = _partial_sums(ws, xb[i], tb[i], mb[i], kind, n)
             dist.all_reduce(buf)
             denom = torch.clamp_min(buf[n + 1], 1.0)
-            err = (buf[n] / denom).to(e.dtype)
-            g_flat = (buf[:n] / denom).to(ds[0].dtype)
+            err = (buf[n] / denom).to(edt)
+            g_flat = (buf[:n] / denom).to(gdt)
         g = g_flat[lo:hi]
         if momentum:
             dw = dw + lr * g
@@ -186,18 +204,73 @@ def dp_epoch(w_flat, xb, tb, mb, kind: str, momentum: bool, lr, alpha,
     return w_flat, dw, torch.stack(errs)
 
 
+def _dp_epoch_grid(w_flat, xb, tb, mb, kind: str, momentum: bool, lr,
+                   alpha, shapes, mesh):
+    """:func:`dp_epoch` over the N data shards of a local grid: each shard
+    forms its partial sums on its own device from its slots, the sums are
+    added in shard order (``mesh.psum_data``), each shard updates its 1/N
+    slice of the flat weights and of the momentum on its device, and the
+    slices are gathered onto every distinct device before the next
+    batch."""
+    devs = mesh.data_devices()
+    n = w_flat.shape[0]
+    cuts = [shard_bounds(n, len(devs), d) for d in range(len(devs))]
+    home = devs[0]
+    on = {d: w_flat.to(d) for d in dict.fromkeys(devs)}
+    dw = ([torch.zeros(hi - lo, dtype=w_flat.dtype, device=d)
+           for (lo, hi), d in zip(cuts, devs)] if momentum else None)
+    errs = []
+    for i in range(xb[0].shape[0]):
+        bufs = []
+        for d, dev in enumerate(devs):
+            ws = unflatten_state(on[dev], shapes)
+            buf, edt, gdt = _partial_sums(ws, xb[d][i], tb[d][i], mb[d][i],
+                                          kind, n)
+            bufs.append(buf)
+        tot = mesh.psum_data(bufs)
+        parts = []
+        for d, (dev, (lo, hi)) in enumerate(zip(devs, cuts)):
+            denom = torch.clamp_min(tot[d][n + 1], 1.0)
+            g = (tot[d][lo:hi] / denom).to(gdt)
+            w_old = on[dev][lo:hi]
+            if momentum:
+                dw[d] = dw[d] + lr * g
+                parts.append(w_old + dw[d])
+                dw[d] = alpha * dw[d]
+            else:
+                parts.append(w_old + lr * g)
+            if d == 0:
+                errs.append((tot[0][n] / denom).to(edt))
+        w_home = torch.cat([p.to(home) for p in parts])
+        on = {dev: w_home.to(dev) for dev in on}
+    return on[home], dw, torch.stack(errs)
+
+
 def dp_tiled_epoch(weights, xs, ts, kind: str, momentum: bool, group: int,
                    lr=None, alpha=0.2, launch_groups: int = 0, storage=None,
-                   defer_stats=False):
+                   defer_stats=False, mesh=None):
     """``[batch]`` + ``[tile]``: every ``group``-sized set of samples trains
     TO CONVERGENCE in lockstep with per-lane masking
     (``ops.convergence_tile``, the ``train_tile`` kernel on a card) instead
     of taking one minibatch step, so per-sample iteration counts and the
     per-sample grammar apply again.  ``launch_groups`` is execution
     granularity only: the weights carry launch to launch, and the stats
-    and weights are identical for any value."""
-    from ..ops.convergence_tile import train_epoch_tiled
+    and weights are identical for any value.
 
+    With ``mesh``, an N x 1 local grid of N > 1 devices, each group's lanes
+    split over the data shards (``ops.convergence_tile.
+    train_epoch_tiled_mesh``, torch code, as the JAX package's mesh demotes
+    its engine from Pallas to XLA): the group is padded to a multiple of N
+    with masked lanes that never train."""
+    from ..ops.convergence_tile import (stats_record, train_epoch_tiled,
+                                        train_epoch_tiled_mesh)
+
+    if mesh is not None and mesh.n_data > 1:
+        w, stats = train_epoch_tiled_mesh(weights, xs, ts, kind, momentum,
+                                          mesh, alpha=alpha, lr=lr,
+                                          tile=max(1, int(group)),
+                                          storage=storage)
+        return w, stats if defer_stats else stats_record(stats, xs.dtype)
     return train_epoch_tiled(weights, xs, ts, kind, momentum, alpha=alpha,
                              lr=lr, tile=max(1, int(group)),
                              storage=storage, launch_groups=launch_groups,

@@ -1,35 +1,44 @@
-"""The data axis and the flat optimizer-state layout.
+"""The device grids of the data and model axes, and the flat
+optimizer-state layout.
 
-The port of the parts of the JAX package's ``parallel/mesh.py`` that the
-data-parallel and CG trainers use.  The JAX package builds a
-``jax.sharding.Mesh`` and lets GSPMD place collectives; the port's data
-axis is the ``torch.distributed`` world instead -- one process (rank) per
-device -- and the collectives are explicit (``parallel.dp``).  No GSPMD
-emulation is built.
+The port of the JAX package's ``parallel/mesh.py``.  The JAX package
+builds one ``jax.sharding.Mesh`` over the devices a process sees (or a
+thread's pinned slice) and lets GSPMD place the collectives; the port
+builds the same (data x model) grid and makes its collectives explicit.
+No GSPMD emulation is built.  Two grids answer one interface:
+
+* :class:`LocalGrid`, the devices of one process (a run at world 1):
+  shard (d, m) lives on ``devices[d * n_model + m]``, the model axis
+  inner as the JAX package's ``make_mesh`` reshapes its devices.  A
+  device may repeat, so N shards can share one card (they then run in
+  turn).  Its collectives are copies between the shards' devices.
+  :class:`LocalMesh` (1 x K, the row blocks of the serving tier and of
+  ``[model]``) and :class:`DataMesh` (N x 1, the ``fast@meshN`` tier and
+  ``[batch]``) are its two one-axis cases.
+* :class:`RankMesh`, the ``torch.distributed`` world (``HPNN_DISTRIBUTED``),
+  one rank a device: rank r is shard (r // n_model, r % n_model).  Its
+  collectives are gloo or NCCL calls.
+
+Both hold a tuple of local shards (every shard of a LocalGrid, one of a
+RankMesh): ``local[p]`` is local shard p's model index and
+:meth:`device_of` its device.  A collective takes one tensor for every
+local shard and returns one for every local shard: ``gather``, ``psum``
+and ``shift`` act within each model group, ``psum_data`` over the data
+shards of each model index, in shard order.
+
+:func:`make_mesh` returns a LocalGrid at world 1 and the RankMesh at
+world > 1; :func:`data_mesh` the serving tier's DataMesh.
 
 The flat layout (arXiv:2004.13336, as in the JAX package): the update
-state of a data-parallel run -- BPM momentum, the master weights -- is
-one vector, zero-padded to a multiple of the world size, of which each
-rank updates a contiguous 1/N slice.  Every operation on it is
-value-preserving (concatenate, pad, slice, reshape), so the flat
-trajectory equals the per-layer one bit for bit.
+state of a data-parallel run -- BPM momentum, the master weights, the CG
+vectors -- is one vector, zero-padded to a multiple of the data shards,
+of which each data shard updates a contiguous 1/N slice.  Every
+operation on it is value-preserving (concatenate, pad, slice, reshape),
+so the flat trajectory equals the per-layer one bit for bit.
 
 The row-sharding half (``[model]``, ``parallel.tp``): the zero padding
-that lets k row blocks divide every hidden layer (:func:`pad_topology`),
-the per-layer placement rule (:func:`layer_sharding`) and two model axes.
-:class:`RankMesh` is the (data x model) grid over the world, one rank a
-device, the model axis inner as the JAX package's ``make_mesh`` reshapes
-its devices, so a model group is consecutive ranks; :class:`LocalMesh` is
-K devices of one process (the serving tier's row blocks; a device may
-repeat).  Both answer the same few collectives over the model axis
-(``gather``, ``psum``, ``shift``), each taking and returning one tensor
-for every shard the process holds: one on a rank, K in a LocalMesh.
-
-The serving data axis (``serve_nn --parity fast --mesh N``):
-:func:`data_mesh` builds a :class:`DataMesh`, N devices of one process
-over which the ``fast@meshN`` tier splits a padded bucket's rows
-(``parallel.dp.dp_eval_batch``); the weights are replicated, so it needs
-no collective.
+that lets k row blocks divide every hidden layer (:func:`pad_topology`)
+and the per-layer placement rule (:func:`layer_sharding`).
 """
 
 from __future__ import annotations
@@ -144,68 +153,108 @@ class _Done:
         return self.parts
 
 
-class LocalMesh:
-    """A 1 x K model axis of one process: shard i's tensors live on
-    ``devices[i]`` (repeats allowed, so K row blocks can share one card).
-    The collectives are copies between the shards' devices."""
+class LocalGrid:
+    """The (data x model) grid of one process: shard (d, m) on
+    ``devices[d * n_model + m]`` (repeats allowed).  Every shard is local;
+    the collectives are copies between the shards' devices, each sum
+    formed in shard order on the first summand's device and copied to
+    every shard's."""
 
-    n_data = 1
-    data_index = 0
-
-    def __init__(self, devices):
+    def __init__(self, n_data: int, n_model: int, devices):
         self.devices = tuple(torch.device(d) for d in devices)
-        if not self.devices:
-            raise ValueError("LocalMesh needs at least one device")
-        self.n_model = len(self.devices)
-        self.local = tuple(range(self.n_model))   # the shards held here
-
-    def device_of(self, i: int) -> torch.device:
-        return self.devices[i]
-
-    def gather(self, parts, only=None):
-        """Every shard's tensor concatenated along the last dim in shard
-        order, on each shard's device (on the shards ``only`` names)."""
-        devs = (self.devices if only is None
-                else [self.devices[i] for i in only])
-        return [torch.cat([p.to(d) for p in parts], dim=-1) for d in devs]
-
-    def psum(self, parts):
-        """The shards' tensors summed in shard order, on each device."""
-        tot = parts[0]
-        for p in parts[1:]:
-            tot = tot + p.to(tot.device)
-        return [tot.to(d) for d in self.devices]
-
-    def psum_data(self, t):
-        return t
-
-    def shift(self, parts):
-        """The ring step: shard i receives shard (i+1) mod K's tensor."""
+        self.n_data, self.n_model = int(n_data), int(n_model)
+        if self.n_data < 1 or self.n_model < 1 \
+                or len(self.devices) != self.n_data * self.n_model:
+            raise ValueError(f"a {n_data}x{n_model} grid needs "
+                             f"{max(1, int(n_data) * int(n_model))} "
+                             f"device(s); {len(self.devices)} given")
         k = self.n_model
-        return _Done([parts[(i + 1) % k].to(self.devices[i],
-                                            non_blocking=True)
-                      for i in range(k)])
+        self.local = tuple(p % k for p in range(len(self.devices)))
+        self.local_data = tuple(p // k for p in range(len(self.devices)))
 
-    def gather_rows(self, parts):
-        """Every shard's row block stacked in shard order, on the CPU."""
-        return torch.cat([p.to("cpu") for p in parts])
+    def device_of(self, p: int) -> torch.device:
+        """Local shard p's device."""
+        return self.devices[p]
 
-
-class DataMesh:
-    """An N x 1 data axis of one process: shard i's rows run on
-    ``devices[i]`` (repeats allowed, so N shards can share one card, as
-    the shards of a :class:`LocalMesh` may).  Weights are replicated on
-    every shard's device; nothing is exchanged but the rows."""
-
-    def __init__(self, devices):
-        self.devices = tuple(torch.device(d) for d in devices)
-        if not self.devices:
-            raise ValueError("DataMesh needs at least one device")
-        self.n_data = len(self.devices)
+    def data_devices(self) -> tuple[torch.device, ...]:
+        """Each data shard's first device (where its rows land)."""
+        return self.devices[::self.n_model]
 
     def distinct(self) -> tuple[torch.device, ...]:
         """The shards' devices, each once, in shard order."""
         return tuple(dict.fromkeys(self.devices))
+
+    def _group(self, p: int) -> range:
+        lo = (p // self.n_model) * self.n_model
+        return range(lo, lo + self.n_model)
+
+    def gather(self, parts, only=None):
+        """Each model group's tensors concatenated along the last dim in
+        shard order, on each shard's device (on the shards ``only``
+        names)."""
+        pos = range(len(parts)) if only is None else only
+        return [torch.cat([parts[q].to(self.devices[p])
+                           for q in self._group(p)], dim=-1) for p in pos]
+
+    def _sum_over(self, parts, groups):
+        out = [None] * len(parts)
+        for g in groups:
+            tot = parts[g[0]]
+            for q in g[1:]:
+                tot = tot + parts[q].to(tot.device)
+            for q in g:
+                out[q] = tot.to(self.devices[q])
+        return out
+
+    def psum(self, parts):
+        """Each model group's tensors summed in shard order, on each
+        shard's device."""
+        k = self.n_model
+        return self._sum_over(parts, [range(d * k, (d + 1) * k)
+                                      for d in range(self.n_data)])
+
+    def psum_data(self, parts):
+        """The data shards' tensors of each model index summed in data
+        shard order, on each shard's device."""
+        k = self.n_model
+        return self._sum_over(parts, [range(m, len(parts), k)
+                                      for m in range(k)])
+
+    def shift(self, parts):
+        """The ring step: within each model group, shard m receives shard
+        (m + 1) mod K's tensor."""
+        k = self.n_model
+        return _Done([parts[(p - p % k) + (p % k + 1) % k].to(
+            self.devices[p], non_blocking=True) for p in range(len(parts))])
+
+    def gather_rows(self, parts):
+        """The first model group's row blocks stacked in shard order, on
+        the CPU (every group holds the same weights)."""
+        return torch.cat([p.to("cpu") for p in parts[:self.n_model]])
+
+
+class LocalMesh(LocalGrid):
+    """A 1 x K model axis of one process: shard i's row blocks live on
+    ``devices[i]`` (the ``tp@K`` serving tier, ``[model] K`` at world
+    1)."""
+
+    def __init__(self, devices):
+        devices = tuple(devices)
+        if not devices:
+            raise ValueError("LocalMesh needs at least one device")
+        super().__init__(1, len(devices), devices)
+
+
+class DataMesh(LocalGrid):
+    """An N x 1 data axis of one process: shard i's rows run on
+    ``devices[i]`` (the ``fast@meshN`` serving tier, ``[batch]`` at world
+    1).  Weights are replicated on every shard's device."""
+
+    def __init__(self, devices):
+        devices = tuple(devices)
+        if not devices:
+            raise ValueError("DataMesh needs at least one device")
+        super().__init__(len(devices), 1, devices)
 
 
 def data_mesh(n_devices: int | None = -1, device="cuda") -> DataMesh | None:
@@ -247,12 +296,13 @@ class RankMesh:
         self.data_index = self.rank // self.n_model
         self.model_index = self.rank % self.n_model
         self.local = (self.model_index,)
+        self.local_data = (0,)            # one data shard: this rank's
         self.devices = (torch.device(device),)
         self.model_group, self.data_group = model_group, data_group
         base = self.data_index * self.n_model
         self.model_ranks = tuple(base + m for m in range(self.n_model))
 
-    def device_of(self, i: int) -> torch.device:
+    def device_of(self, p: int) -> torch.device:
         return self.devices[0]
 
     def _dist(self):
@@ -281,12 +331,13 @@ class RankMesh:
         self._dist().all_reduce(t, group=self.model_group)
         return [t]
 
-    def psum_data(self, t):
+    def psum_data(self, parts):
+        (t,) = parts
         if self.n_data == 1:
-            return t
+            return [t]
         t = t.clone()
         self._dist().all_reduce(t, group=self.data_group)
-        return t
+        return [t]
 
     def shift(self, parts):
         """The ring step: send this shard's tensor to model shard
@@ -324,41 +375,66 @@ class _Pending:
 _MESHES: dict = {}
 
 
-def make_mesh(n_data: int | None = None, n_model: int = 1, device=None):
-    """The (data x model) :class:`RankMesh` of this run's world: ``n_data``
-    defaults to the world over ``n_model``; the grid must cover the world
-    (a rank outside it would have nothing to compute).  Groups are made
-    once a world and layout and reused."""
+def make_mesh(n_data: int | None = None, n_model: int = 1, device=None,
+              devices=None):
+    """The (data x model) grid of this run.
+
+    At world 1 a :class:`LocalGrid` over the first ``n_data * n_model`` of
+    ``devices`` (``n_data`` defaults to 1); a grid of one shard may name
+    ``device`` instead.  A grid wider than the devices named is refused
+    (``ValueError``): nothing shards onto devices it was not given.
+
+    At world > 1 the :class:`RankMesh` of the world, one rank a device:
+    ``n_data`` defaults to the world over ``n_model``, and the grid must
+    cover the world (a rank outside it would have nothing to compute).
+    Its groups are made once a world and layout and reused."""
     from . import coord
 
     world, rank = coord.world_size(), coord.process_index()
     n_model = max(1, int(n_model))
+    if world == 1:
+        n_data = max(1, int(n_data or 1))
+        n = n_data * n_model
+        if devices is None:
+            if n > 1:
+                raise ValueError(f"a {n_data}x{n_model} grid needs {n} "
+                                 "devices; none were named")
+            devices = [_default_device(device)]
+        devices = list(devices)
+        if len(devices) < n:
+            raise ValueError(f"a {n_data}x{n_model} grid needs {n} "
+                             f"devices; {len(devices)} were named")
+        return LocalGrid(n_data, n_model, devices[:n])
     if n_data is None:
         n_data = max(1, world // n_model)
     if n_data * n_model != world:
         raise ValueError(f"mesh {n_data}x{n_model} does not cover the "
                          f"{world} process(es) of this run")
-    if device is None:
-        from ..runtime import lib_runtime
-
-        device = lib_runtime.device or torch.device("cpu")
+    device = _default_device(device)
     key = (n_data, n_model, world, rank, str(device))
     mesh = _MESHES.get(key)
     if mesh is not None:
         return mesh
     mg = dg = None
-    if world > 1:
-        dist = coord._dist()
-        for d in range(n_data):
-            g = dist.new_group([d * n_model + m for m in range(n_model)])
-            if d == rank // n_model:
-                mg = g
-        for m in range(n_model):
-            g = dist.new_group([d * n_model + m for d in range(n_data)])
-            if m == rank % n_model:
-                dg = g
+    dist = coord._dist()
+    for d in range(n_data):
+        g = dist.new_group([d * n_model + m for m in range(n_model)])
+        if d == rank // n_model:
+            mg = g
+    for m in range(n_model):
+        g = dist.new_group([d * n_model + m for d in range(n_data)])
+        if m == rank % n_model:
+            dg = g
     mesh = _MESHES[key] = RankMesh(n_data, n_model, rank, device, mg, dg)
     return mesh
+
+
+def _default_device(device):
+    if device is None:
+        from ..runtime import lib_runtime
+
+        device = lib_runtime.device or torch.device("cpu")
+    return torch.device(device)
 
 
 def forget_meshes() -> None:
@@ -366,7 +442,7 @@ def forget_meshes() -> None:
     _MESHES.clear()
 
 
-__all__ = ["DataMesh", "LocalMesh", "RankMesh", "data_mesh",
+__all__ = ["DataMesh", "LocalGrid", "LocalMesh", "RankMesh", "data_mesh",
            "flatten_state", "unflatten_state", "shard_bounds",
            "per_device_bytes", "pad_topology", "unpad_topology",
            "layer_sharding", "make_mesh", "forget_meshes",

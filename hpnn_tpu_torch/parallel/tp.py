@@ -10,9 +10,11 @@ its remainder rows on every rank.
 
 The model axis is a :class:`~.mesh.RankMesh` (``torch.distributed`` ranks,
 one a device: gloo on the CPU, NCCL across cards) or a
-:class:`~.mesh.LocalMesh` (K devices of one process: the serving tier).
-Every engine here holds, for each shard the process runs, its padded row
-block of every hidden layer; the collectives are the mesh's.
+:class:`~.mesh.LocalGrid` (the devices of one process: a 1 x K
+``LocalMesh`` for the serving tier and ``[model] K``, an N x K grid beside
+``[batch]``).  Every engine here holds, for each shard the process runs,
+its padded row block of every hidden layer; the collectives are the
+mesh's.
 
 * **Per-sample epoch** (:func:`tp_train_epoch_resident`): each sample
   trained to convergence as ``ops.convergence.train_sample`` does it, on
@@ -40,9 +42,10 @@ block of every hidden layer; the collectives are the mesh's.
   built.  (The JAX package computes these products in XLA.)
 * **Hybrid epoch** (:func:`tp_dp_train_epoch`, ``[batch]`` x ``[model]``):
   ``parallel.dp``'s minibatch geometry with every forward product on the
-  ring engine's blocks; gradients all-reduced over the data axis, the
-  backward's ``d_blk @ W_l`` over the model axis, BPM momentum held as
-  row blocks and zeroed each call.
+  ring engine's blocks; gradients summed over the data axis (an
+  all-reduce across ranks, copies in one process), the backward's
+  ``d_blk @ W_l`` over the model axis, BPM momentum held as row blocks
+  and zeroed each call.
 """
 
 from __future__ import annotations
@@ -95,7 +98,7 @@ def _carry(weights, mesh, rows, ring: bool) -> TPCarry:
     padded, orig = pad_topology(tuple(weights), k)
     shards, cols = [], []
     for p, m in enumerate(mesh.local):
-        dev = mesh.device_of(m)
+        dev = mesh.device_of(p)
         ws = []
         for l, w in enumerate(padded):
             if rows[l]:
@@ -155,12 +158,17 @@ def carry_bytes(carry: TPCarry) -> int:
 
 def _lin(w: torch.Tensor, x: torch.Tensor, act: bool) -> torch.Tensor:
     """act(x @ w.T): one ``fused_linear_act`` call (its plain version on
-    the CPU); w is cast to x's dtype where a master differs."""
+    the CPU); w is cast to x's dtype where a master differs.  On a card the
+    launch selects x's card; the guard restores this thread's device after
+    it, so a shard on another card leaves nothing unsharded there."""
     from ..ops.kernels import fused_linear_act
 
     if w.dtype != x.dtype:
         w = w.to(x.dtype)
-    return fused_linear_act(w, x.contiguous(), act)
+    if x.device.type != "cuda":
+        return fused_linear_act(w, x.contiguous(), act)
+    with torch.cuda.device(x.device):
+        return fused_linear_act(w, x.contiguous(), act)
 
 
 def _head(z: torch.Tensor, kind: str) -> torch.Tensor:
@@ -288,7 +296,7 @@ def tp_eval_batch(weights, xs: torch.Tensor, kind: str, mesh, overlap=None):
                            for l, w in enumerate(s)) for s in carry.shards)
     if xs.shape[0] == 0:
         return xs.new_empty((0, int(carry.orig[-1])))
-    xsp = [xs.to(mesh.device_of(m)) for m in mesh.local]
+    xsp = [xs.to(mesh.device_of(p)) for p in range(len(mesh.local))]
     outs, _, _ = _forward_blocks(carry.shards, cols, xsp, kind, mesh,
                                  bool(overlap), heads=(0,))
     return outs[0]
@@ -323,9 +331,10 @@ def _mvt_partial(w, d):
 
 def _ps_forward(ws, x, kind: str, mesh, rows):
     """All activations of one sample on every local shard: full (padded)
-    vectors, each gathered from the shards' row blocks."""
+    vectors, each gathered from the shards' row blocks.  ``x[p]`` is the
+    sample on local shard p's device."""
     n = len(rows)
-    acts, v = [], [x] * len(ws)
+    acts, v = [], list(x)
     for l in range(n):
         last = l == n - 1
         if rows[l]:
@@ -351,9 +360,9 @@ def _ps_iterate(ws, dws, acts, x, t, kind, lr, alpha, mesh, rows):
     k = mesh.n_model
     out = acts[-1]
     if kind in (steps.SNN, steps.LNN):
-        d = [t - o for o in out]
+        d = [tp - o for tp, o in zip(t, out)]
     else:
-        d = [(t - o) * ann_dact(o) for o in out]
+        d = [(tp - o) * ann_dact(o) for tp, o in zip(t, out)]
     ds = [None] * n
     ds[-1] = d
     for l in range(n - 1, 0, -1):
@@ -369,7 +378,7 @@ def _ps_iterate(ws, dws, acts, x, t, kind, lr, alpha, mesh, rows):
         ds[l - 1] = [f * ann_dact(a) for f, a in zip(full, acts[l - 1])]
     new_ws, new_dws = [], []
     for p, m in enumerate(mesh.local):
-        hs = [x] + [a[p] for a in acts[:-1]]
+        hs = [x[p]] + [a[p] for a in acts[:-1]]
         wl, dl = [], []
         for l in range(n):
             dd = ds[l][p]
@@ -392,14 +401,15 @@ def _ps_iterate(ws, dws, acts, x, t, kind, lr, alpha, mesh, rows):
 
 def _ps_train_sample(ws, x, t, kind, momentum, mesh, rows, lr=None,
                      alpha=0.2, delta=-1.0):
-    """``ops.convergence.train_sample`` on row blocks; returns (ws, row)."""
+    """``ops.convergence.train_sample`` on row blocks; returns (ws, row).
+    ``x[p]``, ``t[p]`` are the sample on local shard p's device."""
     from ..ops.convergence import _p_trg, schedule
 
     lr, min_iter, max_iter, delta = schedule(kind, momentum, lr, delta)
     acts = _ps_forward(ws, x, kind, mesh, rows)
-    ep = steps.error(acts[-1][0], t, kind)
+    ep = steps.error(acts[-1][0], t[0], kind)
     init_err = float(ep)
-    p_trg = _p_trg(t)
+    p_trg = _p_trg(t[0])
     dws = ([tuple(torch.zeros_like(w) for w in s) for s in ws]
            if momentum else None)
     it, first_ok = 0, False
@@ -407,7 +417,7 @@ def _ps_train_sample(ws, x, t, kind, momentum, mesh, rows, lr=None,
         it += 1
         ws, dws, acts = _ps_iterate(ws, dws, acts, x, t, kind, lr, alpha,
                                     mesh, rows)
-        epr = steps.error(acts[-1][0], t, kind)
+        epr = steps.error(acts[-1][0], t[0], kind)
         dep, ep = ep - epr, epr
         # one host read an iteration: dEp and the argmax of the
         # replicated output, the same bits on every shard
@@ -442,8 +452,13 @@ def tp_train_epoch_resident(carry: TPCarry, xs, ts, kind: str,
         return carry._replace(shards=(tuple(new_w),)), stats
     wdt = torch.float32 if xs.dtype == torch.bfloat16 else xs.dtype
     ws = [tuple(w.to(wdt) for w in s) for s in carry.shards]
+    # the epoch's rows copied once to each distinct device of the shards
+    devs = [mesh.device_of(p) for p in range(len(mesh.local))]
+    on = {d: (xs.to(d), ts.to(d)) for d in dict.fromkeys(devs)}
     rows_out = []
-    for x, t in zip(xs, ts):
+    for i in range(xs.shape[0]):
+        x = [on[d][0][i] for d in devs]
+        t = [on[d][1][i] for d in devs]
         ws, row = _ps_train_sample(ws, x, t, kind, momentum, mesh,
                                    carry.rows, lr=lr, alpha=alpha,
                                    delta=delta)
@@ -470,9 +485,11 @@ def tp_train_sample(weights, x, t, kind: str, momentum: bool, mesh, **kw):
     carry = tp_resident_carry(weights, mesh)
     wdt = torch.float32 if x.dtype == torch.bfloat16 else x.dtype
     ws = [tuple(w.to(wdt) for w in s) for s in carry.shards]
+    devs = [mesh.device_of(p) for p in range(len(mesh.local))]
     with torch.inference_mode():
-        ws, row = _ps_train_sample(ws, x, t, kind, momentum, mesh,
-                                   carry.rows, **kw)
+        ws, row = _ps_train_sample(ws, [x.to(d) for d in devs],
+                                   [t.to(d) for d in devs], kind, momentum,
+                                   mesh, carry.rows, **kw)
     return tp_export_weights(carry._replace(shards=tuple(ws)), mesh), row
 
 
@@ -480,7 +497,8 @@ def tp_forward(weights, x, kind: str, mesh):
     """Every layer's activations of one sample through the row-sharded
     forward, unpadded."""
     carry = tp_resident_carry(weights, mesh)
-    acts = _ps_forward(list(carry.shards), x, kind, mesh, carry.rows)
+    xs = [x.to(mesh.device_of(p)) for p in range(len(mesh.local))]
+    acts = _ps_forward(list(carry.shards), xs, kind, mesh, carry.rows)
     return tuple(a[0][:n] for a, n in zip(acts, carry.orig))
 
 
@@ -489,7 +507,7 @@ def tp_forward_explicit(weights, x, kind: str, mesh):
     the axis: a row-block product, an all-gather of the pre-activations,
     then the activation (or the head) on the whole vector."""
     k = mesh.n_model
-    v = [x.to(mesh.device_of(m)) for m in mesh.local]
+    v = [x.to(mesh.device_of(p)) for p in range(len(mesh.local))]
     last = len(weights) - 1
     for i, w in enumerate(weights):
         n = w.shape[0]
@@ -523,9 +541,9 @@ def _colsharded_first(w0, x, mesh):
     k = mesh.n_model
     w0, x = _pad_cols(w0, x, k)
     parts = []
-    for m in mesh.local:
+    for p, m in enumerate(mesh.local):
         lo, hi = _bounds(w0.shape[1], k, m)
-        dev = mesh.device_of(m)
+        dev = mesh.device_of(p)
         parts.append(x[..., lo:hi].to(dev) @ w0[:, lo:hi].to(dev).T)
     return mesh.psum(parts)[0]
 
@@ -559,21 +577,30 @@ def _acc(dtype):
 @torch.inference_mode()
 def tp_dp_train_epoch(carry: TPCarry, xb, tb, mb, kind: str, momentum: bool,
                       lr, alpha=0.2, *, mesh, overlap=None):
-    """One minibatch epoch on the (data x model) grid over this data
-    shard's slots of pre-batched tensors: xb (n_batches, slots, n_in), tb
-    (n_batches, slots, n_out), mb (n_batches, slots) 0/1.  ``carry`` is
-    :func:`tp_dp_resident_carry`'s; the BPM momentum starts at zero as row
-    blocks.  Returns ``(carry, dw_shards or None, errs (n_batches,))``."""
+    """One minibatch epoch on the (data x model) grid over the local data
+    shards' slots of pre-batched tensors: xb (n_batches, slots, n_in), tb
+    (n_batches, slots, n_out), mb (n_batches, slots) 0/1, each one tensor
+    (a rank's data shard, or the one of a 1 x K grid) or a list of one for
+    each local data shard of ``mesh`` (an N x K :class:`~.mesh.LocalGrid`).
+    ``carry`` is :func:`tp_dp_resident_carry`'s: every local shard holds
+    its row blocks, so the data shards of a model index hold the same
+    weights and apply the same update.  The BPM momentum starts at zero as
+    row blocks.  Returns ``(carry, dw_shards or None, errs
+    (n_batches,))``."""
     if overlap is None:
         overlap = tp_overlap_enabled()
+    if isinstance(xb, torch.Tensor):
+        xb, tb, mb = [xb], [tb], [mb]
     ws = [list(s) for s in carry.shards]
-    cdt = torch.promote_types(ws[0][0].dtype, xb.dtype)
+    cdt = torch.promote_types(ws[0][0].dtype, xb[0].dtype)
     dws = ([[torch.zeros_like(w) for w in s] for s in ws]
            if momentum else None)
     errs = []
-    for i in range(xb.shape[0]):
-        grads, err = _hybrid_grads(ws, xb[i].to(cdt), tb[i].to(cdt), mb[i],
-                                   kind, mesh, bool(overlap))
+    for i in range(xb[0].shape[0]):
+        grads, err = _hybrid_grads(ws, [x[i].to(cdt) for x in xb],
+                                   [t[i].to(cdt) for t in tb],
+                                   [m[i] for m in mb], kind, mesh,
+                                   bool(overlap))
         for p, g in enumerate(grads):
             if momentum:
                 # reference order dw += lr*g; W += dw; dw *= alpha
@@ -596,50 +623,54 @@ def _hybrid_grads(ws, x, t, m, kind, mesh, overlap):
     ``dp.batched_grads``' explicit deltas (the mask zeroes a padded row's
     output delta, so its whole backward chain), the hidden deltas from
     ``d @ W`` (the head's product is replicated; a hidden layer's is
-    all-reduced over the model axis)."""
+    all-reduced over the model axis).  ``x``, ``t``, ``m`` hold one batch
+    block for each local data shard; the error and row sums and each
+    ``d^T h`` are summed over the data shards."""
     k, n = mesh.n_model, len(ws[0])
+    blk = mesh.local_data
     cols = ([[_col_slices(w, k) if l else None for l, w in enumerate(s)]
              for s in ws] if overlap else None)
-    xs = [x.to(mesh.device_of(q)) for q in mesh.local]
+    xs = [x[blk[p]].to(mesh.device_of(p)) for p in range(len(ws))]
     outs, blks, fulls = _forward_blocks(ws, cols, xs, kind, mesh, overlap,
                                         collect=True)
-    grads, pres, dens, err = [], [], [], None
+    sums, ds = [], []
     for p, out in enumerate(outs):
-        tt = t.to(out.device)
+        tt = t[blk[p]].to(out.device)
+        mp = m[blk[p]].to(out.device)
         e = steps.error(out, tt, kind)
         acc = _acc(e.dtype)
-        mf = m.to(device=out.device, dtype=acc)
-        red = mesh.psum_data(torch.stack([torch.sum(e.to(acc) * mf),
-                                          torch.sum(mf)]))
-        den = torch.clamp_min(red[1], 1.0)
-        if err is None:
-            err = (red[0] / den).to(e.dtype)
+        mf = mp.to(acc)
+        sums.append(torch.stack([torch.sum(e.to(acc) * mf), torch.sum(mf)]))
         d = tt - out if kind in (steps.SNN, steps.LNN) \
             else (tt - out) * ann_dact(out)
-        d = d * m.to(device=out.device, dtype=d.dtype)[:, None]
-        g = [None] * n
-        g[-1] = _grad(d, fulls[-1][p], den, mesh)
-        grads.append(g)
-        pres.append(d @ ws[p][-1])
-        dens.append(den)
+        ds.append(d * mp.to(d.dtype)[:, None])
+    red = mesh.psum_data(sums)
+    dens = [torch.clamp_min(r[1], 1.0) for r in red]
+    err = (red[0][0] / dens[0]).to(e.dtype)
+    grads = [[None] * n for _ in outs]
+    for p, g in enumerate(_grads(ds, fulls[-1], dens, mesh)):
+        grads[p][-1] = g
+    pres = [d @ ws[p][-1] for p, d in enumerate(ds)]
     for l in range(n - 2, -1, -1):
         d_blks = []
         for p, q in enumerate(mesh.local):
             c = blks[l][p].shape[-1]
-            d_blk = pres[p][:, q * c:(q + 1) * c] * ann_dact(blks[l][p])
-            grads[p][l] = _grad(d_blk, fulls[l][p], dens[p], mesh)
-            d_blks.append(d_blk)
+            d_blks.append(pres[p][:, q * c:(q + 1) * c]
+                          * ann_dact(blks[l][p]))
+        for p, g in enumerate(_grads(d_blks, fulls[l], dens, mesh)):
+            grads[p][l] = g
         if l > 0:
             pres = mesh.psum([db @ ws[p][l] for p, db in enumerate(d_blks)])
     return grads, err
 
 
-def _grad(d, h, den, mesh):
-    """``dp.batched_grads``' discipline: contract in the native dtype,
-    all-reduce over the data axis, divide in at least float32, cast
-    back."""
-    g = mesh.psum_data(d.T @ h)
-    return (g.to(_acc(d.dtype)) / den).to(d.dtype)
+def _grads(ds, hs, dens, mesh):
+    """``dp.batched_grads``' discipline for every local shard: contract in
+    the native dtype, sum over the data shards, divide in at least
+    float32, cast back."""
+    gs = mesh.psum_data([d.T @ h for d, h in zip(ds, hs)])
+    return [(g.to(_acc(d.dtype)) / den).to(d.dtype)
+            for g, d, den in zip(gs, ds, dens)]
 
 
 __all__ = ["TPCarry", "carry_bytes", "tp_dp_resident_carry",
