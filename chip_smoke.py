@@ -8,8 +8,8 @@ card at full width and fails (non-zero exit, no result line) on any
 fault; no phase catches its own failure.  On a host of several cards
 phases 1-28 hold the one-card routes on the first card: the process's
 training decisions are pinned there (``api.device_slice``) and the child
-processes of phases 1-27 see that card alone; phase 28's mesh and
-phase 29's grid span the cards.
+processes of phases 1-27 see that card alone; phase 28's mesh,
+phase 29's grid and phase 30's ranks span the cards.
 
 1. Device: the ``nvidia-smi`` name and power limit, torch's CUDA version.
 2. Build: every hand-written kernel from ``hpnn_tpu_torch/csrc`` (one
@@ -47,7 +47,8 @@ phase 29's grid span the cards.
    (in double not the target class; the exact 1 of class 0 or 1 is), and
    784-2304-10 ANN BP f64, more rows than the card holds warps at once (a
    plan must take several rows a warp); 2-8 samples a run (ANN and LNN samples from two classes: the first
-   sample of each class is the one that takes thousands of iterations,
+   sample of each class is the one that takes thousands of iterations;
+   XRD's two from one class, as its first takes tens of thousands,
    and the plain loop pays a host round trip per iteration; SNN from four:
    past about five classes at pixel scale, float32's exp range runs out in
    the softmax without max-subtraction and a sample runs to MAX_ITER with
@@ -144,8 +145,9 @@ phase 29's grid span the cards.
    loader must be on.  ``run_nn`` of a generated MNIST 784-300-10 ANN f64
    and XRD 851-230-230 ANN f32 kernel on a fresh 4096-file dir each, in
    three load modes: cache off, serial, Python parser
-   (``HPNN_NO_CORPUS_CACHE=1 HPNN_NO_PARALLEL_IO=1 HPNN_NO_NATIVE_IO=1``);
-   cold (parallel native reads, the pack built); warm (from the pack).
+   (``HPNN_NO_CORPUS_CACHE=1 HPNN_NO_PARALLEL_IO=1 HPNN_NO_NATIVE_IO=1``;
+   MNIST's alone); cold (parallel native reads, the pack built); warm
+   (from the pack).
    The streams must be byte-identical, the outputs bit-identical, each
    run must launch ``fused_linear_act`` and report its load mode; each
    load's time, each run's wall time and the pack's bytes are printed.
@@ -329,7 +331,8 @@ phase 29's grid span the cards.
    ``[model] 2`` grid against phase 21's four gloo ranks the same way;
    ``[model] 2`` per sample on phase 21's 64 files from its kernel (lines
    equal, 1e-12; B2 its kernel); ``[batch] 32`` + ``[tile] 4`` at 4
-   shards against the one-card ``train_tile`` route (lines equal, any
+   shards on the first 256 of the files against the one-card
+   ``train_tile`` route (lines equal, any
    other iteration count printed, 1e-11); ``[batch] 32`` CG on phase 20's
    [0, 1] bars at 4 shards (1e-9); ``run_nn`` of phase 21's ``[model] 2``
    conf over 2 shards (phase 4's lines and outputs, 4 B2 launches); a
@@ -338,9 +341,26 @@ phase 29's grid span the cards.
    cards ``python -m hpnn_tpu_torch.cli train_nn`` as a process over every
    card.  B1 and B4 launch 0 times on the sharded routes.  Each run's
    epochs' device time, wall, launches and bytes a shard, then the
-   ``[batch] 32`` BPM epoch of phase 20's 4096 files alone at 1, 2 and 4
+   ``[batch] 32`` BPM epoch of phase 20's 4096 files alone at 1 and 4
    shards: device and host ms, kernel launches (``torch.profiler``) and
    momentum bytes a shard.
+30. Ranks that hold several devices (run right after phase 29): two
+   ``HPNN_DISTRIBUTED`` ranks of two devices each, the (data x model)
+   grid over every rank's devices, held to one process's 4-shard grid on
+   the card.  On a host of four or more cards 2 NCCL ranks in torchrun's
+   layout (``LOCAL_RANK``, ``LOCAL_WORLD_SIZE=2``) over the first four,
+   rank 0 on cuda:0-1 and rank 1 on cuda:2-3, against one process over
+   cuda:0-3; on fewer, 2 gloo ranks of 2 CPU shards each against one
+   process over cuda:0 repeated (the phase prints which, with the card
+   count).  MNIST 784-300-10: ``[batch] 32`` BPM f64 on phase 20's 4096
+   files, ``[model] 2`` per sample (a replica of the group in each rank)
+   and ``[model] 4`` (the group across the ranks) on phase 21's 64 files
+   from its kernel, the 2x2 ``[batch] 32`` x ``[model] 2`` grid on phase
+   9's 512 files, ``[batch] 32`` CG on phase 20's [0, 1] bars (4
+   iterations an epoch): rank 0's lines equal the one process's, rank 1
+   silent, kernel.opt within 1e-11 / 1e-12 / 1e-9; no B1 or B4 launch on
+   a rank, and on cards B2 launched by each rank on the ``[model]`` and
+   grid routes (the counts set to 0 just before each case, in each rank).
 15. One JSON line of every kernel (launches on its main path, the largest
    kernel-vs-plain error over every cell and dtype, times and bound;
    ``fused_linear_act`` adds its B=1 cell and its worst ratio to the
@@ -370,7 +390,9 @@ phase 29's grid span the cards.
    (``c_api_launches``); ``fused_linear_act`` its launches a sharded batch
    and under the reloads in phase 28 (``data_mesh_launches``,
    ``data_mesh_swap_launches``) and that phase's times
-   (``data_mesh_ms``); ``fused_bpm_update`` its bfloat16 cells), a line
+   (``data_mesh_ms``); ``fused_linear_act`` its launches by rank in phase
+   30 (``rank_grid_launches``) and the branch that ran;
+   ``fused_bpm_update`` its bfloat16 cells), a line
    of each phase's seconds, then the result line.
 
 Main paths: ``fused_linear_act``'s is phases 4-5, ``train_epoch``'s phase 9
@@ -442,7 +464,7 @@ TRAIN_RUNS = (
     [("mnist", MNIST, k, m, d, (0, 1) if k == "ANN" else (0, 1, 2, 3), 8)
      for k in ("ANN", "SNN") for m in (False, True)
      for d in ("f64", "f32", "bf16")]
-    + [("xrd", XRD, "ANN", True, d, (0, 1), 4) for d in ("f64", "f32")]
+    + [("xrd", XRD, "ANN", True, d, (0,), 2) for d in ("f64", "f32")]
     + [("mnist", MNIST, "LNN", False, "f64", (0, 1), 8)]
     + [("near1", MNIST, "ANN", False, "f64", (0, 1), 2)]
     + [("wide", WIDE, "ANN", False, "f64", (0, 1), 2)])
@@ -2286,11 +2308,12 @@ def _corpus_env(env):
         samples._native_lib = None
 
 
-def _corpus_run_nn(tag, topology, scale, seed, dtype, tmp):
+def _corpus_run_nn(tag, topology, scale, seed, dtype, tmp,
+                   modes=("off", "cold", "warm")):
     """``run_nn -v -v`` of a generated ANN kernel on a fresh 4096-file dir
-    in each load mode: byte-identical streams, bit-identical outputs, and
-    ``fused_linear_act`` launched each time (its count set to 0 just before
-    each run, read just after)."""
+    in each load mode of ``modes``: byte-identical streams, bit-identical
+    outputs, and ``fused_linear_act`` launched each time (its count set to
+    0 just before each run, read just after)."""
     from hpnn_tpu_torch import cli
     from hpnn_tpu_torch.io import corpus
     from hpnn_tpu_torch.io.kernel_io import dump_kernel_to_path
@@ -2315,6 +2338,8 @@ def _corpus_run_nn(tag, topology, scale, seed, dtype, tmp):
         raise AssertionError(f"{tests}: a pack exists before the cold run")
     runs = {}
     for mode, env, want, native in CORPUS_MODES:
+        if mode not in modes:
+            continue
         with _corpus_env(env):
             fused_linear_act.launches = 0
             out = io.StringIO()
@@ -2336,13 +2361,14 @@ def _corpus_run_nn(tag, topology, scale, seed, dtype, tmp):
                                  "fused_linear_act was not launched")
         runs[mode] = {"out": out.getvalue(), "outs": outs, "wall_s": wall,
                       "load_s": load["seconds"], "launches": launched}
-    for mode in ("cold", "warm"):
-        if runs[mode]["out"] != runs["off"]["out"]:
+    first = modes[0]
+    for mode in modes[1:]:
+        if runs[mode]["out"] != runs[first]["out"]:
             raise AssertionError(f"corpus run_nn {tag}: the {mode} stream "
-                                 "differs from the cache-off stream")
-        if runs[mode]["outs"].tobytes() != runs["off"]["outs"].tobytes():
+                                 f"differs from the {first} stream")
+        if runs[mode]["outs"].tobytes() != runs[first]["outs"].tobytes():
             raise AssertionError(f"corpus run_nn {tag}: the {mode} outputs "
-                                 "differ from the cache-off outputs")
+                                 f"differ from the {first} outputs")
     pack = os.path.getsize(corpus.pack_path(tests))
     data = N_FILES * (n_in + n_out) * 8
     if pack < data:
@@ -2362,7 +2388,8 @@ def _corpus_run_nn(tag, topology, scale, seed, dtype, tmp):
 def phase_corpus(e2e, tmp):
     """The corpus pipeline on the card (run after phase 17): the native
     loader on; MNIST 784-300-10 ANN f64 and XRD 851-230-230 ANN f32
-    ``run_nn`` in three load modes; ``train_nn --epochs 3`` on phase 9's
+    ``run_nn`` in three load modes (XRD in the cold and warm ones);
+    ``train_nn --epochs 3`` on phase 9's
     files warm against ``HPNN_NO_CORPUS_CACHE=1`` (kernel.opt and streams
     byte-identical, each epoch's device time both ways) with the test
     dir's pack removed first, so that the warm run's prefetch builds it
@@ -2378,7 +2405,8 @@ def phase_corpus(e2e, tmp):
             raise AssertionError("the native sample loader is not on")
     res = {"run_nn": {
         "mnist": _corpus_run_nn("mnist", MNIST, "pixel", 1801, "f64", tmp),
-        "xrd": _corpus_run_nn("xrd", XRD, "unit", 1802, "f32", tmp)}}
+        "xrd": _corpus_run_nn("xrd", XRD, "unit", 1802, "f32", tmp,
+                              modes=("cold", "warm"))}}
     root = e2e["root"]
     samples_dir = os.path.join(root, "samples")
     tests_dir = os.path.join(root, "tests")
@@ -3451,7 +3479,10 @@ def _kernel_diff(a: str, b: str) -> float:
 
 def _gloo_start(world, cwd, argv, confs=None):
     """Start ``train_nn --device cpu`` as ``world`` gloo ranks in ``cwd``
-    (no card visible to them); :func:`_gloo_wait` collects them."""
+    (no card visible to them); :func:`_gloo_wait` collects them.  One
+    intra-op thread a rank: at two, the ranks' sums vary from run to run
+    (up to 1e-11 in kernel.opt over phase 21's 2x2 grid on the CPU), and
+    a printed digit of a batch's error can then differ from the card's."""
     with socket.socket() as so:
         so.bind(("127.0.0.1", 0))
         port = so.getsockname()[1]
@@ -3460,7 +3491,7 @@ def _gloo_start(world, cwd, argv, confs=None):
         env = dict(os.environ, HPNN_DISTRIBUTED="1",
                    HPNN_COORDINATOR=f"127.0.0.1:{port}",
                    HPNN_NUM_PROCESSES=str(world), HPNN_PROCESS_ID=str(r),
-                   HPNN_DIST_TIMEOUT_S="60", OMP_NUM_THREADS="2",
+                   HPNN_DIST_TIMEOUT_S="60", OMP_NUM_THREADS="1",
                    CUDA_VISIBLE_DEVICES="",
                    PYTHONPATH=ROOT + os.pathsep
                    + os.environ.get("PYTHONPATH", ""))
@@ -4886,6 +4917,13 @@ def phase_standby_autoscale(tmp, card, device="cuda"):
     from hpnn_tpu_torch.serve.server import serve_in_thread
 
     t_phase = time.perf_counter()
+    parts, t_part = {}, [time.monotonic()]
+
+    def done(name):
+        now = time.monotonic()
+        parts[name] = now - t_part[0]
+        t_part[0] = now
+
     root = os.path.join(tmp, "standby_phase")
     os.makedirs(root)
     gen1 = os.path.join(root, "mnist.opt")
@@ -4943,6 +4981,7 @@ def phase_standby_autoscale(tmp, card, device="cuda"):
             cli.start_mesh(primary, pargs, pport)
         sup = primary.autoscaler
         spawn = sup._spawn_subprocess
+        done("servers")
 
         def timed_spawn():
             spawned["t0"] = time.monotonic()
@@ -4977,6 +5016,7 @@ def phase_standby_autoscale(tmp, card, device="cuda"):
             raise AssertionError(f"autoscale (phase 25): spawned {cmd}")
         res["spawn_to_registered_s"] = spawned["live_t"] - spawned["t0"]
         res["d_routed"] = _mesh_table(pbase)["workers"][daddr]["routed"]
+        done("spawn")
         res["backlog_answers"] = len(answers)
         # (2) the load stops: D retired by drain, then SIGTERM
         t0 = time.monotonic()
@@ -4989,6 +5029,7 @@ def phase_standby_autoscale(tmp, card, device="cuda"):
         res["supervisor"] = sup.snapshot()
         _mesh_wait(f"http://{saddr}", lambda t: aaddr in t["workers"],
                    "the standby's mirror of worker A")
+        done("retire")
 
         # (3) the primary's listener closed under load; (4) one retry
         death = {}
@@ -5043,6 +5084,7 @@ def phase_standby_autoscale(tmp, card, device="cuda"):
             raise AssertionError(f"worker A (phase 25): {res['worker_a']}")
         res["router_batches"] = {"primary": primary.metrics.batches_total,
                                  "standby": standby.metrics.batches_total}
+        done("takeover")
     finally:
         managed = spawned.get("managed")
         if managed is not None and managed.proc.poll() is None:
@@ -5058,6 +5100,8 @@ def phase_standby_autoscale(tmp, card, device="cuda"):
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+    done("teardown")
+    res["part_wall_s"] = parts
     res["seconds"] = time.perf_counter() - t_phase
     tk = res["takeover"]
     log(f"standby + autoscale (phase 25) ({card}): worker D spawn-to-"
@@ -5070,7 +5114,8 @@ def phase_standby_autoscale(tmp, card, device="cuda"):
         f"bit-identical to the strict forward; worker A fused_linear_act "
         f"{res['worker_a']['launches']} launches = 2 x "
         f"{res['worker_a']['batches']} batches; phase "
-        f"{res['seconds']:.1f} s")
+        f"{res['seconds']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()) + ")")
     return res
 
 
@@ -5574,6 +5619,7 @@ def phase_data_mesh(tmp, card):
 
 GRID_SHARDS = (2, 4)            # phase 29: data shards of the grid runs
 GRID_LIMIT = {"batch": 1e-11, "sample": 1e-12, "cg": 1e-9}
+GRID_TILE_FILES = 256           # phase 29: the [batch]+[tile] route's files
 
 
 def _grid_devices(k):
@@ -5715,13 +5761,13 @@ def phase_grid(e2e, tmp, runs, results, tp_res, card):
     card: ``[batch] 32`` BP and BPM at 2 and 4 shards, resident and
     restage; the 2x2 ``[batch] 32`` x ``[model] 2`` grid against phase
     21's four gloo ranks; ``[model] 2`` per sample on phase 21's 64 files;
-    ``[batch] 32`` + ``[tile] 4`` at 4 shards against the one-card
-    ``train_tile`` route; ``[batch] 32`` CG on phase 20's [0, 1] bars at 4
+    ``[batch] 32`` + ``[tile] 4`` at 4 shards on 256 of the files against
+    the one-card ``train_tile`` route; ``[batch] 32`` CG on phase 20's [0, 1] bars at 4
     shards; ``run_nn`` of phase 21's ``[model] 2`` conf over 2 shards; a
     jobs server over the 4-shard grid's devices running a ``dp_devices:
     2`` job; on a host of several cards ``python -m hpnn_tpu_torch.cli
     train_nn`` as a process over every card.  Then the [batch] 32 BPM
-    epoch alone at 1, 2 and 4 shards: device and host time, kernel
+    epoch alone at 1 and 4 shards: device and host time, kernel
     launches, update-state bytes a shard."""
     import torch
 
@@ -5834,11 +5880,16 @@ def phase_grid(e2e, tmp, runs, results, tp_res, card):
     log(f"grid [model] 2 per sample: {iters} iterations, fused_linear_act "
         f"launched {b2} times ({b2 / max(1, iters):.1f} an iteration)")
     done("model")
-    # --- [batch] 32 + [tile] 4 at 4 shards against the one-card route
+    # --- [batch] 32 + [tile] 4 at 4 shards against the one-card route, on
+    # the first GRID_TILE_FILES of the files
+    tile_files = os.path.join(root, f"samples{GRID_TILE_FILES}")
+    os.makedirs(tile_files)
+    for f in sorted(os.listdir(mnist512))[:GRID_TILE_FILES]:
+        shutil.copy(os.path.join(mnist512, f), tile_files)
     tile_dirs = []
     for side in ("one", "grid"):
         tile_dirs.append(_b_conf(os.path.join(root, f"tile_{side}"), "ANN",
-                                 "BP", MNIST, mnist512,
+                                 "BP", MNIST, tile_files,
                                  "[batch] 32\n[tile] 4\n"))
     with api.device_slice(one):
         ref = _ckpt_train(tile_dirs[0], ["--epochs", "2", "nn.conf"])
@@ -5850,7 +5901,9 @@ def phase_grid(e2e, tmp, runs, results, tp_res, card):
     log(f"grid [batch] 32 + [tile] 4 at 4 shards: {len(diff)} sample(s) of "
         f"{len(want)} with another iteration count than the one-card "
         f"train_tile route" + (f": {diff[:8]}" if diff else ""))
-    if "mesh=4)" not in run["out"] or ref["launches"]["train_tile"] != 8:
+    b4_want = 2 * -(-GRID_TILE_FILES // 32 // 4)     # 2 epochs, 4 groups
+    if "mesh=4)" not in run["out"] \
+            or ref["launches"]["train_tile"] != b4_want:
         raise AssertionError(f"[batch] 32 + [tile] 4 (phase 29): banner "
                              f"{'mesh=4)' in run['out']}, one-card "
                              f"train_tile launches {ref['launches']}")
@@ -5978,13 +6031,13 @@ def phase_grid(e2e, tmp, runs, results, tp_res, card):
         log("grid: one card, so the train_nn process over every card is "
             "not run")
     done("process")
-    # --- the [batch] 32 BPM epoch alone at 1, 2 and 4 shards
+    # --- the [batch] 32 BPM epoch alone at 1 and 4 shards
     samples = os.path.join(tmp, "batched", f"mnist{BATCH_FILES}")
     rc = load_resident(samples, list_sample_dir(samples), 784, 10)
     nb = rc.n_rows // 32
     x = np.asarray(rc.X[:nb * 32]).reshape(nb, 32, -1)
     t = np.asarray(rc.T[:nb * 32]).reshape(nb, 32, -1)
-    res["replay"] = [_grid_replay(x, t, k) for k in (1, *GRID_SHARDS)]
+    res["replay"] = [_grid_replay(x, t, k) for k in (1, GRID_SHARDS[-1])]
     for r in res["replay"]:
         log(f"grid replay, [batch] 32 BPM f64 epoch of {r['batches']} "
             f"batches at {r['shards']} shard(s): {r['ms']:.2f} ms between "
@@ -5995,6 +6048,231 @@ def phase_grid(e2e, tmp, runs, results, tp_res, card):
     res["wall_s"] = time.perf_counter() - t_phase
     log("phase 29 wall by part: " + ", ".join(
         f"{k} {v:.1f} s" for k, v in res["part_wall_s"].items()))
+    return res
+
+
+# --- phase 30: ranks that hold several devices ----------------------------
+
+RANK_SHARDS = 2          # phase 30: devices each of the 2 ranks holds
+RANK_CG_ITERS = "4"      # phase 30: CG iterations an epoch
+RANK_LIMIT_S = 420       # phase 30: the ranks' time limit, every case
+# phase 30's cases: (tag, [train], corpus, conf lines, argv before the
+# conf, env, the lines compared, the kernel.opt bound, B2 launched on a
+# card by each rank)
+RANK_CASES = (
+    ("[batch] 32 BPM", "BPM", "mnist4096", "[batch] 32\n", ["--epochs", "2"],
+     {}, "TRAINING BATCH", GRID_LIMIT["batch"], False),
+    ("[model] 2", "BP", "s64", "[model] 2\n", [], {}, "TRAINING FILE",
+     GRID_LIMIT["sample"], True),
+    ("[model] 4", "BP", "s64", "[model] 4\n", [], {}, "TRAINING FILE",
+     GRID_LIMIT["sample"], True),
+    ("[batch] 32 x [model] 2", "BP", "mnist512", "[batch] 32\n[model] 2\n",
+     ["--epochs", "2"], {}, "TRAINING BATCH", GRID_LIMIT["batch"], True),
+    ("[batch] 32 CG", "CG", "cg", "[batch] 32\n",
+     ["--trainer", "cg", "--epochs", "2"], {"HPNN_CG_ITERS": RANK_CG_ITERS},
+     "TRAINING CG", GRID_LIMIT["cg"], False),
+)
+
+# one process a rank runs every case's train_nn in turn, each case its own
+# process group (a coordinator port a case), the launch counts set to 0
+# just before each and read just after
+RANK_WORKER = r"""
+import contextlib, io, json, os, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+from hpnn_tpu_torch import api, cli
+from hpnn_tpu_torch.ops.convergence_kernel import train_epoch_kernel
+from hpnn_tpu_torch.ops.convergence_tile_kernel import train_tile
+from hpnn_tpu_torch.ops.kernels import fused_linear_act
+out_path, shards, device = sys.argv[2], int(sys.argv[3]), sys.argv[4]
+rank = os.environ["HPNN_PROCESS_ID"]
+res = []
+for cwd, port, argv, env in json.loads(sys.argv[5]):
+    os.chdir(cwd)
+    os.environ.update(env, HPNN_COORDINATOR="127.0.0.1:%d" % port)
+    for fn in (train_epoch_kernel, train_tile, fused_linear_act):
+        fn.launches = 0
+    out, err = io.StringIO(), io.StringIO()
+    pin = (api.device_slice([torch.device("cpu")] * shards) if shards
+           else contextlib.nullcontext())
+    t0 = time.perf_counter()
+    with pin, contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(err):
+        rc = cli.train_nn_main(["-v", "-v", *argv[:-1], "--device", device,
+                                argv[-1]])
+    res.append({"rc": rc, "wall_s": time.perf_counter() - t0,
+                "out": out.getvalue(), "err": err.getvalue()[-3000:],
+                "launches": {"fused_linear_act": fused_linear_act.launches,
+                             "train_epoch": train_epoch_kernel.launches,
+                             "train_tile": train_tile.launches}})
+    for k in env:
+        os.environ.pop(k)
+    if rc != 0:
+        break
+with open(out_path + "." + rank, "w") as fp:
+    json.dump(res, fp)
+"""
+
+
+def _rank_corpora(e2e, tmp):
+    """Phase 30's corpora: phase 20's 4096 MNIST bars and its [0, 1] CG
+    bars, phase 9's 512 files, phase 21's 64 files and the kernel the
+    earlier phases trained on them; each written here when the phase that
+    makes it did not run."""
+    mnist512 = os.path.join(e2e["root"], "samples")
+    got = {"mnist512": mnist512,
+           "mnist4096": os.path.join(tmp, "batched", f"mnist{BATCH_FILES}"),
+           "cg": os.path.join(tmp, "batched", "cg_pm1"),
+           "s64": os.path.join(tmp, "tp", "samples64"),
+           "pre": os.path.join(tmp, "tp", "pre.opt")}
+    if not os.path.isdir(got["mnist4096"]):
+        _write_samples(got["mnist4096"], *_bar_corpus(
+            BATCH_FILES, MNIST, tuple(range(10)), 7))
+    if not os.path.isdir(got["cg"]):
+        xs, ts, labels = _bar_corpus(TRAIN_FILES, MNIST, tuple(range(10)), 5)
+        _write_samples(got["cg"], np.round(xs / 255.0, 1), ts, labels)
+    if not os.path.isdir(got["s64"]):
+        os.makedirs(got["s64"])
+        for f in sorted(os.listdir(mnist512))[:TP_FILES]:
+            shutil.copy(os.path.join(mnist512, f), got["s64"])
+        shutil.copy(os.path.join(e2e["root"], "kernel.opt"), got["pre"])
+    return got
+
+
+def phase_rank_grid(e2e, tmp, card):
+    """Phase 30: two ranks (``HPNN_DISTRIBUTED``) of two devices each, the
+    (data x model) grid over every rank's devices, against the one-process
+    4-shard grid on the card.  On a host of four or more cards: 2 NCCL
+    ranks, torchrun's layout (``LOCAL_RANK``, ``LOCAL_WORLD_SIZE`` 2) over
+    the first four cards, so rank 0 holds cuda:0-1 and rank 1 cuda:2-3,
+    held to one process over cuda:0-3.  On fewer: NCCL cannot put two
+    ranks on one card, so 2 gloo ranks of 2 CPU shards each
+    (``device_slice``), held to one process over cuda:0 repeated 4 times.
+    MNIST 784-300-10: ``[batch] 32`` BPM f64 on phase 20's 4096 files
+    (``--epochs 2``), ``[model] 2`` per sample (each rank a replica of
+    the model group within it) and ``[model] 4`` (the group across the
+    ranks) on phase 21's 64 files from its kernel, the 2x2 ``[batch] 32``
+    x ``[model] 2`` grid on phase 9's 512 files (``--epochs 2``) and
+    ``[batch] 32`` CG on phase 20's [0, 1] bars (``--epochs 2``, 4
+    iterations an epoch): rank 0's lines equal the one process's, rank 1
+    prints nothing, kernel.opt within 1e-11 ``[batch]`` and grid, 1e-12
+    per sample, 1e-9 CG; B1 and B4 launch on no rank, and on cards B2
+    launches on each rank where the route's products are its."""
+    import torch
+
+    from hpnn_tpu_torch import api
+
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "rank_grid")
+    cards = torch.cuda.device_count()
+    nccl = cards >= 2 * RANK_SHARDS
+    corpora = _rank_corpora(e2e, tmp)
+    ref_devs = _grid_devices(2 * RANK_SHARDS)
+    res = {"cards": cards, "branch": "nccl" if nccl else "gloo",
+           "reference_devices": [str(d) for d in ref_devs], "cases": {}}
+    log(f"rank grid (phase 30), {cards} x {card}: "
+        + (f"2 NCCL ranks of {RANK_SHARDS} cards (cuda:0-1, cuda:2-3)"
+           if nccl else f"2 gloo ranks of {RANK_SHARDS} CPU shards (one "
+           "card: NCCL cannot put two ranks on it)")
+        + f", held to one process over {res['reference_devices']}")
+    dirs = []
+    for tag, train, corpus, extra, *_ in RANK_CASES:
+        pair = []
+        for side in ("one", "ranks"):
+            d = _b_conf(os.path.join(root, tag.replace(" ", "_") + side),
+                        "ANN", train, MNIST, corpora[corpus], extra)
+            if corpus == "s64":
+                path = os.path.join(d, "nn.conf")
+                with open(path) as fp:
+                    text = fp.read()
+                with open(path, "w") as fp:
+                    fp.write(text.replace("[init] generate",
+                                          f"[init] {corpora['pre']}"))
+            pair.append(d)
+        dirs.append(pair)
+    cases = [(d[1], _free_port(), [*c[4], "nn.conf"], c[5])
+             for d, c in zip(dirs, RANK_CASES)]
+    out_path = os.path.join(root, "ranks.json")
+    env = dict(os.environ, HPNN_DISTRIBUTED="1", HPNN_NUM_PROCESSES="2",
+               HPNN_DIST_TIMEOUT_S="120",
+               PYTHONPATH=ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    if nccl:
+        vis = os.environ.get("CUDA_VISIBLE_DEVICES")
+        first = (vis.split(",") if vis else
+                 [str(i) for i in range(cards)])[:2 * RANK_SHARDS]
+        env.update(CUDA_VISIBLE_DEVICES=",".join(first),
+                   LOCAL_WORLD_SIZE="2")
+    else:
+        # one intra-op thread a rank, as _gloo_start: reproducible sums
+        env.update(CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    procs = []
+    for r in range(2):
+        renv = dict(env, HPNN_PROCESS_ID=str(r), LOCAL_RANK=str(r)) if nccl \
+            else dict(env, HPNN_PROCESS_ID=str(r))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", RANK_WORKER, ROOT, out_path,
+             "0" if nccl else str(RANK_SHARDS), "cuda" if nccl else "cpu",
+             json.dumps(cases)], cwd=root, env=renv, text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE))
+    # the one process's references while the ranks run
+    refs = []
+    for c, (one, _) in zip(RANK_CASES, dirs):
+        with api.device_slice(ref_devs):
+            refs.append(_ckpt_train(one, [*c[4], "nn.conf"], c[5]))
+    try:
+        done = [p.communicate(timeout=RANK_LIMIT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    res["ranks_wall_s"] = time.perf_counter() - t0
+    ranks = []
+    for r, (p, (o, e)) in enumerate(zip(procs, done)):
+        path = f"{out_path}.{r}"
+        got = json.load(open(path)) if os.path.exists(path) else []
+        if p.returncode != 0 or len(got) != len(RANK_CASES) \
+                or any(c["rc"] != 0 for c in got):
+            bad = next((c for c in got if c["rc"] != 0), None)
+            raise AssertionError(
+                f"rank {r} (phase 30, {res['branch']}): exit "
+                f"{p.returncode}, {len(got)} of {len(RANK_CASES)} cases ran"
+                + (f"; failed case's stderr:\n{bad['err']}" if bad else
+                   f"\n{e[-3000:]}"))
+        ranks.append(got)
+    for i, (tag, *_, key, limit, b2_path) in enumerate(RANK_CASES):
+        ref, one_dir, rank_dir = refs[i], dirs[i][0], dirs[i][1]
+        r0, r1 = ranks[0][i], ranks[1][i]
+        want = _train_lines(ref["out"], key)
+        got = _train_lines(r0["out"], key)
+        quiet = "".join(ln for ln in r1["out"].splitlines(True)
+                        if not ln.startswith("NN(DBG)"))
+        err = _kernel_diff(_grid_opt(one_dir), _grid_opt(rank_dir))
+        b2 = [r0["launches"]["fused_linear_act"],
+              r1["launches"]["fused_linear_act"]]
+        stray = [r["launches"][k] for r in (r0, r1)
+                 for k in ("train_epoch", "train_tile")]
+        if got != want or not want or quiet or err > limit or any(stray) \
+                or (nccl and b2_path and min(b2) <= 0):
+            raise AssertionError(
+                f"{tag} (phase 30, {res['branch']}): {key} lines equal "
+                f"{got == want} ({len(got)} / {len(want)}), rank 1 printed "
+                f"{quiet[:200]!r}, kernel.opt {err:.3e} from the one "
+                f"process (limit {limit:g}), B2 launches by rank {b2}, B1/B4 "
+                f"{stray}")
+        res["cases"][tag] = {
+            "lines": len(got), "max_abs_err": err, "b2_launches": b2,
+            "wall_s": [r0["wall_s"], r1["wall_s"]],
+            "one_wall_s": ref["wall_s"],
+            "one_b2_launches": ref["launches"]["fused_linear_act"]}
+        log(f"rank grid {tag}: {len(got)} {key} lines equal to the one "
+            f"process's, kernel.opt within {err:.3e}; B2 launches by rank "
+            f"{b2} (one process {ref['launches']['fused_linear_act']}); "
+            f"wall by rank {[round(r0['wall_s'], 2), round(r1['wall_s'], 2)]}"
+            f" s, one process {ref['wall_s']:.2f} s")
+    res["wall_s"] = time.perf_counter() - t_phase
     return res
 
 
@@ -6147,6 +6425,7 @@ def main(argv=None) -> int:
         pin.close()
         grid_res = _phase("29 grid", phase_grid, e2e, tmp, runs, results,
                           tp_res, card)
+        rank_res = _phase("30 rank grid", phase_rank_grid, e2e, tmp, card)
     cells = _phase("6 device times", phase_times)
     bpm = _phase("13 fused_bpm_update", phase_bpm)
     rep = next(c for c in cells if c["layer"] == "784->300"
@@ -6189,7 +6468,7 @@ def main(argv=None) -> int:
         "serve_rest_batches": serve_rest["batches"],
         "corpus_launches": {f"{tag} {m}": r[m]["launches"]
                             for tag, r in corpus_res["run_nn"].items()
-                            for m in ("off", "cold", "warm")},
+                            for m in ("off", "cold", "warm") if m in r},
         "tp_launches": {
             "run_nn [model] 2": tp_res["run_nn"]["launches"],
             **{f"{tag} B={b}": c["launches_per_batch"][b]
@@ -6217,7 +6496,10 @@ def main(argv=None) -> int:
             "train_nn [model] 2 per sample over 2 shards":
                 grid_res["model"]["b2_launches"],
             "train_nn [batch] 32 x [model] 2 on 2x2":
-                grid_res["hybrid"]["launches"]["fused_linear_act"]}}, {
+                grid_res["hybrid"]["launches"]["fused_linear_act"]},
+        "rank_grid_branch": rank_res["branch"],
+        "rank_grid_launches": {tag: c["b2_launches"]
+                               for tag, c in rank_res["cases"].items()}}, {
         "name": "train_epoch", "route": "cuda",
         "source": "hpnn_tpu_torch/csrc/train_epoch.cu",
         "replaces": "hpnn_tpu/ops/convergence_pallas.py:208",
@@ -6369,6 +6651,7 @@ def main(argv=None) -> int:
                        "c_api": capi_res,
                        "data_mesh": dmesh_res,
                        "grid": grid_res,
+                       "rank_grid": rank_res,
                        "phase_seconds": PHASE_SECONDS,
                        "invariance_plans": invariance_plans,
                        "bpm": bpm,

@@ -53,12 +53,14 @@ Two more training routes, the JAX package's batched trainers:
   beside ``[batch]`` on a (data x model) grid.  ``run_nn`` evaluates such
   a conf through the row-sharded ring engine.
 
-The devices, as the JAX package takes them: in one process the thread's
-:func:`device_slice`, else every visible card of a ``cuda`` run, else the
-one CPU device (a ``parallel.mesh.LocalGrid``); across processes
-(``HPNN_DISTRIBUTED``) the ranks of the ``torch.distributed`` world, one
-a card.  A request above them clamps with the JAX package's warning; on
-one device the unsharded routes run.
+The devices, as the JAX package takes them (:func:`_local_devices`): in
+one process the thread's :func:`device_slice`, else the visible cards of a
+``cuda`` run from the named one on (``cuda`` or ``cuda:0``: every card;
+``cuda:1``: the cards from 1), else the one CPU device; across processes
+(``HPNN_DISTRIBUTED``) every rank's such devices (the cards
+``runtime.init_all`` gave it), the grid over them process-major (a
+``parallel.mesh.Grid``).  A request above them clamps with the JAX
+package's warning; on one device the unsharded routes run.
 
 Tracing (``utils/trace.py``, ``obs/``) at the JAX package's places and
 names: the ``#PROF`` phases ``warmup``, ``load_samples``/``load_tests``,
@@ -280,44 +282,64 @@ def _model_shards(conf: NNConf) -> int:
 
 
 def _local_devices(device) -> list:
-    """The devices one process trains over at world 1, in order: the
-    thread's pinned slice (:func:`device_slice`; repeats allowed), else
-    every visible card of a ``cuda`` run, else ``device`` alone (the
-    CPU)."""
+    """The devices this process trains over, in order: the thread's
+    pinned slice (:func:`device_slice`; repeats allowed), else on a card
+    the cards from ``device`` on -- at world 1 the visible ones (``cuda``
+    resolves to the current card, ``cuda:0`` by default, so a ``cuda``
+    run takes every card and ``cuda:1`` the cards from 1, never card 0);
+    across processes the ones this rank holds (``runtime``) -- else
+    ``device`` alone (the CPU)."""
     sl = slice_devices()
     if sl is not None:
         return [torch.device(d) for d in sl]
     dev = torch.device(device)
-    if dev.type == "cuda":
-        return [torch.device("cuda", i)
-                for i in range(torch.cuda.device_count())]
-    return [dev]
+    if dev.type != "cuda":
+        return [dev]
+    if coord.world_size() > 1:
+        from . import runtime
+
+        held = list(runtime.lib_runtime.devices) or [dev]
+        return held[held.index(dev):] if dev in held else [dev]
+    first = 0 if dev.index is None else dev.index
+    return [torch.device("cuda", i)
+            for i in range(first, torch.cuda.device_count())]
+
+
+def _device_total(device) -> int:
+    """Every device of the run: this process's at world 1, the world's
+    across processes (each rank holding as many as this one, which the
+    agreement gates hold)."""
+    return coord.world_size() * len(_local_devices(device))
 
 
 def _model_axis(shards: int, device):
-    """``(mesh, k, warning or None)``: the 1 x k model axis of the TP
-    train and eval routes, ``shards`` clamped to the visible devices with
-    the JAX package's warning text.  At world 1 a request of k > 1 takes
-    the first k of this process's devices (a ``LocalMesh``); across
-    processes every rank is a model shard, so a request below the world
-    cannot be expressed and is refused (:class:`DPRefused`)."""
+    """``(mesh, k, warning or None)``: the model axis of the TP train and
+    eval routes, ``shards`` clamped to the run's devices with the JAX
+    package's warning text.  At world 1 a request of k > 1 takes the
+    first k of this process's devices (a ``LocalMesh``).  Across
+    processes the axis is a model group of the first k of the world's
+    devices, repeated over the rest as data replicas, R x k with R =
+    devices // k, so every rank trains (the JAX package's ranks outside
+    its one group hold no shard); a layout that still leaves a rank
+    without a shard is refused (:class:`DPRefused`)."""
     from .parallel.mesh import make_mesh
 
     world = coord.world_size()
-    ndev = world if world > 1 else len(_local_devices(device))
+    ndev = _device_total(device)
     warn = None
     if shards > ndev:
         warn = f"[model] {shards} > {ndev} visible device(s); using {ndev}\n"
         shards = ndev
+    devs = _local_devices(device)
     if world > 1:
-        if shards < world:
-            raise DPRefused(f"[model] {shards} < {world} processes: every "
-                            "rank of the world is a model shard, so the "
-                            "request cannot be honoured (refused)")
-        return make_mesh(n_data=1, n_model=shards, device=device), shards, \
-            warn
-    devs = _local_devices(device)[:shards] if shards > 1 else None
-    return (make_mesh(n_data=1, n_model=shards, device=device, devices=devs),
+        try:
+            mesh = make_mesh(max(1, ndev // shards), shards, device=device,
+                             devices=devs)
+        except ValueError as exc:
+            raise DPRefused(f"[model] {shards}: {exc} (refused)") from None
+        return mesh, shards, warn
+    return (make_mesh(n_data=1, n_model=shards, device=device,
+                      devices=devs[:shards] if shards > 1 else None),
             shards, warn)
 
 
@@ -364,20 +386,27 @@ def _dp_device_count(device) -> int:
     At world 1, as in the JAX package: a thread's pinned slice wins
     outright (its length is the grid); else this process's devices
     (:func:`_local_devices`) capped by ``HPNN_DP_DEVICES``, with the
-    JAX package's warning for a cap above them.  Across processes the
-    world (one rank a device): a cap above it warns and uses the world,
-    and a cap below it would need ranks to sit out of the run, which the
-    port cannot express, so it is refused (:class:`DPRefused`)."""
+    JAX package's warning for a cap above them.  Across processes every
+    rank's devices (:func:`_device_total`) capped the same way, the grid
+    the first of them process-major; a cap that leaves a rank without a
+    shard would need it to sit out of the run, which the port cannot
+    express, so it is refused (:class:`DPRefused`)."""
     from .utils.env import env_device_cap, env_int
 
     world = coord.world_size()
     if world > 1:
+        total = _device_total(device)
+        per = total // world
+        need = (world - 1) * per + 1
         cap = env_int("HPNN_DP_DEVICES", 0)
-        if 0 < cap < world:
-            raise DPRefused(f"HPNN_DP_DEVICES={cap} < {world} processes: "
-                            "every rank of the world is a data shard, so "
-                            "the cap cannot be honoured (refused)")
-        return env_device_cap("HPNN_DP_DEVICES", world)
+        if 0 < cap < need:
+            raise DPRefused(
+                f"HPNN_DP_DEVICES={cap} < {need} "
+                + ("processes" if per == 1 else
+                   f"devices ({world} processes of {per})")
+                + ": every rank of the world holds a data shard, so the "
+                "cap cannot be honoured (refused)")
+        return env_device_cap("HPNN_DP_DEVICES", total)
     sl = slice_devices()
     if sl is not None:
         return len(sl)
@@ -385,21 +414,15 @@ def _dp_device_count(device) -> int:
 
 
 def _dp_mesh(n_data: int, n_model: int, device):
-    """The [batch] routes' grid: across processes the world's RankMesh
-    beside [model] (pure data parallelism needs none: ``dp_epoch``
-    all-reduces over the world); at world 1 a LocalGrid over the first
-    ``n_data * n_model`` of this process's devices, or None on one
-    device."""
+    """The [batch] routes' grid: the first ``n_data * n_model`` of the
+    run's devices (this process's at world 1, every rank's across
+    processes, process-major), or None on one device."""
     from .parallel.mesh import make_mesh
 
-    if coord.world_size() > 1:
-        return (make_mesh(n_data, n_model, device=device) if n_model > 1
-                else None)
-    n = n_data * n_model
-    if n == 1:
+    if n_data * n_model == 1 and coord.world_size() == 1:
         return None
     return make_mesh(n_data, n_model, device=device,
-                     devices=_local_devices(device)[:n])
+                     devices=_local_devices(device))
 
 
 def _dp_slot_map(s: int, bsz: int, n_batches: int, bsz_pad: int):
@@ -570,8 +593,8 @@ def run_kernel(nn: NNDef, device="cuda", parity: str = "strict"):
     the whole test dir on ``device``, then the reference's per-file
     grammar.  ``[model] N`` (or ``-S N``) evaluates through the
     row-sharded ring engine over N devices (``parallel.tp.tp_eval_batch``:
-    this process's, or the world's ranks); one device clamps to one shard
-    with the JAX package's warning.
+    this process's, or every rank's, :func:`_model_axis`); one device
+    clamps to one shard with the JAX package's warning.
     Returns the (rows, n_out) float64 outputs in shuffle order (None when
     nothing was evaluated)."""
     from . import ops
@@ -603,7 +626,8 @@ def run_kernel(nn: NNDef, device="cuda", parity: str = "strict"):
     # evaluation's collectives (the JAX package's run-path gate)
     fp = ((xs.shape[0], nn.kernel.n_inputs, nn.kernel.n_outputs)
           if xs is not None else (0, 0, 0))
-    if not coord.agree_all(xs is not None, fp):
+    if not coord.agree_all(xs is not None, fp,
+                           devices=len(_local_devices(dev))):
         if xs is None:
             for line, _ in events:
                 nn_out(line)
@@ -722,7 +746,8 @@ def train_kernel(nn: NNDef, device="cuda") -> bool:
         # differs drags every rank out of the coming collectives
         if not coord.agree_all(True, (0 if xs is None else xs.shape[0],
                                       nn.kernel.n_inputs,
-                                      nn.kernel.n_outputs, 0)):
+                                      nn.kernel.n_outputs, 0),
+                               devices=len(_local_devices(dev))):
             return False
         if entry is not None and xs is not None:
             # the native trainer takes the whole epoch (its own grammar);
@@ -835,7 +860,7 @@ def _train_kernel_tp(nn: NNDef, weights, xs, ts, kind: str, momentum: bool,
                      finish, events, dev) -> bool:
     """Row-sharded per-sample epoch (``[model] N``, ``-S N``), restaged
     from the host: the model axis clamped to the visible devices (this
-    process's, or the world's ranks), the epoch of
+    process's, or every rank's, :func:`_model_axis`), the epoch of
     ``parallel.tp.tp_train_epoch_resident`` (at one shard the per-sample
     route itself: the ``train_epoch`` kernel on a card), every sample in
     the reference's order and grammar."""
@@ -873,20 +898,19 @@ def _train_kernel_dp(nn: NNDef, weights, xs, ts, kind: str, momentum: bool,
     batches are padded to a multiple of the data shards with masked rows
     (numerically the unpadded batch).  Each data shard's share of every
     batch's slots (``parallel.mesh.shard_bounds``) is uploaded to its own
-    device: the shards are this process's devices at world 1 (a
-    ``LocalGrid``), the ranks across processes, and the gradient sums are
-    added over them.  With [model] beside [batch] the devices form a
-    (data x model) grid (``parallel.tp.tp_dp_train_epoch``).  With a tile
-    request in one process the route swaps its engine for the
+    device: the shards are the run's devices (this process's at world 1,
+    every rank's across processes: a ``parallel.mesh.Grid``), and the
+    gradient sums are added over them.  With [model] beside [batch] the
+    devices form a (data x model) grid (``parallel.tp.tp_dp_train_epoch``).
+    With a tile request in one process the route swaps its engine for the
     batched-tile one (:func:`_train_kernel_dp_tiled`)."""
     from . import ops
     from .parallel.dp import dp_epoch, dp_export_weights, dp_resident_carry
     from .parallel.mesh import shard_bounds
 
     conf = nn.conf
-    world, rank = coord.world_size(), coord.process_index()
     if _tile_request(conf):
-        if world > 1:
+        if coord.world_size() > 1:
             # once a process, not once an epoch
             if not getattr(nn, "_tile_mp_warned", False):
                 nn._tile_mp_warned = True
@@ -914,12 +938,9 @@ def _train_kernel_dp(nn: NNDef, weights, xs, ts, kind: str, momentum: bool,
     xb, tb, mb = _dp_stage_batches(xs, ts, s, bsz, n_batches, bsz_pad)
     mesh = _dp_mesh(n_data, n_model, dev)
     hybrid = mesh is not None and n_model > 1
-    # one block a local data shard: a rank's own, or each of this
-    # process's data shards, uploaded to its device
-    if mesh is not None and world == 1:
-        blocks = [(d, mesh.data_devices()[d]) for d in range(n_data)]
-    else:
-        blocks = [(mesh.data_index if mesh is not None else rank, dev)]
+    # one block a data shard this process holds, uploaded to its device
+    blocks = (list(zip(mesh.data_ids, mesh.data_devices()))
+              if mesh is not None else [(0, dev)])
     jxb, jtb, jmb = [], [], []
     for d, bdev in blocks:
         lo, hi = shard_bounds(bsz_pad, n_data, d)
@@ -949,7 +970,7 @@ def _train_kernel_dp(nn: NNDef, weights, xs, ts, kind: str, momentum: bool,
         if mesh is None:
             jxb, jtb, jmb = jxb[0], jtb[0], jmb[0]
         w_flat, dw, errs = dp_epoch(w_flat, jxb, jtb, jmb, kind, momentum,
-                                    lr, 0.2, shapes, world, rank, mesh=mesh)
+                                    lr, 0.2, shapes, mesh=mesh)
         _note_opt_state(dw, shapes, w_flat.dtype)
         new_weights = dp_export_weights(w_flat, shapes)
     errs = errs.to(device="cpu", dtype=torch.float64).numpy()
@@ -1164,8 +1185,7 @@ class _EpochPipeline:
     def row_devices(self) -> list:
         """Where the resident corpus is uploaded: each distinct data
         device of a [batch] grid of this process, else ``device``."""
-        if self.dp == "sgd" and self.mesh is not None \
-                and coord.world_size() == 1:
+        if self.dp == "sgd" and self.mesh is not None:
             return list(dict.fromkeys(self.mesh.data_devices()))
         return [self.device]
 
@@ -1359,18 +1379,13 @@ class _EpochPipeline:
         from .parallel.dp import dp_epoch, dp_resident_carry
         from .parallel.mesh import shard_bounds
 
-        world, rank = coord.world_size(), coord.process_index()
-        grid = self.mesh is not None and world == 1
         if self._dp_state is None:
             s = self.rc.n_rows
             ndev, n_data, n_model, _ = _dp_layout(nn.conf, self.device)
             bsz, n_batches, bsz_pad = _dp_geometry(nn.conf, s, n_data)
             pos, mask = _dp_slot_map(s, bsz, n_batches, bsz_pad)
-            if grid:
-                owners = list(enumerate(self.mesh.data_devices()))
-            else:
-                owners = [(self.mesh.data_index if self.hybrid else rank,
-                           self.device)]
+            owners = (list(zip(self.mesh.data_ids, self.mesh.data_devices()))
+                      if self.mesh is not None else [(0, self.device)])
             blocks = []
             for d, dev in owners:
                 lo, hi = shard_bounds(bsz_pad, n_data, d)
@@ -1428,14 +1443,14 @@ class _EpochPipeline:
                 self.weights, dw, errs = tp_dp_train_epoch(
                     self.weights, xb, tb, mb, kind, momentum, st["lr"], 0.2,
                     mesh=self.mesh)
-            elif grid:
+            elif self.mesh is not None:
                 self.weights, dw, errs = dp_epoch(
                     self.weights, xb, tb, mb, kind, momentum, st["lr"], 0.2,
                     self.shapes, mesh=self.mesh)
             else:
                 self.weights, dw, errs = dp_epoch(
                     self.weights, xb[0], tb[0], mb[0], kind, momentum,
-                    st["lr"], 0.2, self.shapes, world, rank)
+                    st["lr"], 0.2, self.shapes)
         _note_opt_state(dw, self.shapes, self.wdtype)
         self.pending.append(_DPLines(errs, st["s"], nn_log.get_verbosity(),
                                      start))
@@ -1671,7 +1686,8 @@ def _train_kernel_pipelined(nn, pipe: _EpochPipeline, kind: str,
     if not coord.agree_all(True, (int(sel.size), nn.kernel.n_inputs,
                                   nn.kernel.n_outputs,
                                   zlib.crc32(np.ascontiguousarray(sel)
-                                             .tobytes()))):
+                                             .tobytes())),
+                           devices=len(_local_devices(pipe.device))):
         return False
     if coord.world_size() == 1:
         _prefetch_tests(conf, nn.kernel)

@@ -581,6 +581,12 @@ def _train_nn_body(filename: str, extras: dict,
     if not trained:
         sys.stderr.write("FAILED to train kernel!\n")
         return -1
+    from .parallel import coord
+
+    if coord.process_index():
+        # every rank holds the gathered weights; rank 0 alone writes them,
+        # as the reference's master does (tests/train_nn.c:224-243)
+        return 0
     try:
         dump_kernel_to_path(neural.kernel, "kernel.opt")
     except OSError:

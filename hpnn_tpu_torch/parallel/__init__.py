@@ -11,7 +11,7 @@ from .coord import (agree_all, any_flag, process_index, snapshot_barrier,
 from .dp import (batched_grads, dp_epoch, dp_eval_batch, dp_export_weights,
                  dp_resident_carry, dp_tiled_epoch, dp_train_step,
                  dp_train_step_momentum)
-from .mesh import (DataMesh, LocalGrid, LocalMesh, RankMesh, data_mesh,
+from .mesh import (DataMesh, Grid, LocalGrid, LocalMesh, data_mesh,
                    flatten_state, layer_sharding, make_mesh, pad_topology,
                    per_device_bytes, shard_bounds, tp_device_count,
                    unflatten_state, unpad_topology)
@@ -28,7 +28,7 @@ __all__ = [
     "batched_grads", "dp_epoch", "dp_eval_batch", "dp_export_weights",
     "dp_resident_carry", "dp_tiled_epoch", "dp_train_step",
     "dp_train_step_momentum",
-    "DataMesh", "LocalGrid", "LocalMesh", "RankMesh", "data_mesh",
+    "DataMesh", "Grid", "LocalGrid", "LocalMesh", "data_mesh",
     "flatten_state", "layer_sharding", "make_mesh", "pad_topology",
     "per_device_bytes", "shard_bounds", "tp_device_count",
     "unflatten_state", "unpad_topology",

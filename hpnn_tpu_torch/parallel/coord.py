@@ -9,7 +9,9 @@ conf, kernel and samples itself, so a failure is rank-divergent: one
 process fails to load while the others go on into a collective and block.
 Before any training collective every process contributes (ok,
 fingerprint) to one all-gather, and all proceed only if every one loaded,
-and loaded the same shapes.
+and loaded the same shapes.  The same gate holds the ranks' device counts
+equal: a grid across processes takes every rank to hold as many devices
+as this one, and the gate precedes its first collective.
 
 A single process never initialises a process group: without
 ``HPNN_DISTRIBUTED`` (the opt-in ``runtime.init_all`` reads) every
@@ -59,7 +61,11 @@ def _collective_device() -> torch.device:
     the CPU under gloo."""
     dist = _dist()
     if dist is not None and dist.get_backend() == "nccl":
-        return torch.device("cuda", torch.cuda.current_device())
+        from ..runtime import lib_runtime
+
+        dev = lib_runtime.device
+        return dev if dev is not None and dev.type == "cuda" else \
+            torch.device("cuda", torch.cuda.current_device())
     return torch.device("cpu")
 
 
@@ -74,17 +80,19 @@ def _allgather_i64(vals) -> torch.Tensor:
     return torch.stack(parts).cpu()
 
 
-def agree_all(ok: bool, fingerprint=()) -> bool:
+def agree_all(ok: bool, fingerprint=(), devices: int = 0) -> bool:
     """All-process agreement gate (the ann.c:242-248 bailout analog).
 
     Every process calls it at the same point (it is a collective) with a
     ``fingerprint`` of the same length.  True iff every process reports
-    ``ok`` and all fingerprints are identical.  Single process: ``ok``
-    unchanged, no collective."""
+    ``ok`` and all fingerprints and ``devices`` (the devices the rank
+    trains over, where a grid may span the ranks) are identical.  Single
+    process: ``ok`` unchanged, no collective."""
     if world_size() == 1:
         return bool(ok)
     try:
-        got = _allgather_i64([1 if ok else 0, *map(int, fingerprint)])
+        got = _allgather_i64([1 if ok else 0, int(devices),
+                              *map(int, fingerprint)])
     except Exception as exc:  # pragma: no cover - coordination failure
         nn_error(f"process agreement failed: {exc}\n")
         return False
@@ -94,9 +102,14 @@ def agree_all(ok: bool, fingerprint=()) -> bool:
             nn_error("aborting: load failed on process(es) "
                      f"{bad} (coordinated bailout)\n")
         return False
+    if not bool((got[:, 1] == got[0, 1]).all()):
+        nn_error("aborting: processes hold unequal device counts "
+                 f"({got[:, 1].tolist()} by rank)\n")
+        return False
     if not bool((got == got[0]).all()):
+        fps = torch.cat([got[:, :1], got[:, 2:]], dim=1)
         nn_error("aborting: processes loaded DIFFERENT data "
-                 f"(fingerprints {got.tolist()})\n")
+                 f"(fingerprints {fps.tolist()})\n")
         return False
     return True
 

@@ -15,18 +15,17 @@ the ANN dact output factor, the SNN t-o shortcut), batched as one
 matmul.  Products here are plain torch: the JAX package computes them
 with XLA, outside any Pallas kernel.
 
-Over N data shards -- the devices of one process (a
-``parallel.mesh.LocalGrid``, the JAX package's single-process mesh) or
-the ranks of a ``torch.distributed`` world (``HPNN_DISTRIBUTED``, one rank
-a device) -- each shard takes its contiguous share of every batch's
-slots, sums d^T h over its rows together with its error sum and its real
-row count in one buffer, and the buffers are summed over the shards: ONE
-all-reduce across ranks, copies added in shard order in one process.  The
-update state -- the weights and the BPM momentum -- is a flat vector
+Over N data shards -- a :class:`~.mesh.Grid` of the devices of one
+process (the JAX package's single-process mesh) or of every rank's
+devices (``HPNN_DISTRIBUTED``, its global mesh) -- each shard takes its
+contiguous share of every batch's slots and sums d^T h over its rows
+together with its error sum and its real row count in one buffer, and
+the buffers are summed over the shards in shard order (``psum_data``).
+The update state -- the weights and the BPM momentum -- is a flat vector
 padded to N (``parallel.mesh``), of which each shard updates its 1/N
-slice; the slices are gathered to re-form the weights the next batch's
-products read.  A sharded run equals the one-device run up to the
-summation order of the sum over shards.
+slice; the slices are gathered (``gather_data``) to re-form the weights
+the next batch's products read.  A sharded run equals the one-device run
+up to the summation order of the sum over shards, whatever the ranks.
 
 ``[dtype] bf16`` follows the JAX package's promotion: the f32 master
 weights times the bf16 samples compute in f32 (XLA promotes a mixed
@@ -153,68 +152,59 @@ def dp_epoch(w_flat, xb, tb, mb, kind: str, momentum: bool, lr, alpha,
              shapes, world: int = 1, rank: int = 0, mesh=None):
     """One minibatch epoch over this process's slots of pre-batched
     tensors: xb (n_batches, slots, n_in), tb (n_batches, slots, n_out), mb
-    (n_batches, slots) 0/1, where ``slots`` is the rank's share of each
-    batch (all of it in one process on one device).  With ``mesh``, an
-    N x 1 :class:`~.mesh.LocalGrid` of this process, xb, tb and mb are
-    lists of N such tensors, data shard d's slots on its device.
-    ``w_flat`` is :func:`dp_resident_carry`'s vector; the BPM momentum
-    starts at zero each epoch, as the JAX package's scan starts it, and
-    lives as each shard's 1/N slice only.
+    (n_batches, slots) 0/1.  With ``mesh``, an N x 1 :class:`~.mesh.Grid`,
+    xb, tb and mb are lists with one such tensor for each of this rank's
+    data shards, on its device (``slots`` that shard's share of every
+    batch).  Without one, one tensor: the whole batches on one device at
+    world 1, or across ``world`` processes this ``rank``'s share, on a
+    grid of one device a rank.  ``w_flat`` is :func:`dp_resident_carry`'s
+    vector; the BPM momentum starts at zero each epoch, as the JAX
+    package's scan starts it, and lives as each shard's 1/N slice only.
 
     No host read happens inside: the per-batch mean errors stay on the
-    device.  Returns (w_flat, dw_slice or None, errs (n_batches,)); on a
-    grid dw is the list of the shards' slices, each on its device."""
+    device.  Returns (w_flat, dw or None, errs (n_batches,)); dw is the
+    list of this rank's shards' slices on a grid, else one tensor."""
+    if mesh is None and world > 1:
+        from .mesh import make_mesh
+
+        if coord._dist() is None:
+            raise ValueError(f"dp_epoch: world {world} without a process "
+                             "group")
+        mesh = make_mesh(world, 1, devices=[w_flat.device])
+        w, dw, errs = _dp_epoch_grid(w_flat, [xb], [tb], [mb], kind,
+                                     momentum, lr, alpha, shapes, mesh)
+        return w, (dw[0] if momentum else None), errs
     if mesh is not None and mesh.n_data > 1:
         return _dp_epoch_grid(w_flat, xb, tb, mb, kind, momentum, lr, alpha,
                               shapes, mesh)
-    n = w_flat.shape[0]
-    lo, hi = shard_bounds(n, world, rank)
-    dist = coord._dist() if world > 1 else None
-    if world > 1 and dist is None:
-        raise ValueError(f"dp_epoch: world {world} without a process group")
-    dw = torch.zeros(hi - lo, dtype=w_flat.dtype, device=w_flat.device) \
-        if momentum else None
+    dw = torch.zeros_like(w_flat) if momentum else None
     errs = []
     for i in range(xb.shape[0]):
-        ws = unflatten_state(w_flat, shapes)
-        if dist is None:
-            grads, err = batched_grads(ws, xb[i], tb[i], kind, mb[i])
-            g_flat = flatten_state(grads, world)
-        else:
-            # one all-reduce: [sum_l d^T h | pad | error sum, real rows]
-            buf, edt, gdt = _partial_sums(ws, xb[i], tb[i], mb[i], kind, n)
-            dist.all_reduce(buf)
-            denom = torch.clamp_min(buf[n + 1], 1.0)
-            err = (buf[n] / denom).to(edt)
-            g_flat = (buf[:n] / denom).to(gdt)
-        g = g_flat[lo:hi]
+        grads, err = batched_grads(unflatten_state(w_flat, shapes), xb[i],
+                                   tb[i], kind, mb[i])
+        g = flatten_state(grads, 1)
         if momentum:
             dw = dw + lr * g
-            w_loc = w_flat[lo:hi] + dw
+            w_flat = w_flat + dw
             dw = alpha * dw
         else:
-            w_loc = w_flat[lo:hi] + lr * g
-        if dist is None:
-            w_flat = w_loc
-        else:
-            parts = [torch.empty_like(w_loc) for _ in range(world)]
-            dist.all_gather(parts, w_loc.contiguous())
-            w_flat = torch.cat(parts)
+            w_flat = w_flat + lr * g
         errs.append(err)
     return w_flat, dw, torch.stack(errs)
 
 
 def _dp_epoch_grid(w_flat, xb, tb, mb, kind: str, momentum: bool, lr,
                    alpha, shapes, mesh):
-    """:func:`dp_epoch` over the N data shards of a local grid: each shard
-    forms its partial sums on its own device from its slots, the sums are
-    added in shard order (``mesh.psum_data``), each shard updates its 1/N
-    slice of the flat weights and of the momentum on its device, and the
-    slices are gathered onto every distinct device before the next
-    batch."""
+    """:func:`dp_epoch` over the N data shards of a grid: each of this
+    rank's shards forms its partial sums on its own device from its
+    slots, the sums are added in shard order over every rank
+    (``mesh.psum_data``), each shard updates its 1/N slice of the flat
+    weights and of the momentum on its device, and the slices are
+    gathered (``mesh.gather_data``) onto every distinct device before the
+    next batch."""
     devs = mesh.data_devices()
     n = w_flat.shape[0]
-    cuts = [shard_bounds(n, len(devs), d) for d in range(len(devs))]
+    cuts = [shard_bounds(n, mesh.n_data, d) for d in mesh.data_ids]
     home = devs[0]
     on = {d: w_flat.to(d) for d in dict.fromkeys(devs)}
     dw = ([torch.zeros(hi - lo, dtype=w_flat.dtype, device=d)
@@ -241,7 +231,7 @@ def _dp_epoch_grid(w_flat, xb, tb, mb, kind: str, momentum: bool, lr,
                 parts.append(w_old + lr * g)
             if d == 0:
                 errs.append((tot[0][n] / denom).to(edt))
-        w_home = torch.cat([p.to(home) for p in parts])
+        (w_home,) = mesh.gather_data(parts, only=(0,))
         on = {dev: w_home.to(dev) for dev in on}
     return on[home], dw, torch.stack(errs)
 

@@ -2,32 +2,22 @@
 optimizer-state layout.
 
 The port of the JAX package's ``parallel/mesh.py``.  The JAX package
-builds one ``jax.sharding.Mesh`` over the devices a process sees (or a
-thread's pinned slice) and lets GSPMD place the collectives; the port
-builds the same (data x model) grid and makes its collectives explicit.
-No GSPMD emulation is built.  Two grids answer one interface:
+builds one ``jax.sharding.Mesh`` over ``jax.devices()`` -- every device
+of every process, process-major -- (or a thread's pinned slice) and lets
+GSPMD place the collectives; the port builds the same (data x model) grid
+and makes its collectives explicit.  No GSPMD emulation is built.  One
+class, :class:`Grid`, holds it: global shard g is (g // n_model,
+g % n_model) over the world's devices in process order, and a rank holds
+its own run of them.  Its collectives do the local part in shard order
+and cross ranks (gloo or NCCL) only for the groups that span them.  At
+world 1 (:data:`LocalGrid`, the same class) a device may repeat, so N
+shards can share one card (they then run in turn); :class:`LocalMesh`
+(1 x K, the row blocks of the serving tier and of ``[model]``) and
+:class:`DataMesh` (N x 1, the ``fast@meshN`` tier and ``[batch]``) are
+its two one-axis cases.
 
-* :class:`LocalGrid`, the devices of one process (a run at world 1):
-  shard (d, m) lives on ``devices[d * n_model + m]``, the model axis
-  inner as the JAX package's ``make_mesh`` reshapes its devices.  A
-  device may repeat, so N shards can share one card (they then run in
-  turn).  Its collectives are copies between the shards' devices.
-  :class:`LocalMesh` (1 x K, the row blocks of the serving tier and of
-  ``[model]``) and :class:`DataMesh` (N x 1, the ``fast@meshN`` tier and
-  ``[batch]``) are its two one-axis cases.
-* :class:`RankMesh`, the ``torch.distributed`` world (``HPNN_DISTRIBUTED``),
-  one rank a device: rank r is shard (r // n_model, r % n_model).  Its
-  collectives are gloo or NCCL calls.
-
-Both hold a tuple of local shards (every shard of a LocalGrid, one of a
-RankMesh): ``local[p]`` is local shard p's model index and
-:meth:`device_of` its device.  A collective takes one tensor for every
-local shard and returns one for every local shard: ``gather``, ``psum``
-and ``shift`` act within each model group, ``psum_data`` over the data
-shards of each model index, in shard order.
-
-:func:`make_mesh` returns a LocalGrid at world 1 and the RankMesh at
-world > 1; :func:`data_mesh` the serving tier's DataMesh.
+:func:`make_mesh` builds the run's grid; :func:`data_mesh` the serving
+tier's DataMesh.
 
 The flat layout (arXiv:2004.13336, as in the JAX package): the update
 state of a data-parallel run -- BPM momentum, the master weights, the CG
@@ -153,87 +143,210 @@ class _Done:
         return self.parts
 
 
-class LocalGrid:
-    """The (data x model) grid of one process: shard (d, m) on
-    ``devices[d * n_model + m]`` (repeats allowed).  Every shard is local;
-    the collectives are copies between the shards' devices, each sum
-    formed in shard order on the first summand's device and copied to
-    every shard's."""
+class _Pending:
+    """An issued ring step: ``wait()`` completes its point-to-point
+    operations and gives every local shard's received tensor (the sent
+    ones are held until then)."""
 
-    def __init__(self, n_data: int, n_model: int, devices):
+    def __init__(self, reqs, out, recv, devices, sent):
+        self.reqs, self.out, self.recv = reqs, out, recv
+        self.devices, self._sent = devices, sent
+
+    def wait(self):
+        for r in self.reqs:
+            r.wait()
+        for p, buf in self.recv:
+            self.out[p] = buf.to(self.devices[p])
+        self._sent = None
+        return self.out
+
+
+class Grid:
+    """The (data x model) grid over the devices of every rank: global
+    shard g is (g // n_model, g % n_model), the ranks' devices in process
+    order (rank r holds ``counts[r]`` consecutive shards from the sum of
+    the counts before it), as the JAX package reshapes ``jax.devices()``.
+    This rank's shards are on ``devices`` (repeats allowed: N shards may
+    share one card, and then run in turn); ``local[p]`` is local shard p's
+    model index, ``local_data[p]`` the index of its data shard among this
+    rank's (``data_ids``, global).
+
+    A collective takes one tensor for every local shard (all of one shape
+    and dtype) and returns one for every local shard: ``gather``, ``psum``
+    and ``shift`` act within each model group, ``psum_data`` and
+    ``gather_data`` over the data shards of each model index, in shard
+    order.  Each first collects its groups' members: this rank's own
+    tensors, then, for each set of ranks a group spans, one all-gather of
+    those ranks' stacked tensors over their process group (made once a
+    layout, at the first collective that needs one; NCCL on cards, on
+    this rank's first card, gloo on the CPU).  A sum is then formed in
+    shard order on the first summand's device and copied to every shard's,
+    so a sum's bits do not depend on how the shards fall over the ranks.
+    At world 1 every group is local and nothing crosses a process."""
+
+    def __init__(self, n_data: int, n_model: int, devices, rank: int = 0,
+                 counts=None, coll_device=None):
         self.devices = tuple(torch.device(d) for d in devices)
         self.n_data, self.n_model = int(n_data), int(n_model)
-        if self.n_data < 1 or self.n_model < 1 \
-                or len(self.devices) != self.n_data * self.n_model:
+        self.counts = ((len(self.devices),) if counts is None
+                       else tuple(int(c) for c in counts))
+        self.rank = int(rank)
+        n = self.n_data * self.n_model
+        if self.n_data < 1 or self.n_model < 1 or not self.devices \
+                or sum(self.counts) != n \
+                or self.counts[self.rank] != len(self.devices):
             raise ValueError(f"a {n_data}x{n_model} grid needs "
                              f"{max(1, int(n_data) * int(n_model))} "
                              f"device(s); {len(self.devices)} given")
+        self.base = sum(self.counts[:self.rank])
+        self._owner = [r for r, c in enumerate(self.counts)
+                       for _ in range(c)]
+        self._offset = [sum(self.counts[:r]) for r in range(len(self.counts))]
+        self._groups = None       # made at the first cross-rank collective
+        self._cdev = coll_device
         k = self.n_model
-        self.local = tuple(p % k for p in range(len(self.devices)))
-        self.local_data = tuple(p // k for p in range(len(self.devices)))
+        mine = range(self.base, self.base + len(self.devices))
+        self.local = tuple(g % k for g in mine)
+        self.data_ids = tuple(dict.fromkeys(g // k for g in mine))
+        self.local_data = tuple(self.data_ids.index(g // k) for g in mine)
 
     def device_of(self, p: int) -> torch.device:
         """Local shard p's device."""
         return self.devices[p]
 
     def data_devices(self) -> tuple[torch.device, ...]:
-        """Each data shard's first device (where its rows land)."""
-        return self.devices[::self.n_model]
+        """Each local data shard's first device (where its rows land)."""
+        return tuple(self.devices[self.local_data.index(j)]
+                     for j in range(len(self.data_ids)))
 
     def distinct(self) -> tuple[torch.device, ...]:
         """The shards' devices, each once, in shard order."""
         return tuple(dict.fromkeys(self.devices))
 
-    def _group(self, p: int) -> range:
-        lo = (p // self.n_model) * self.n_model
+    def _model_members(self, g: int) -> range:
+        lo = (g // self.n_model) * self.n_model
         return range(lo, lo + self.n_model)
+
+    def _data_members(self, g: int) -> range:
+        return range(g % self.n_model, self.n_data * self.n_model,
+                     self.n_model)
+
+    def _is_local(self, g: int) -> bool:
+        return self._owner[g] == self.rank
+
+    def _collect(self, parts, members) -> dict:
+        """Global shard -> tensor, for every member of each local shard's
+        group.  The spans are visited in one global order, so every rank
+        meets its peers' all-gathers in the same sequence."""
+        have = {self.base + p: t for p, t in enumerate(parts)}
+        spans = sorted({tuple(sorted({self._owner[q] for q in members(g)}))
+                        for g in have})
+        for ranks in spans:
+            if len(ranks) == 1:
+                continue
+            from . import coord
+
+            if self._groups is None:
+                self._groups = _rank_groups(self)
+            width = max(self.counts[r] for r in ranks)
+            rows = [t.to(self._cdev) for t in parts]
+            rows += [torch.zeros_like(rows[0])] * (width - len(rows))
+            mine = torch.stack(rows)
+            got = [torch.empty_like(mine) for _ in ranks]
+            coord._dist().all_gather(got, mine, group=self._groups[ranks])
+            for r, block in zip(ranks, got):
+                if r != self.rank:
+                    for q in range(self.counts[r]):
+                        have[self._offset[r] + q] = block[q]
+        return have
 
     def gather(self, parts, only=None):
         """Each model group's tensors concatenated along the last dim in
-        shard order, on each shard's device (on the shards ``only``
+        shard order, on each shard's device (on the local shards ``only``
         names)."""
-        pos = range(len(parts)) if only is None else only
-        return [torch.cat([parts[q].to(self.devices[p])
-                           for q in self._group(p)], dim=-1) for p in pos]
+        return self._concat(parts, self._model_members, only)
 
-    def _sum_over(self, parts, groups):
-        out = [None] * len(parts)
-        for g in groups:
-            tot = parts[g[0]]
-            for q in g[1:]:
-                tot = tot + parts[q].to(tot.device)
-            for q in g:
-                out[q] = tot.to(self.devices[q])
+    def gather_data(self, parts, only=None):
+        """The data shards' tensors of each model index concatenated along
+        the last dim in data shard order (a flat vector's slices whole
+        again), on each shard's device (on the shards ``only`` names)."""
+        return self._concat(parts, self._data_members, only)
+
+    def _concat(self, parts, members, only):
+        have = self._collect(parts, members)
+        pos = range(len(parts)) if only is None else only
+        return [torch.cat([have[q].to(self.devices[p])
+                           for q in members(self.base + p)], dim=-1)
+                for p in pos]
+
+    def _sum_over(self, parts, members):
+        have = self._collect(parts, members)
+        out, sums = [], {}
+        for p in range(len(parts)):
+            g = tuple(members(self.base + p))
+            tot = sums.get(g)
+            if tot is None:
+                tot = have[g[0]]
+                for q in g[1:]:
+                    tot = tot + have[q].to(tot.device)
+                sums[g] = tot
+            out.append(tot.to(self.devices[p]))
         return out
 
     def psum(self, parts):
         """Each model group's tensors summed in shard order, on each
         shard's device."""
-        k = self.n_model
-        return self._sum_over(parts, [range(d * k, (d + 1) * k)
-                                      for d in range(self.n_data)])
+        return self._sum_over(parts, self._model_members)
 
     def psum_data(self, parts):
         """The data shards' tensors of each model index summed in data
         shard order, on each shard's device."""
-        k = self.n_model
-        return self._sum_over(parts, [range(m, len(parts), k)
-                                      for m in range(k)])
+        return self._sum_over(parts, self._data_members)
 
     def shift(self, parts):
         """The ring step: within each model group, shard m receives shard
-        (m + 1) mod K's tensor."""
+        (m + 1) mod K's tensor: a copy from a local shard, else one
+        point-to-point receive, and a send to each remote predecessor, as
+        one batch of point-to-point operations."""
         k = self.n_model
-        return _Done([parts[(p - p % k) + (p % k + 1) % k].to(
-            self.devices[p], non_blocking=True) for p in range(len(parts))])
+        out, recv, ops, sent = [None] * len(parts), [], [], []
+        for p, t in enumerate(parts):
+            d, m = divmod(self.base + p, k)
+            src, dst = d * k + (m + 1) % k, d * k + (m - 1) % k
+            if self._is_local(src):
+                out[p] = parts[src - self.base].to(self.devices[p],
+                                                   non_blocking=True)
+            else:
+                buf = torch.empty_like(t, device=self._cdev)
+                recv.append((p, buf))
+                ops.append((False, buf, self._owner[src]))
+            if not self._is_local(dst):
+                sent.append(t.to(self._cdev).contiguous())
+                ops.append((True, sent[-1], self._owner[dst]))
+        if not ops:
+            return _Done(out)
+        from . import coord
+
+        dist = coord._dist()
+        reqs = dist.batch_isend_irecv([
+            dist.P2POp(dist.isend if send else dist.irecv, t, peer)
+            for send, t, peer in ops])
+        return _Pending(reqs, out, recv, self.devices, sent)
 
     def gather_rows(self, parts):
-        """The first model group's row blocks stacked in shard order, on
-        the CPU (every group holds the same weights)."""
-        return torch.cat([p.to("cpu") for p in parts[:self.n_model]])
+        """The row blocks of the first local shard's model group stacked
+        in shard order, on the CPU (every group holds the same
+        weights)."""
+        have = self._collect(parts, self._model_members)
+        return torch.cat([have[q].to("cpu")
+                          for q in self._model_members(self.base)])
 
 
-class LocalMesh(LocalGrid):
+# the world-1 case keeps its name: one process's devices
+LocalGrid = Grid
+
+
+class LocalMesh(Grid):
     """A 1 x K model axis of one process: shard i's row blocks live on
     ``devices[i]`` (the ``tp@K`` serving tier, ``[model] K`` at world
     1)."""
@@ -245,7 +358,7 @@ class LocalMesh(LocalGrid):
         super().__init__(1, len(devices), devices)
 
 
-class DataMesh(LocalGrid):
+class DataMesh(Grid):
     """An N x 1 data axis of one process: shard i's rows run on
     ``devices[i]`` (the ``fast@meshN`` serving tier, ``[batch]`` at world
     1).  Weights are replicated on every shard's device."""
@@ -283,150 +396,67 @@ def data_mesh(n_devices: int | None = -1, device="cuda") -> DataMesh | None:
     return DataMesh([torch.device("cuda", i) for i in range(n)])
 
 
-class RankMesh:
-    """The (data x model) grid over the ``torch.distributed`` world, one
-    rank a device: rank r is data shard ``r // n_model`` and model shard
-    ``r % n_model``.  Built by :func:`make_mesh`, which creates every model
-    group and every data group on every rank in the same order."""
-
-    def __init__(self, n_data: int, n_model: int, rank: int, device,
-                 model_group=None, data_group=None):
-        self.n_data, self.n_model = int(n_data), int(n_model)
-        self.rank = int(rank)
-        self.data_index = self.rank // self.n_model
-        self.model_index = self.rank % self.n_model
-        self.local = (self.model_index,)
-        self.local_data = (0,)            # one data shard: this rank's
-        self.devices = (torch.device(device),)
-        self.model_group, self.data_group = model_group, data_group
-        base = self.data_index * self.n_model
-        self.model_ranks = tuple(base + m for m in range(self.n_model))
-
-    def device_of(self, p: int) -> torch.device:
-        return self.devices[0]
-
-    def _dist(self):
-        import torch.distributed as dist
-
-        return dist
-
-    def _all_gather(self, t, dim: int):
-        """The model group's tensors concatenated along ``dim`` in shard
-        order."""
-        if self.n_model == 1:
-            return t
-        src = t.contiguous()
-        out = [torch.empty_like(src) for _ in range(self.n_model)]
-        self._dist().all_gather(out, src, group=self.model_group)
-        return torch.cat(out, dim=dim)
-
-    def gather(self, parts, only=None):
-        return [self._all_gather(parts[0], -1)]
-
-    def psum(self, parts):
-        (t,) = parts
-        if self.n_model == 1:
-            return [t]
-        t = t.clone()
-        self._dist().all_reduce(t, group=self.model_group)
-        return [t]
-
-    def psum_data(self, parts):
-        (t,) = parts
-        if self.n_data == 1:
-            return [t]
-        t = t.clone()
-        self._dist().all_reduce(t, group=self.data_group)
-        return [t]
-
-    def shift(self, parts):
-        """The ring step: send this shard's tensor to model shard
-        (m - 1) mod K and receive shard (m + 1) mod K's, as one batch of
-        point-to-point operations (the peers are global ranks)."""
-        (t,) = parts
-        dist = self._dist()
-        k, m = self.n_model, self.model_index
-        src = t.contiguous()
-        buf = torch.empty_like(src)
-        ops = [dist.P2POp(dist.isend, src, self.model_ranks[(m - 1) % k],
-                          group=self.model_group),
-               dist.P2POp(dist.irecv, buf, self.model_ranks[(m + 1) % k],
-                          group=self.model_group)]
-        return _Pending(dist.batch_isend_irecv(ops), buf, src)
-
-    def gather_rows(self, parts):
-        return self._all_gather(parts[0], 0).to("cpu")
-
-
-class _Pending:
-    """An issued ring step: ``wait()`` completes it and gives the received
-    tensor (the sent one is held until then)."""
-
-    def __init__(self, reqs, buf, src):
-        self.reqs, self.buf, self._src = reqs, buf, src
-
-    def wait(self):
-        for r in self.reqs:
-            r.wait()
-        self._src = None
-        return [self.buf]
-
-
 _MESHES: dict = {}
 
 
 def make_mesh(n_data: int | None = None, n_model: int = 1, device=None,
               devices=None):
-    """The (data x model) grid of this run.
+    """The (data x model) :class:`Grid` of this run over ``devices``, this
+    rank's devices in order (``device`` alone by default).
 
-    At world 1 a :class:`LocalGrid` over the first ``n_data * n_model`` of
-    ``devices`` (``n_data`` defaults to 1); a grid of one shard may name
-    ``device`` instead.  A grid wider than the devices named is refused
-    (``ValueError``): nothing shards onto devices it was not given.
-
-    At world > 1 the :class:`RankMesh` of the world, one rank a device:
-    ``n_data`` defaults to the world over ``n_model``, and the grid must
-    cover the world (a rank outside it would have nothing to compute).
-    Its groups are made once a world and layout and reused."""
+    At world 1 the grid takes the first ``n_data * n_model`` of them
+    (``n_data`` defaults to 1).  Across processes it takes the first
+    ``n_data * n_model`` of the world's devices, process-major, every rank
+    holding as many as this one (which the agreement gates hold);
+    ``n_data`` defaults to all of them over ``n_model``.  A grid wider
+    than the devices, or one that leaves a rank without a shard, is
+    refused (``ValueError``).  Across processes the process groups of the
+    sets of ranks that a group spans are made once a layout, on every rank
+    in the same order, at the grid's first collective, and reused."""
     from . import coord
 
     world, rank = coord.world_size(), coord.process_index()
     n_model = max(1, int(n_model))
-    if world == 1:
-        n_data = max(1, int(n_data or 1))
-        n = n_data * n_model
-        if devices is None:
-            if n > 1:
-                raise ValueError(f"a {n_data}x{n_model} grid needs {n} "
-                                 "devices; none were named")
-            devices = [_default_device(device)]
-        devices = list(devices)
-        if len(devices) < n:
-            raise ValueError(f"a {n_data}x{n_model} grid needs {n} "
-                             f"devices; {len(devices)} were named")
-        return LocalGrid(n_data, n_model, devices[:n])
+    devices = [_default_device(device)] if devices is None else list(devices)
+    held = len(devices)
+    total = world * held
     if n_data is None:
-        n_data = max(1, world // n_model)
-    if n_data * n_model != world:
-        raise ValueError(f"mesh {n_data}x{n_model} does not cover the "
-                         f"{world} process(es) of this run")
-    device = _default_device(device)
-    key = (n_data, n_model, world, rank, str(device))
-    mesh = _MESHES.get(key)
-    if mesh is not None:
-        return mesh
-    mg = dg = None
-    dist = coord._dist()
-    for d in range(n_data):
-        g = dist.new_group([d * n_model + m for m in range(n_model)])
-        if d == rank // n_model:
-            mg = g
-    for m in range(n_model):
-        g = dist.new_group([d * n_model + m for d in range(n_data)])
-        if m == rank % n_model:
-            dg = g
-    mesh = _MESHES[key] = RankMesh(n_data, n_model, rank, device, mg, dg)
-    return mesh
+        n_data = max(1, total // n_model) if world > 1 else 1
+    n_data = max(1, int(n_data))
+    n = n_data * n_model
+    if n > total:
+        raise ValueError(f"a {n_data}x{n_model} grid needs {n} "
+                         f"devices; {total} were named")
+    # the shards each rank holds of the first n devices, process-major
+    counts = tuple(min(held, max(0, n - r * held)) for r in range(world))
+    if 0 in counts:
+        raise ValueError(f"a {n_data}x{n_model} grid over the first {n} of "
+                         f"{total} devices leaves process "
+                         f"{counts.index(0)} without a shard")
+    if world == 1:
+        return Grid(n_data, n_model, devices[:n])
+    return Grid(n_data, n_model, devices[:counts[rank]], rank, counts,
+                coord._collective_device())
+
+
+def _rank_groups(grid) -> dict:
+    """The process group of every set of ranks that one of ``grid``'s
+    groups spans (made on every rank in one order, once a layout)."""
+    from . import coord
+
+    key = (grid.n_data, grid.n_model, grid.counts)
+    groups = _MESHES.get(key)
+    if groups is None:
+        spans = set()
+        for g in range(grid.n_data * grid.n_model):
+            for members in (grid._model_members(g), grid._data_members(g)):
+                ranks = tuple(sorted({grid._owner[q] for q in members}))
+                if len(ranks) > 1:
+                    spans.add(ranks)
+        dist = coord._dist()
+        groups = _MESHES[key] = {r: dist.new_group(list(r))
+                                 for r in sorted(spans)}
+    return groups
 
 
 def _default_device(device):
@@ -442,7 +472,7 @@ def forget_meshes() -> None:
     _MESHES.clear()
 
 
-__all__ = ["DataMesh", "LocalGrid", "LocalMesh", "RankMesh", "data_mesh",
+__all__ = ["DataMesh", "Grid", "LocalGrid", "LocalMesh", "data_mesh",
            "flatten_state", "unflatten_state", "shard_bounds",
            "per_device_bytes", "pad_topology", "unpad_topology",
            "layer_sharding", "make_mesh", "forget_meshes",

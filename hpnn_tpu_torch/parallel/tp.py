@@ -8,13 +8,12 @@ all-gather (``ann.c:913-936``).  Hidden layers are zero-padded to a
 multiple of the axis (``mesh.pad_topology``) where the reference computed
 its remainder rows on every rank.
 
-The model axis is a :class:`~.mesh.RankMesh` (``torch.distributed`` ranks,
-one a device: gloo on the CPU, NCCL across cards) or a
-:class:`~.mesh.LocalGrid` (the devices of one process: a 1 x K
-``LocalMesh`` for the serving tier and ``[model] K``, an N x K grid beside
-``[batch]``).  Every engine here holds, for each shard the process runs,
-its padded row block of every hidden layer; the collectives are the
-mesh's.
+The model axis is a :class:`~.mesh.Grid`: the devices of one process (a
+1 x K ``LocalMesh`` for the serving tier and ``[model] K``, an N x K grid
+beside ``[batch]``) or of every rank (``torch.distributed``: gloo on the
+CPU, NCCL across cards), a model group within one rank or across ranks.
+Every engine here holds, for each shard the process runs, its padded row
+block of every hidden layer; the collectives are the grid's.
 
 * **Per-sample epoch** (:func:`tp_train_epoch_resident`): each sample
   trained to convergence as ``ops.convergence.train_sample`` does it, on
@@ -139,7 +138,7 @@ tp_dp_resident_carry = tp_engine_carry
 def tp_export_weights(carry: TPCarry, mesh) -> tuple:
     """The carry's weights gathered (the reference's post-update weight
     all-gather, ``ann.c:1636-1642``) and unpadded: float64 numpy arrays
-    on every rank (a collective on a RankMesh)."""
+    on every rank (a collective where a model group spans ranks)."""
     out = []
     for l, is_rows in enumerate(carry.rows):
         parts = [s[l] for s in carry.shards]

@@ -16,10 +16,24 @@ counterpart of the JAX package's ``jax.distributed.initialize``, itself the
 reference's ``_NN(init,MPI)``): ``HPNN_COORDINATOR`` (host:port),
 ``HPNN_NUM_PROCESSES`` and ``HPNN_PROCESS_ID`` name the rendezvous, or,
 without a coordinator, torch's own ``MASTER_ADDR``/``MASTER_PORT``/
-``WORLD_SIZE``/``RANK``.  The backend is NCCL on ``cuda`` (each rank on
-``cuda:<local rank>``) and gloo on ``cpu``; ``HPNN_DIST_TIMEOUT_S``
-(default 120) bounds every collective, so a lost peer ends the run
-instead of hanging it.  One process never joins a group.
+``WORLD_SIZE``/``RANK``.  The backend is NCCL on ``cuda`` and gloo on
+``cpu``; ``HPNN_DIST_TIMEOUT_S`` (default 120) bounds every collective,
+so a lost peer ends the run instead of hanging it.  One process never
+joins a group.
+
+The cards a rank holds (``NNRuntime.devices``; ``device`` is the first),
+as ``jax.distributed`` gives a process its local devices:
+
+* under torchrun (``LOCAL_RANK`` and ``LOCAL_WORLD_SIZE`` set, every rank
+  of a host seeing the host's c cards) local rank l of w holds cards
+  ``[l*c/w, (l+1)*c/w)``; a c that w does not divide is refused;
+* otherwise a rank holds every card it sees: its launcher gives it its
+  own, e.g. with ``CUDA_VISIBLE_DEVICES``.
+
+Before the process group forms, the ranks post their host name and their
+cards' UUIDs to the rendezvous store, and every rank refuses the run when
+two ranks of one host claim a card.  A CPU rank holds the one CPU device
+(its several shards are a ``device_slice`` of it repeated).
 """
 
 from __future__ import annotations
@@ -57,6 +71,7 @@ class NNRuntime:
 
     capability: int = 0
     device: torch.device | None = None
+    devices: tuple = ()   # every card this rank holds (device first)
     initialized: bool = False
     n_streams: int = 1   # -S: the row-sharding degree when [model] is unset
 
@@ -141,6 +156,8 @@ def init_all(device: str | None = "cuda", rank: int = 0) -> int:
             nn_log.nn_error(f"device runtime init failed: {exc}\n")
             return -1
     lib_runtime.device = dev
+    if not lib_runtime.devices:
+        lib_runtime.devices = (dev,)
     lib_runtime.capability = return_capabilities()
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "cpu")
@@ -150,16 +167,18 @@ def init_all(device: str | None = "cuda", rank: int = 0) -> int:
 
 
 def _init_distributed(dev: torch.device) -> torch.device:
-    """Join the process group ``HPNN_DISTRIBUTED`` asks for; returns this
-    rank's device and gates console output on rank 0."""
+    """Join the process group ``HPNN_DISTRIBUTED`` asks for; records the
+    cards this rank holds, returns the first and gates console output on
+    rank 0."""
     import torch.distributed as dist
 
     from .utils.env import env_float
 
     if dist.is_initialized():
         rank = dist.get_rank()
+        if dev.type == "cuda":
+            dev = torch.device("cuda", torch.cuda.current_device())
     else:
-        kwargs = {}
         if os.environ.get("HPNN_COORDINATOR"):
             missing = [v for v in ("HPNN_NUM_PROCESSES", "HPNN_PROCESS_ID")
                        if v not in os.environ]
@@ -168,33 +187,77 @@ def _init_distributed(dev: torch.device) -> torch.device:
                     "HPNN_COORDINATOR requires " + " and ".join(missing)
                     + " to be set (coordinator host:port, total process "
                     "count, this process's 0-based id)")
-            kwargs = dict(
-                init_method=f"tcp://{os.environ['HPNN_COORDINATOR']}",
-                world_size=int(os.environ["HPNN_NUM_PROCESSES"]),
-                rank=int(os.environ["HPNN_PROCESS_ID"]))
-        elif not all(v in os.environ for v in ("MASTER_ADDR", "MASTER_PORT",
-                                               "WORLD_SIZE", "RANK")):
+            url = f"tcp://{os.environ['HPNN_COORDINATOR']}"
+            world = int(os.environ["HPNN_NUM_PROCESSES"])
+            rank = int(os.environ["HPNN_PROCESS_ID"])
+        elif all(v in os.environ for v in ("MASTER_ADDR", "MASTER_PORT",
+                                           "WORLD_SIZE", "RANK")):
+            url, world, rank = "env://", -1, -1
+        else:
             raise RuntimeError(
                 "HPNN_DISTRIBUTED needs HPNN_COORDINATOR, "
                 "HPNN_NUM_PROCESSES and HPNN_PROCESS_ID (or torch's "
                 "MASTER_ADDR, MASTER_PORT, WORLD_SIZE and RANK)")
         timeout = datetime.timedelta(
             seconds=env_float("HPNN_DIST_TIMEOUT_S", 120.0, lo=1.0))
-        backend = "nccl" if dev.type == "cuda" else "gloo"
+        store, rank, world = next(dist.rendezvous(url, rank, world,
+                                                  timeout=timeout))
+        store.set_timeout(timeout)
+        kwargs = {}
         if dev.type == "cuda":
-            local = int(os.environ.get(
-                "LOCAL_RANK", kwargs.get("rank", os.environ.get("RANK", 0))))
-            dev = torch.device("cuda", local % torch.cuda.device_count())
+            cards = _rank_cards(store, rank, world)
+            lib_runtime.devices = tuple(torch.device("cuda", i)
+                                        for i in cards)
+            dev = lib_runtime.devices[0]
             torch.cuda.set_device(dev)
             kwargs["device_id"] = dev
-        dist.init_process_group(backend, timeout=timeout, **kwargs)
-        rank = dist.get_rank()
-    if dev.type == "cuda":
-        dev = torch.device("cuda", torch.cuda.current_device())
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                store=store, rank=rank, world_size=world,
+                                timeout=timeout, **kwargs)
     nn_log.set_rank(rank)
     nn_log.nn_dbg(f"runtime: rank {rank} of {dist.get_world_size()} "
-                  f"({dist.get_backend()})\n")
+                  f"({dist.get_backend()})"
+                  + (f", cards {[d.index for d in lib_runtime.devices]}"
+                     if dev.type == "cuda" and lib_runtime.devices else "")
+                  + "\n")
     return dev
+
+
+def _rank_cards(store, rank: int, world: int) -> list[int]:
+    """The visible card indices this rank holds (the module's rule), after
+    every rank has posted its host and its cards' UUIDs to ``store``: two
+    ranks of one host that claim a card refuse the run, all of them."""
+    import json
+    import socket
+
+    c = torch.cuda.device_count()
+    cards = list(range(c))
+    if os.environ.get("LOCAL_WORLD_SIZE") and os.environ.get("LOCAL_RANK"):
+        w, l = int(os.environ["LOCAL_WORLD_SIZE"]), int(
+            os.environ["LOCAL_RANK"])
+        if c % w:
+            raise RuntimeError(f"{c} visible card(s) do not split evenly "
+                               f"over the {w} ranks of this host "
+                               "(LOCAL_WORLD_SIZE)")
+        cards = cards[l * c // w:(l + 1) * c // w]
+    # a card's UUID, else its index among the host's cards
+    visible = (os.environ.get("CUDA_VISIBLE_DEVICES") or "").split(",")
+    ids = [str(getattr(torch.cuda.get_device_properties(i), "uuid", None)
+               or (visible[i] if i < len(visible) and visible[i] else i))
+           for i in cards]
+    store.set(f"hpnn_cards/{rank}", json.dumps([socket.gethostname(), ids]))
+    seen = {}
+    for r in range(world):
+        host, got = json.loads(store.get(f"hpnn_cards/{r}"))
+        for u in got:
+            other = seen.setdefault((host, u), r)
+            if other != r:
+                raise RuntimeError(f"ranks {other} and {r} of host {host} "
+                                   f"both claim card {u}; give each rank "
+                                   "its own cards (CUDA_VISIBLE_DEVICES, "
+                                   "or torchrun's LOCAL_RANK and "
+                                   "LOCAL_WORLD_SIZE)")
+    return cards
 
 
 def deinit_all() -> int:

@@ -36,12 +36,11 @@ The direction, the prior gradient and the restart counter live in
 ``nn.trainer_state`` as unpadded float64 vectors (``cg_d``, ``cg_g``,
 ``cg_meta = [1, restarts, iters]``), the snapshot payload, so a resume is
 bit-exact.  Under ``[batch]`` the flat state is padded to the data axis,
-the JAX package's data-parallel layout: across processes to the world
-size, every rank computing the same epoch on the whole corpus; in one
-process of several devices to its data shards, each shard's 1/N slice
-of the weights, the direction and the gradient living on its device
-(:func:`cg_epoch` over a list of slices; one device is the one-slice
-case).
+the JAX package's data-parallel layout: each data shard's 1/N slice of
+the weights, the direction and the gradient lives on its device, over
+the devices of one process or of every rank (:func:`cg_epoch` over a
+list of slices and its grid; one device is the one-slice case), and
+every rank computes the same loss and gradient on the whole corpus.
 """
 
 from __future__ import annotations
@@ -198,23 +197,35 @@ def line_search_plain(phis, l0):
     return t_best if bool(f_best < l0) else torch.zeros_like(t)
 
 
-def _gather(parts, dev):
+def _gather(parts, dev, mesh=None):
     """The shards' slices of a flat vector, whole on ``dev`` (one slice on
-    ``dev`` is returned as it is)."""
+    ``dev`` is returned as it is); with ``mesh`` the slices of every
+    rank's shards (``gather_data``)."""
+    if mesh is not None:
+        return mesh.gather_data(parts, only=(0,))[0].to(dev)
     if len(parts) == 1 and parts[0].device == dev:
         return parts[0]
     return torch.cat([p.to(dev) for p in parts])
 
 
-def _split(v, devs):
-    """A flat vector as N contiguous slices, slice i on ``devs[i]``."""
-    c = v.shape[0] // len(devs)
-    return [v[i * c:(i + 1) * c].to(dev) for i, dev in enumerate(devs)]
+def _split(v, devs, mesh=None):
+    """A flat vector as N contiguous slices, slice i on ``devs[i]``; with
+    ``mesh`` the slices of this rank's data shards out of the grid's
+    ``n_data``."""
+    if mesh is None:
+        ids, n = range(len(devs)), len(devs)
+    else:
+        ids, n = mesh.data_ids, mesh.n_data
+    c = v.shape[0] // n
+    return [v[i * c:(i + 1) * c].to(dev) for i, dev in zip(ids, devs)]
 
 
-def _dot(a, b, dev):
+def _dot(a, b, dev, mesh=None):
     """<a, b> of two sharded vectors: the shards' partials added in shard
-    order on ``dev``."""
+    order on ``dev`` (with ``mesh`` over every rank's shards)."""
+    if mesh is not None:
+        return mesh.psum_data([torch.dot(x, y) for x, y in zip(a, b)]
+                              )[0].to(dev)
     tot = None
     for x, y in zip(a, b):
         part = torch.dot(x, y).to(dev)
@@ -223,17 +234,19 @@ def _dot(a, b, dev):
 
 
 def cg_epoch(flat, d, g_prev, have, restarts, xs, ts, kind: str, shapes,
-             n_iters: int, plain: bool = False):
+             n_iters: int, plain: bool = False, mesh=None):
     """``n_iters`` CG iterations from the flat weights ``flat`` with the
     carried direction ``d``, prior gradient ``g_prev``, ``have`` (a bool
     tensor: a prior direction exists) and ``restarts`` (an int32 tensor).
     ``flat``, ``d`` and ``g_prev`` are each a tensor on the corpus's
     device, or a list of N data shards' equal slices, each slice on its
-    shard's device; the returned vectors take the same form.  The loss,
-    its gradient and the line search's probes run on the corpus's device
-    from the gathered vectors; the dot products add the shards' partials
-    in shard order, and the direction's update and the step run on each
-    slice's device.  Nothing is read back unless ``plain`` (the
+    shard's device; the returned vectors take the same form.  With
+    ``mesh`` (an N x 1 grid) the list holds this rank's data shards'
+    slices, and the gathers and the dot products take every rank's.  The
+    loss, its gradient and the line search's probes run on the corpus's
+    device from the gathered vectors; the dot products add the shards'
+    partials in shard order, and the direction's update and the step run
+    on each slice's device.  Nothing is read back unless ``plain`` (the
     transcribed line search).  Returns (flat, d, g, e0, e1, |g|,
     restarts)."""
     search = line_search_plain if plain else line_search
@@ -243,35 +256,35 @@ def cg_epoch(flat, d, g_prev, have, restarts, xs, ts, kind: str, shapes,
     devs = [f.device for f in flat]
     home = xs.device
     with torch.no_grad():
-        e0 = _loss(_gather(flat, home), xs, ts, kind, shapes)
+        e0 = _loss(_gather(flat, home, mesh), xs, ts, kind, shapes)
     g = g_prev
     for _ in range(n_iters):
-        full = _gather(flat, home)
+        full = _gather(flat, home, mesh)
         with torch.enable_grad():
             fr = full.detach().requires_grad_(True)
             lv = _loss(fr, xs, ts, kind, shapes)
             (gf,) = torch.autograd.grad(lv, fr)
         with torch.no_grad():
-            g = _split(gf, devs)
+            g = _split(gf, devs, mesh)
             lv = lv.detach().view(1)
-            gg_prev = _dot(g_prev, g_prev, home)
+            gg_prev = _dot(g_prev, g_prev, home, mesh)
             beta = torch.clamp_min(
-                _dot(g, [a - b for a, b in zip(g, g_prev)], home)
+                _dot(g, [a - b for a, b in zip(g, g_prev)], home, mesh)
                 / torch.clamp_min(gg_prev, TINY), 0.0)
             beta = torch.where(have, beta, torch.zeros_like(beta))
             d_new = [-gi + beta.to(gi.device) * di for gi, di in zip(g, d)]
-            descent = _dot(d_new, g, home) < 0.0
+            descent = _dot(d_new, g, home, mesh) < 0.0
             d_new = [torch.where(descent.to(dn.device), dn, -gi)
                      for dn, gi in zip(d_new, g)]
             restarts = restarts + (have & ~descent).to(restarts.dtype)
-            step = search(probe_losses(full, _gather(d_new, home), xs, ts,
-                                       kind, shapes), lv)
+            step = search(probe_losses(full, _gather(d_new, home, mesh), xs,
+                                       ts, kind, shapes), lv)
             flat = [f + step.to(f.device) * dn for f, dn in zip(flat, d_new)]
             d, g_prev = d_new, g
             have = torch.ones_like(have)
     with torch.no_grad():
-        e1 = _loss(_gather(flat, home), xs, ts, kind, shapes)
-        gn = torch.sqrt(_dot(g, g, home))
+        e1 = _loss(_gather(flat, home, mesh), xs, ts, kind, shapes)
+        gn = torch.sqrt(_dot(g, g, home, mesh))
     if whole:
         flat, d, g = flat[0], d[0], g[0]
     return flat, d, g, e0, e1, gn, restarts
@@ -309,16 +322,13 @@ def run_cg_epoch(nn, weights, xs, ts, kind: str, dtype, plain=False):
     if getattr(nn.conf, "batch", 0) > 0:
         # [batch]: the flat state over the data axis (the api's devices)
         from .. import api
-        from ..parallel.coord import world_size
 
-        pad_to = world_size()
-        if pad_to == 1:
-            pad_to = api._dp_device_count(dev)
-            mesh = api._dp_mesh(pad_to, 1, dev)
+        pad_to = api._dp_device_count(dev)
+        mesh = api._dp_mesh(pad_to, 1, dev)
     flat = flatten_state([w.to(dtype) for w in weights], pad_to)
     d, g, have, restarts = _load_state(nn, total, pad_to, dtype, dev)
     devs = list(mesh.data_devices()) if mesh is not None else [dev]
-    flat, d, g = _split(flat, devs), _split(d, devs), _split(g, devs)
+    flat, d, g = (_split(v, devs, mesh) for v in (flat, d, g))
     have_t = torch.tensor(have, device=dev)
     restarts_t = torch.tensor(restarts, dtype=torch.int32, device=dev)
     sync_mode = os.environ.get("HPNN_CG_SYNC_DEBUG", "")
@@ -332,8 +342,8 @@ def run_cg_epoch(nn, weights, xs, ts, kind: str, dtype, plain=False):
     try:
         flat, d, g, e0, e1, gn, restarts_t = cg_epoch(
             flat, d, g, have_t, restarts_t, xs, ts, kind, shapes, n_iters,
-            plain=plain)
-        flat, d, g = (_gather(v, dev) for v in (flat, d, g))
+            plain=plain, mesh=mesh)
+        flat, d, g = (_gather(v, dev, mesh) for v in (flat, d, g))
     finally:
         if dev.type == "cuda" and sync_mode:
             torch.cuda.set_sync_debug_mode(0)
