@@ -69,8 +69,16 @@ names: the ``#PROF`` phases ``warmup``, ``load_samples``/``load_tests``,
 under tracing; ``HPNN_DBG_TRACE``'s ``train-in``/``train-out`` checksums
 around a restaged epoch (and so no resident pipeline under it); the
 pipeline's ``corpus_load``, ``corpus_gather``, ``device_launch`` and
-``stats_drain`` spans.  The resident ``[batch]`` epoch gathers its batch
-rows on the card inside its ``device_launch`` span, where the JAX
+``stats_drain`` spans.  The port adds ``kernel_parse`` (the kernel file's
+parse in :func:`configure`) and, under ``stats_drain``, ``stats_wait``
+(a readback's wait on the card), ``epoch_render`` (an epoch's lines
+rendered and written) and ``weights_export`` (the carry copied back to
+float64), and ``ckpt.trainer`` adds ``train.stop``; the JAX package has
+none of the five.  While span tracing is on, the pipeline's per-sample B1
+launches take the kernel's instrumented instantiation, whose per-block
+phase cycles come back with the epoch's stats into
+``EPOCH_METRICS["b1_cycles"]``.  The resident ``[batch]`` epoch gathers
+its batch rows on the card inside its ``device_launch`` span, where the JAX
 package's resident DP program gathers inside its launch; the host-streamed
 shard mode takes one ``device_launch`` span a shard (``mode="sharded"``,
 ``shard_lo``).  Spans and
@@ -99,6 +107,7 @@ from .io.samples import list_sample_dir
 from .models.kernel import (Kernel, generate_kernel, is_regression,
                             weights_to_numpy, weights_to_torch)
 from .obs import trace as obs_trace
+from .ops import convergence_kernel as b1_kernel
 from .ops.convergence import stats_record
 from .utils import nn_log
 from .utils.glibc_random import GlibcRandom, shuffled_indices
@@ -168,7 +177,8 @@ def configure(path: str) -> NNDef | None:
         if conf.f_kernel is None:
             nn_error("can't load kernel: no filename!\n")
             return None
-        kernel = load_kernel(conf.f_kernel)
+        with obs_trace.span("kernel_parse"):
+            kernel = load_kernel(conf.f_kernel)
         if kernel is None:
             # exact reference string (libhpnn.c:862)
             nn_error("FAILED to load the NN kernel!\n")
@@ -514,12 +524,19 @@ def shuffle_order(conf: NNConf, n: int, rng=None) -> list[int]:
 # state's bytes on this rank's device against a replicated layout's
 # On the [model] routes the model axis (tp_devices) and the weight bytes
 # one device holds (weight_bytes_per_device, the largest row-block shard)
+# At the pipeline's joins: the host seconds of rendering and writing the
+# epochs' lines (render_s), on a card the gap from an epoch's end to the
+# next epoch's start between epochs queued with no join between them
+# (boundary_ms, CUDA events), and while span tracing is on B1's cycles
+# by phase (b1_cycles: ops.convergence_kernel.PHASES -> cycles, summed
+# over the launches' blocks)
 EPOCH_METRICS = {"epochs": 0, "h2d_bytes": 0, "setup_h2d_bytes": 0,
                  "stage_s": 0.0, "shuffle_s": 0.0, "mode": None,
                  "device_ms": [], "dp_devices": 0,
                  "opt_state_bytes_per_device": 0,
                  "opt_state_replicated_bytes": 0, "tp_devices": 1,
-                 "weight_bytes_per_device": 0}
+                 "weight_bytes_per_device": 0, "render_s": 0.0,
+                 "boundary_ms": [], "b1_cycles": {}}
 
 
 def reset_epoch_metrics() -> None:
@@ -527,7 +544,8 @@ def reset_epoch_metrics() -> None:
                          stage_s=0.0, shuffle_s=0.0, mode=None, device_ms=[],
                          dp_devices=0, opt_state_bytes_per_device=0,
                          opt_state_replicated_bytes=0, tp_devices=1,
-                         weight_bytes_per_device=0)
+                         weight_bytes_per_device=0, render_s=0.0,
+                         boundary_ms=[], b1_cycles={})
 
 
 # test-dir prefetch started by the last train_kernel call: tests join it
@@ -1107,7 +1125,11 @@ class _EpochPipeline:
         self.t_dev = None
         self.rows = {}                    # device -> its resident (x, t)
         self.train_fn = None
+        self.b1 = False                   # train_fn is B1 on a card
         self._dp_state = None             # per-run [batch] geometry
+        # the readback queued last since the last join: the next epoch's
+        # start follows its end on the card
+        self._last = None
         # console segments in order: ("out", text) literals, ("entries",
         # captured output) and the line renderers of epochs not joined yet
         self.pending: list = []
@@ -1233,9 +1255,10 @@ class _EpochPipeline:
                     tile, storage = _resolve_tile(nn.conf, self.weights,
                                                   self.dtype, kind, momentum,
                                                   self.device)
-                self.train_fn, _ = ops.select_train_epoch(
+                self.train_fn, route = ops.select_train_epoch(
                     self.dtype, kind=kind, device=self.device, tile=tile,
                     storage=storage, defer_stats=True)
+                self.b1 = route == "kernel"
         if self.dp == "tiled":
             st = self._dp_state
             if st["auto_warn"]:
@@ -1246,11 +1269,11 @@ class _EpochPipeline:
                         "sizing used\n")
             self.pending.append(("out", st["banner"]))
         if self.shard_rows:
-            self.weights, stats, start, h2d = self._sharded_epoch(
+            self.weights, stats, start, h2d, cycles = self._sharded_epoch(
                 sel, kind, momentum)
-            self.pending.append(_EpochLines(events, stats, self.dtype, kind,
-                                            momentum, nn_log.get_verbosity(),
-                                            start))
+            self._queue(_EpochLines(events, stats, self.dtype, kind,
+                                    momentum, nn_log.get_verbosity(), start,
+                                    cycles))
             return h2d
         with obs_trace.span("corpus_gather", rows=int(sel.size)):
             sel_dev, start = self._upload_sel(sel)
@@ -1258,12 +1281,32 @@ class _EpochPipeline:
             ts = self.t_dev.index_select(0, sel_dev)
         with obs_trace.span("device_launch", rows=int(sel.size),
                             mode=self.mode):
-            self.weights, stats = self.train_fn(self.weights, xs, ts, kind,
-                                                momentum, alpha=0.2)
-        self.pending.append(_EpochLines(events, stats, self.dtype, kind,
-                                        momentum, nn_log.get_verbosity(),
-                                        start))
+            self.weights, stats, cycles = self._launch(self.weights, xs, ts,
+                                                       kind, momentum)
+        self._queue(_EpochLines(events, stats, self.dtype, kind, momentum,
+                                nn_log.get_verbosity(), start, cycles))
         return sel.nbytes
+
+    def _launch(self, weights, xs, ts, kind: str, momentum: bool):
+        """One launch of the epoch function: (weights, stats, B1's phase
+        counts on the card).  B1 on a card takes its instrumented
+        instantiation while span tracing is on; else no counts."""
+        if not (self.b1 and obs_trace.enabled()):
+            w, stats = self.train_fn(weights, xs, ts, kind, momentum,
+                                     alpha=0.2)
+            return w, stats, []
+        w, stats = self.train_fn(weights, xs, ts, kind, momentum, alpha=0.2,
+                                 phases=True)
+        counts = b1_kernel.train_epoch_kernel.phases
+        return w, stats, [] if counts is None else [counts]
+
+    def _queue(self, lines) -> None:
+        """Queue an epoch's lines; its readback notes the end of the epoch
+        queued before it, when no join came between the two."""
+        lines.readback.prev_end = (self._last.end if self._last is not None
+                                   else None)
+        self._last = lines.readback
+        self.pending.append(lines)
 
     def _sharded_epoch(self, sel, kind: str, momentum: bool):
         """One shuffled epoch over a corpus kept on the host: shards of
@@ -1271,7 +1314,8 @@ class _EpochPipeline:
         uploaded on the io_pool while the previous shard trains, the
         weights carried on the device from launch to launch.  Returns
         (weights, the concatenated (S, 5) stats, the start event on a card,
-        the bytes uploaded)."""
+        the bytes uploaded, each launch's B1 phase counts when
+        instrumented)."""
         X, T, k = self.rc.X, self.rc.T, self.shard_rows
         n = int(sel.size)
         dev, dtype = self.device, self.dtype
@@ -1300,7 +1344,7 @@ class _EpochPipeline:
             return xs, ts, done
 
         pool = corpus_io.io_pool()
-        w, parts, h2d = self.weights, [], 0
+        w, parts, h2d, cycles = self.weights, [], 0, []
         nxt = pool.submit(prep, 0)
         for lo in range(0, n, k):
             xs, ts, done = nxt.result()
@@ -1315,10 +1359,11 @@ class _EpochPipeline:
             h2d += xs.nbytes + ts.nbytes
             with obs_trace.span("device_launch", shard_lo=lo,
                                 rows=int(xs.shape[0]), mode=self.mode):
-                w, st = self.train_fn(w, xs, ts, kind, momentum, alpha=0.2)
+                w, st, counts = self._launch(w, xs, ts, kind, momentum)
             parts.append(st)
+            cycles += counts
         stats = parts[0] if len(parts) == 1 else torch.cat(parts)
-        return w, stats, start, h2d
+        return w, stats, start, h2d, cycles
 
     def _run_epoch_tp(self, nn, events, sel, kind: str,
                       momentum: bool) -> int:
@@ -1343,9 +1388,8 @@ class _EpochPipeline:
                             mode=self.mode):
             self.weights, stats = tp_train_epoch_resident(
                 self.weights, xs, ts, kind, momentum, self.mesh, alpha=0.2)
-        self.pending.append(_EpochLines(events, stats, self.dtype, kind,
-                                        momentum, nn_log.get_verbosity(),
-                                        start))
+        self._queue(_EpochLines(events, stats, self.dtype, kind, momentum,
+                                nn_log.get_verbosity(), start))
         return sel.nbytes
 
     def _dp_tiled_fn(self, conf, kind: str, momentum: bool):
@@ -1452,8 +1496,7 @@ class _EpochPipeline:
                     self.weights, xb[0], tb[0], mb[0], kind, momentum,
                     st["lr"], 0.2, self.shapes)
         _note_opt_state(dw, self.shapes, self.wdtype)
-        self.pending.append(_DPLines(errs, st["s"], nn_log.get_verbosity(),
-                                     start))
+        self._queue(_DPLines(errs, st["s"], nn_log.get_verbosity(), start))
         return h2d
 
     def join(self, nn) -> list[dict]:
@@ -1469,8 +1512,12 @@ class _EpochPipeline:
         sums = []
         for item in self.pending:
             if isinstance(item, (_EpochLines, _DPLines)):
-                text, summary = item.render()
-                nn_log.nn_raw(text)
+                item.readback.result()
+                with obs_trace.span("epoch_render"):
+                    t0 = time.perf_counter()
+                    text, summary = item.render()
+                    nn_log.nn_raw(text)
+                    EPOCH_METRICS["render_s"] += time.perf_counter() - t0
                 sums.append(summary)
                 nn.last_epoch_stats = summary
             elif item[0] == "out":
@@ -1478,7 +1525,10 @@ class _EpochPipeline:
             else:
                 nn_log.replay(item[1])
         self.pending = []
-        if self.weights is not None:
+        self._last = None
+        if self.weights is None:
+            return sums
+        with obs_trace.span("weights_export"):
             if self.tp or self.hybrid:
                 from .parallel.tp import tp_export_weights
 
@@ -1545,14 +1595,16 @@ class _EpochLines:
     """One queued epoch's console lines: its stats record comes back from
     the card through a non-blocking copy into pinned memory, and
     :meth:`render` waits on the copy's event only when the lines are due
-    (and then reads the epoch's device time from ``start``)."""
+    (and then reads the epoch's device time from ``start``).  ``cycles``
+    are the instrumented B1 launches' phase counts, copied back with the
+    stats."""
 
     def __init__(self, events, stats: torch.Tensor, dtype, kind: str,
-                 momentum: bool, verbosity: int, start=None):
+                 momentum: bool, verbosity: int, start=None, cycles=()):
         self.events = events
         self.dtype, self.kind, self.momentum = dtype, kind, momentum
         self.verbosity = verbosity
-        self.readback = _Readback(stats, start)
+        self.readback = _Readback(stats, start, cycles)
 
     def render(self):
         stats = stats_record(self.readback.result(), self.dtype)
@@ -1578,30 +1630,49 @@ class _DPLines:
 class _Readback:
     """A device tensor's non-blocking copy into pinned host memory, with an
     event to wait on; on the CPU the tensor itself.  ``start`` (an event
-    recorded before the epoch's upload) gives the epoch's device time."""
+    recorded before the epoch's upload) gives the epoch's device time, and
+    ``prev_end`` (the end of the epoch queued just before, set by the
+    pipeline) the card's gap between the two.  ``cycles``, B1's phase
+    counts, ride the same copy and event."""
 
-    def __init__(self, t: torch.Tensor, start=None):
+    def __init__(self, t: torch.Tensor, start=None, cycles=()):
         self.start = start
-        self.end = self.done = None
+        self.end = self.done = self.prev_end = None
+        self.cycles = list(cycles)
         if t.device.type == "cuda":
             stream = torch.cuda.current_stream(t.device)
             self.end = torch.cuda.Event(enable_timing=True)
             self.end.record(stream)
-            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            host.copy_(t, non_blocking=True)
+            t = _to_pinned(t)
+            self.cycles = [_to_pinned(c) for c in self.cycles]
             self.done = torch.cuda.Event()
             self.done.record(stream)
-            t = host
         self.t = t
 
     def result(self) -> torch.Tensor:
         if self.done is not None:
-            self.done.synchronize()
+            with obs_trace.span("stats_wait"):
+                self.done.synchronize()
             if self.start is not None:
                 EPOCH_METRICS["device_ms"].append(
                     self.start.elapsed_time(self.end))
-            self.done = None
+                if self.prev_end is not None:
+                    EPOCH_METRICS["boundary_ms"].append(
+                        self.prev_end.elapsed_time(self.start))
+            cyc = EPOCH_METRICS["b1_cycles"]
+            for c in self.cycles:
+                for name, v in zip(b1_kernel.PHASES, c.sum(0).tolist()):
+                    cyc[name] = cyc.get(name, 0) + v
+            self.done = self.prev_end = None
         return self.t
+
+
+def _to_pinned(t: torch.Tensor) -> torch.Tensor:
+    """A non-blocking copy of device tensor ``t`` into pinned host memory,
+    on the current stream."""
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    return host
 
 
 def _render_dp_lines(errs, n_samples: int, verbosity: int):

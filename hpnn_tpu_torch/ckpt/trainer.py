@@ -167,21 +167,24 @@ def train_loop(nn, epochs: int, manager=None, start_epoch: int = 0,
             if (stopping if world > 1 else stop.is_set()) \
                     and epoch < epochs:
                 interrupted = True
-                drain()  # a signal may land after the join check above:
-                # the final snapshot below must see synced weights
-                if manager is not None:
-                    # final snapshot, synchronous: the process is about to
-                    # exit, nothing may stay queued
-                    if manager.last_saved_epoch != epoch:
-                        manager.save(nn, epoch, sync=True)
-                    manager.flush()
-                    nn_out(f"CKPT: interrupted at epoch {epoch}/{epochs};"
-                           " state saved -- continue with train_nn "
-                           "--resume\n")
-                else:
-                    nn_out(f"CKPT: interrupted at epoch {epoch}/{epochs} "
-                           "(checkpointing off; partial state only in "
-                           "kernel.opt)\n")
+                # the stop's own span (the port's; the JAX package has
+                # none): its join, final snapshot and message
+                with obs_trace.span("train.stop", epoch=epoch):
+                    drain()  # a signal may land after the join check
+                    # above: the final snapshot must see synced weights
+                    if manager is not None:
+                        # final snapshot, synchronous: the process is about
+                        # to exit, nothing may stay queued
+                        if manager.last_saved_epoch != epoch:
+                            manager.save(nn, epoch, sync=True)
+                        manager.flush()
+                        nn_out(f"CKPT: interrupted at epoch {epoch}/{epochs}"
+                               "; state saved -- continue with train_nn "
+                               "--resume\n")
+                    else:
+                        nn_out(f"CKPT: interrupted at epoch {epoch}/{epochs} "
+                               "(checkpointing off; partial state only in "
+                               "kernel.opt)\n")
                 break
         if (not interrupted and manager is not None
                 and last_epoch > start_epoch

@@ -31,7 +31,11 @@
 // layer-0 phase 2.2 (its delta 0.7, its rows in shared memory 1.5), the
 // layer-1 phase 3.0 (staging 1.3, its rows through L2 1.8) and the head
 // 1.2.  At XRD 851-230-230 BPM f64 (10.5 us, from 67-68) the head's serial
-// 230-wide error fold takes most of its 3.9 us.  PERF.md has the runs.
+// 230-wide error fold takes most of its 3.9 us.  The instrumented
+// instantiation (PHASES, below) splits thread 0's cycles in every block the
+// same way, at no measurable cost: at XRD's widths on that card about 21%
+// waiting at barriers, 33% in the head and 45% in the row passes.  PERF.md
+// has the runs.
 //
 // Design:
 // * one cooperative launch (cudaLaunchCooperativeKernel) whose grid is no
@@ -94,6 +98,12 @@
 // they are refused) and, given a device array of three int64, have block
 // 0 write there the grid barriers it took inside the launch's iterations,
 // all the barriers it took, and the iterations.
+// hpnn_train_epoch_phases_{f64,f32,bf16} take the plan entry's arguments and
+// launch the instrumented kernel (PHASES): every thread adds the clock64()
+// cycles since its last stamp to one of four phases (grid barriers, the head,
+// the row passes, the rest) in registers, and each block writes thread 0's
+// four totals and its whole launch's cycles once, at the end, into
+// counts[3 + 5 * block ..]; counts then holds 3 + 5 * blocks words.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -426,6 +436,41 @@ __device__ void head(const Args& a, const Smem<T>& s, const T* z, Head<T>& hd) {
     __syncthreads();
 }
 
+// The instrumented kernel's phase clock: each thread charges the cycles since
+// its last stamp to the phase named at each stamp, so the four phases sum to
+// the cycles from begin() to the last stamp; thread 0's are written.  Every
+// thread stamps, so no warp diverges for it.  Off (ON false), every member is
+// dead and the kernel is the plain one.
+enum { PH_BARRIER = 0, PH_HEAD = 1, PH_ROWS = 2, PH_OTHER = 3, N_PHASES = 4 };
+constexpr int PHASE_WORDS = N_PHASES + 1;  // a block's phases and its total
+
+template <bool ON>
+struct PhaseClock {
+    long long first = 0, last = 0, c[N_PHASES] = {0, 0, 0, 0};
+
+    __device__ __forceinline__ void begin() {
+        if constexpr (ON) first = last = clock64();
+    }
+    template <int K>
+    __device__ __forceinline__ void charge() {
+        if constexpr (ON) {
+            const long long now = clock64();
+            c[K] += now - last;
+            last = now;
+        }
+    }
+    // the block's words beside the launch's three counts
+    __device__ __forceinline__ void write(long long* counts) const {
+        if constexpr (ON) {
+            if (counts && threadIdx.x == 0) {
+                long long* out = counts + 3 + static_cast<size_t>(blockIdx.x) * PHASE_WORDS;
+                for (int k = 0; k < N_PHASES; ++k) out[k] = c[k];
+                out[N_PHASES] = last - first;
+            }
+        }
+    }
+};
+
 // Per-sample state, the same in every thread of every block.
 template <typename T>
 struct Sample {
@@ -433,7 +478,7 @@ struct Sample {
     int it, p_trg, first_ok, is_ok;
 };
 
-template <typename T, bool BF, bool RES>
+template <typename T, bool BF, bool RES, bool PHASES>
 __global__ void __launch_bounds__(MAX_THREADS, 1)
 train_epoch_kernel(Net<T> net, Args a, Plan p) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -445,6 +490,8 @@ train_epoch_kernel(Net<T> net, Args a, Plan p) {
     const int L = net.layers, N0 = net.n[0], M0 = net.m[0];
     const T lr = T(a.lr), alpha = T(a.alpha), delta = T(a.delta);
     const Smem<T> s = carve<T>(smem_raw, a, p, M0, RES);
+    PhaseClock<PHASES> clk;
+    clk.begin();
 
     int off[MAX_LAYERS + 1];
     off[0] = 0;
@@ -471,9 +518,12 @@ train_epoch_kernel(Net<T> net, Args a, Plan p) {
     T col[CHUNK];  // W_1's column gw and a_0[gw] for the next delta0
     T a0 = T(0);
     long long syncs = 0;  // the launch's grid barriers, counted as they are taken
+    // every barrier ends a phase of row passes (forward or hidden deltas)
     auto sync = [&]() {
+        clk.template charge<PH_ROWS>();
         grid.sync();
         ++syncs;
+        clk.template charge<PH_BARRIER>();
     };
 
     // Forward phase l: every row the warp owns, updated first when upd.
@@ -549,6 +599,7 @@ train_epoch_kernel(Net<T> net, Args a, Plan p) {
                 }
         }
         __syncthreads();
+        clk.template charge<PH_OTHER>();
         // the first forward goes to the other buffer: a block still in the
         // last head of the previous sample may be reading acts[cur]
         int nxt = cur ^ 1;
@@ -556,11 +607,13 @@ train_epoch_kernel(Net<T> net, Args a, Plan p) {
         cur = nxt;
         prefetch_col(net, acts[cur], gw, lane, col, a0);
         head<T, BF>(a, s, acts[cur] + off[L - 1], hd);
+        clk.template charge<PH_HEAD>();
         sm = Sample<T>{};
         sm.init_err = hd.err;
         sm.ep = hd.err;
         for (int i = 0; i < a.n_out; ++i)
             if (s.t[i] == T(1)) sm.p_trg = i;
+        clk.template charge<PH_OTHER>();
         const long long syncs_before = syncs;
         while (true) {
             nxt = cur ^ 1;
@@ -577,6 +630,7 @@ train_epoch_kernel(Net<T> net, Args a, Plan p) {
             cur = nxt;
             prefetch_col(net, acts[cur], gw, lane, col, a0);
             head<T, BF>(a, s, acts[cur] + off[L - 1], hd);
+            clk.template charge<PH_HEAD>();
             sm.it += 1;
             sm.dep = sub(sm.ep, hd.err);
             sm.ep = hd.err;
@@ -601,18 +655,20 @@ train_epoch_kernel(Net<T> net, Args a, Plan p) {
         for (int r = 0, i = gw; i < N0; ++r, i += nw)
             for (int j = lane; j < M0; j += 32) st(net.w[0] + static_cast<size_t>(i) * M0 + j, w0row(r, i)[j]);
     }
+    clk.template charge<PH_OTHER>();
     if (a.counts && blockIdx.x == 0 && threadIdx.x == 0) {
         a.counts[0] = iter_syncs;
         a.counts[1] = syncs;
         a.counts[2] = used;
     }
+    clk.write(a.counts);
 }
 
 // How many blocks of one plan's kernel an SM holds at dyn shared bytes a
 // block (its static shared bytes in stat).
-template <typename T, bool BF, bool RES>
+template <typename T, bool BF, bool RES, bool PHASES>
 cudaError_t blocks_per_sm(int warps, size_t dyn, int* fit, int* stat) {
-    auto kernel = train_epoch_kernel<T, BF, RES>;
+    auto kernel = train_epoch_kernel<T, BF, RES, PHASES>;
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(dyn));
     if (err != cudaSuccess) return err;
@@ -623,10 +679,10 @@ cudaError_t blocks_per_sm(int warps, size_t dyn, int* fit, int* stat) {
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(fit, kernel, 32 * warps, dyn);
 }
 
-template <typename T, bool BF, bool RES>
+template <typename T, bool BF, bool RES, bool PHASES>
 int launch_plan(const Net<T>& net, const Args& args, const Plan& plan, int blocks, size_t dyn,
                 void* stream) {
-    auto kernel = train_epoch_kernel<T, BF, RES>;
+    auto kernel = train_epoch_kernel<T, BF, RES, PHASES>;
     Net<T> n = net;
     Args a = args;
     Plan p = plan;
@@ -649,8 +705,9 @@ int launch_plan(const Net<T>& net, const Args& args, const Plan& plan, int block
 // warp takes several rows of a layer.  W_0's rows resident when they fit
 // beside the staged vectors, else staged only; refused when even that
 // does not fit.  force_res (0/1) overrides the choice of plan.  out =
-// {blocks, resident, shared bytes a block, rows0, warps a block}.
-template <typename T, bool BF>
+// {blocks, resident, shared bytes a block, rows0, warps a block}.  PHASES
+// plans and launches the instrumented kernel.
+template <typename T, bool BF, bool PHASES>
 int launch(void* const* w, void* const* dw, const int* n, const int* m, int layers,
            const Args& args, int device, void* stream, int force_res, int* out) {
     cudaError_t err = cudaSetDevice(device);
@@ -705,8 +762,8 @@ int launch(void* const* w, void* const* dw, const int* n, const int* m, int laye
             }
             return static_cast<int>(cudaErrorInvalidValue);
         }
-        err = res ? blocks_per_sm<T, BF, true>(plan.warps, dyn, &fit, &stat)
-                  : blocks_per_sm<T, BF, false>(plan.warps, dyn, &fit, &stat);
+        err = res ? blocks_per_sm<T, BF, true, PHASES>(plan.warps, dyn, &fit, &stat)
+                  : blocks_per_sm<T, BF, false, PHASES>(plan.warps, dyn, &fit, &stat);
         if (err != cudaSuccess) return static_cast<int>(err);
         if (fit < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
         if (blocks <= fit * sms) break;
@@ -719,11 +776,11 @@ int launch(void* const* w, void* const* dw, const int* n, const int* m, int laye
         out[3] = plan.rows0;
         out[4] = plan.warps;
     }
-    return res ? launch_plan<T, BF, true>(net, args, plan, blocks, dyn, stream)
-               : launch_plan<T, BF, false>(net, args, plan, blocks, dyn, stream);
+    return res ? launch_plan<T, BF, true, PHASES>(net, args, plan, blocks, dyn, stream)
+               : launch_plan<T, BF, false, PHASES>(net, args, plan, blocks, dyn, stream);
 }
 
-template <typename T, bool BF>
+template <typename T, bool BF, bool PHASES>
 int entry(void* const* w, void* const* dw, const int* n, const int* m, int layers,
           const void* xs, const void* ts, double* stats, void* scratch, int S, int n_in,
           int n_out, int kind, int momentum, double lr, double alpha, double delta,
@@ -731,24 +788,24 @@ int entry(void* const* w, void* const* dw, const int* n, const int* m, int layer
           void* stream, int force_res, int* out, long long* counts) {
     Args a{xs, ts, stats, scratch, counts, S, n_in, n_out, kind, momentum, lr, alpha, delta,
            min_iter, max_iter, start_idx, iter_budget};
-    return launch<T, BF>(w, dw, n, m, layers, a, device, stream, force_res, out);
+    return launch<T, BF, PHASES>(w, dw, n, m, layers, a, device, stream, force_res, out);
 }
 
 }  // namespace
 
 extern "C" {
 
-#define HPNN_TRAIN_ENTRY(NAME, PLANNED, T, BF)                                           \
+#define HPNN_TRAIN_ENTRY(NAME, PLANNED, PHASED, T, BF)                                   \
     int NAME(void* const* w, void* const* dw, const int* n, const int* m, int layers,  \
              const void* xs, const void* ts, double* stats, void* scratch, int* ctl,    \
              int S, int n_in, int n_out, int kind, int momentum, double lr,            \
              double alpha, double delta, int min_iter, int max_iter, int start_idx,     \
              int iter_budget, int device, void* stream, int* grid_out) {                \
         int out[5] = {0, 0, 0, 0, 0};                                                   \
-        const int rc = entry<T, BF>(w, dw, n, m, layers, xs, ts, stats, scratch, S, n_in, \
-                                    n_out, kind, momentum, lr, alpha, delta, min_iter,  \
-                                    max_iter, start_idx, iter_budget, device, stream,   \
-                                    -1, out, nullptr);                                  \
+        const int rc = entry<T, BF, false>(w, dw, n, m, layers, xs, ts, stats, scratch, S, \
+                                           n_in, n_out, kind, momentum, lr, alpha, delta, \
+                                           min_iter, max_iter, start_idx, iter_budget,  \
+                                           device, stream, -1, out, nullptr);           \
         if (grid_out) *grid_out = out[0];                                               \
         return rc;                                                                      \
     }                                                                                   \
@@ -758,15 +815,29 @@ extern "C" {
                 double delta, int min_iter, int max_iter, int start_idx,               \
                 int iter_budget, int device, void* stream, int force_res,              \
                 int* plan_out, long long* counts) {                                     \
-        return entry<T, BF>(w, dw, n, m, layers, xs, ts, stats, scratch, S, n_in, n_out, \
-                            kind, momentum, lr, alpha, delta, min_iter, max_iter,       \
-                            start_idx, iter_budget, device, stream, force_res,          \
-                            plan_out, counts);                                          \
+        return entry<T, BF, false>(w, dw, n, m, layers, xs, ts, stats, scratch, S, n_in, \
+                                   n_out, kind, momentum, lr, alpha, delta, min_iter,   \
+                                   max_iter, start_idx, iter_budget, device, stream,    \
+                                   force_res, plan_out, counts);                        \
+    }                                                                                   \
+    int PHASED(void* const* w, void* const* dw, const int* n, const int* m, int layers, \
+               const void* xs, const void* ts, double* stats, void* scratch, int S,     \
+               int n_in, int n_out, int kind, int momentum, double lr, double alpha,   \
+               double delta, int min_iter, int max_iter, int start_idx,                \
+               int iter_budget, int device, void* stream, int force_res,               \
+               int* plan_out, long long* counts) {                                      \
+        return entry<T, BF, true>(w, dw, n, m, layers, xs, ts, stats, scratch, S, n_in,  \
+                                  n_out, kind, momentum, lr, alpha, delta, min_iter,    \
+                                  max_iter, start_idx, iter_budget, device, stream,     \
+                                  force_res, plan_out, counts);                         \
     }
 
-HPNN_TRAIN_ENTRY(hpnn_train_epoch_f64, hpnn_train_epoch_plan_f64, double, false)
-HPNN_TRAIN_ENTRY(hpnn_train_epoch_f32, hpnn_train_epoch_plan_f32, float, false)
-HPNN_TRAIN_ENTRY(hpnn_train_epoch_bf16, hpnn_train_epoch_plan_bf16, float, true)
+HPNN_TRAIN_ENTRY(hpnn_train_epoch_f64, hpnn_train_epoch_plan_f64, hpnn_train_epoch_phases_f64,
+                 double, false)
+HPNN_TRAIN_ENTRY(hpnn_train_epoch_f32, hpnn_train_epoch_plan_f32, hpnn_train_epoch_phases_f32,
+                 float, false)
+HPNN_TRAIN_ENTRY(hpnn_train_epoch_bf16, hpnn_train_epoch_plan_bf16, hpnn_train_epoch_phases_bf16,
+                 float, true)
 
 const char* hpnn_train_error_string(int code) {
     return cudaGetErrorString(static_cast<cudaError_t>(code));

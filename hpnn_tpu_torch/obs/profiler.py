@@ -23,6 +23,11 @@ with category ``kernel``.  On a CPU-only host it records CPU activity
 only.  The JAX package writes XLA's ``plugins/profile`` directory
 instead: a stated deviation.
 
+While a capture runs, every ``obs.trace`` span also opens a
+``torch.profiler.record_function`` of its name (``trace.
+set_profiler_ranges``), so the trace shows the program's spans as host
+ranges beside the kernels, on the profiler's clock.
+
 Failures to start are reported as :class:`ProfilerUnavailable`: the
 serving layer maps it to an HTTP status instead of a traceback, and a CLI
 run warns and continues unprofiled (profiling is an observation, never a
@@ -36,6 +41,8 @@ import os
 import socket
 import threading
 import time
+
+from . import trace as obs_trace
 
 _lock = threading.Lock()
 _active: dict | None = None
@@ -96,6 +103,7 @@ def _start_trace():
         # profile", and the caller chose between 501 and a warning
         raise ProfilerUnavailable(
             f"torch.profiler failed to start: {type(exc).__name__}: {exc}")
+    obs_trace.set_profiler_ranges(torch.profiler.record_function)
     return prof
 
 
@@ -105,6 +113,7 @@ def _stop_trace(prof, out_dir: str) -> str:
     last kernels' activity records are complete."""
     import torch
 
+    obs_trace.set_profiler_ranges(None)
     if torch.cuda.is_available():
         torch.cuda.synchronize()
     prof.stop()

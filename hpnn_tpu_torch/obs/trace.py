@@ -57,6 +57,14 @@ the coin deterministic for tests.  Sampled/dropped/forced counters are
 exported in /metrics.  With no sampler configured every trace is kept
 -- byte-identical to the pre-sampling behavior.
 
+Profiler ranges: while an ``obs.profiler`` capture runs, every
+:func:`span` also opens a ``torch.profiler.record_function`` of its name,
+so the span stands in the capture's Chrome trace as a host range on the
+profiler's own clock, beside the kernels.  The capture switches this on
+and off (:func:`set_profiler_ranges`); with no capture running a span
+pays one read of a module global for it (and a None in its own slot).  :func:`record`'s spans, timed
+by their caller, have no range.
+
 Durable export: :func:`set_exporter` attaches an
 :class:`~.export.SpanExporter`; every completed span is then ALSO
 offered to its bounded background spool (rotating NDJSON segment files
@@ -89,6 +97,9 @@ _sampler: "_Sampler | None" = None
 # durable span spool: None = ring only; an export.SpanExporter when a
 # --span-dir is configured (set_exporter)
 _exporter = None
+# torch.profiler.record_function while an obs.profiler capture runs (each
+# span then also opens a range of its name), None otherwise
+_range = None
 
 
 class _State:
@@ -244,6 +255,14 @@ def get_exporter():
     return _exporter
 
 
+def set_profiler_ranges(range_fn) -> None:
+    """``range_fn`` (``torch.profiler.record_function``) while a profiler
+    capture runs, None when it stops: each span entered meanwhile also
+    opens ``range_fn(name)`` for its duration."""
+    global _range
+    _range = range_fn
+
+
 def set_role(role: str | None) -> None:
     """Name this process's mesh role (router/worker/local) for the
     auto-dump filename; None restores the role-less legacy name."""
@@ -318,7 +337,7 @@ _NOOP = _NoopSpan()
 
 class Span:
     __slots__ = ("name", "trace_id", "span_id", "parent_id", "attrs",
-                 "_t0", "_st")
+                 "_t0", "_st", "_range")
 
     def __init__(self, st: _State, name: str, trace_id: str | None,
                  parent_id: str | None, attrs: dict | None):
@@ -327,6 +346,7 @@ class Span:
         self.attrs = attrs
         self._st = st
         self._t0 = 0.0
+        self._range = None
         if trace_id is None:
             ctx = current_ctx()
             if ctx is not None:
@@ -344,12 +364,18 @@ class Span:
         return self
 
     def __enter__(self) -> "Span":
+        range_fn = _range
+        if range_fn is not None:
+            self._range = range_fn(self.name)
+            self._range.__enter__()
         self._t0 = time.monotonic()
         _stack().append(self)
         return self
 
     def __exit__(self, exc_type, exc, tb) -> bool:
         t1 = time.monotonic()
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
         st = _stack()
         if st and st[-1] is self:
             st.pop()

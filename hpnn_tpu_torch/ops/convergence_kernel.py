@@ -38,6 +38,9 @@ Source note (what the CUDA kernel is and why):
 (:func:`train_epoch_plain`, the eager loop of ``ops.convergence`` with the
 same budget contract) only for tensors on the CPU; a CUDA tensor launches
 the kernel or raises.  ``train_epoch_kernel.launches`` counts launches.
+``phases=True`` launches the kernel's instrumented instantiation, which
+counts where thread 0 of each block spends its cycles (:data:`PHASES`);
+the epoch pipeline asks for it while span tracing is on.
 """
 
 from __future__ import annotations
@@ -56,24 +59,34 @@ _ENTRY = {torch.float64: "hpnn_train_epoch_plan_f64",
           torch.float32: "hpnn_train_epoch_plan_f32",
           torch.bfloat16: "hpnn_train_epoch_plan_bf16"}
 _KIND = {ANN: 0, SNN: 1, LNN: 2}
-_fns: dict[torch.dtype, object] = {}
+# the instrumented kernel's phases, in the order of csrc/train_epoch.cu's
+# PH_*: cycles waiting at grid barriers, in the head (with the prefetch of
+# W_1's column), in the row passes and hidden deltas, and the rest (the
+# sample's staging and momentum reset, the stats rows, W_0's residency);
+# each block writes them and its launch's whole cycles after the 3 counts
+PHASES = ("barrier", "head", "rows", "other")
+PHASE_WORDS = len(PHASES) + 1
+MIN_WARPS = 4  # csrc/train_epoch.cu MIN_WARPS: a grid of at most N/4 blocks
+_fns: dict[tuple, object] = {}
 
 
-def _kernel_fn(dtype: torch.dtype):
-    fn = _fns.get(dtype)
+def _kernel_fn(dtype: torch.dtype, phases: bool = False):
+    fn = _fns.get((dtype, phases))
     if fn is None:
         from . import build
 
         lib = build.load("train_epoch")
         lib.hpnn_train_error_string.argtypes = [ctypes.c_int]
         lib.hpnn_train_error_string.restype = ctypes.c_char_p
-        fn = getattr(lib, _ENTRY[dtype])
+        name = _ENTRY[dtype]
+        fn = getattr(lib, name.replace("_plan_", "_phases_") if phases
+                     else name)
         p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         fn.argtypes = [p, p, p, p, i, p, p, p, p, i, i, i, i, i, d, d, d,
                        i, i, i, i, i, p, i, p, p]
         fn.restype = ctypes.c_int
         fn.error_string = lib.hpnn_train_error_string
-        _fns[dtype] = fn
+        _fns[(dtype, phases)] = fn
     return fn
 
 
@@ -156,7 +169,8 @@ def train_epoch_plain(weights, xs, ts, kind: str, momentum: bool,
 
 def train_epoch_kernel(weights, xs, ts, kind: str, momentum: bool,
                        alpha=0.2, delta=-1.0, lr=None, start_idx=0,
-                       iter_budget=INT32_MAX, stats_prev=None, _plan=None):
+                       iter_budget=INT32_MAX, stats_prev=None, _plan=None,
+                       phases=False):
     """One launch of the epoch kernel from sample ``start_idx`` under an
     iteration budget; same contract as :func:`train_epoch_plain`.
 
@@ -169,8 +183,11 @@ def train_epoch_kernel(weights, xs, ts, kind: str, momentum: bool,
     ``train_epoch_kernel.plan``, and in ``train_epoch_kernel.syncs`` an
     int64 tensor on the card that the launch fills with the grid barriers
     its kernel took inside its iterations, all the grid barriers it took,
-    and its iterations.  Widths whose staged vectors do not fit in a
-    block's shared memory raise ValueError."""
+    and its iterations.  With ``phases`` the instrumented kernel launches
+    and ``train_epoch_kernel.phases`` is an int64 (blocks, 5) tensor on
+    the card: each block's cycles in :data:`PHASES` and its launch's
+    total (None after a plain launch).  Widths whose staged vectors do
+    not fit in a block's shared memory raise ValueError."""
     _check(weights, xs, ts, kind, stats_prev)
     if xs.device.type == "cpu":
         return train_epoch_plain(weights, xs, ts, kind, momentum,
@@ -181,6 +198,7 @@ def train_epoch_kernel(weights, xs, ts, kind: str, momentum: bool,
     if xs.device.type != "cuda":
         raise ValueError(f"train_epoch_kernel: no kernel for device "
                          f"{xs.device}")
+    train_epoch_kernel.phases = None
     lr, min_iter, max_iter, delta = schedule(kind, momentum, lr, delta)
     w = master_weights(weights, xs.dtype)
     stats = _stats_init(stats_prev, xs.shape[0], xs.device)
@@ -198,15 +216,19 @@ def train_epoch_kernel(weights, xs, ts, kind: str, momentum: bool,
     ns = (ctypes.c_int * layers)(*n)
     ms = (ctypes.c_int * layers)(*(v.shape[1] for v in w))
     plan = (ctypes.c_int * 5)()
-    syncs = torch.zeros(3, dtype=torch.int64, device=xs.device)
-    fn = _kernel_fn(xs.dtype)
+    # the kernel writes every word (block 0 the three counts, each block
+    # its phase words): sized for the largest grid the plan can choose
+    blocks_max = -(-max(n) // MIN_WARPS)
+    counts = torch.empty(3 + (PHASE_WORDS * blocks_max if phases else 0),
+                         dtype=torch.int64, device=xs.device)
+    fn = _kernel_fn(xs.dtype, bool(phases))
     rc = fn(ptrs, dptrs, ns, ms, layers, xk.data_ptr(), tk.data_ptr(),
             stats.data_ptr(), scratch.data_ptr(),
             xs.shape[0], xs.shape[1], ts.shape[1], _KIND[kind],
             int(momentum), float(lr), float(alpha), float(delta), min_iter,
             max_iter, int(start_idx), int(iter_budget), xs.device.index,
             torch.cuda.current_stream(xs.device).cuda_stream,
-            -1 if _plan is None else int(_plan), plan, syncs.data_ptr())
+            -1 if _plan is None else int(_plan), plan, counts.data_ptr())
     if rc != 0 and plan[1] == -1:
         raise ValueError(f"train_epoch_kernel: layer widths {n} from "
                          f"n_in={xs.shape[1]} need {plan[2]} bytes of shared "
@@ -215,7 +237,10 @@ def train_epoch_kernel(weights, xs, ts, kind: str, momentum: bool,
         msg = fn.error_string(rc).decode()
         raise RuntimeError(f"train_epoch_kernel launch failed: {msg} ({rc})")
     train_epoch_kernel.launches += 1
-    train_epoch_kernel.syncs = syncs
+    train_epoch_kernel.syncs = counts[:3]
+    if phases:
+        train_epoch_kernel.phases = counts[3:3 + PHASE_WORDS * plan[0]].view(
+            plan[0], PHASE_WORDS)
     train_epoch_kernel.plan = {"blocks": plan[0], "warps": plan[4],
                                "resident": bool(plan[1]),
                                "smem_bytes": plan[2], "rows0": plan[3]}
@@ -225,11 +250,12 @@ def train_epoch_kernel(weights, xs, ts, kind: str, momentum: bool,
 train_epoch_kernel.launches = 0
 train_epoch_kernel.plan = {}
 train_epoch_kernel.syncs = None
+train_epoch_kernel.phases = None
 
 
 def train_epoch_cuda(weights, xs, ts, kind: str, momentum: bool, alpha=0.2,
                      delta=-1.0, lr=None, iter_budget=INT32_MAX,
-                     defer_stats=False):
+                     defer_stats=False, phases=False):
     """The epoch on the card: launches of :func:`train_epoch_kernel`
     resumed from the first untrained sample until every row has
     n_iter >= 0 (one launch at the default budget).  Call-compatible with
@@ -239,19 +265,22 @@ def train_epoch_cuda(weights, xs, ts, kind: str, momentum: bool, alpha=0.2,
     of SampleStats.  When one launch is sure to train every sample (the
     budget exceeds what S - 1 samples can spend), it is that one launch,
     with no host synchronisation, so the caller can queue the next epoch
-    before reading this one's stats."""
+    before reading this one's stats.  ``phases`` launches the
+    instrumented kernel (``train_epoch_kernel.phases`` holds the last
+    launch's counts)."""
     s = xs.shape[0]
     if defer_stats:
         max_iter = schedule(kind, momentum, lr, delta)[2]
         if (s - 1) * (max_iter + 1) < iter_budget:
             return train_epoch_kernel(weights, xs, ts, kind, momentum,
                                       alpha=alpha, delta=delta, lr=lr,
-                                      iter_budget=iter_budget)
+                                      iter_budget=iter_budget, phases=phases)
     w, st, start = weights, None, 0
     while start < s or st is None:
         w, st = train_epoch_kernel(w, xs, ts, kind, momentum, alpha=alpha,
                                    delta=delta, lr=lr, start_idx=start,
-                                   iter_budget=iter_budget, stats_prev=st)
+                                   iter_budget=iter_budget, stats_prev=st,
+                                   phases=phases)
         trained = int(torch.count_nonzero(st[:, 2] >= 0.0))
         if trained <= start and start < s:
             raise RuntimeError("train_epoch_cuda: a launch trained nothing")
